@@ -1,0 +1,23 @@
+"""raytracer_weekend_tpu_torch — the PyTorch/CUDA port of raytracer_weekend_tpu.
+
+A second package beside the JAX one, which stays the reference. It imports
+torch and never jax. This slice covers the forward render of sphere scenes:
+
+  models.scenes            — jumpy_balls, two_spheres
+  scene.builder / data     — sphere-subset DSL compiled to SoA tensor tables
+  scene.convert            — JAX scene <-> port, through numpy arrays
+  integrator               — staged wavefront renderer (plain torch) and the
+                             render_image dispatch
+  ops.sphere               — staged closest-sphere hit and hit record
+  ops.cuda.megakernel      — the hand-written CUDA forward kernel (sm_90a)
+                             and its plain torch twin
+  materials / textures     — solid/checker Lambertian/Metal/Dielectric/Light
+  camera / vecmath / rng   — thin-lens camera, vector math, bit-exact PCG4D
+"""
+
+__version__ = "0.1.0"
+
+from raytracer_weekend_tpu_torch.camera import Camera, make_camera
+from raytracer_weekend_tpu_torch.config import RenderConfig
+
+__all__ = ["Camera", "make_camera", "RenderConfig"]

@@ -1,0 +1,58 @@
+"""Render configuration, field for field the JAX package's `RenderConfig`.
+
+The JAX package's `config.py` imports no jax itself, but importing it runs
+`raytracer_weekend_tpu/__init__.py`, which does; so the port keeps its own
+copy. `tests/test_torch_scene.py` holds the two field for field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static configuration of a render.
+
+    Attributes:
+      width: image width in pixels (ref default 400).
+      height: image height in pixels (ref: round(width / aspect_ratio)).
+      samples_per_pixel: Monte Carlo samples per pixel (ref default 100).
+      max_depth: bounce-depth bound; the reference recurses up to 50.
+      seed: base seed of the counter-based RNG.
+      ray_batch: number of lanes traced per chunk; 0 means one chunk.
+      t_min: minimum hit distance, ref uses 0.001.
+      use_log10_volume_sampling: the reference's log10 constant-medium
+        distance quirk (volumes are not ported yet; kept for parity).
+      use_pallas: kept for field parity with the JAX config. The port does
+        not read it: its dispatch follows the scene's device.
+    """
+
+    width: int = 400
+    height: int = 225
+    samples_per_pixel: int = 100
+    max_depth: int = 50
+    seed: int = 0
+    ray_batch: int = 0
+    t_min: float = 1e-3
+    use_log10_volume_sampling: bool = True
+    use_pallas: object = "auto"
+
+    @classmethod
+    def from_aspect(cls, width: int = 400, aspect_ratio: float = 16.0 / 9.0,
+                    **kw) -> "RenderConfig":
+        """Mirror of the reference CLI: height = round(width/aspect)."""
+        height = int(round(width / aspect_ratio))
+        return cls(width=width, height=height, **kw)
+
+    @property
+    def aspect_ratio(self) -> float:
+        return self.width / self.height
+
+    @property
+    def n_pixels(self) -> int:
+        return self.width * self.height
+
+    @property
+    def n_rays(self) -> int:
+        return self.width * self.height * self.samples_per_pixel

@@ -1,0 +1,222 @@
+"""Wavefront path-tracing integrator for sphere scenes (port of `integrator.py`).
+
+The reference's recursion `emitted + attenuation * sample_ray(...)` is
+re-associated into the iterative form
+
+    radiance  += throughput * emitted
+    throughput *= attenuation
+
+carried through a loop over bounce depth with SoA ray state. A miss adds
+`throughput * background` and stops the lane; a light or an absorbing metal
+stops it too.
+
+`render_image` dispatches on the scene's device:
+  * CUDA, and `fused_supported`: the hand-written CUDA megakernel
+    (`ops.cuda.megakernel.render_fused`). A build, load or launch failure
+    raises; nothing falls back to the plain path.
+  * CPU: the plain staged path below (`render_chunk`).
+  * CUDA, scene outside the slice: `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from raytracer_weekend_tpu_torch import materials as mat_mod
+from raytracer_weekend_tpu_torch import rng as rt_rng
+from raytracer_weekend_tpu_torch.camera import Camera, get_rays
+from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
+from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+from raytracer_weekend_tpu_torch.vecmath import dot
+
+_INF = math.inf
+
+# Family ids for the winner select.
+_FAM_NONE, _FAM_SPHERE = -1, 0
+
+_NOT_PORTED = ("rects, triangles and volumes are not ported yet "
+               "(ROADMAP Queue 1: planar family, volumes)")
+
+
+def _check_spheres_only(static: SceneStatic) -> None:
+    if static.n_rects or static.n_triangles or static.n_volumes:
+        raise NotImplementedError(_NOT_PORTED)
+
+
+def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
+                 cfg: RenderConfig):
+    """Closest hit over the ported families -> (t, fam, idx) per ray."""
+    B = o.shape[0]
+    t_best = torch.full((B,), _INF, device=o.device)
+    fam = torch.full((B,), _FAM_NONE, dtype=torch.int32, device=o.device)
+    idx = torch.zeros((B,), dtype=torch.int64, device=o.device)
+    if static.n_spheres:
+        t_s, i_s = sphere_ops.hit_spheres(scene.spheres, o, d, time, cfg.t_min)
+        better = t_s < t_best
+        t_best = torch.where(better, t_s, t_best)
+        fam = torch.where(better, _FAM_SPHERE, fam)
+        idx = torch.where(better, i_s, idx)
+    return t_best, fam, idx
+
+
+def _hit_record(scene: SceneData, static: SceneStatic, o, d, time, t, fam,
+                idx):
+    """Hit record of the winning family -> (p, normal, front_face, u, v, mat)."""
+    B = o.shape[0]
+    p = torch.zeros((B, 3), device=o.device)
+    outward = torch.zeros((B, 3), device=o.device)
+    u = torch.zeros((B,), device=o.device)
+    v = torch.zeros((B,), device=o.device)
+    mat_id = torch.zeros((B,), dtype=torch.int32, device=o.device)
+
+    # Guard t for missed lanes so records never see inf.
+    t_safe = torch.where(torch.isfinite(t), t, 0.0)
+    if static.n_spheres:
+        rp, rn, ru, rv, rm = sphere_ops.sphere_record(scene.spheres, idx, o, d,
+                                                      time, t_safe)
+        m = fam == _FAM_SPHERE
+        p = torch.where(m[:, None], rp, p)
+        outward = torch.where(m[:, None], rn, outward)
+        u = torch.where(m, ru, u)
+        v = torch.where(m, rv, v)
+        mat_id = torch.where(m, rm, mat_id)
+
+    # Front-face normal flip.
+    front_face = dot(d, outward) < 0.0
+    normal = torch.where(front_face[:, None], outward, -outward)
+    return p, normal, front_face, u, v, mat_id
+
+
+def trace_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
+               o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
+               ray_id: torch.Tensor, seed, return_stats: bool = False):
+    """Estimate radiance for a batch of rays -> (B,3) f32.
+
+    With `return_stats`, also the traced segment count (lanes alive at the
+    start of each bounce, summed), a 0-d int64 tensor.
+    """
+    radiance, segments = trace_lanes(scene, static, cfg, o, d, time, ray_id,
+                                     seed)
+    if return_stats:
+        return radiance, segments.sum()
+    return radiance
+
+
+def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
+                o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
+                ray_id: torch.Tensor, seed):
+    """`trace_rays` with per-lane segment counts -> ((B,3) f32, (B,) int32)."""
+    _check_spheres_only(static)
+    B = o.shape[0]
+    background = scene.background
+    throughput = torch.ones((B, 3), device=o.device)
+    radiance = torch.zeros((B, 3), device=o.device)
+    alive = torch.ones((B,), dtype=torch.bool, device=o.device)
+    segments = torch.zeros((B,), dtype=torch.int32, device=o.device)
+
+    for depth in range(cfg.max_depth):
+        segments = segments + alive.to(torch.int32)
+        t, fam, idx = _closest_hit(scene, static, o, d, time, cfg)
+        hit_mask = torch.isfinite(t)
+
+        # Miss -> background, terminate.
+        miss = alive & ~hit_mask
+        radiance = radiance + torch.where(miss[:, None],
+                                          throughput * background, 0.0)
+        alive = alive & hit_mask
+
+        p, normal, front_face, u, v, mat_id = _hit_record(
+            scene, static, o, d, time, t, fam, idx)
+        sc = mat_mod.scatter(
+            scene.materials, scene.textures, mat_id, d, p, normal, front_face,
+            u, v, seed, ray_id, depth,
+            has_noise=static.has_noise, has_image=static.has_image)
+
+        radiance = radiance + torch.where(alive[:, None],
+                                          throughput * sc.emitted, 0.0)
+        throughput = torch.where(alive[:, None],
+                                 throughput * sc.attenuation, throughput)
+        alive = alive & sc.alive
+
+        # The scattered ray keeps the parent's shutter time.
+        o = torch.where(alive[:, None], p, o)
+        d = torch.where(alive[:, None], sc.direction, d)
+    # Depth exhausted with live rays -> they contribute black.
+    return radiance, segments
+
+
+def _pixel_rays(cam: Camera, cfg: RenderConfig, pixel_ids: torch.Tensor, seed):
+    """Primary rays for (pixel, sample) lanes.
+
+    pixel_ids enumerate pixel*spp + sample lanes. Film jitter:
+    u=(col+U)/(w-1), v=(row+U)/(h-1) with row 0 at the image bottom.
+    Returns (o, d, time, ray_id); ray_id is the lane id mod 2^32 (int64).
+    """
+    spp = cfg.samples_per_pixel
+    pix = torch.div(pixel_ids, spp, rounding_mode="floor")
+    col = (pix % cfg.width).to(torch.float32)
+    row_top = torch.div(pix, cfg.width, rounding_mode="floor")
+    row = (cfg.height - 1 - row_top).to(torch.float32)  # bottom-up rows
+
+    ray_id = pixel_ids.to(torch.int64) & 0xFFFFFFFF
+    uj = rt_rng.rand4(seed, ray_id, 0, rt_rng.SALT_PIXEL_JITTER)
+    u = (col + uj[..., 0]) / float(cfg.width - 1)
+    v = (row + uj[..., 1]) / float(cfg.height - 1)
+
+    o, d, time = get_rays(cam, u, v, seed, ray_id)
+    return o, d, time, ray_id
+
+
+def render_chunk(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
+                 cam: Camera, pixel_ids: torch.Tensor, seed) -> torch.Tensor:
+    """Trace one chunk of (pixel, sample) lanes -> per-lane radiance (B,3)."""
+    o, d, time, ray_id = _pixel_rays(cam, cfg, pixel_ids, seed)
+    return trace_rays(scene, static, cfg, o, d, time, ray_id, seed)
+
+
+def fused_eligible(static: SceneStatic, cfg: RenderConfig,
+                   device: torch.device | str) -> bool:
+    """True when the CUDA megakernel renders this scene on `device`."""
+    from raytracer_weekend_tpu_torch.ops.cuda.megakernel import fused_supported
+
+    return torch.device(device).type == "cuda" and fused_supported(static, cfg)
+
+
+def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
+                 cam: Camera, progress=None) -> torch.Tensor:
+    """Full-frame render -> (H, W, 3) accumulated color SUMS over spp.
+
+    Runs on the scene's device; the camera must be on it too. Divide by spp
+    and gamma-correct with `utils.image.tone_map`.
+    """
+    device = scene.device
+    n_lanes = cfg.n_rays
+    batch = cfg.ray_batch or n_lanes
+    use_fused = fused_eligible(static, cfg, device)
+    if device.type == "cuda" and not use_fused:
+        raise NotImplementedError(
+            "on CUDA the port renders sphere-only scenes with solid/checker "
+            "Lambertian/Metal/Dielectric/DiffuseLight materials; this scene "
+            f"is outside that slice ({static})")
+
+    chunks = []
+    for start in range(0, n_lanes, batch):
+        size = min(batch, n_lanes - start)
+        if use_fused:
+            from raytracer_weekend_tpu_torch.ops.cuda.megakernel import (
+                render_fused)
+            colors, _ = render_fused(scene, cfg, cam, start, size, cfg.seed,
+                                     static=static)
+        else:
+            ids = start + torch.arange(size, dtype=torch.int64, device=device)
+            colors = render_chunk(scene, static, cfg, cam, ids, cfg.seed)
+        chunks.append(colors)
+        if progress is not None:
+            progress(start + size, n_lanes)
+    lanes = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+    # Lanes are ordered pixel*spp + sample: the spp sum is a reshape + sum.
+    acc = lanes.reshape(cfg.n_pixels, cfg.samples_per_pixel, 3).sum(dim=1)
+    return acc.reshape(cfg.height, cfg.width, 3)

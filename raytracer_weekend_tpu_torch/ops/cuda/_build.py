@@ -1,0 +1,97 @@
+"""Build and bind the port's CUDA kernels (nvcc into a shared library + ctypes).
+
+The sources under `raytracer_weekend_tpu_torch/csrc/` are compiled at first
+use with a plain C interface, no PyTorch headers, for `sm_90a`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/megakernel.cu
+
+The library goes to `build/torch_kernels/` at the repository root, named by
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SOURCES = ("megakernel.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: ctypes.CDLL | None = None
+_P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_float, ctypes.c_longlong)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librtw_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if no library for them exists; return its path.
+
+    The compiler's output (registers, spills) is kept beside the library as
+    `<lib>.log`.
+    """
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = out.with_name(out.name + ".log")
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the C signatures."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.rtw_render_fused.argtypes = [_P, _I, _P, _LL, _I, _I, _I, _I, _I,
+                                         _F, _U, _P, _P, _P]
+        lib.rtw_render_fused.restype = _I
+        lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
+        lib.rtw_rand4.restype = _I
+        lib.rtw_error_string.argtypes = [_I]
+        lib.rtw_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if err != 0:
+        msg = lib.rtw_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,182 @@
+"""Fused forward render of sphere scenes: the CUDA megakernel and its plain twin.
+
+Counterpart of `raytracer_weekend_tpu/ops/pallas/megakernel.py`, sphere
+branch. `render_fused` renders a window of lanes (lane = pixel*spp + sample)
+and returns per-lane radiance and traced segment counts:
+
+  * for a scene on a CUDA device it launches the hand-written kernel in
+    `csrc/megakernel.cu` (built at first use by `_build.py`) and raises if
+    the library does not build or load, or the launch fails;
+  * for a scene on the CPU it runs `render_fused_reference`, the plain torch
+    version (`integrator._pixel_rays` + `integrator.trace_lanes`), which is
+    what the CUDA kernel is held against on the card.
+
+None of the JAX kernel's TPU layout is carried over (K-split bf16 tables,
+one-hot MXU gathers, sublane planes, chunk lists, peeled primaries, block
+tiling, deep-phase compaction): a thread carries a lane and reads sphere rows
+by index.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_weekend_tpu_torch import integrator
+from raytracer_weekend_tpu_torch.camera import Camera
+from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+
+# Launches of the CUDA kernel in this process. Only the launch in `render_fused`
+# adds to it.
+LAUNCHES = 0
+
+# Rows of the sphere table, in the order of `enum Row` in csrc/megakernel.cu.
+TABLE_ROWS = (
+    "c0x", "c0y", "c0z", "dcx", "dcy", "dcz", "t0", "inv_dt", "dt", "r2",
+    "radius", "mtype", "fuzz", "ior", "ttype",
+    "c1r", "c1g", "c1b", "c2r", "c2g", "c2b", "tscale",
+)
+PAR_SIZE = 24
+
+
+def fused_supported(static: SceneStatic, cfg: RenderConfig) -> bool:
+    """The CUDA megakernel renders this (scene, config).
+
+    Sphere-only scenes whose materials are Lambertian/Metal/Dielectric/
+    DiffuseLight over solid or checker textures. The JAX kernel's
+    2048-sphere cap came from TPU VMEM and is not carried over.
+    """
+    return (static.fused_simple
+            and static.n_spheres > 0
+            and static.n_rects == 0 and static.n_triangles == 0
+            and static.n_volumes == 0
+            and not (static.has_noise or static.has_image
+                     or static.has_uvdebug)
+            and cfg.width > 1 and cfg.height > 1)
+
+
+def build_sphere_table(scene: SceneData) -> torch.Tensor:
+    """(len(TABLE_ROWS), S) float32 SoA table on the scene's device.
+
+    Material and texture fields are gathered per sphere, so the kernel reads
+    one column per hit. Padding rows get r2 = -inf and never hit.
+    """
+    sp, mt, tx = scene.spheres, scene.materials, scene.textures
+    mat = sp.mat.long()
+    tex = mt.tex[mat].long()
+    dt = sp.t1 - sp.t0
+    dc = sp.c1 - sp.c0
+    r2 = torch.where(sp.valid, sp.radius * sp.radius, -torch.inf)
+    cols = {
+        "c0x": sp.c0[:, 0], "c0y": sp.c0[:, 1], "c0z": sp.c0[:, 2],
+        "dcx": dc[:, 0], "dcy": dc[:, 1], "dcz": dc[:, 2],
+        "t0": sp.t0, "inv_dt": 1.0 / dt, "dt": dt, "r2": r2,
+        "radius": sp.radius, "mtype": mt.mtype[mat].float(),
+        "fuzz": mt.fuzz[mat], "ior": mt.ior[mat],
+        "ttype": tx.ttype[tex].float(),
+        "c1r": tx.color1[tex, 0], "c1g": tx.color1[tex, 1],
+        "c1b": tx.color1[tex, 2],
+        "c2r": tx.color2[tex, 0], "c2g": tx.color2[tex, 1],
+        "c2b": tx.color2[tex, 2],
+        "tscale": tx.scale[tex],
+    }
+    return torch.stack([cols[r].to(torch.float32) for r in TABLE_ROWS])
+
+
+def pack_par(scene: SceneData, cam: Camera) -> torch.Tensor:
+    """Camera + background as 24 floats (the JAX `_pack_par` layout)."""
+    dev = scene.device
+    parts = [cam.origin, cam.lower_left, cam.horizontal, cam.vertical, cam.u,
+             cam.v, torch.stack([cam.lens_radius, cam.time0,
+                                 cam.time1 - cam.time0])]
+    return torch.cat([p.to(dev, torch.float32) for p in parts]
+                     + [scene.background.to(torch.float32)])
+
+
+def render_fused_reference(scene: SceneData, cfg: RenderConfig, cam: Camera,
+                           lane_start: int, n_chunk: int, seed, *,
+                           static: SceneStatic):
+    """Plain torch version: (radiance (n,3) f32, segments (n,) int32)."""
+    ids = lane_start + torch.arange(n_chunk, dtype=torch.int64,
+                                    device=scene.device)
+    o, d, time, ray_id = integrator._pixel_rays(cam, cfg, ids, seed)
+    return integrator.trace_lanes(scene, static, cfg, o, d, time, ray_id, seed)
+
+
+def _check(t: torch.Tensor, dtype, shape, device) -> None:
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"kernel argument: want {dtype} {tuple(shape)} "
+                         f"contiguous on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
+                 lane_start: int, n_chunk: int, seed, *,
+                 static: SceneStatic):
+    """Render lanes [lane_start, lane_start + n_chunk).
+
+    Returns (radiance (n_chunk, 3) f32, segments (n_chunk,) int32) on the
+    scene's device. The CPU runs the plain version; CUDA runs the kernel.
+    """
+    global LAUNCHES
+    device = scene.device
+    if device.type == "cpu":
+        return render_fused_reference(scene, cfg, cam, lane_start, n_chunk,
+                                      seed, static=static)
+    if device.type != "cuda":
+        raise NotImplementedError(f"no fused render on {device}")
+    if not fused_supported(static, cfg):
+        raise NotImplementedError(f"the CUDA megakernel does not cover this "
+                                  f"scene/config: {static}, {cfg}")
+    n_chunk = int(n_chunk)
+    lane_start = int(lane_start)
+    if n_chunk < 0 or lane_start < 0 or lane_start + n_chunk > cfg.n_rays:
+        raise ValueError(f"lane window [{lane_start}, {lane_start + n_chunk}) "
+                         f"outside [0, {cfg.n_rays})")
+    if n_chunk >= 2**31:
+        raise ValueError("n_chunk must fit in int32")
+
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    tab = build_sphere_table(scene)
+    par = pack_par(scene, cam)
+    n_spheres = scene.spheres.c0.shape[0]
+    _check(tab, torch.float32, (len(TABLE_ROWS), n_spheres), device)
+    _check(par, torch.float32, (PAR_SIZE,), device)
+    rad = torch.empty((n_chunk, 3), dtype=torch.float32, device=device)
+    seg = torch.empty((n_chunk,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.rtw_render_fused(
+            tab.data_ptr(), n_spheres, par.data_ptr(), lane_start, n_chunk,
+            cfg.width, cfg.height, cfg.samples_per_pixel, cfg.max_depth,
+            float(cfg.t_min), int(seed) & 0xFFFFFFFF, rad.data_ptr(),
+            seg.data_ptr(), stream)
+    _build.check(lib, err, "rtw_render_fused launch")
+    LAUNCHES += 1
+    return rad, seg
+
+
+def rand4_device(ray_id: torch.Tensor, depth: int, salt: int,
+                 seed: int) -> torch.Tensor:
+    """The kernel's device rand4 for int32-bit ray ids on CUDA -> (n, 4) f32.
+
+    A probe for bit-exactness checks against `rng.rand4`; not on the render
+    path and not counted in LAUNCHES.
+    """
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    if not ray_id.is_cuda or ray_id.dtype != torch.int32:
+        raise ValueError("rand4_device takes an int32 CUDA tensor of ray ids")
+    ids = ray_id.contiguous()
+    out = torch.empty((ids.numel(), 4), dtype=torch.float32, device=ids.device)
+    lib = _build.load_library()
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        err = lib.rtw_rand4(ids.data_ptr(), ids.numel(), depth & 0xFFFFFFFF,
+                            salt & 0xFFFFFFFF, seed & 0xFFFFFFFF,
+                            out.data_ptr(), stream)
+    _build.check(lib, err, "rtw_rand4 launch")
+    return out

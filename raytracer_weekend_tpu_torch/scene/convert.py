@@ -1,0 +1,86 @@
+"""Carry a scene between the JAX package and the port as numpy arrays.
+
+The JAX package's `SceneData`, `SceneStatic` and `Camera` cross over as
+plain containers of numpy arrays: each table is a mapping from field name to
+array, or a sequence of arrays in field order (a NamedTuple whose leaves
+were passed through `np.asarray` is such a sequence). Nothing here imports
+jax, so the port can read scenes that were built elsewhere and saved.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from raytracer_weekend_tpu_torch.camera import Camera
+from raytracer_weekend_tpu_torch.materials import MaterialTable
+from raytracer_weekend_tpu_torch.scene.data import (
+    Rects, SceneData, SceneStatic, Spheres, Triangles, Volumes)
+from raytracer_weekend_tpu_torch.textures import TextureTable
+
+_TABLES = {
+    "spheres": Spheres, "rects": Rects, "triangles": Triangles,
+    "volumes": Volumes, "materials": MaterialTable, "textures": TextureTable,
+}
+
+
+def _table(cls, src):
+    if isinstance(src, Mapping):
+        values = [src[f] for f in cls._fields]
+    else:
+        values = list(src)
+        if len(values) != len(cls._fields):
+            raise ValueError(f"{cls.__name__}: expected {len(cls._fields)} "
+                             f"arrays, got {len(values)}")
+    return cls(*(torch.from_numpy(np.array(v, copy=True)) for v in values))
+
+
+def _get(src, name: str, index: int):
+    return src[name] if isinstance(src, Mapping) else src[index]
+
+
+def scene_from_numpy(src) -> SceneData:
+    """Mapping or sequence in `SceneData` field order -> port SceneData.
+
+    BVH entries are not ported and must be absent or None.
+    """
+    fields = SceneData._fields
+    for name in ("sphere_bvh", "triangle_bvh"):
+        i = fields.index(name)
+        present = (src.get(name) if isinstance(src, Mapping)
+                   else (src[i] if len(src) > i else None))
+        if present is not None:
+            raise NotImplementedError(
+                "BVHs are not ported yet (ROADMAP Queue 1, 'BVH')")
+    kw = {name: _table(cls, _get(src, name, fields.index(name)))
+          for name, cls in _TABLES.items()}
+    bg = _get(src, "background", fields.index("background"))
+    return SceneData(background=torch.from_numpy(np.array(bg, np.float32)),
+                     **kw)
+
+
+def static_from_dict(src) -> SceneStatic:
+    """Mapping of `SceneStatic` fields (e.g. `dataclasses.asdict`) -> port."""
+    return SceneStatic(**{f.name: src[f.name]
+                          for f in dataclasses.fields(SceneStatic)})
+
+
+def camera_from_numpy(src) -> Camera:
+    """Mapping or sequence in `Camera` field order -> port Camera."""
+    return _table(Camera, src)
+
+
+def scene_to_numpy(scene: SceneData) -> dict:
+    """Port SceneData -> dict of dicts of numpy arrays (CPU copies)."""
+    out = {name: {f: getattr(scene, name)._asdict()[f].detach().cpu().numpy()
+                  for f in cls._fields}
+           for name, cls in _TABLES.items()}
+    out["background"] = scene.background.detach().cpu().numpy()
+    return out
+
+
+def camera_to_numpy(cam: Camera) -> dict:
+    return {f: t.detach().cpu().numpy() for f, t in cam._asdict().items()}
