@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward render of jumpy_balls at 400x225, 16 spp, depth 8
-through `integrator.render_image`, the entry point a user calls, after
-building the CUDA kernel from the sources in the checkout and holding it
-against its plain torch version. Phases, one line each (or a few):
+Drives the port's two paths on jumpy_balls at 400x225, 16 spp, depth 8,
+through the entry points a user calls: the forward render
+(`integrator.render_image`) and inverse rendering
+(`train.InverseRenderer.fit`, forward + backward through
+`fused_diff.render_fused_diff`). It builds the CUDA kernels from the sources
+in the checkout and holds each against its plain torch version first.
+Phases, one line each (or a few):
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build/load of the kernel library, with its build seconds;
@@ -15,9 +18,15 @@ against its plain torch version. Phases, one line each (or a few):
      and jumpy_balls at full size (plain in 2^17-lane chunks, TF32 off),
      with the flip budgets of tests/test_megakernel.py:66-70; lane-window
      halves against the whole frame, bitwise;
-  5. the main path: render_image on the card, with the launch count reset
-     just before; frame time (1 warm-up, 10 timed), segments per frame and
-     segments/s; the tone-mapped PNG goes to build/.
+  5. the forward path: render_image on the card, with the launch count
+     reset just before; frame time (1 warm-up, 10 timed), segments per frame
+     and segments/s; the tone-mapped PNG goes to build/.
+  6. the training path: K1-emit (radiance and segments bitwise those of the
+     launch without codes, codes against the plain version's), K2 against
+     its plain version on the kernel's own codes with g = 2 rad, then
+     InverseRenderer.fit for 3 Adam steps from color1 + 0.2 with the launch
+     counts reset just before: step time, forward+backward frame time and
+     segments/s, and one plain forward+backward frame.
 
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure is an uncaught exception: the
@@ -40,6 +49,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # the seed fix it up to near-tangent winner flips; information, not a gate.
 REFERENCE_SEGMENTS = 3_747_165
 PLAIN_CHUNK = 1 << 17
+# K2 against its plain version, per output: relative L2 error, cosine, and
+# the entries that are zero in the plain version, relative to the largest
+# entry of any of its outputs.
+K2_NORM_REL, K2_COS, K2_ZERO = 1e-3, 0.9999, 1e-6
 
 
 def _budgets(got, ref, got_seg, ref_seg, n):
@@ -74,6 +87,29 @@ def _cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _agree(name, got, ref, scale):
+    """K2-vs-plain budgets for one output; raise when exceeded. `scale` is
+    the largest entry of the plain version's outputs."""
+    import torch
+
+    finite = bool(torch.isfinite(got).all())
+    top = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    zero_err = float(torch.where(ref == 0, got.abs(), 0.0).max())
+    stats = dict(output=name, finite=finite, ref_max=top, max_abs_err=err,
+                 zero_entries_max=zero_err)
+    ok = finite and zero_err <= K2_ZERO * scale
+    if top > 0.0:
+        na = float(ref.norm())
+        nrel = float((got - ref).norm()) / na
+        cos = float((got * ref).sum()) / (na * float(got.norm()) + 1e-30)
+        stats.update(norm_rel=nrel, cos=cos)
+        ok = ok and nrel <= K2_NORM_REL and cos >= K2_COS
+    if not ok:
+        raise AssertionError(f"K2 vs plain outside budgets: {stats}")
+    return stats
 
 
 def main() -> None:
@@ -229,9 +265,7 @@ def main() -> None:
           f"{abs(segs - REFERENCE_SEGMENTS)}; plain version frame "
           f"{plain_ms:.3f} ms; image -> {out.relative_to(ROOT)}", flush=True)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "megakernel_sphere_forward",
         "route": "cuda",
         "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
@@ -240,10 +274,178 @@ def main() -> None:
         "max_abs_err": jstats["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }]
+    kernels += training_path(scene, static, cfg, cam, k_rad, k_seg, smi)
+
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
+    """Phase 6; returns the kernels line's entries for K1-emit and K2."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.fused_diff import render_fused_diff
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
+    from raytracer_weekend_tpu_torch.scene.data import SceneData
+    from raytracer_weekend_tpu_torch.train import InverseRenderer
+
+    n, seed = cfg.n_rays, cfg.seed
+    dev = k_rad.device
+    windows = [slice(s, min(s + PLAIN_CHUNK, n))
+               for s in range(0, n, PLAIN_CHUNK)]
+
+    # ---- 6a. K1-emit -----------------------------------------------------
+    def emit_frame():
+        return mk.render_fused(scene, cfg, cam, 0, n, seed, static=static,
+                               emit_paths=True)
+
+    def plain_emit_frame():
+        parts = [mk.render_fused_reference(
+            scene, cfg, cam, w.start, w.stop - w.start, seed, static=static,
+            emit_paths=True) for w in windows]
+        return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+
+    e_rad, e_seg, codes = emit_frame()
+    p_rad, p_seg, p_codes = plain_emit_frame()
+    torch.cuda.synchronize()
+    if not (torch.equal(e_rad, k_rad) and torch.equal(e_seg, k_seg)):
+        raise AssertionError("the emitting launch changed radiance/segments")
+    for who, c, sg in (("kernel", codes, e_seg), ("plain", p_codes, p_seg)):
+        nz = (c > 0).sum(1)
+        if not bool(((nz == sg) | (nz == sg - 1)).all()):
+            raise AssertionError(f"{who} codes: nonzero count not seg or "
+                                 f"seg - 1 on some lane")
+    code_lanes = int((codes != p_codes).any(1).sum())
+    if code_lanes > n // 64:
+        raise AssertionError(f"K1-emit codes differ from the plain version's "
+                             f"on {code_lanes} lanes (budget {n // 64})")
+    emit_err = float((e_rad - p_rad).abs().max())
+    emit_ms = _cuda_ms(emit_frame, 5)
+    plain_emit_ms = _cuda_ms(plain_emit_frame, 3)
+    print(f"phase 6 K1-emit: radiance and segments bitwise equal to the "
+          f"launch without codes; codes differ from the plain version's on "
+          f"{code_lanes} of {n} lanes (budget {n // 64}); nonzero codes = "
+          f"seg or seg - 1 on every lane; frame {emit_ms:.3f} ms, plain "
+          f"{plain_emit_ms:.3f} ms (median; {smi})", flush=True)
+
+    # ---- 6b. K2 against its plain version ----------------------------------
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, dtype=torch.int64, device=dev), seed)
+    ktab = rb.pack_ktab(scene).detach()
+    g = 2.0 * e_rad
+    bg = scene.background
+
+    def k2():
+        return rb.replay_bwd_fused(ktab, bg, cfg, o, d, t, rid, seed, codes,
+                                   g, n)
+
+    def plain_bwd(c, g_):
+        """replay_bwd_reference in lane windows; the table and background
+        cotangents summed over them."""
+        parts = [rb.replay_bwd_reference(ktab, bg, cfg, o[w], d[w], t[w],
+                                         rid[w], seed, c[w], g_[w])
+                 for w in windows]
+        return (sum(p[0] for p in parts), torch.cat([p[1] for p in parts]),
+                torch.cat([p[2] for p in parts]),
+                torch.cat([p[3] for p in parts]), sum(p[4] for p in parts))
+
+    def k2_plain():
+        return plain_bwd(codes, g)
+
+    got, ref = k2(), k2_plain()
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref)
+    k2_stats = [_agree(name, a, b, scale) for name, a, b in zip(
+        ("d_ktab", "d_o", "d_d", "d_time", "d_bg"), got, ref)]
+    k2_err = max(s["max_abs_err"] for s in k2_stats)
+    k2_ms = _cuda_ms(k2, 5)
+    k2_plain_ms = _cuda_ms(k2_plain, 3)
+    print(f"phase 6 K2: {json.dumps(k2_stats)}; replay_bwd_fused frame "
+          f"{k2_ms:.3f} ms, plain version {k2_plain_ms:.3f} ms (median; "
+          f"{smi})", flush=True)
+
+    # ---- 6c. the training path ---------------------------------------------
+    target = integrator.render_image(scene, static, cfg, cam) / \
+        cfg.samples_per_pixel
+    start = scene._replace(textures=scene.textures._replace(
+        color1=scene.textures.color1 + 0.2))
+    stamps = []
+
+    def on_step(i, loss, sc):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    mk.LAUNCHES = mk.EMIT_LAUNCHES = rb.LAUNCHES = 0
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    fitted, hist = InverseRenderer(static, cfg, cam, target).fit(
+        start, steps=3, callback=on_step)
+    emit_launches, k2_launches = mk.EMIT_LAUNCHES, rb.LAUNCHES
+    if emit_launches < 1 or k2_launches < 1:
+        raise AssertionError(f"InverseRenderer.fit launched K1-emit "
+                             f"{emit_launches} and K2 {k2_launches} times")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"the loss did not drop: {hist}")
+    if not all(bool(torch.isfinite(le).all()) for le in fitted.leaves()
+               if le.is_floating_point()):
+        raise AssertionError("non-finite parameters after fit")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    step_med = statistics.median(step_ms[1:])
+
+    leaves = [le.detach().clone() for le in scene.leaves()]
+    floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
+    diff_scene = SceneData.from_leaves(leaves)
+
+    def fwd_bwd():
+        """bench.py's forward+backward: the gradient of the radiance sum."""
+        rad = render_fused_diff(diff_scene, static, cfg, cam, 0, n, seed)
+        return torch.autograd.grad(rad.sum(), floats)
+
+    def plain_fwd_bwd():
+        """The plain forward with codes, then the plain backward on them."""
+        rad, _, c = plain_emit_frame()
+        return plain_bwd(c, torch.ones_like(rad))
+
+    fwd_bwd()
+    fb_ms = _cuda_ms(fwd_bwd, 5)
+    plain_fb_ms = _cuda_ms(plain_fwd_bwd, 1)
+    segs = int(k_seg.sum())
+    print(f"phase 6 training path: InverseRenderer.fit jumpy_balls "
+          f"{cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} depth "
+          f"{cfg.max_depth}, 3 Adam steps from color1 + 0.2 on {smi}: "
+          f"{emit_launches} K1-emit and {k2_launches} K2 launches; loss "
+          f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} (median after warm-up "
+          f"{step_med:.3f}); forward+backward frame (render_fused_diff + "
+          f"autograd.grad of the sum) {fb_ms:.3f} ms, {segs / (fb_ms / 1e3):.4e}"
+          f" segments/s; plain forward+backward frame {plain_fb_ms:.3f} ms",
+          flush=True)
+    return [{
+        "name": "megakernel_sphere_forward_emit",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
+        "launches": emit_launches,
+        "max_abs_err": emit_err,
+        "ms": emit_ms,
+        "plain_ms": plain_emit_ms,
+    }, {
+        "name": "replay_bwd_sphere",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/replay_bwd.cu",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/replay_bwd.py:191",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+    }]
 
 
 if __name__ == "__main__":

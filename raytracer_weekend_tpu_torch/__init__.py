@@ -1,7 +1,8 @@
 """raytracer_weekend_tpu_torch — the PyTorch/CUDA port of raytracer_weekend_tpu.
 
 A second package beside the JAX one, which stays the reference. It imports
-torch and never jax. This slice covers the forward render of sphere scenes:
+torch and never jax. It covers sphere scenes: the forward render, and the
+differentiable render with inverse rendering:
 
   models.scenes            — jumpy_balls, two_spheres
   scene.builder / data     — sphere-subset DSL compiled to SoA tensor tables
@@ -9,8 +10,14 @@ torch and never jax. This slice covers the forward render of sphere scenes:
   integrator               — staged wavefront renderer (plain torch) and the
                              render_image dispatch
   ops.sphere               — staged closest-sphere hit and hit record
-  ops.cuda.megakernel      — the hand-written CUDA forward kernel (sm_90a)
-                             and its plain torch twin
+  ops.cuda.megakernel      — the hand-written CUDA forward kernel (sm_90a),
+                             optionally writing winner codes, and its plain
+                             torch twin
+  ops.cuda.replay_bwd      — the hand-written CUDA replay-backward kernel and
+                             its plain twin (torch autograd of `replay`)
+  replay                   — path replay from winner codes (differentiable)
+  fused_diff               — render_fused_diff, a torch.autograd.Function
+  train                    — InverseRenderer: Adam over the float leaves
   materials / textures     — solid/checker Lambertian/Metal/Dielectric/Light
   camera / vecmath / rng   — thin-lens camera, vector math, bit-exact PCG4D
 """

@@ -1,14 +1,20 @@
 // Fused forward path-tracing kernel for sphere scenes, one thread per lane.
 //
 // Replaces: raytracer_weekend_tpu/ops/pallas/megakernel.py:_kernel, sphere
-// branch (has_sph, no planar, no volumes, defer_tex=False, emit_paths=False),
-// reached through render_fused -> _render_fused_core -> pl.pallas_call.
+// branch (has_sph, no planar, no volumes, defer_tex=False), with
+// emit_paths=False (K1) and emit_paths=True (K1-emit), reached through
+// render_fused -> _render_fused_core -> pl.pallas_call.
 // It computes what that kernel computes, not its TPU layout: per lane
 // (lane = pixel*spp + sample) the thin-lens primary ray with a shutter time,
 // then up to max_depth bounces of closest moving sphere, hit record with the
 // signed-radius outward normal and front-face flip, solid/checker texture,
 // and the Lambertian/Metal/Dielectric/DiffuseLight scatter; out come the
-// lane's radiance (3 x f32) and its traced segment count (int32). The
+// lane's radiance (3 x f32) and its traced segment count (int32). K1-emit
+// (kEmit = true) also writes the lane's winner code per bounce, int32
+// 1 + 4*sphere where the lane was alive and hit, 0 after a miss and for the
+// bounces after the lane left the loop: the record the backward replays
+// (csrc/replay_bwd.cu). kEmit = false compiles to the kernel without the
+// codes, so that launch is bitwise what it was before codes existed. The
 // arithmetic follows the staged reference (integrator.trace_rays in both
 // packages), which the wrapper's plain version reproduces in torch.
 //
@@ -73,9 +79,11 @@ struct Launch {
   uint32_t seed;
 };
 
+template <bool kEmit>
 __global__ void __launch_bounds__(kBlock)
 render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
-              Launch L, float* __restrict__ rad, int* __restrict__ seg) {
+              Launch L, float* __restrict__ rad, int* __restrict__ seg,
+              int* __restrict__ codes) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= L.n_chunk) return;
   const int S = L.n_spheres;
@@ -123,6 +131,9 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
   float tpr = 1.f, tpg = 1.f, tpb = 1.f;  // throughput
   float rr = 0.f, rg = 0.f, rb = 0.f;     // radiance
   int nseg = 0;
+  // This lane's row of the (n_chunk, max_depth) codes.
+  int* __restrict__ lane_codes = kEmit ? codes + (long long)i * L.max_depth
+                                       : nullptr;
 
   for (int depth = 0; depth < L.max_depth; ++depth) {
     ++nseg;  // this lane is alive at the start of the bounce
@@ -152,11 +163,14 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
     }
 
     if (win < 0) {  // miss -> background, terminate
+      if (kEmit) lane_codes[depth] = 0;
       rr += tpr * par[P_BACKGROUND + 0];
       rg += tpg * par[P_BACKGROUND + 1];
       rb += tpb * par[P_BACKGROUND + 2];
       break;
     }
+
+    if (kEmit) lane_codes[depth] = 1 + 4 * win;
 
     // ---- hit record (ops.sphere.sphere_record) ---------------------------
     const float* __restrict__ row_ptr = tab + win;
@@ -265,6 +279,9 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
   rad[3 * i + 1] = rg;
   rad[3 * i + 2] = rb;
   seg[i] = nseg;
+  if (kEmit) {  // bounces [nseg, max_depth) were never started
+    for (int k = nseg; k < L.max_depth; ++k) lane_codes[k] = 0;
+  }
 }
 
 __global__ void rand4_kernel(const uint32_t* __restrict__ ids, int n,
@@ -278,18 +295,25 @@ __global__ void rand4_kernel(const uint32_t* __restrict__ ids, int n,
 
 extern "C" {
 
-// Renders lanes [lane_start, lane_start + n_chunk) on `stream`. Returns
-// cudaGetLastError() after the launch (0 on success); it does not sync.
+// Renders lanes [lane_start, lane_start + n_chunk) on `stream`; with a
+// non-null `codes` (n_chunk x max_depth int32) it also writes the winner
+// codes. Returns cudaGetLastError() after the launch (0 on success); it does
+// not sync.
 int rtw_render_fused(const float* tab, int n_spheres, const float* par,
                      long long lane_start, int n_chunk, int width, int height,
                      int spp, int max_depth, float t_min, unsigned int seed,
-                     float* rad, int* seg, void* stream) {
+                     float* rad, int* seg, int* codes, void* stream) {
   if (n_chunk <= 0) return 0;
   rtw::Launch L{lane_start, n_chunk, n_spheres, width, height,
                 spp, max_depth, t_min, seed};
   const int grid = (n_chunk + rtw::kBlock - 1) / rtw::kBlock;
-  rtw::render_kernel<<<grid, rtw::kBlock, 0, (cudaStream_t)stream>>>(
-      tab, par, L, rad, seg);
+  if (codes) {
+    rtw::render_kernel<true><<<grid, rtw::kBlock, 0, (cudaStream_t)stream>>>(
+        tab, par, L, rad, seg, codes);
+  } else {
+    rtw::render_kernel<false><<<grid, rtw::kBlock, 0, (cudaStream_t)stream>>>(
+        tab, par, L, rad, seg, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 

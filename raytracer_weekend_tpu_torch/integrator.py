@@ -107,8 +107,14 @@ def trace_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
 
 def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                 o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
-                ray_id: torch.Tensor, seed):
-    """`trace_rays` with per-lane segment counts -> ((B,3) f32, (B,) int32)."""
+                ray_id: torch.Tensor, seed, emit_paths: bool = False):
+    """`trace_rays` with per-lane segment counts -> ((B,3) f32, (B,) int32).
+
+    With `emit_paths`, also the per-bounce winner codes (B, max_depth)
+    int32: 1 + 4*idx where the lane was alive and hit sphere `idx`, else 0
+    (the JAX megakernel's `emit_paths` codes, there f32). `replay.replay_rays`
+    re-traces a path from them.
+    """
     _check_spheres_only(static)
     B = o.shape[0]
     background = scene.background
@@ -116,6 +122,7 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     radiance = torch.zeros((B, 3), device=o.device)
     alive = torch.ones((B,), dtype=torch.bool, device=o.device)
     segments = torch.zeros((B,), dtype=torch.int32, device=o.device)
+    codes = []
 
     for depth in range(cfg.max_depth):
         segments = segments + alive.to(torch.int32)
@@ -127,6 +134,9 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
         radiance = radiance + torch.where(miss[:, None],
                                           throughput * background, 0.0)
         alive = alive & hit_mask
+        if emit_paths:
+            codes.append(torch.where(alive & (fam == _FAM_SPHERE),
+                                     1 + 4 * idx.to(torch.int32), 0))
 
         p, normal, front_face, u, v, mat_id = _hit_record(
             scene, static, o, d, time, t, fam, idx)
@@ -145,6 +155,8 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
         o = torch.where(alive[:, None], p, o)
         d = torch.where(alive[:, None], sc.direction, d)
     # Depth exhausted with live rays -> they contribute black.
+    if emit_paths:
+        return radiance, segments, torch.stack(codes, dim=1)
     return radiance, segments
 
 
@@ -175,6 +187,11 @@ def render_chunk(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     """Trace one chunk of (pixel, sample) lanes -> per-lane radiance (B,3)."""
     o, d, time, ray_id = _pixel_rays(cam, cfg, pixel_ids, seed)
     return trace_rays(scene, static, cfg, o, d, time, ray_id, seed)
+
+
+# The differentiable path replay (the fused render's backward) lives in
+# replay.py; re-exported here as in the JAX package.
+from raytracer_weekend_tpu_torch.replay import replay_rays  # noqa: E402, F401
 
 
 def fused_eligible(static: SceneStatic, cfg: RenderConfig,

@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA kernels (nvcc into a shared library + ctypes).
 
 The sources under `raytracer_weekend_tpu_torch/csrc/` are compiled at first
-use with a plain C interface, no PyTorch headers, for `sm_90a`:
+use with a plain C interface, no PyTorch headers, for `sm_90a`: one `nvcc`
+per source, all started together, then one link into a shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/megakernel.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library goes to `build/torch_kernels/` at the repository root, named by
 a hash of the sources and flags, so an edited source rebuilds and an
@@ -23,9 +25,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("megakernel.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("megakernel.cu", "replay_bwd.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _lib: ctypes.CDLL | None = None
 _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
@@ -62,14 +65,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"tmp-{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.{tag}.o")
+            for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    results = []
+    for c, p in zip(cmds, procs):
+        stdout, stderr = p.communicate()
+        results.append((c, p.returncode, stdout, stderr))
+    tmp = out.with_name(f"{out.name}.{tag}")
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, rc, _, _ in results):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.returncode, proc.stdout, proc.stderr))
     log = out.with_name(out.name + ".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    log.write_text("".join(" ".join(c) + "\n" + o + e
+                           for c, _, o, e in results))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(c, rc, e) for c, rc, _, e in results if rc != 0]
+    if failed:
+        c, rc, err = failed[0]
+        raise RuntimeError(f"{' '.join(c)} failed ({rc}):\n{err}")
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 
@@ -80,8 +102,16 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.rtw_render_fused.argtypes = [_P, _I, _P, _LL, _I, _I, _I, _I, _I,
-                                         _F, _U, _P, _P, _P]
+                                         _F, _U, _P, _P, _P, _P]
         lib.rtw_render_fused.restype = _I
+        lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _F, _U, _P, _P, _P, _P, _P,
+                                       _P, _P]
+        lib.rtw_replay_bwd.restype = _I
+        lib.rtw_replay_bwd_smem_bytes.argtypes = [_I]
+        lib.rtw_replay_bwd_smem_bytes.restype = _LL
+        lib.rtw_replay_bwd_smem_limit.argtypes = [_P]
+        lib.rtw_replay_bwd_smem_limit.restype = _I
         lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
         lib.rtw_rand4.restype = _I
         lib.rtw_error_string.argtypes = [_I]

@@ -11,6 +11,11 @@ and returns per-lane radiance and traced segment counts:
     version (`integrator._pixel_rays` + `integrator.trace_lanes`), which is
     what the CUDA kernel is held against on the card.
 
+With `emit_paths=True` it also returns the per-bounce winner codes (n, D)
+int32, 1 + 4*idx where the lane was alive and hit sphere idx, else 0: the
+JAX kernel's `emit_paths` output (there f32), which the backward replays
+(`fused_diff.py`).
+
 None of the JAX kernel's TPU layout is carried over (K-split bf16 tables,
 one-hot MXU gathers, sublane planes, chunk lists, peeled primaries, block
 tiling, deep-phase compaction): a thread carries a lane and reads sphere rows
@@ -26,9 +31,10 @@ from raytracer_weekend_tpu_torch.camera import Camera
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
 
-# Launches of the CUDA kernel in this process. Only the launch in `render_fused`
-# adds to it.
+# Launches of the CUDA kernel in this process, without and with the winner
+# codes. Only the launch in `render_fused` adds to them.
 LAUNCHES = 0
+EMIT_LAUNCHES = 0
 
 # Rows of the sphere table, in the order of `enum Row` in csrc/megakernel.cu.
 TABLE_ROWS = (
@@ -95,12 +101,14 @@ def pack_par(scene: SceneData, cam: Camera) -> torch.Tensor:
 
 def render_fused_reference(scene: SceneData, cfg: RenderConfig, cam: Camera,
                            lane_start: int, n_chunk: int, seed, *,
-                           static: SceneStatic):
-    """Plain torch version: (radiance (n,3) f32, segments (n,) int32)."""
+                           static: SceneStatic, emit_paths: bool = False):
+    """Plain torch version: (radiance (n,3) f32, segments (n,) int32), and
+    with `emit_paths` the winner codes (n, D) int32."""
     ids = lane_start + torch.arange(n_chunk, dtype=torch.int64,
                                     device=scene.device)
     o, d, time, ray_id = integrator._pixel_rays(cam, cfg, ids, seed)
-    return integrator.trace_lanes(scene, static, cfg, o, d, time, ray_id, seed)
+    return integrator.trace_lanes(scene, static, cfg, o, d, time, ray_id, seed,
+                                  emit_paths=emit_paths)
 
 
 def _check(t: torch.Tensor, dtype, shape, device) -> None:
@@ -113,17 +121,19 @@ def _check(t: torch.Tensor, dtype, shape, device) -> None:
 
 def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
                  lane_start: int, n_chunk: int, seed, *,
-                 static: SceneStatic):
+                 static: SceneStatic, emit_paths: bool = False):
     """Render lanes [lane_start, lane_start + n_chunk).
 
     Returns (radiance (n_chunk, 3) f32, segments (n_chunk,) int32) on the
-    scene's device. The CPU runs the plain version; CUDA runs the kernel.
+    scene's device, and with `emit_paths` the winner codes (n_chunk,
+    max_depth) int32. The CPU runs the plain version; CUDA runs the kernel.
     """
-    global LAUNCHES
+    global LAUNCHES, EMIT_LAUNCHES
     device = scene.device
     if device.type == "cpu":
         return render_fused_reference(scene, cfg, cam, lane_start, n_chunk,
-                                      seed, static=static)
+                                      seed, static=static,
+                                      emit_paths=emit_paths)
     if device.type != "cuda":
         raise NotImplementedError(f"no fused render on {device}")
     if not fused_supported(static, cfg):
@@ -147,14 +157,20 @@ def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
     _check(par, torch.float32, (PAR_SIZE,), device)
     rad = torch.empty((n_chunk, 3), dtype=torch.float32, device=device)
     seg = torch.empty((n_chunk,), dtype=torch.int32, device=device)
+    codes = (torch.empty((n_chunk, cfg.max_depth), dtype=torch.int32,
+                         device=device) if emit_paths else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rtw_render_fused(
             tab.data_ptr(), n_spheres, par.data_ptr(), lane_start, n_chunk,
             cfg.width, cfg.height, cfg.samples_per_pixel, cfg.max_depth,
             float(cfg.t_min), int(seed) & 0xFFFFFFFF, rad.data_ptr(),
-            seg.data_ptr(), stream)
+            seg.data_ptr(), None if codes is None else codes.data_ptr(),
+            stream)
     _build.check(lib, err, "rtw_render_fused launch")
+    if emit_paths:
+        EMIT_LAUNCHES += 1
+        return rad, seg, codes
     LAUNCHES += 1
     return rad, seg
 

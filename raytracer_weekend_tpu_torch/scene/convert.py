@@ -84,3 +84,27 @@ def scene_to_numpy(scene: SceneData) -> dict:
 
 def camera_to_numpy(cam: Camera) -> dict:
     return {f: t.detach().cpu().numpy() for f, t in cam._asdict().items()}
+
+
+def grads_from_numpy(like: SceneData, scene_grads, cam_grads=None):
+    """A JAX gradient -> the port's SceneData/Camera structure.
+
+    `scene_grads` are the JAX scene gradient's float leaves as numpy arrays,
+    in `tree_leaves` order with the `float0` leaves (the gradients of
+    integer and bool leaves) dropped; `like` is the port scene they belong
+    to. `cam_grads` is the JAX camera gradient, a mapping or sequence in
+    `Camera` field order (every camera leaf is float). Returns (SceneData
+    with a tensor at every float leaf of `like` and None elsewhere, Camera
+    or None), so the two packages' gradients compare leaf by leaf.
+    """
+    like_leaves = like.leaves()
+    scene_grads = list(scene_grads)
+    n_float = sum(t.is_floating_point() for t in like_leaves)
+    if len(scene_grads) != n_float:
+        raise ValueError(f"{len(scene_grads)} gradient leaves for the "
+                         f"{n_float} float leaves of the scene")
+    grads = iter(scene_grads)
+    leaves = [torch.from_numpy(np.array(next(grads), np.float32))
+              if t.is_floating_point() else None for t in like_leaves]
+    cam = None if cam_grads is None else camera_from_numpy(cam_grads)
+    return SceneData.from_leaves(leaves), cam

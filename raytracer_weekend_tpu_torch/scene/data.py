@@ -121,6 +121,35 @@ class SceneData(NamedTuple):
             textures=self.textures.to(device),
             background=self.background.to(device))
 
+    def leaves(self) -> list[torch.Tensor]:
+        """Every tensor of the scene, table by table in field order.
+
+        The order of `jax.tree_util.tree_leaves` on the JAX package's
+        SceneData (its None BVH slots have no leaves), so gradient lists of
+        the two packages line up leaf by leaf.
+        """
+        if self.sphere_bvh is not None or self.triangle_bvh is not None:
+            raise NotImplementedError("BVHs are not ported yet")
+        out = []
+        for table in self[:_N_TABLES]:
+            out.extend(table)
+        out.append(self.background)
+        return out
+
+    @classmethod
+    def from_leaves(cls, leaves) -> "SceneData":
+        """Inverse of `leaves`."""
+        it = iter(leaves)
+        tables = [typ(*(next(it) for _ in typ._fields)) for typ in _TABLE_TYPES]
+        scene = cls(*tables, background=next(it))
+        if next(it, None) is not None:
+            raise ValueError("more leaves than a SceneData holds")
+        return scene
+
+
+_TABLE_TYPES = (Spheres, Rects, Triangles, Volumes, MaterialTable, TextureTable)
+_N_TABLES = len(_TABLE_TYPES)
+
 
 @dataclasses.dataclass(frozen=True)
 class SceneStatic:

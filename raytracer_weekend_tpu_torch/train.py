@@ -1,0 +1,106 @@
+"""Inverse rendering: fit scene parameters to a target image (port of `train.py`).
+
+Adam over every float leaf of the scene (texture colors, metal fuzz,
+dielectric IOR, sphere geometry, the background); integer and bool leaves
+(type tables, ids, valid masks) stay frozen, the counterpart of the JAX
+package's `optax.multi_transform` with `set_to_zero`.
+
+    from raytracer_weekend_tpu_torch.train import InverseRenderer
+    ir = InverseRenderer(static, cfg, cam, target_image)
+    scene, history = ir.fit(scene, steps=100)
+
+The render follows the scene's device: on a CUDA device a sphere scene with
+solid/checker textures renders through `fused_diff.render_fused_diff` (the
+forward kernel with winner codes, the replay-backward kernel), in
+`cfg.ray_batch` lane chunks (the whole frame by default); on the CPU it runs
+the staged torch path under autograd.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from raytracer_weekend_tpu_torch import integrator
+from raytracer_weekend_tpu_torch.camera import Camera
+from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+
+
+@dataclasses.dataclass
+class InverseRenderer:
+    """L2 inverse rendering with Adam over the differentiable scene leaves."""
+
+    static: SceneStatic
+    cfg: RenderConfig
+    cam: Camera
+    target: torch.Tensor                 # (H, W, 3) mean radiance
+    rmesh: object = None                 # sharded render: not ported yet
+    learning_rate: float = 1e-2
+    loss_fn: Optional[Callable] = None   # (img, target) -> scalar; default L2
+
+    def __post_init__(self):
+        if self.rmesh is not None:
+            raise NotImplementedError(
+                "the sharded render is not ported yet (ROADMAP Queue 1, "
+                "'Parallel'); pass rmesh=None")
+
+    def _render(self, scene: SceneData) -> torch.Tensor:
+        cfg, device = self.cfg, scene.device
+        n = cfg.n_rays
+        if device.type == "cuda":
+            if not integrator.fused_eligible(self.static, cfg, device):
+                raise NotImplementedError(
+                    "on CUDA the port differentiates sphere-only scenes with "
+                    "solid/checker Lambertian/Metal/Dielectric/DiffuseLight "
+                    f"materials; this scene is outside that slice "
+                    f"({self.static})")
+            from raytracer_weekend_tpu_torch.fused_diff import (
+                render_fused_diff)
+
+            batch = cfg.ray_batch or n
+            colors = torch.cat([
+                render_fused_diff(scene, self.static, cfg, self.cam, start,
+                                  min(batch, n - start), cfg.seed)
+                for start in range(0, n, batch)])
+        else:
+            ids = torch.arange(n, dtype=torch.int64, device=device)
+            colors = integrator.render_chunk(scene, self.static, cfg,
+                                             self.cam, ids, cfg.seed)
+        spp = cfg.samples_per_pixel
+        sums = colors.reshape(cfg.n_pixels, spp, 3).sum(1).reshape(
+            cfg.height, cfg.width, 3)
+        return sums / spp
+
+    def loss(self, scene: SceneData) -> torch.Tensor:
+        img = self._render(scene)
+        if self.loss_fn is not None:
+            return self.loss_fn(img, self.target)
+        return torch.mean((img - self.target) ** 2)
+
+    def fit(self, scene: SceneData, steps: int = 100,
+            callback: Optional[Callable] = None):
+        """Run `steps` of Adam. Returns (optimized_scene, loss_history).
+
+        `callback(i, loss, scene)` runs after each step with the updated
+        scene. The scene passed in is not modified.
+        """
+        leaves = [t.detach().clone() for t in scene.leaves()]
+        params = [t.requires_grad_() for t in leaves if t.is_floating_point()]
+        opt = torch.optim.Adam(params, lr=self.learning_rate)
+        history = []
+        for i in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss = self.loss(SceneData.from_leaves(leaves))
+            loss.backward()
+            opt.step()
+            history.append(float(loss.detach()))
+            if callback is not None:
+                callback(i, history[-1], _detached(leaves))
+        return _detached(leaves), history
+
+
+def _detached(leaves) -> SceneData:
+    return SceneData.from_leaves([t.detach() for t in leaves])

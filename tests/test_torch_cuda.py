@@ -1,4 +1,4 @@
-"""The CUDA megakernel against its plain torch version, on a card.
+"""The CUDA kernels against their plain torch versions, on a card.
 
 Marked `gpu`: each test skips where torch sees no CUDA device, so on a
 CPU-only host they count as skipped. Run them where there is a card with
@@ -14,6 +14,7 @@ from raytracer_weekend_tpu_torch import integrator, rng
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.models.scenes import generate_scene
 from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd
 
 pytestmark = pytest.mark.gpu
 
@@ -93,3 +94,112 @@ def test_unsupported_scene_on_cuda_raises(cuda):
     with pytest.raises(NotImplementedError):
         mk.render_fused(scene.to(cuda), cfg, cams[0].to(cuda), 0, 64, 0,
                         static=static)
+
+
+def _frame(name, cuda, **size):
+    kw = dict(width=64, height=36, samples_per_pixel=4, max_depth=6, seed=3)
+    cfg = RenderConfig(**{**kw, **size})
+    scene, static, cams = generate_scene(name, cfg.aspect_ratio)
+    return scene.to(cuda), static, cfg, cams[0].to(cuda)
+
+
+@pytest.mark.parametrize("name", ["two_spheres", "jumpy_balls"])
+def test_emit_kernel_matches_plain(cuda, name):
+    """K1-emit: the codes ride along without touching radiance or segments,
+    and agree with the plain version's but for near-tangent flips."""
+    scene, static, cfg, cam = _frame(name, cuda)
+    n = cfg.n_rays
+    before = mk.EMIT_LAUNCHES
+    rad, seg, codes = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                      static=static, emit_paths=True)
+    assert mk.EMIT_LAUNCHES == before + 1
+    rad0, seg0 = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                 static=static)
+    assert torch.equal(rad, rad0) and torch.equal(seg, seg0)
+    assert codes.shape == (n, cfg.max_depth) and codes.dtype == torch.int32
+    nz = (codes > 0).sum(1)
+    assert bool(((nz == seg) | (nz == seg - 1)).all())
+    _, _, ref = mk.render_fused_reference(scene, cfg, cam, 0, n, cfg.seed,
+                                          static=static, emit_paths=True)
+    assert int((codes != ref).any(1).sum()) <= max(4, n // 64)
+
+
+def _agree(got, ref, norm_rel=1e-3, cos=0.9999, zero=1e-6):
+    assert bool(torch.isfinite(got).all())
+    top = float(ref.abs().max())
+    if top == 0.0:
+        return
+    na = float(ref.norm())
+    assert float((got - ref).norm()) / na <= norm_rel
+    assert float((got * ref).sum()) / (na * float(got.norm())) >= cos
+    # Entries that are zero in the reference stay (near) zero.
+    assert float(torch.where(ref == 0, got.abs(), 0.0).max()) <= zero * top
+
+
+@pytest.mark.parametrize("name", ["two_spheres", "jumpy_balls"])
+def test_replay_bwd_kernel_matches_reference(cuda, name):
+    """K2 against torch.autograd through the replay, on the kernel's own
+    codes, g = 2 rad."""
+    scene, static, cfg, cam = _frame(name, cuda)
+    n = cfg.n_rays
+    rad, _, codes = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                    static=static, emit_paths=True)
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    ktab = replay_bwd.pack_ktab(scene)
+    args = (ktab, scene.background, cfg, o, d, t, rid, cfg.seed, codes,
+            2.0 * rad)
+    before = replay_bwd.LAUNCHES
+    got = replay_bwd.replay_bwd_fused(*args, n)
+    assert replay_bwd.LAUNCHES == before + 1
+    ref = replay_bwd.replay_bwd_reference(*args)
+    for g_, r_ in zip(got, ref):
+        assert g_.shape == r_.shape
+        _agree(g_, r_)
+    assert float(got[0].abs().max()) > 0 and float(got[4].abs().max()) > 0
+
+
+def test_render_fused_diff_launches_both_kernels(cuda):
+    from raytracer_weekend_tpu_torch.fused_diff import render_fused_diff
+
+    scene, static, cfg, cam = _frame("jumpy_balls", cuda, width=32, height=18)
+    bg = scene.background.clone().requires_grad_()
+    c1 = scene.textures.color1.clone().requires_grad_()
+    scene = scene._replace(background=bg, textures=scene.textures._replace(
+        color1=c1))
+    k1, k2 = mk.EMIT_LAUNCHES, replay_bwd.LAUNCHES
+    rad = render_fused_diff(scene, static, cfg, cam, 0, cfg.n_rays, cfg.seed)
+    g_bg, g_c1 = torch.autograd.grad((rad * rad).sum(), (bg, c1))
+    assert (mk.EMIT_LAUNCHES, replay_bwd.LAUNCHES) == (k1 + 1, k2 + 1)
+    assert bool(torch.isfinite(g_c1).all()) and float(g_bg.abs().max()) > 0
+
+
+def test_inverse_renderer_on_cuda(cuda):
+    from raytracer_weekend_tpu_torch.train import InverseRenderer
+
+    scene, static, cfg, cam = _frame("two_spheres", cuda, width=16,
+                                     height=12, samples_per_pixel=2,
+                                     max_depth=4, ray_batch=200)
+    target = integrator.render_image(scene, static, cfg, cam) / 2
+    start = scene._replace(textures=scene.textures._replace(
+        color1=scene.textures.color1 + 0.2))
+    k1, k2 = mk.EMIT_LAUNCHES, replay_bwd.LAUNCHES
+    _, hist = InverseRenderer(static, cfg, cam, target, learning_rate=0.05
+                              ).fit(start, steps=3)
+    # ceil(384 / 200) = 2 chunks per step, each through both kernels.
+    assert (mk.EMIT_LAUNCHES, replay_bwd.LAUNCHES) == (k1 + 6, k2 + 6)
+    assert hist[-1] < hist[0]
+
+
+def test_replay_bwd_table_over_shared_memory_raises(cuda):
+    """d(ktab) lives in one block's shared memory: a table that does not fit
+    raises instead of launching."""
+    n, S = 8, 8192
+    cfg = RenderConfig(width=4, height=2, samples_per_pixel=1, max_depth=2)
+    z3 = torch.zeros((n, 3), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        replay_bwd.replay_bwd_fused(
+            torch.zeros((replay_bwd.KT, S), device=cuda),
+            torch.zeros(3, device=cuda), cfg, z3, z3,
+            torch.zeros(n, device=cuda), torch.arange(n, device=cuda), 0,
+            torch.zeros((n, 2), dtype=torch.int32, device=cuda), z3, n)

@@ -123,6 +123,8 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import raytracer_weekend_tpu_torch\n"
             "from raytracer_weekend_tpu_torch import integrator, rng, camera\n"
+            "from raytracer_weekend_tpu_torch import replay, fused_diff, train\n"
+            "from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd\n"
             "from raytracer_weekend_tpu_torch.models import scenes\n"
             "from raytracer_weekend_tpu_torch.scene import builder, convert\n"
             "from raytracer_weekend_tpu_torch.ops.cuda import megakernel, _build\n"
