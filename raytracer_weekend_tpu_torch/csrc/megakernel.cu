@@ -1,37 +1,60 @@
-// Fused forward path-tracing kernel for sphere scenes, one thread per lane.
+// Fused forward path-tracing kernel, one thread per lane: spheres, and the
+// planar family (axis-aligned rects and triangles in one table).
 //
-// Replaces: raytracer_weekend_tpu/ops/pallas/megakernel.py:_kernel, sphere
-// branch (has_sph, no planar, no volumes, defer_tex=False), with
-// emit_paths=False (K1) and emit_paths=True (K1-emit), reached through
-// render_fused -> _render_fused_core -> pl.pallas_call.
+// Replaces: raytracer_weekend_tpu/ops/pallas/megakernel.py:_kernel, its
+// sphere branch (has_sph: K1, and K1-emit with emit_paths=True) and its
+// planar branch (has_planar, tables from _build_planar_tables: K3), without
+// volumes and with defer_tex=False, reached through render_fused ->
+// _render_fused_core -> pl.pallas_call.
 // It computes what that kernel computes, not its TPU layout: per lane
 // (lane = pixel*spp + sample) the thin-lens primary ray with a shutter time,
-// then up to max_depth bounces of closest moving sphere, hit record with the
-// signed-radius outward normal and front-face flip, solid/checker texture,
-// and the Lambertian/Metal/Dielectric/DiffuseLight scatter; out come the
-// lane's radiance (3 x f32) and its traced segment count (int32). K1-emit
-// (kEmit = true) also writes the lane's winner code per bounce, int32
-// 1 + 4*sphere where the lane was alive and hit, 0 after a miss and for the
-// bounces after the lane left the loop: the record the backward replays
-// (csrc/replay_bwd.cu). kEmit = false compiles to the kernel without the
-// codes, so that launch is bitwise what it was before codes existed. The
-// arithmetic follows the staged reference (integrator.trace_rays in both
-// packages), which the wrapper's plain version reproduces in torch.
+// then up to max_depth bounces of closest hit over the moving spheres and
+// the planar primitives, the hit record (signed-radius outward normal for a
+// sphere; the raw, unnormalised barycentric shading normal
+// ns0 + u*nsu + v*nsv for a planar primitive), the front-face flip,
+// solid/checker/uv-debug texture, and the Lambertian/Metal/Dielectric/
+// DiffuseLight scatter; out come the lane's radiance (3 x f32) and its traced
+// segment count (int32). With kEmit it also writes the lane's winner code
+// per bounce, int32 1 + 4*sphere or 2 + 4*planar (the unified planar index:
+// rects first, then triangles) where the lane was alive and hit, 0 after a
+// miss and for the bounces after the lane left the loop: the record the
+// backward replays (csrc/replay_bwd.cu). kSph and kPla say which families
+// the scene has; in the sphere-only instantiation (kSph, !kPla) every
+// planar statement sits behind `if constexpr` or a constant-false test, so
+// it compiles to the sphere kernel as it was before the planar branch
+// existed and a sphere scene's launch stays bitwise the same, as kEmit =
+// false does without the codes. The arithmetic follows the staged reference (integrator.
+// trace_rays in both packages), which the wrapper's plain version reproduces
+// in torch; the planar test is the JAX kernel's affine form
+//     t = (k - n.o)/(n.d),  u = ua.p + ca,  v = ub.p + cb,
+//     hit: t >= t_min, u >= 0, v >= 0, v <= 1, u + flag*v <= 1
+// (flag 0 for a rect, 1 for a triangle), where the plain version uses the
+// staged (k - o_f)/d_f and scalar triple products: the two differ by
+// rounding on wall corners and cuboid edges. A padded or degenerate row has
+// all-zero coefficients, so t = 0/0 = NaN and it never hits.
 //
 // What bounds it on an H100: FP32 issue and divergence. Every live lane tests
-// all S spheres each bounce (jumpy_balls: ~486 spheres x ~2.6 segments per
-// lane, ~20 flops per test), and lanes of a warp die at different depths and
-// take different material branches. Memory traffic is tiny: the sphere table
-// is a few tens of KB and outputs are 16 bytes per lane.
+// every primitive each bounce (jumpy_balls: ~486 spheres x ~2.6 segments per
+// lane, ~20 flops per test; the cow: 5,806 planar primitives, ~20 flops per
+// test), and lanes of a warp die at different depths and take different
+// material branches. Memory traffic is tiny: the tables are read by index,
+// each read one broadcast to the warp from L1, and outputs are 16 bytes per
+// lane (plus 4 per bounce with the codes).
 //
-// What the design does about it: the per-sphere test is the direct form
-// (one lerp of the center, two dots, one compare on the discriminant) with
-// the square root and the root select only behind `disc > 0`; the table is
-// structure-of-arrays and read through `const __restrict__`, and since every
-// thread of a warp reads the same sphere at the same time each read is one
-// broadcast from L1. A lane leaves the depth loop as soon as it dies, and
-// only the winning material's branch draws its random numbers. Later work:
-// shared-memory staging, ray sorting by material, a BVH.
+// What the design does about it: the per-primitive tests are the direct
+// forms (for a sphere, one lerp of the center, two dots, one compare on the
+// discriminant with the square root behind `disc > 0`; for a planar
+// primitive, two dots and a division, with the in-plane coordinates only
+// behind `t >= t_min && t < best`); the families share one running closest
+// t, so the planar loop starts from the sphere winner and strict `<` keeps
+// the sphere on an exact tie and the lowest index among planar ties, as
+// argmin and the family merge do in the plain version. Tables are
+// structure-of-arrays read through `const __restrict__`; the material and
+// texture rows sit at the same row numbers in both tables, so the shading
+// reads the winner's column through one pointer and one stride. A lane
+// leaves the depth loop as soon as it dies, and only the winning material's
+// branch draws its random numbers. Later work: shared-memory staging, ray
+// sorting by material, a BVH (the cow's planar loop dominates its frame).
 //
 // Numerics: no fast math. The ground is a radius-1000 sphere with a checker
 // of frequency 10, so sinf takes arguments in the thousands; __sinf would
@@ -63,6 +86,33 @@ enum Row {
   N_ROWS
 };
 
+// Planar table rows, each R floats long (ops/cuda/megakernel.py:
+// PLANAR_ROWS). Rows MTYPE..TSCALE (11-21) are the sphere table's rows of
+// the same names: the shading code reads either table's winner column.
+enum PRow {
+  PNX, PNY, PNZ,      // plane normal n (unnormalised for a triangle)
+  PK,                 // plane offset: t = (k - n.o)/(n.d)
+  UAX, UAY, UAZ,      // u = ua.p + ca
+  CA,
+  UBX, UBY, UBZ,      // v = ub.p + cb
+  P_MTYPE, P_FUZZ, P_IOR, P_TTYPE,
+  P_C1R, P_C1G, P_C1B,
+  P_C2R, P_C2G, P_C2B,
+  P_TSCALE,
+  CB,
+  FLAG,               // 0 rect (u <= 1), 1 triangle (u + v <= 1)
+  NS0X, NS0Y, NS0Z,   // shading normal = ns0 + u*nsu + v*nsv
+  NSUX, NSUY, NSUZ,
+  NSVX, NSVY, NSVZ,
+  TU0, TUU, TUV,      // uv-debug u = tu0 + u*tuu + v*tuv
+  TV0, TVU, TVV,      //          v = tv0 + u*tvu + v*tvv
+  N_PROWS
+};
+static_assert(P_MTYPE == MTYPE && P_FUZZ == FUZZ && P_IOR == IOR &&
+                  P_TTYPE == TTYPE && P_C1R == C1R && P_C2R == C2R &&
+                  P_TSCALE == TSCALE,
+              "the shading rows must be shared by both tables");
+
 // Camera and background, as megakernel.py:_pack_par packs them.
 enum Par {
   P_ORIGIN = 0, P_LOWER_LEFT = 3, P_HORIZONTAL = 6, P_VERTICAL = 9,
@@ -74,19 +124,21 @@ constexpr int kBlock = 128;
 
 struct Launch {
   long long lane_start;
-  int n_chunk, n_spheres, width, height, spp, max_depth;
+  int n_chunk, n_spheres, n_planar, width, height, spp, max_depth;
   float t_min;
   uint32_t seed;
 };
 
-template <bool kEmit>
+template <bool kEmit, bool kSph, bool kPla>
 __global__ void __launch_bounds__(kBlock)
-render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
-              Launch L, float* __restrict__ rad, int* __restrict__ seg,
+render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
+              const float* __restrict__ par, Launch L,
+              float* __restrict__ rad, int* __restrict__ seg,
               int* __restrict__ codes) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= L.n_chunk) return;
   const int S = L.n_spheres;
+  const int R = L.n_planar;
   const float* __restrict__ c0x = tab + C0X * S;
   const float* __restrict__ c0y = tab + C0Y * S;
   const float* __restrict__ c0z = tab + C0Z * S;
@@ -143,21 +195,53 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
     const float inv_a = 1.0f / a;
     float best = INFINITY;
     int win = -1;
-    for (int s = 0; s < S; ++s) {
-      const float w = (time - t0s[s]) * inv_dt[s];
-      const float ocx = ox - (c0x[s] + w * dcx[s]);
-      const float ocy = oy - (c0y[s] + w * dcy[s]);
-      const float ocz = oz - (c0z[s] + w * dcz[s]);
-      const float hb = ocx * dx + ocy * dy + ocz * dz;
-      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - r2s[s];
-      const float disc = hb * hb - a * cc;
-      if (disc > 0.f) {
-        const float sq = sqrtf(disc);
-        float root = (-hb - sq) * inv_a;
-        if (!(root >= L.t_min)) root = (-hb + sq) * inv_a;  // t_min select
-        if (root >= L.t_min && root < best) {
-          best = root;
-          win = s;
+    if constexpr (kSph) {
+      for (int s = 0; s < S; ++s) {
+        const float w = (time - t0s[s]) * inv_dt[s];
+        const float ocx = ox - (c0x[s] + w * dcx[s]);
+        const float ocy = oy - (c0y[s] + w * dcy[s]);
+        const float ocz = oz - (c0z[s] + w * dcz[s]);
+        const float hb = ocx * dx + ocy * dy + ocz * dz;
+        const float cc = ocx * ocx + ocy * ocy + ocz * ocz - r2s[s];
+        const float disc = hb * hb - a * cc;
+        if (disc > 0.f) {
+          const float sq = sqrtf(disc);
+          float root = (-hb - sq) * inv_a;
+          if (!(root >= L.t_min)) root = (-hb + sq) * inv_a;  // t_min select
+          if (root >= L.t_min && root < best) {
+            best = root;
+            win = s;
+          }
+        }
+      }
+    }
+
+    // ---- closest planar primitive, against the sphere winner's t --------
+    bool planar = false;     // the winner is planar primitive `win`
+    float bu = 0.f, bv = 0.f;  // its in-plane / barycentric coordinates
+    if constexpr (kPla) {
+      for (int r = 0; r < R; ++r) {
+        const float nx = ptab[PNX * R + r];
+        const float ny = ptab[PNY * R + r];
+        const float nz = ptab[PNZ * R + r];
+        const float t = (ptab[PK * R + r] - (nx * ox + ny * oy + nz * oz)) /
+                        (nx * dx + ny * dy + nz * dz);
+        if (t >= L.t_min && t < best) {  // NaN (a padded row) fails both
+          const float hx = ox + t * dx;
+          const float hy = oy + t * dy;
+          const float hz = oz + t * dz;
+          const float u = ptab[UAX * R + r] * hx + ptab[UAY * R + r] * hy +
+                          ptab[UAZ * R + r] * hz + ptab[CA * R + r];
+          const float v = ptab[UBX * R + r] * hx + ptab[UBY * R + r] * hy +
+                          ptab[UBZ * R + r] * hz + ptab[CB * R + r];
+          if (u >= 0.f && v >= 0.f && v <= 1.f &&
+              u + ptab[FLAG * R + r] * v <= 1.f) {
+            best = t;
+            win = r;
+            planar = true;
+            bu = u;
+            bv = v;
+          }
         }
       }
     }
@@ -170,18 +254,37 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
       break;
     }
 
-    if (kEmit) lane_codes[depth] = 1 + 4 * win;
+    if (kEmit) lane_codes[depth] = (kPla && planar) ? 2 + 4 * win
+                                                    : 1 + 4 * win;
 
-    // ---- hit record (ops.sphere.sphere_record) ---------------------------
+    // ---- hit record (ops.sphere.sphere_record / the planar affine) -------
+    // The winner's column, and the row stride of its table.
     const float* __restrict__ row_ptr = tab + win;
+    int st = S;
+    if constexpr (kPla) {
+      if (planar) {
+        row_ptr = ptab + win;
+        st = R;
+      }
+    }
     const float px = ox + best * dx;
     const float py = oy + best * dy;
     const float pz = oz + best * dz;
-    const float w = (time - row_ptr[T0 * S]) / row_ptr[DT * S];
-    const float r = row_ptr[RADIUS * S];
-    float nx = (px - (row_ptr[C0X * S] + w * row_ptr[DCX * S])) / r;
-    float ny = (py - (row_ptr[C0Y * S] + w * row_ptr[DCY * S])) / r;
-    float nz = (pz - (row_ptr[C0Z * S] + w * row_ptr[DCZ * S])) / r;
+    float nx, ny, nz;
+    if (!kSph || (kPla && planar)) {  // raw barycentric shading normal
+      nx = row_ptr[NS0X * st] + bu * row_ptr[NSUX * st] +
+           bv * row_ptr[NSVX * st];
+      ny = row_ptr[NS0Y * st] + bu * row_ptr[NSUY * st] +
+           bv * row_ptr[NSVY * st];
+      nz = row_ptr[NS0Z * st] + bu * row_ptr[NSUZ * st] +
+           bv * row_ptr[NSVZ * st];
+    } else {
+      const float w = (time - row_ptr[T0 * S]) / row_ptr[DT * S];
+      const float r = row_ptr[RADIUS * S];
+      nx = (px - (row_ptr[C0X * S] + w * row_ptr[DCX * S])) / r;
+      ny = (py - (row_ptr[C0Y * S] + w * row_ptr[DCY * S])) / r;
+      nz = (pz - (row_ptr[C0Z * S] + w * row_ptr[DCZ * S])) / r;
+    }
     const bool front = (dx * nx + dy * ny + dz * nz) < 0.f;
     if (!front) {
       nx = -nx;
@@ -189,20 +292,31 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
       nz = -nz;
     }
 
-    // ---- texture: solid / checker ----------------------------------------
-    float tr = row_ptr[C1R * S], tg = row_ptr[C1G * S], tb = row_ptr[C1B * S];
-    if (row_ptr[TTYPE * S] == 1.0f) {
-      const float sc = row_ptr[TSCALE * S];
+    // ---- texture: solid / checker / uv-debug -----------------------------
+    float tr = row_ptr[C1R * st], tg = row_ptr[C1G * st],
+          tb = row_ptr[C1B * st];
+    if (row_ptr[TTYPE * st] == 1.0f) {
+      const float sc = row_ptr[TSCALE * st];
       const float sines = sinf(sc * px) * sinf(sc * py) * sinf(sc * pz);
       if (sines < 0.f) {
-        tr = row_ptr[C2R * S];
-        tg = row_ptr[C2G * S];
-        tb = row_ptr[C2B * S];
+        tr = row_ptr[C2R * st];
+        tg = row_ptr[C2G * st];
+        tb = row_ptr[C2B * st];
+      }
+    }
+    if constexpr (kPla) {
+      // (u, v, 0); the builder admits uv-debug on planar primitives only.
+      if (planar && row_ptr[TTYPE * st] == 4.0f) {
+        tr = row_ptr[TU0 * st] + bu * row_ptr[TUU * st] +
+             bv * row_ptr[TUV * st];
+        tg = row_ptr[TV0 * st] + bu * row_ptr[TVU * st] +
+             bv * row_ptr[TVV * st];
+        tb = 0.f;
       }
     }
 
     // ---- scatter (materials.scatter_packed) ------------------------------
-    const float mtype = row_ptr[MTYPE * S];
+    const float mtype = row_ptr[MTYPE * st];
     if (mtype == 3.0f) {  // diffuse light: emit tp * tex and stop
       rr += tpr * tr;
       rg += tpg * tg;
@@ -217,7 +331,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
       const float4 um = rand4(L.seed, rid, (uint32_t)depth, SALT_METAL);
       const float3 b = unit_vector(um.x, um.y);
       const float br = cbrtf(um.z);
-      const float fuzz = row_ptr[FUZZ * S];
+      const float fuzz = row_ptr[FUZZ * st];
       ndx = (ux - 2.0f * udn * nx) + fuzz * (b.x * br);
       ndy = (uy - 2.0f * udn * ny) + fuzz * (b.y * br);
       ndz = (uz - 2.0f * udn * nz) + fuzz * (b.z * br);
@@ -228,7 +342,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ par,
     } else if (mtype == 2.0f) {  // dielectric: Schlick against the draw ud
       const float ud =
           rand4(L.seed, rid, (uint32_t)depth, SALT_DIELECTRIC).x;
-      const float ior = row_ptr[IOR * S];
+      const float ior = row_ptr[IOR * st];
       const float ratio = front ? 1.0f / ior : ior;
       const float cos_t = fminf(-udn, 1.0f);
       const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 1e-12f));
@@ -291,28 +405,48 @@ __global__ void rand4_kernel(const uint32_t* __restrict__ ids, int n,
   if (i < n) out[i] = rand4(seed, ids[i], depth, salt);
 }
 
+template <bool kEmit>
+void launch_render(const float* tab, const float* ptab, const float* par,
+                   const Launch& L, float* rad, int* seg, int* codes,
+                   cudaStream_t stream) {
+  const int grid = (L.n_chunk + kBlock - 1) / kBlock;
+  if (L.n_planar == 0) {
+    render_kernel<kEmit, true, false><<<grid, kBlock, 0, stream>>>(
+        tab, ptab, par, L, rad, seg, codes);
+  } else if (L.n_spheres == 0) {
+    render_kernel<kEmit, false, true><<<grid, kBlock, 0, stream>>>(
+        tab, ptab, par, L, rad, seg, codes);
+  } else {
+    render_kernel<kEmit, true, true><<<grid, kBlock, 0, stream>>>(
+        tab, ptab, par, L, rad, seg, codes);
+  }
+}
+
 }  // namespace rtw
 
 extern "C" {
 
-// Renders lanes [lane_start, lane_start + n_chunk) on `stream`; with a
+// Renders lanes [lane_start, lane_start + n_chunk) on `stream`: sphere
+// table `tab` (N_ROWS x n_spheres) and planar table `ptab` (N_PROWS x
+// n_planar), either count 0 (and its table unused) but not both. With a
 // non-null `codes` (n_chunk x max_depth int32) it also writes the winner
 // codes. Returns cudaGetLastError() after the launch (0 on success); it does
 // not sync.
-int rtw_render_fused(const float* tab, int n_spheres, const float* par,
-                     long long lane_start, int n_chunk, int width, int height,
-                     int spp, int max_depth, float t_min, unsigned int seed,
+int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
+                     int n_planar, const float* par, long long lane_start,
+                     int n_chunk, int width, int height, int spp,
+                     int max_depth, float t_min, unsigned int seed,
                      float* rad, int* seg, int* codes, void* stream) {
   if (n_chunk <= 0) return 0;
-  rtw::Launch L{lane_start, n_chunk, n_spheres, width, height,
+  if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
+  rtw::Launch L{lane_start, n_chunk, n_spheres, n_planar, width, height,
                 spp, max_depth, t_min, seed};
-  const int grid = (n_chunk + rtw::kBlock - 1) / rtw::kBlock;
   if (codes) {
-    rtw::render_kernel<true><<<grid, rtw::kBlock, 0, (cudaStream_t)stream>>>(
-        tab, par, L, rad, seg, codes);
+    rtw::launch_render<true>(tab, ptab, par, L, rad, seg, codes,
+                             (cudaStream_t)stream);
   } else {
-    rtw::render_kernel<false><<<grid, rtw::kBlock, 0, (cudaStream_t)stream>>>(
-        tab, par, L, rad, seg, nullptr);
+    rtw::launch_render<false>(tab, ptab, par, L, rad, seg, nullptr,
+                              (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -1,43 +1,61 @@
-// Replay backward of the fused render for sphere scenes, one thread per lane.
+// Replay backward of the fused render, one thread per lane: spheres (K2) and
+// the planar family (K4: axis-aligned rects and triangles in one table).
 //
-// Replaces: raytracer_weekend_tpu/ops/pallas/replay_bwd.py:_kernel, sphere
-// branch (has_sph, no planar, defer=False), reached through replay_bwd_fused
-// -> _kernel_entry -> pl.pallas_call. For the radiance estimator
+// Replaces: raytracer_weekend_tpu/ops/pallas/replay_bwd.py:_kernel, its
+// sphere branch (has_sph) and its planar branch (has_pla, table of
+// pack_ptab), defer=False, reached through replay_bwd_fused ->
+// _kernel_entry -> pl.pallas_call. For the radiance estimator
 //     rad = sum_k tp_k * emit_k + miss * tp * background
 // with the winners that the forward kernel recorded held fixed (the codes of
 // csrc/megakernel.cu, kEmit), it returns the vector-Jacobian product with
 // the radiance cotangent g: d(ktab) (KT, S) for the sphere table of
-// ops/cuda/replay_bwd.py:pack_ktab, d_o and d_d (B, 3), d_time (B,) and
-// d_background (3,). Its plain version is torch.autograd through
-// replay.replay_packed on the same codes (replay_bwd_reference).
+// ops/cuda/replay_bwd.py:pack_ktab, d(ptab) (KP, R) for the planar table of
+// pack_ptab, d_o and d_d (B, 3), d_time (B,) and d_background (3,). Its
+// plain version is torch.autograd through replay.replay_packed on the same
+// codes (replay_bwd_reference).
 //
 // A lane works in two sweeps. The forward sweep re-traces its own bounces
-// from the codes (the sphere's row read by index, the quadratic with the
-// t_min root select, hit point, outward normal (p - c)/r, front-face flip,
-// solid/checker select, Lambertian/Metal/Dielectric/Light scatter with the
-// same PCG4D draws as the forward kernel) and keeps (o, d, tp) of each
-// bounce in a global scratch laid out (D, 9, B), so a bounce's loads and
-// stores coalesce across the warp. Liveness needs no slot: a lane sweeps
-// only its own live bounces, the per-lane form of the TPU kernel's per-tile
-// trip count. The reverse sweep walks them back with the chain rules of the
-// TPU kernel (scatter branches, normal and sphere geometry, texture select).
-// A dead bounce is never evaluated, so no masked-zero cotangent ever meets
-// the inf of 1/|d|^2 on a dead lane (the NaN hazard of replay_bwd.py:313).
+// from the codes (the winner's row read by index; for a sphere the
+// quadratic with the t_min root select and the outward normal (p - c)/r,
+// for a planar primitive t = (o.n - k)/(-d.n), u_b = ua.p + ca,
+// v_b = ub.p + cb and the raw outward normal ns0 + u_b*nsu + v_b*nsv; then
+// the front-face flip, solid/checker select, Lambertian/Metal/Dielectric/
+// Light scatter with the same PCG4D draws as the forward kernel) and keeps
+// (o, d, tp) of each bounce in a global scratch laid out (D, 9, B), so a
+// bounce's loads and stores coalesce across the warp. Liveness needs no
+// slot: a lane sweeps only its own live bounces, the per-lane form of the
+// TPU kernel's per-tile trip count. The reverse sweep walks them back with
+// the chain rules of the TPU kernel (scatter branches, normal and family
+// geometry, texture select). A dead bounce is never evaluated, so no
+// masked-zero cotangent ever meets the inf of 1/|d|^2 on a dead lane (the
+// NaN hazard of replay_bwd.py:313). kSph and kPla say which families the
+// scene has; the sphere-only instantiation keeps every planar statement
+// behind `if constexpr` or a constant-false test, so it compiles to the
+// sphere kernel as it was before the planar branch (108 registers: even a
+// loop whose bound is 0 there, left outside `if constexpr`, cost 4 more).
 //
-// What bounds it on an H100: the sphere-table cotangent reduction. About
-// 3.7M live bounces per jumpy_balls frame each add up to 19 values, and most
-// of them land on the few columns of the ground sphere. Every block therefore
-// accumulates into its own copy of d(ktab) in shared memory (KT * S * 4 bytes,
-// 37 KB for jumpy_balls) with shared-memory atomics, skipping zeros, and
-// adds each nonzero entry of that copy to global memory once. The wrapper
-// raises when the copy does not fit the opt-in shared-memory limit. The
-// per-lane math is a few hundred FP32 operations per bounce; the scratch is
-// 36 bytes per bounce written once and read once.
+// What bounds it on an H100: the table cotangent reduction. About 3.7M live
+// bounces per jumpy_balls frame each add up to 19 values, and most of them
+// land on the few columns of the ground sphere. Every block therefore
+// accumulates into its own copy of d(ktab) in shared memory (KT * S * 4
+// bytes, 37 KB for jumpy_balls) with shared-memory atomics, skipping zeros,
+// and adds each nonzero entry of that copy to global memory once; the
+// wrapper raises when the copy does not fit the opt-in shared-memory limit.
+// d(ptab) takes the same shared copy when both fit (kPShared: cornell_box,
+// 30 primitives, 3.8 KB, its hits piled on six wall columns). A mesh's
+// table does not fit (the cow: 5,805 primitives x 32 rows x 4 B = 743 KB
+// against 227 KB), so there each warp groups its lanes by planar row
+// (cooperative_groups::labeled_partition, i.e. __match_any_sync), sums each
+// group's 32 values by shuffles, and one lane per group adds the nonzero
+// sums to global memory. The per-lane math is a few hundred FP32 operations
+// per bounce; the scratch is 36 bytes per bounce written once and read once.
 //
 // Numerics: no fast math; sinf/cosf/sqrtf/cbrtf and IEEE division, as in
-// megakernel.cu. Float atomics make d(ktab) and d_background depend on the
-// order of additions, so they match their plain version within tolerances,
-// not bitwise.
+// megakernel.cu. Float atomics make the table cotangents and d_background
+// depend on the order of additions, so they match their plain version
+// within tolerances, not bitwise.
+#include <cooperative_groups.h>
+#include <cooperative_groups/reduce.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,16 +78,37 @@ enum KRow {
   KT
 };
 
+// Rows of the planar table, each R floats long (ops/cuda/replay_bwd.py:
+// KP_ROWS, the JAX pack_ptab layout).
+enum PRow {
+  P_NX, P_NY, P_NZ,      // plane normal n
+  P_K,                   // plane offset: t = (o.n - k)/(-d.n)
+  P_UAX, P_UAY, P_UAZ,   // u_b = ua.p + ca
+  P_CA,
+  P_UBX, P_UBY, P_UBZ,   // v_b = ub.p + cb
+  P_CB,
+  P_S0X, P_S0Y, P_S0Z,   // outward = ns0 + u_b*nsu + v_b*nsv
+  P_SUX, P_SUY, P_SUZ,
+  P_SVX, P_SVY, P_SVZ,
+  P_MTYPE, P_FUZZ, P_IOR,
+  P_TTYPE,
+  P_C1R, P_C1G, P_C1B,
+  P_C2R, P_C2G, P_C2B,
+  P_TSCALE,
+  KP
+};
+
 constexpr int kBlock = 256;
 constexpr int kState = 9;  // o(3), d(3), tp(3) per bounce
 
 struct Launch {
-  int n, n_spheres, max_depth;
+  int n, n_spheres, n_planar, max_depth;
   float t_min;
   uint32_t seed;
 };
 
-// The forward values of one live bounce that hit sphere `s`.
+// The forward values of one live bounce that hit sphere `s` or planar
+// primitive `r`.
 struct Bounce {
   float bx, by, bz;               // beta of the sphere
   float ocx, ocy, ocz;            // o - center(time)
@@ -89,38 +128,20 @@ struct Bounce {
   float rpx, rpy, rpz, q, sqm;    // dielectric refraction
   float ndx, ndy, ndz;            // scattered direction
   bool alive2;                    // the path goes on
+  float pnx, pny, pnz, inv_df;    // planar: plane normal, 1/(-d.n)
+  float ub, vb;                   // planar: in-plane coordinates
 };
 
-__device__ __forceinline__ void recompute(
-    const float* __restrict__ tab, int S, int s, float time, float t_min,
-    uint32_t seed, uint32_t rid, uint32_t depth, float ox, float oy, float oz,
-    float dx, float dy, float dz, Bounce& b) {
-  const float* __restrict__ col = tab + s;
-  b.bx = col[BX * S];
-  b.by = col[BY * S];
-  b.bz = col[BZ * S];
-  const float cx = col[AX * S] + time * b.bx;
-  const float cy = col[AY * S] + time * b.by;
-  const float cz = col[AZ * S] + time * b.bz;
-  b.ocx = ox - cx;
-  b.ocy = oy - cy;
-  b.ocz = oz - cz;
-  b.a = dx * dx + dy * dy + dz * dz;
-  b.hb = b.ocx * dx + b.ocy * dy + b.ocz * dz;
-  b.ct = b.ocx * b.ocx + b.ocy * b.ocy + b.ocz * b.ocz - col[R2 * S];
-  b.disc = b.hb * b.hb - b.a * b.ct;
-  b.sq = sqrtf(b.disc > 0.f ? b.disc : 1.f);
-  b.inv_a = 1.0f / fmaxf(b.a, 1e-20f);
-  const float root1 = (-b.hb - b.sq) * b.inv_a;
-  b.near = root1 >= t_min;
-  b.t = b.near ? root1 : (-b.hb + b.sq) * b.inv_a;
-  b.px = ox + b.t * dx;
-  b.py = oy + b.t * dy;
-  b.pz = oz + b.t * dz;
-  b.r = col[R * S];
-  b.snx = (b.px - cx) / b.r;
-  b.sny = (b.py - cy) / b.r;
-  b.snz = (b.pz - cz) / b.r;
+// The family-independent part of a bounce, from the outward normal
+// (b.snx..) and hit point (b.px..) on: front face, shading normal, texture
+// and scatter. `col` is the winner's column of its table and `st` the
+// table's row stride; kM is the table's MTYPE row, followed in both tables
+// by FUZZ, IOR, TTYPE, C1R..C1B, C2R..C2B, TSCALE.
+template <int kM>
+__device__ __forceinline__ void shade(const float* __restrict__ col, int st,
+                                      uint32_t seed, uint32_t rid,
+                                      uint32_t depth, float dx, float dy,
+                                      float dz, Bounce& b) {
   b.front = (dx * b.snx + dy * b.sny + dz * b.snz) < 0.f;
   b.sgn = b.front ? 1.f : -1.f;
   b.nx = b.sgn * b.snx;
@@ -128,15 +149,15 @@ __device__ __forceinline__ void recompute(
   b.nz = b.sgn * b.snz;
 
   b.use2 = false;
-  if (col[TTYPE * S] == 1.0f) {
-    const float sc = col[TSCALE * S];
+  if (col[(kM + 3) * st] == 1.0f) {
+    const float sc = col[(kM + 10) * st];
     b.use2 = sinf(sc * b.px) * sinf(sc * b.py) * sinf(sc * b.pz) < 0.f;
   }
-  b.tr = b.use2 ? col[C2R * S] : col[C1R * S];
-  b.tg = b.use2 ? col[C2G * S] : col[C1G * S];
-  b.tb = b.use2 ? col[C2B * S] : col[C1B * S];
+  b.tr = b.use2 ? col[(kM + 7) * st] : col[(kM + 4) * st];
+  b.tg = b.use2 ? col[(kM + 8) * st] : col[(kM + 5) * st];
+  b.tb = b.use2 ? col[(kM + 9) * st] : col[(kM + 6) * st];
 
-  b.mtype = col[MTYPE * S];
+  b.mtype = col[kM * st];
   const float len = sqrtf(b.a + 1e-20f);
   b.inv_len = 1.0f / len;
   b.ux = dx / len;
@@ -155,14 +176,14 @@ __device__ __forceinline__ void recompute(
     b.vy = v.y;
     b.vz = v.z;
     b.br = cbrtf(um.z);
-    const float fuzz = col[FUZZ * S];
+    const float fuzz = col[(kM + 1) * st];
     b.ndx = (b.ux - 2.0f * b.udn * b.nx) + fuzz * (v.x * b.br);
     b.ndy = (b.uy - 2.0f * b.udn * b.ny) + fuzz * (v.y * b.br);
     b.ndz = (b.uz - 2.0f * b.udn * b.nz) + fuzz * (v.z * b.br);
     b.alive2 = (b.ndx * b.nx + b.ndy * b.ny + b.ndz * b.nz) > 0.f;
   } else if (b.mtype == 2.0f) {  // dielectric
     const float ud = rand4(seed, rid, depth, SALT_DIELECTRIC).x;
-    b.ior = col[IOR * S];
+    b.ior = col[(kM + 2) * st];
     b.ratio = b.front ? 1.0f / b.ior : b.ior;
     b.cos_t = fminf(-b.udn, 1.0f);
     const float sin_t = sqrtf(fmaxf(1.0f - b.cos_t * b.cos_t, 1e-12f));
@@ -202,6 +223,70 @@ __device__ __forceinline__ void recompute(
   }
 }
 
+__device__ __forceinline__ void recompute(
+    const float* __restrict__ tab, int S, int s, float time, float t_min,
+    uint32_t seed, uint32_t rid, uint32_t depth, float ox, float oy, float oz,
+    float dx, float dy, float dz, Bounce& b) {
+  const float* __restrict__ col = tab + s;
+  b.bx = col[BX * S];
+  b.by = col[BY * S];
+  b.bz = col[BZ * S];
+  const float cx = col[AX * S] + time * b.bx;
+  const float cy = col[AY * S] + time * b.by;
+  const float cz = col[AZ * S] + time * b.bz;
+  b.ocx = ox - cx;
+  b.ocy = oy - cy;
+  b.ocz = oz - cz;
+  b.a = dx * dx + dy * dy + dz * dz;
+  b.hb = b.ocx * dx + b.ocy * dy + b.ocz * dz;
+  b.ct = b.ocx * b.ocx + b.ocy * b.ocy + b.ocz * b.ocz - col[R2 * S];
+  b.disc = b.hb * b.hb - b.a * b.ct;
+  b.sq = sqrtf(b.disc > 0.f ? b.disc : 1.f);
+  b.inv_a = 1.0f / fmaxf(b.a, 1e-20f);
+  const float root1 = (-b.hb - b.sq) * b.inv_a;
+  b.near = root1 >= t_min;
+  b.t = b.near ? root1 : (-b.hb + b.sq) * b.inv_a;
+  b.px = ox + b.t * dx;
+  b.py = oy + b.t * dy;
+  b.pz = oz + b.t * dz;
+  b.r = col[R * S];
+  b.snx = (b.px - cx) / b.r;
+  b.sny = (b.py - cy) / b.r;
+  b.snz = (b.pz - cz) / b.r;
+  shade<MTYPE>(col, S, seed, rid, depth, dx, dy, dz, b);
+}
+
+// A planar bounce: t = (o.n - k) / df with df = -d.n, the in-plane
+// coordinates u_b = ua.p + ca, v_b = ub.p + cb, and the raw outward normal
+// ns0 + u_b*nsu + v_b*nsv (replay._pack_planar's coefficients).
+__device__ __forceinline__ void recompute_planar(
+    const float* __restrict__ ptab, int NR, int r, uint32_t seed,
+    uint32_t rid, uint32_t depth, float ox, float oy, float oz, float dx,
+    float dy, float dz, Bounce& b) {
+  const float* __restrict__ col = ptab + r;
+  b.a = dx * dx + dy * dy + dz * dz;
+  b.pnx = col[P_NX * NR];
+  b.pny = col[P_NY * NR];
+  b.pnz = col[P_NZ * NR];
+  const float df = -(dx * b.pnx + dy * b.pny + dz * b.pnz);
+  b.inv_df = 1.0f / (df == 0.f ? 1.f : df);
+  b.t = (ox * b.pnx + oy * b.pny + oz * b.pnz - col[P_K * NR]) * b.inv_df;
+  b.px = ox + b.t * dx;
+  b.py = oy + b.t * dy;
+  b.pz = oz + b.t * dz;
+  b.ub = col[P_UAX * NR] * b.px + col[P_UAY * NR] * b.py +
+         col[P_UAZ * NR] * b.pz + col[P_CA * NR];
+  b.vb = col[P_UBX * NR] * b.px + col[P_UBY * NR] * b.py +
+         col[P_UBZ * NR] * b.pz + col[P_CB * NR];
+  b.snx = col[P_S0X * NR] + b.ub * col[P_SUX * NR] +
+          b.vb * col[P_SVX * NR];
+  b.sny = col[P_S0Y * NR] + b.ub * col[P_SUY * NR] +
+          b.vb * col[P_SVY * NR];
+  b.snz = col[P_S0Z * NR] + b.ub * col[P_SUZ * NR] +
+          b.vb * col[P_SVZ * NR];
+  shade<P_MTYPE>(col, NR, seed, rid, depth, dx, dy, dz, b);
+}
+
 // The sphere a code names, or -1 for a miss, a dead bounce or a code that is
 // not a sphere of this table (read as a miss, never as an out-of-range row).
 __device__ __forceinline__ int code_sphere(int code, int S) {
@@ -210,27 +295,59 @@ __device__ __forceinline__ int code_sphere(int code, int S) {
   return s < S ? s : -1;
 }
 
+// The planar primitive a code names, or -1 (as code_sphere).
+__device__ __forceinline__ int code_planar(int code, int NR) {
+  if (code <= 0 || (code & 3) != 2) return -1;
+  const int r = code >> 2;
+  return r < NR ? r : -1;
+}
+
 __device__ __forceinline__ void acc(float* __restrict__ sdt, int S, int row,
                                     int s, float v) {
   if (v != 0.f) atomicAdd(sdt + row * S + s, v);
 }
 
+// Adds this lane's column `cv` of d(ptab), at planar row r, to global
+// memory once per distinct row among the lanes of the warp that arrive
+// together: they are grouped by r, each group's values are summed by
+// shuffles, and the group's first lane adds the nonzero sums. The rows that
+// are zero by construction (mtype, ttype, tscale) are skipped.
+__device__ __forceinline__ void add_column(float* __restrict__ dst, int NR,
+                                           int r, const float (&cv)[KP]) {
+  namespace cg = cooperative_groups;
+  const cg::coalesced_group peers =
+      cg::labeled_partition(cg::coalesced_threads(), r);
+  const bool lead = peers.thread_rank() == 0;
+#pragma unroll
+  for (int j = 0; j < KP; ++j) {
+    if (j == P_MTYPE || j == P_TTYPE || j == P_TSCALE) continue;
+    const float sum = cg::reduce(peers, cv[j], cg::plus<float>());
+    if (lead && sum != 0.f) atomicAdd(dst + (long long)j * NR + r, sum);
+  }
+}
+
+template <bool kSph, bool kPla, bool kPShared>
 __global__ void __launch_bounds__(kBlock)
-replay_bwd_kernel(const float* __restrict__ tab, const float* __restrict__ bg,
+replay_bwd_kernel(const float* __restrict__ tab,
+                  const float* __restrict__ ptab,
+                  const float* __restrict__ bg,
                   const float* __restrict__ o0, const float* __restrict__ d0,
                   const float* __restrict__ times,
                   const int* __restrict__ ray_ids,
                   const int* __restrict__ codes, const float* __restrict__ g,
                   Launch L, float* __restrict__ st,
-                  float* __restrict__ dtab, float* __restrict__ d_o,
-                  float* __restrict__ d_d, float* __restrict__ d_time,
-                  float* __restrict__ d_bg) {
+                  float* __restrict__ dtab, float* __restrict__ dptab,
+                  float* __restrict__ d_o, float* __restrict__ d_d,
+                  float* __restrict__ d_time, float* __restrict__ d_bg) {
   extern __shared__ float smem[];
   const int S = L.n_spheres;
+  const int NR = L.n_planar;
   const int n_tab = KT * S;
   float* __restrict__ sdt = smem;          // this block's d(ktab)
   float* __restrict__ sbg = smem + n_tab;  // this block's d_background
-  for (int j = threadIdx.x; j < n_tab + 3; j += kBlock) smem[j] = 0.f;
+  float* __restrict__ spt = smem + n_tab + 3;  // its d(ptab), kPShared
+  const int n_ptab = (kPla && kPShared) ? KP * NR : 0;
+  for (int j = threadIdx.x; j < n_tab + 3 + n_ptab; j += kBlock) smem[j] = 0.f;
   __syncthreads();
 
   const int i = blockIdx.x * kBlock + threadIdx.x;
@@ -259,11 +376,17 @@ replay_bwd_kernel(const float* __restrict__ tab, const float* __restrict__ bg,
       sk[7 * n] = tpg;
       sk[8 * n] = tpb;
       trips = k + 1;
-      const int s = code_sphere(lane_codes[k], S);
-      if (s < 0) break;  // miss: background, the path ends
+      const int s = kSph ? code_sphere(lane_codes[k], S) : -1;
+      const int r = kPla ? code_planar(lane_codes[k], NR) : -1;
+      if (s < 0 && r < 0) break;  // miss: background, the path ends
       Bounce b;
-      recompute(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k, ox, oy,
-                oz, dx, dy, dz, b);
+      if (!kSph || (kPla && r >= 0)) {
+        recompute_planar(ptab, NR, r, L.seed, rid, (uint32_t)k, ox, oy, oz,
+                         dx, dy, dz, b);
+      } else {
+        recompute(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k, ox, oy,
+                  oz, dx, dy, dz, b);
+      }
       if (b.mtype != 2.0f) {  // dielectric attenuates by 1
         tpr *= b.tr;
         tpg *= b.tg;
@@ -295,8 +418,9 @@ replay_bwd_kernel(const float* __restrict__ tab, const float* __restrict__ bg,
       tpr = sk[6 * n];
       tpg = sk[7 * n];
       tpb = sk[8 * n];
-      const int s = code_sphere(lane_codes[k], S);
-      if (s < 0) {  // miss: rad += tp * bg
+      const int s = kSph ? code_sphere(lane_codes[k], S) : -1;
+      const int r = kPla ? code_planar(lane_codes[k], NR) : -1;
+      if (s < 0 && r < 0) {  // miss: rad += tp * bg
         const float ar = gr * tpr, ag = gg * tpg, ab = gb * tpb;
         if (ar != 0.f) atomicAdd(sbg + 0, ar);
         if (ag != 0.f) atomicAdd(sbg + 1, ag);
@@ -307,8 +431,13 @@ replay_bwd_kernel(const float* __restrict__ tab, const float* __restrict__ bg,
         continue;
       }
       Bounce b;
-      recompute(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k, ox, oy,
-                oz, dx, dy, dz, b);
+      if (!kSph || (kPla && r >= 0)) {
+        recompute_planar(ptab, NR, r, L.seed, rid, (uint32_t)k, ox, oy, oz,
+                         dx, dy, dz, b);
+      } else {
+        recompute(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k, ox, oy,
+                  oz, dx, dy, dz, b);
+      }
 
       // o', d' = alive2 ? (p, nd) : (o, d)
       const float al = b.alive2 ? 1.f : 0.f;
@@ -396,62 +525,135 @@ replay_bwd_kernel(const float* __restrict__ tab, const float* __restrict__ bg,
       cdy += b.inv_len * (cuy - b.uy * udc);
       cdz += b.inv_len * (cuz - b.uz * udc);
 
-      // n = sgn * outward, outward = (p - c) / r
-      const float csx = b.sgn * cnx, csy = b.sgn * cny, csz = b.sgn * cnz;
-      const float cpsx = cpx + csx / b.r;
-      const float cpsy = cpy + csy / b.r;
-      const float cpsz = cpz + csz / b.r;
-      float ccx = -csx / b.r, ccy = -csy / b.r, ccz = -csz / b.r;
-      const float c_r = -(b.snx * csx + b.sny * csy + b.snz * csz) / b.r;
+      if (!kSph || (kPla && r >= 0)) {
+        // n = sgn * outward, outward = ns0 + u_b*nsu + v_b*nsv
+        const float* __restrict__ col = ptab + r;
+        const float cnox = b.sgn * cnx, cnoy = b.sgn * cny, cnoz = b.sgn * cnz;
+        const float cub = col[P_SUX * NR] * cnox + col[P_SUY * NR] * cnoy +
+                          col[P_SUZ * NR] * cnoz;
+        const float cvb = col[P_SVX * NR] * cnox + col[P_SVY * NR] * cnoy +
+                          col[P_SVZ * NR] * cnoz;
+        // u_b = ua.p + ca ;  v_b = ub.p + cb
+        const float cqx = cpx + cub * col[P_UAX * NR] + cvb * col[P_UBX * NR];
+        const float cqy = cpy + cub * col[P_UAY * NR] + cvb * col[P_UBY * NR];
+        const float cqz = cpz + cub * col[P_UAZ * NR] + cvb * col[P_UBZ * NR];
 
-      // p = o + t d
-      const float ct = dx * cpsx + dy * cpsy + dz * cpsz;
-      cox += cpsx;
-      coy += cpsy;
-      coz += cpsz;
-      cdx += b.t * cpsx;
-      cdy += b.t * cpsy;
-      cdz += b.t * cpsz;
+        // p = o + t d
+        const float ct = dx * cqx + dy * cqy + dz * cqz;
+        cox += cqx;
+        coy += cqy;
+        coz += cqz;
+        cdx += b.t * cqx;
+        cdy += b.t * cqy;
+        cdz += b.t * cqz;
 
-      // t = (-half_b -+ sq) / a, the selected root
-      const float s_r = b.near ? -1.f : 1.f;
-      const float csq = ct * s_r * b.inv_a;
-      float chb = -ct * b.inv_a;
-      float ca = -ct * b.t * b.inv_a;
-      const float cdisc = b.disc > 0.f ? csq / (2.0f * b.sq) : 0.f;
-      chb += 2.0f * b.hb * cdisc;
-      ca -= b.ct * cdisc;
-      const float cct = -b.a * cdisc;
-      // half_b = oc.d ;  c = oc.oc - r2 ;  a = d.d
-      const float cocx = chb * dx + 2.0f * cct * b.ocx;
-      const float cocy = chb * dy + 2.0f * cct * b.ocy;
-      const float cocz = chb * dz + 2.0f * cct * b.ocz;
-      cdx += chb * b.ocx + 2.0f * ca * dx;
-      cdy += chb * b.ocy + 2.0f * ca * dy;
-      cdz += chb * b.ocz + 2.0f * ca * dz;
-      // oc = o - center,  center = alpha + time * beta
-      cox += cocx;
-      coy += cocy;
-      coz += cocz;
-      ccx -= cocx;
-      ccy -= cocy;
-      ccz -= cocz;
-      ctime += b.bx * ccx + b.by * ccy + b.bz * ccz;
+        // t = (o.n - k) / df, df = -d.n:  dt/do = n/df, dt/dd = t n/df,
+        // dt/dn = p/df, dt/dk = -1/df
+        const float cti = ct * b.inv_df;
+        cox += cti * b.pnx;
+        coy += cti * b.pny;
+        coz += cti * b.pnz;
+        cdx += cti * b.t * b.pnx;
+        cdy += cti * b.t * b.pny;
+        cdz += cti * b.t * b.pnz;
 
-      acc(sdt, S, AX, s, ccx);
-      acc(sdt, S, AY, s, ccy);
-      acc(sdt, S, AZ, s, ccz);
-      acc(sdt, S, BX, s, time * ccx);
-      acc(sdt, S, BY, s, time * ccy);
-      acc(sdt, S, BZ, s, time * ccz);
-      acc(sdt, S, R, s, c_r);
-      acc(sdt, S, R2, s, -cct);
-      acc(sdt, S, FUZZ, s, cfuzz);
-      acc(sdt, S, IOR, s, cior);
-      const int c = b.use2 ? C2R : C1R;
-      acc(sdt, S, c + 0, s, ctexr);
-      acc(sdt, S, c + 1, s, ctexg);
-      acc(sdt, S, c + 2, s, ctexb);
+        float cv[KP];  // this bounce's column of d(ptab)
+        cv[P_NX] = cti * b.px;
+        cv[P_NY] = cti * b.py;
+        cv[P_NZ] = cti * b.pz;
+        cv[P_K] = -cti;
+        cv[P_UAX] = cub * b.px;
+        cv[P_UAY] = cub * b.py;
+        cv[P_UAZ] = cub * b.pz;
+        cv[P_CA] = cub;
+        cv[P_UBX] = cvb * b.px;
+        cv[P_UBY] = cvb * b.py;
+        cv[P_UBZ] = cvb * b.pz;
+        cv[P_CB] = cvb;
+        cv[P_S0X] = cnox;
+        cv[P_S0Y] = cnoy;
+        cv[P_S0Z] = cnoz;
+        cv[P_SUX] = b.ub * cnox;
+        cv[P_SUY] = b.ub * cnoy;
+        cv[P_SUZ] = b.ub * cnoz;
+        cv[P_SVX] = b.vb * cnox;
+        cv[P_SVY] = b.vb * cnoy;
+        cv[P_SVZ] = b.vb * cnoz;
+        cv[P_MTYPE] = 0.f;
+        cv[P_FUZZ] = cfuzz;
+        cv[P_IOR] = cior;
+        cv[P_TTYPE] = 0.f;
+        cv[P_C1R] = b.use2 ? 0.f : ctexr;
+        cv[P_C1G] = b.use2 ? 0.f : ctexg;
+        cv[P_C1B] = b.use2 ? 0.f : ctexb;
+        cv[P_C2R] = b.use2 ? ctexr : 0.f;
+        cv[P_C2G] = b.use2 ? ctexg : 0.f;
+        cv[P_C2B] = b.use2 ? ctexb : 0.f;
+        cv[P_TSCALE] = 0.f;
+        if constexpr (kPShared) {
+#pragma unroll
+          for (int j = 0; j < KP; ++j) acc(spt, NR, j, r, cv[j]);
+        } else {
+          add_column(dptab, NR, r, cv);
+        }
+      } else {
+        // n = sgn * outward, outward = (p - c) / r
+        const float csx = b.sgn * cnx, csy = b.sgn * cny, csz = b.sgn * cnz;
+        const float cpsx = cpx + csx / b.r;
+        const float cpsy = cpy + csy / b.r;
+        const float cpsz = cpz + csz / b.r;
+        float ccx = -csx / b.r, ccy = -csy / b.r, ccz = -csz / b.r;
+        const float c_r = -(b.snx * csx + b.sny * csy + b.snz * csz) / b.r;
+
+        // p = o + t d
+        const float ct = dx * cpsx + dy * cpsy + dz * cpsz;
+        cox += cpsx;
+        coy += cpsy;
+        coz += cpsz;
+        cdx += b.t * cpsx;
+        cdy += b.t * cpsy;
+        cdz += b.t * cpsz;
+
+        // t = (-half_b -+ sq) / a, the selected root
+        const float s_r = b.near ? -1.f : 1.f;
+        const float csq = ct * s_r * b.inv_a;
+        float chb = -ct * b.inv_a;
+        float ca = -ct * b.t * b.inv_a;
+        const float cdisc = b.disc > 0.f ? csq / (2.0f * b.sq) : 0.f;
+        chb += 2.0f * b.hb * cdisc;
+        ca -= b.ct * cdisc;
+        const float cct = -b.a * cdisc;
+        // half_b = oc.d ;  c = oc.oc - r2 ;  a = d.d
+        const float cocx = chb * dx + 2.0f * cct * b.ocx;
+        const float cocy = chb * dy + 2.0f * cct * b.ocy;
+        const float cocz = chb * dz + 2.0f * cct * b.ocz;
+        cdx += chb * b.ocx + 2.0f * ca * dx;
+        cdy += chb * b.ocy + 2.0f * ca * dy;
+        cdz += chb * b.ocz + 2.0f * ca * dz;
+        // oc = o - center,  center = alpha + time * beta
+        cox += cocx;
+        coy += cocy;
+        coz += cocz;
+        ccx -= cocx;
+        ccy -= cocy;
+        ccz -= cocz;
+        ctime += b.bx * ccx + b.by * ccy + b.bz * ccz;
+
+        acc(sdt, S, AX, s, ccx);
+        acc(sdt, S, AY, s, ccy);
+        acc(sdt, S, AZ, s, ccz);
+        acc(sdt, S, BX, s, time * ccx);
+        acc(sdt, S, BY, s, time * ccy);
+        acc(sdt, S, BZ, s, time * ccz);
+        acc(sdt, S, R, s, c_r);
+        acc(sdt, S, R2, s, -cct);
+        acc(sdt, S, FUZZ, s, cfuzz);
+        acc(sdt, S, IOR, s, cior);
+        const int c = b.use2 ? C2R : C1R;
+        acc(sdt, S, c + 0, s, ctexr);
+        acc(sdt, S, c + 1, s, ctexg);
+        acc(sdt, S, c + 2, s, ctexb);
+      }
     }
     d_o[3 * i + 0] = cox;
     d_o[3 * i + 1] = coy;
@@ -470,6 +672,30 @@ replay_bwd_kernel(const float* __restrict__ tab, const float* __restrict__ bg,
   }
   if (threadIdx.x < 3 && sbg[threadIdx.x] != 0.f)
     atomicAdd(d_bg + threadIdx.x, sbg[threadIdx.x]);
+  if constexpr (kPla && kPShared) {
+    for (int j = threadIdx.x; j < n_ptab; j += kBlock) {
+      const float v = spt[j];
+      if (v != 0.f) atomicAdd(dptab + j, v);
+    }
+  }
+}
+
+template <bool kSph, bool kPla, bool kPShared>
+int launch(const float* ktab, const float* ptab, const float* bg,
+           const float* o, const float* d, const float* time,
+           const int* ray_id, const int* codes, const float* g,
+           const Launch& L, long long smem, float* scratch, float* dtab,
+           float* dptab, float* d_o, float* d_d, float* d_time, float* d_bg,
+           cudaStream_t stream) {
+  auto* kernel = replay_bwd_kernel<kSph, kPla, kPShared>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (L.n + kBlock - 1) / kBlock;
+  kernel<<<grid, kBlock, (size_t)smem, stream>>>(
+      ktab, ptab, bg, o, d, time, ray_id, codes, g, L, scratch, dtab, dptab,
+      d_o, d_d, d_time, d_bg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace bwd
@@ -477,9 +703,11 @@ replay_bwd_kernel(const float* __restrict__ tab, const float* __restrict__ bg,
 
 extern "C" {
 
-// Shared memory the kernel needs for S spheres, in bytes.
-long long rtw_replay_bwd_smem_bytes(int n_spheres) {
-  return (long long)(rtw::bwd::KT * (long long)n_spheres + 3) * sizeof(float);
+// Shared memory the kernel needs for S spheres and, when d(ptab) is kept in
+// shared memory, R planar primitives (else pass 0), in bytes.
+long long rtw_replay_bwd_smem_bytes(int n_spheres, int n_planar_shared) {
+  return ((long long)rtw::bwd::KT * n_spheres + 3 +
+          (long long)rtw::bwd::KP * n_planar_shared) * (long long)sizeof(float);
 }
 
 // The largest dynamic shared memory a block may opt in to on the current
@@ -492,29 +720,47 @@ int rtw_replay_bwd_smem_limit(int* bytes) {
       bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// Runs the replay backward for n lanes on `stream`. `dtab` (KT x S) and
-// `d_bg` (3) must be zero on entry: the kernel adds into them. `scratch`
-// holds max_depth * 9 * n floats. Returns the first CUDA error (0 on
-// success); it does not sync.
-int rtw_replay_bwd(const float* ktab, int n_spheres, const float* bg,
+// Runs the replay backward for n lanes on `stream`: sphere table `ktab`
+// (KT x n_spheres) and planar table `ptab` (KP x n_planar), either count 0
+// (and its table unused) but not both. `dtab`, `dptab` and `d_bg` must be
+// zero on entry: the kernel adds into them. With `planar_shared` each
+// block reduces d(ptab) in shared memory, else by warp-aggregated global
+// atomics. `scratch` holds max_depth * 9 * n floats. Returns the first CUDA
+// error (0 on success); it does not sync.
+int rtw_replay_bwd(const float* ktab, int n_spheres, const float* ptab,
+                   int n_planar, int planar_shared, const float* bg,
                    const float* o, const float* d, const float* time,
                    const int* ray_id, const int* codes, const float* g, int n,
                    int max_depth, float t_min, unsigned int seed,
-                   float* scratch, float* dtab, float* d_o, float* d_d,
-                   float* d_time, float* d_bg, void* stream) {
+                   float* scratch, float* dtab, float* dptab, float* d_o,
+                   float* d_d, float* d_time, float* d_bg, void* stream) {
+  using namespace rtw::bwd;
   if (n <= 0) return 0;
-  const long long smem = rtw_replay_bwd_smem_bytes(n_spheres);
-  cudaError_t err = cudaFuncSetAttribute(
-      rtw::bwd::replay_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rtw::bwd::Launch L{n, n_spheres, max_depth, t_min, seed};
-  const int grid = (n + rtw::bwd::kBlock - 1) / rtw::bwd::kBlock;
-  rtw::bwd::replay_bwd_kernel<<<grid, rtw::bwd::kBlock, (size_t)smem,
-                                (cudaStream_t)stream>>>(
-      ktab, bg, o, d, time, ray_id, codes, g, L, scratch, dtab, d_o, d_d,
-      d_time, d_bg);
-  return (int)cudaGetLastError();
+  if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
+  const Launch L{n, n_spheres, n_planar, max_depth, t_min, seed};
+  const long long smem =
+      rtw_replay_bwd_smem_bytes(n_spheres, planar_shared ? n_planar : 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n_planar == 0)
+    return launch<true, false, true>(ktab, ptab, bg, o, d, time, ray_id,
+                                     codes, g, L, smem, scratch, dtab, dptab,
+                                     d_o, d_d, d_time, d_bg, st);
+  if (n_spheres == 0) {
+    if (planar_shared)
+      return launch<false, true, true>(ktab, ptab, bg, o, d, time, ray_id,
+                                       codes, g, L, smem, scratch, dtab,
+                                       dptab, d_o, d_d, d_time, d_bg, st);
+    return launch<false, true, false>(ktab, ptab, bg, o, d, time, ray_id,
+                                      codes, g, L, smem, scratch, dtab, dptab,
+                                      d_o, d_d, d_time, d_bg, st);
+  }
+  if (planar_shared)
+    return launch<true, true, true>(ktab, ptab, bg, o, d, time, ray_id,
+                                    codes, g, L, smem, scratch, dtab, dptab,
+                                    d_o, d_d, d_time, d_bg, st);
+  return launch<true, true, false>(ktab, ptab, bg, o, d, time, ray_id, codes,
+                                   g, L, smem, scratch, dtab, dptab, d_o, d_d,
+                                   d_time, d_bg, st);
 }
 
 }  // extern "C"

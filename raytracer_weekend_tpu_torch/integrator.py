@@ -1,5 +1,6 @@
-"""Wavefront path-tracing integrator for sphere scenes (port of `integrator.py`).
+"""Wavefront path-tracing integrator (port of `integrator.py`).
 
+Spheres, axis-aligned rects and triangles; volumes are not ported yet.
 The reference's recursion `emitted + attenuation * sample_ray(...)` is
 re-associated into the iterative form
 
@@ -8,7 +9,9 @@ re-associated into the iterative form
 
 carried through a loop over bounce depth with SoA ray state. A miss adds
 `throughput * background` and stops the lane; a light or an absorbing metal
-stops it too.
+stops it too. Each family's staged kernel gives its closest candidate per
+ray, and the families merge in the JAX order (spheres, rects, triangles)
+with a strict `<`, so on an exact tie the earlier family keeps the lane.
 
 `render_image` dispatches on the scene's device:
   * CUDA, and `fused_supported`: the hand-written CUDA megakernel
@@ -28,22 +31,18 @@ from raytracer_weekend_tpu_torch import materials as mat_mod
 from raytracer_weekend_tpu_torch import rng as rt_rng
 from raytracer_weekend_tpu_torch.camera import Camera, get_rays
 from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.ops import rect as rect_ops
 from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
+from raytracer_weekend_tpu_torch.ops import triangle as tri_ops
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
 from raytracer_weekend_tpu_torch.vecmath import dot
 
 _INF = math.inf
 
 # Family ids for the winner select.
-_FAM_NONE, _FAM_SPHERE = -1, 0
+_FAM_NONE, _FAM_SPHERE, _FAM_RECT, _FAM_TRI = -1, 0, 1, 2
 
-_NOT_PORTED = ("rects, triangles and volumes are not ported yet "
-               "(ROADMAP Queue 1: planar family, volumes)")
-
-
-def _check_spheres_only(static: SceneStatic) -> None:
-    if static.n_rects or static.n_triangles or static.n_volumes:
-        raise NotImplementedError(_NOT_PORTED)
+_NOT_PORTED = "volumes are not ported yet (ROADMAP Queue 1, 'Volumes')"
 
 
 def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
@@ -53,12 +52,21 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
     t_best = torch.full((B,), _INF, device=o.device)
     fam = torch.full((B,), _FAM_NONE, dtype=torch.int32, device=o.device)
     idx = torch.zeros((B,), dtype=torch.int64, device=o.device)
+    hits = []
     if static.n_spheres:
-        t_s, i_s = sphere_ops.hit_spheres(scene.spheres, o, d, time, cfg.t_min)
-        better = t_s < t_best
-        t_best = torch.where(better, t_s, t_best)
-        fam = torch.where(better, _FAM_SPHERE, fam)
-        idx = torch.where(better, i_s, idx)
+        hits.append((_FAM_SPHERE, sphere_ops.hit_spheres(
+            scene.spheres, o, d, time, cfg.t_min)))
+    if static.n_rects:
+        hits.append((_FAM_RECT, rect_ops.hit_rects(scene.rects, o, d,
+                                                   cfg.t_min)))
+    if static.n_triangles:
+        hits.append((_FAM_TRI, tri_ops.hit_triangles(scene.triangles, o, d,
+                                                     cfg.t_min)))
+    for fam_id, (t_new, i_new) in hits:
+        better = t_new < t_best
+        t_best = torch.where(better, t_new, t_best)
+        fam = torch.where(better, fam_id, fam)
+        idx = torch.where(better, i_new, idx)
     return t_best, fam, idx
 
 
@@ -72,12 +80,22 @@ def _hit_record(scene: SceneData, static: SceneStatic, o, d, time, t, fam,
     v = torch.zeros((B,), device=o.device)
     mat_id = torch.zeros((B,), dtype=torch.int32, device=o.device)
 
-    # Guard t for missed lanes so records never see inf.
+    # Guard t for missed lanes so records never see inf; each family reads
+    # row 0 for the lanes another family won.
     t_safe = torch.where(torch.isfinite(t), t, 0.0)
+    records = []
     if static.n_spheres:
-        rp, rn, ru, rv, rm = sphere_ops.sphere_record(scene.spheres, idx, o, d,
-                                                      time, t_safe)
-        m = fam == _FAM_SPHERE
+        records.append((_FAM_SPHERE, lambda i: sphere_ops.sphere_record(
+            scene.spheres, i, o, d, time, t_safe)))
+    if static.n_rects:
+        records.append((_FAM_RECT, lambda i: rect_ops.rect_record(
+            scene.rects, i, o, d, t_safe)))
+    if static.n_triangles:
+        records.append((_FAM_TRI, lambda i: tri_ops.triangle_record(
+            scene.triangles, i, o, d, t_safe)))
+    for fam_id, record in records:
+        m = fam == fam_id
+        rp, rn, ru, rv, rm = record(torch.where(m, idx, 0))
         p = torch.where(m[:, None], rp, p)
         outward = torch.where(m[:, None], rn, outward)
         u = torch.where(m, ru, u)
@@ -111,11 +129,14 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     """`trace_rays` with per-lane segment counts -> ((B,3) f32, (B,) int32).
 
     With `emit_paths`, also the per-bounce winner codes (B, max_depth)
-    int32: 1 + 4*idx where the lane was alive and hit sphere `idx`, else 0
-    (the JAX megakernel's `emit_paths` codes, there f32). `replay.replay_rays`
+    int32, where the lane was alive and hit: 1 + 4*idx for sphere `idx`,
+    2 + 4*idx for planar primitive `idx` of the unified planar index (rects
+    first, then triangles offset by `static.n_rects`); else 0. These are the
+    JAX megakernel's `emit_paths` codes (there f32); `replay.replay_rays`
     re-traces a path from them.
     """
-    _check_spheres_only(static)
+    if static.n_volumes:
+        raise NotImplementedError(_NOT_PORTED)
     B = o.shape[0]
     background = scene.background
     throughput = torch.ones((B, 3), device=o.device)
@@ -135,8 +156,12 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                                           throughput * background, 0.0)
         alive = alive & hit_mask
         if emit_paths:
-            codes.append(torch.where(alive & (fam == _FAM_SPHERE),
-                                     1 + 4 * idx.to(torch.int32), 0))
+            idx32 = idx.to(torch.int32)
+            planar = torch.where(fam == _FAM_TRI, idx32 + static.n_rects,
+                                 idx32)
+            code = torch.where(fam == _FAM_SPHERE, 1 + 4 * idx32,
+                               2 + 4 * planar)
+            codes.append(torch.where(alive, code, 0))
 
         p, normal, front_face, u, v, mat_id = _hit_record(
             scene, static, o, d, time, t, fam, idx)
@@ -215,9 +240,9 @@ def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     use_fused = fused_eligible(static, cfg, device)
     if device.type == "cuda" and not use_fused:
         raise NotImplementedError(
-            "on CUDA the port renders sphere-only scenes with solid/checker "
-            "Lambertian/Metal/Dielectric/DiffuseLight materials; this scene "
-            f"is outside that slice ({static})")
+            "on CUDA the port renders sphere, rect and triangle scenes with "
+            "solid/checker/uv-debug Lambertian/Metal/Dielectric/DiffuseLight "
+            f"materials; this scene is outside that slice ({static})")
 
     chunks = []
     for start in range(0, n_lanes, batch):

@@ -1,18 +1,35 @@
-"""The sphere scenes of the catalog (port of `models/scenes.py`).
+"""The sphere and planar scenes of the catalog (port of `models/scenes.py`).
 
 Each generator returns (objects, cameras, background), with the same
 geometry, materials, camera parameters and seeded numpy draws as the JAX
-package's, so both builders compile them to bit-equal tables.
+package's, so both builders compile them to bit-equal tables. The catalog's
+noise, image-texture and constant-medium scenes wait for their families
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from raytracer_weekend_tpu_torch.camera import Camera, make_camera
 from raytracer_weekend_tpu_torch.scene import builder as B
+from raytracer_weekend_tpu_torch.scene.objloader import load_wavefront_obj
 
 DEFAULT_BACKGROUND = (0.7, 0.8, 1.0)
+_DIM_SKY = (0.085, 0.1, 0.125)
+
+# Model assets live in the repository's models/ directory.
+_MODEL_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "models")
+
+
+def model_path(name: str) -> str:
+    p = os.path.join(_MODEL_DIR, name)
+    if not os.path.exists(p):
+        raise FileNotFoundError(f"model asset {name} not found in "
+                                f"{os.path.normpath(_MODEL_DIR)}")
+    return p
 
 
 def _cam(look_from, look_at, vfov, aspect, aperture=0.0, focus=10.0,
@@ -69,9 +86,94 @@ def two_spheres(aspect, seed=0):
     return objs, [_cam((13, 2, 3), (0, 0, 0), 40.0, aspect)], DEFAULT_BACKGROUND
 
 
+def cornell_box(aspect, seed=0):
+    """Rect walls, a ceiling light, two rotated cuboids (as triangles)."""
+    red = B.Lambertian((0.65, 0.05, 0.05))
+    white = B.Lambertian((0.73, 0.73, 0.73))
+    green = B.Lambertian((0.12, 0.45, 0.15))
+    light = B.DiffuseLight((15.0, 15.0, 15.0))
+    objs = [
+        B.YZRectangle(0.0, 555.0, 0.0, 555.0, 555.0, green),
+        B.YZRectangle(0.0, 555.0, 0.0, 555.0, 0.0, red),
+        B.XZRectangle(213.0, 343.0, 227.0, 332.0, 554.0, light),
+        B.XZRectangle(0.0, 555.0, 0.0, 555.0, 0.0, white),
+        B.XZRectangle(0.0, 555.0, 0.0, 555.0, 555.0, white),
+        B.XYRectangle(0.0, 555.0, 0.0, 555.0, 555.0, white),
+        B.Cuboid((0, 0, 0), (165, 330, 165), white)
+         .rotate_y(15.0).translate((265, 0, 295)),
+        B.Cuboid((0, 0, 0), (165, 165, 165), white)
+         .rotate_y(-18.0).translate((130, 0, 65)),
+    ]
+    cam = _cam((278, 278, -800), (278, 278, 0), 40.0, aspect)
+    return objs, [cam], (0.0, 0.0, 0.0)
+
+
+def simple_triangle(aspect, seed=0):
+    """A UV-debug triangle over a checker ground sphere."""
+    objs = [
+        B.Sphere((0, -10, 0), 10.0, B.Lambertian(_checker())),
+        B.Triangle.flat_shaded(((-5, 0, 5), (0, 7, 0), (5, 0, -5)),
+                               B.Lambertian(B.UVDebug())),
+    ]
+    return objs, [_cam((13, 2, 3), (0, 2.5, 0), 40.0, aspect)], DEFAULT_BACKGROUND
+
+
+def wavefront_cow_obj(aspect, seed=0):
+    """cow-nonormals.obj (5,804 triangles, face normals, no usemtl: the
+    magenta light fallback) + an area light + a checker ground."""
+    cow = load_wavefront_obj(model_path("cow-nonormals.obj"))
+    cow = [t.translate((0.0, 2.5, 0.0)) for t in cow]
+    objs = [
+        B.Sphere((0, -10.6, 0), 10.0, B.Lambertian(_checker())),
+        B.XYRectangle(1.0, 5.0, 1.0, 7.0, 5.0,
+                      B.DiffuseLight((1.4, 1.3, 1.3))),
+        cow,
+    ]
+    return objs, [_cam((13, 2, 3), (0, 2.5, 0), 40.0, aspect)], _DIM_SKY
+
+
+def wavefront_suspension_obj(aspect, seed=0):
+    """Normals_Try3.obj (vertex normals) + an area light."""
+    susp = load_wavefront_obj(model_path("Normals_Try3.obj"))
+    susp = [t.translate((0.0, 2.5, 0.0)) for t in susp]
+    objs = [
+        B.XYRectangle(-5.0, 5.0, -7.0, 7.0, 1.0,
+                      B.DiffuseLight((1.2, 1.0, 1.0))),
+        susp,
+    ]
+    cam = _cam((0.5, 2.5, 0.8), (-0.1, 2.3, 0.15), 40.0, aspect)
+    return objs, [cam], _DIM_SKY
+
+
+def mesh_shards(aspect, seed=0):
+    """Not a catalog scene: the smooth-normal mesh of the JAX package's
+    tests (tests/test_megakernel.py, `mesh_scene`), 40 random triangles with
+    random vertex normals between a floor rect and a light rect. The kernel
+    tests use it for the interpolated shading normal."""
+    rng = np.random.default_rng(42)
+    objs = [B.XZRectangle(-6, 6, -6, 6, -1.2, B.Lambertian((0.6, 0.6, 0.6))),
+            B.XZRectangle(-2, 2, -2, 2, 4.0, B.DiffuseLight((4, 4, 4)))]
+    mats = [B.Lambertian((0.8, 0.3, 0.3)), B.Metal((0.9, 0.9, 0.9), 0.05)]
+    for i in range(40):
+        v = rng.uniform(-2, 2, (3, 3)).astype(np.float32)
+        n = rng.normal(size=(3, 3)).astype(np.float32) * 1.5
+        objs.append(B.Triangle(
+            tuple(tuple(float(c) for c in x) for x in v), mats[i % 2],
+            normals=tuple(tuple(float(c) for c in x) for x in n)))
+    cam = make_camera(look_from=(0, 1, -8), look_at=(0, 0, 0),
+                      up_vector=(0, 1, 0), vertical_field_of_view=45.0,
+                      aspect_ratio=aspect, aperture=0.0, focus_dist=8.0,
+                      time0=0.0, time1=1.0)
+    return objs, [cam], (0.05, 0.05, 0.08)
+
+
 SCENES = {
     "jumpy_balls": jumpy_balls,
     "two_spheres": two_spheres,
+    "cornell_box": cornell_box,
+    "simple_triangle": simple_triangle,
+    "wavefront_cow_obj": wavefront_cow_obj,
+    "wavefront_suspension_obj": wavefront_suspension_obj,
 }
 
 

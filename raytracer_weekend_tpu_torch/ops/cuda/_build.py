@@ -101,14 +101,14 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.rtw_render_fused.argtypes = [_P, _I, _P, _LL, _I, _I, _I, _I, _I,
-                                         _F, _U, _P, _P, _P, _P]
+        lib.rtw_render_fused.argtypes = [_P, _I, _P, _I, _P, _LL, _I, _I, _I,
+                                         _I, _I, _F, _U, _P, _P, _P, _P]
         lib.rtw_render_fused.restype = _I
-        lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                       _I, _I, _F, _U, _P, _P, _P, _P, _P,
-                                       _P, _P]
+        lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P,
+                                       _P, _P, _P, _I, _I, _F, _U, _P, _P,
+                                       _P, _P, _P, _P, _P, _P]
         lib.rtw_replay_bwd.restype = _I
-        lib.rtw_replay_bwd_smem_bytes.argtypes = [_I]
+        lib.rtw_replay_bwd_smem_bytes.argtypes = [_I, _I]
         lib.rtw_replay_bwd_smem_bytes.restype = _LL
         lib.rtw_replay_bwd_smem_limit.argtypes = [_P]
         lib.rtw_replay_bwd_smem_limit.restype = _I

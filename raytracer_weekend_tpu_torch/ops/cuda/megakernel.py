@@ -1,7 +1,8 @@
-"""Fused forward render of sphere scenes: the CUDA megakernel and its plain twin.
+"""Fused forward render: the CUDA megakernel and its plain twin.
 
 Counterpart of `raytracer_weekend_tpu/ops/pallas/megakernel.py`, sphere
-branch. `render_fused` renders a window of lanes (lane = pixel*spp + sample)
+branch (K1) and planar branch (K3: axis-aligned rects and triangles in one
+table). `render_fused` renders a window of lanes (lane = pixel*spp + sample)
 and returns per-lane radiance and traced segment counts:
 
   * for a scene on a CUDA device it launches the hand-written kernel in
@@ -12,29 +13,32 @@ and returns per-lane radiance and traced segment counts:
     what the CUDA kernel is held against on the card.
 
 With `emit_paths=True` it also returns the per-bounce winner codes (n, D)
-int32, 1 + 4*idx where the lane was alive and hit sphere idx, else 0: the
+int32 where the lane was alive and hit: 1 + 4*idx for sphere idx, 2 + 4*idx
+for planar primitive idx (rects first, then triangles); else 0. That is the
 JAX kernel's `emit_paths` output (there f32), which the backward replays
 (`fused_diff.py`).
 
 None of the JAX kernel's TPU layout is carried over (K-split bf16 tables,
-one-hot MXU gathers, sublane planes, chunk lists, peeled primaries, block
-tiling, deep-phase compaction): a thread carries a lane and reads sphere rows
-by index.
+one-hot MXU gathers, sublane planes, chunk lists and their AABB culling,
+`p_stream`, peeled primaries, block tiling, deep-phase compaction): a thread
+carries a lane and reads table rows by index.
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytracer_weekend_tpu_torch import integrator
+from raytracer_weekend_tpu_torch import integrator, replay
 from raytracer_weekend_tpu_torch.camera import Camera
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
 
 # Launches of the CUDA kernel in this process, without and with the winner
-# codes. Only the launch in `render_fused` adds to them.
+# codes, and those whose scene has planar primitives (the planar branch,
+# with or without codes). Only the launch in `render_fused` adds to them.
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
+PLANAR_LAUNCHES = 0
 
 # Rows of the sphere table, in the order of `enum Row` in csrc/megakernel.cu.
 TABLE_ROWS = (
@@ -43,21 +47,31 @@ TABLE_ROWS = (
     "c1r", "c1g", "c1b", "c2r", "c2g", "c2b", "tscale",
 )
 PAR_SIZE = 24
+# Rows of the planar table, in the order of `enum PRow` in csrc/megakernel.cu.
+# The shading rows (mtype .. tscale) sit at the sphere table's row numbers.
+PLANAR_ROWS = (
+    "nx", "ny", "nz", "k", "uax", "uay", "uaz", "ca", "ubx", "uby", "ubz",
+    "mtype", "fuzz", "ior", "ttype",
+    "c1r", "c1g", "c1b", "c2r", "c2g", "c2b", "tscale",
+    "cb", "flag", "ns0x", "ns0y", "ns0z", "nsux", "nsuy", "nsuz",
+    "nsvx", "nsvy", "nsvz", "tu0", "tuu", "tuv", "tv0", "tvu", "tvv",
+)
+assert PLANAR_ROWS[11:22] == TABLE_ROWS[11:22]
 
 
 def fused_supported(static: SceneStatic, cfg: RenderConfig) -> bool:
     """The CUDA megakernel renders this (scene, config).
 
-    Sphere-only scenes whose materials are Lambertian/Metal/Dielectric/
-    DiffuseLight over solid or checker textures. The JAX kernel's
-    2048-sphere cap came from TPU VMEM and is not carried over.
+    Scenes of spheres and/or rects and triangles that the builder marks
+    `fused_simple` (Lambertian/Metal/Dielectric/DiffuseLight materials over
+    solid, checker or, on planar primitives, uv-debug textures), without
+    volumes, noise or image textures. The JAX kernel's 2,048-sphere and
+    128k-primitive caps came from TPU VMEM and are not carried over.
     """
     return (static.fused_simple
-            and static.n_spheres > 0
-            and static.n_rects == 0 and static.n_triangles == 0
+            and static.n_spheres + static.n_rects + static.n_triangles > 0
             and static.n_volumes == 0
-            and not (static.has_noise or static.has_image
-                     or static.has_uvdebug)
+            and not (static.has_noise or static.has_image)
             and cfg.width > 1 and cfg.height > 1)
 
 
@@ -87,6 +101,32 @@ def build_sphere_table(scene: SceneData) -> torch.Tensor:
         "tscale": tx.scale[tex],
     }
     return torch.stack([cols[r].to(torch.float32) for r in TABLE_ROWS])
+
+
+def build_planar_table(scene: SceneData, static: SceneStatic) -> torch.Tensor:
+    """(len(PLANAR_ROWS), R) float32 SoA table on the scene's device, R =
+    n_rects + n_triangles, rects first (the unified planar index).
+
+    The coefficients of `replay._pack_planar`, which are the JAX
+    `_build_planar_tables`' without its K-split, sublane stacking or chunks:
+    t = (k - n.o)/(n.d), u = ua.p + ca, v = ub.p + cb, shading normal
+    ns0 + u*nsu + v*nsv, uv-debug coordinates (tu|tv).(1, u, v), and the
+    material and texture rows gathered per primitive; plus the flag row (0
+    rect, 1 triangle). A degenerate triangle has n = 0 and an invalid row
+    gets n = 0, k = 0, so the kernel's t is 0/0 = NaN and never hits.
+    """
+    cols = dict(zip(replay.PLANAR_COLS, replay._pack_planar(scene, static).T))
+    valid, flag = [], []
+    for n, fam, f in ((static.n_rects, scene.rects, 0.0),
+                      (static.n_triangles, scene.triangles, 1.0)):
+        if n:
+            valid.append(fam.valid)
+            flag.append(torch.full_like(fam.valid, f, dtype=torch.float32))
+    valid = torch.cat(valid)
+    cols["flag"] = torch.cat(flag)
+    for key in ("nx", "ny", "nz", "k"):
+        cols[key] = torch.where(valid, cols[key], 0.0)
+    return torch.stack([cols[r].to(torch.float32) for r in PLANAR_ROWS])
 
 
 def pack_par(scene: SceneData, cam: Camera) -> torch.Tensor:
@@ -128,7 +168,7 @@ def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
     scene's device, and with `emit_paths` the winner codes (n_chunk,
     max_depth) int32. The CPU runs the plain version; CUDA runs the kernel.
     """
-    global LAUNCHES, EMIT_LAUNCHES
+    global LAUNCHES, EMIT_LAUNCHES, PLANAR_LAUNCHES
     device = scene.device
     if device.type == "cpu":
         return render_fused_reference(scene, cfg, cam, lane_start, n_chunk,
@@ -150,10 +190,15 @@ def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
     lib = _build.load_library()
-    tab = build_sphere_table(scene)
+    n_spheres = scene.spheres.c0.shape[0] if static.n_spheres else 0
+    n_planar = static.n_rects + static.n_triangles
+    tab = build_sphere_table(scene) if n_spheres else None
+    ptab = build_planar_table(scene, static) if n_planar else None
     par = pack_par(scene, cam)
-    n_spheres = scene.spheres.c0.shape[0]
-    _check(tab, torch.float32, (len(TABLE_ROWS), n_spheres), device)
+    if n_spheres:
+        _check(tab, torch.float32, (len(TABLE_ROWS), n_spheres), device)
+    if n_planar:
+        _check(ptab, torch.float32, (len(PLANAR_ROWS), n_planar), device)
     _check(par, torch.float32, (PAR_SIZE,), device)
     rad = torch.empty((n_chunk, 3), dtype=torch.float32, device=device)
     seg = torch.empty((n_chunk,), dtype=torch.int32, device=device)
@@ -162,12 +207,16 @@ def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rtw_render_fused(
-            tab.data_ptr(), n_spheres, par.data_ptr(), lane_start, n_chunk,
+            tab.data_ptr() if n_spheres else None, n_spheres,
+            ptab.data_ptr() if n_planar else None, n_planar,
+            par.data_ptr(), lane_start, n_chunk,
             cfg.width, cfg.height, cfg.samples_per_pixel, cfg.max_depth,
             float(cfg.t_min), int(seed) & 0xFFFFFFFF, rad.data_ptr(),
             seg.data_ptr(), None if codes is None else codes.data_ptr(),
             stream)
     _build.check(lib, err, "rtw_render_fused launch")
+    if n_planar:
+        PLANAR_LAUNCHES += 1
     if emit_paths:
         EMIT_LAUNCHES += 1
         return rad, seg, codes

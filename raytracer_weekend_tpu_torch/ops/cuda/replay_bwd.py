@@ -1,23 +1,28 @@
-"""Replay backward of the fused render, sphere family: kernel K2 and its twin.
+"""Replay backward of the fused render: kernels K2 (spheres) and K4 (planar).
 
-Counterpart of `raytracer_weekend_tpu/ops/pallas/replay_bwd.py`, sphere
-branch. Given the winner codes that the fused forward recorded
+Counterpart of `raytracer_weekend_tpu/ops/pallas/replay_bwd.py`, sphere and
+planar branches. Given the winner codes that the fused forward recorded
 (`megakernel.render_fused(..., emit_paths=True)`) and the radiance
 cotangent g, `replay_bwd_fused` returns the cotangents of the sphere table
-`pack_ktab(scene)`, of the primary rays (o, d, time) and of the background:
+`pack_ktab(scene)`, of the planar table `pack_ptab(scene, static)`, of the
+primary rays (o, d, time) and of the background:
 
   * for tensors on a CUDA device it launches the hand-written kernel in
     `csrc/replay_bwd.cu` (built at first use by `_build.py`) and raises if
-    the library does not build or load, the table does not fit the block's
-    shared memory, or the launch fails;
+    the library does not build or load, the sphere table does not fit the
+    block's shared memory, or the launch fails. d(ptab) is reduced in the
+    block's shared memory beside d(ktab) when both fit, else by
+    warp-aggregated global atomics (a mesh: the cow's 5,805 primitives
+    need 743 KB);
   * for tensors on the CPU it runs `replay_bwd_reference`: torch.autograd
     through `replay.replay_packed` on the same codes, which is what the
     CUDA kernel is held against on the card.
 
-The host chains the results through the autograd of `pack_ktab` and of
-`integrator._pixel_rays` to the scene and camera leaves (`fused_diff.py`).
-The TPU kernel's (8, L) planes, one-hot MXU gathers and transposes, [hi; lo]
-table split, VMEM stashes and 24-row padding are not carried over.
+The host chains the results through the autograd of `pack_ktab`,
+`pack_ptab` and `integrator._pixel_rays` to the scene and camera leaves
+(`fused_diff.py`). The TPU kernel's (8, L) planes, one-hot MXU gathers and
+transposes, [hi; lo] table split, VMEM stashes and 24-row sphere padding are
+not carried over.
 """
 
 from __future__ import annotations
@@ -29,11 +34,13 @@ import torch
 from raytracer_weekend_tpu_torch import replay
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops.cuda.megakernel import _check
-from raytracer_weekend_tpu_torch.scene.data import SceneData
+from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
 
-# Launches of the CUDA kernel in this process. Only the launch in
-# `replay_bwd_fused` adds to it.
+# Launches of the CUDA kernel in this process, and those whose scene has
+# planar primitives (the planar branch). Only the launch in
+# `replay_bwd_fused` adds to them.
 LAUNCHES = 0
+PLANAR_LAUNCHES = 0
 
 # Rows of the sphere table, in the order of `enum KRow` in
 # csrc/replay_bwd.cu: the first KT columns of replay's packed sphere rows
@@ -42,6 +49,17 @@ LAUNCHES = 0
 KT_ROWS = ("ax", "ay", "az", "bx", "by", "bz", "r", "r2", "mtype", "fuzz",
            "ior", "ttype", "c1r", "c1g", "c1b", "c2r", "c2g", "c2b", "tscale")
 KT = len(KT_ROWS)
+# Rows of the planar table, in the order of `enum PRow` in
+# csrc/replay_bwd.cu: the JAX `pack_ptab` layout, the geometry and shading
+# columns of replay's packed planar rows (`replay._pack_planar`) without the
+# uv-debug affines, then the material tail.
+KP_ROWS = ("nx", "ny", "nz", "k", "uax", "uay", "uaz", "ca", "ubx", "uby",
+           "ubz", "cb", "ns0x", "ns0y", "ns0z", "nsux", "nsuy", "nsuz",
+           "nsvx", "nsvy", "nsvz", "mtype", "fuzz", "ior", "ttype", "c1r",
+           "c1g", "c1b", "c2r", "c2g", "c2b", "tscale")
+KP = len(KP_ROWS)
+# Where each row sits among the packed planar row's columns.
+_KP_COLS = tuple(replay.PLANAR_COLS.index(r) for r in KP_ROWS)
 _STATE = 9   # floats of scratch per lane and bounce: o, d, throughput
 
 
@@ -56,42 +74,71 @@ def pack_ktab(scene: SceneData) -> torch.Tensor:
     return replay._pack_spheres(scene)[:, :KT].T.contiguous()
 
 
-def replay_bwd_reference(ktab, background, cfg: RenderConfig, o, d, time,
-                         ray_id, seed, codes, g):
+def pack_ptab(scene: SceneData, static: SceneStatic) -> torch.Tensor:
+    """(KP, R + T) differentiable planar table of the backward kernel, rects
+    first (the unified planar index).
+
+    The JAX `pack_ptab`: the coefficients of `replay._pack_planar` (plane
+    n and k, in-plane affines ua/ca and ub/cb, shading interpolants ns0,
+    nsu, nsv) and the material/texture tail, as rows. Autograd of this
+    function routes d(ptab) to the scene leaves.
+    """
+    return replay._pack_planar(scene, static)[:, _KP_COLS].T.contiguous()
+
+
+def replay_bwd_reference(ktab, ptab, background, cfg: RenderConfig, o, d,
+                         time, ray_id, seed, codes, g):
     """Plain torch version: the VJP of the replay with cotangent g.
 
-    Returns (dktab (KT,S), d_o (B,3), d_d (B,3), d_time (B,), d_bg (3,)).
+    ktab and ptab as `replay_bwd_fused` takes them, either None. Returns
+    (dktab (KT,S) or None, dptab (KP,R) or None, d_o (B,3), d_d (B,3),
+    d_time (B,), d_bg (3,)).
     """
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_() for t in
-               (ktab, background, o, d, time)]
-        k, bg, o_, d_, t_ = ins
-        pad = torch.zeros((k.shape[1], 2), dtype=k.dtype, device=k.device)
-        sph_tab = torch.cat([k.T, pad], dim=1)
-        rad = replay.replay_packed(sph_tab, bg, cfg, o_, d_, t_, ray_id, seed,
-                                   codes)
-        grads = torch.autograd.grad(rad, ins, grad_outputs=g,
-                                    allow_unused=True)
-    dk, dbg, do, dd, dt = (torch.zeros_like(x) if gr is None else gr
-                           for gr, x in zip(grads, ins))
-    return dk, do, dd, dt, dbg
+        tabs = [None if t is None else t.detach().requires_grad_()
+                for t in (ktab, ptab)]
+        ins = [t.detach().requires_grad_() for t in (background, o, d, time)]
+        k, p = tabs
+        bg, o_, d_, t_ = ins
+        sph = pla = None
+        if k is not None:   # + the image and texture ids, unread
+            sph = torch.cat([k.T, k.new_zeros((k.shape[1], 2))], dim=1)
+        if p is not None:   # + the uv-debug affines, and those ids
+            pla = p.new_zeros((p.shape[1], len(replay.PLANAR_COLS)))
+            pla = pla.index_copy(1, torch.tensor(_KP_COLS, device=p.device),
+                                 p.T)
+        rad = replay.replay_packed(sph, pla, bg, cfg, o_, d_, t_, ray_id,
+                                   seed, codes)
+        wrt = [t for t in tabs if t is not None] + ins
+        grads = iter(torch.autograd.grad(rad, wrt, grad_outputs=g,
+                                         allow_unused=True))
+    out = [None if t is None else next(grads) for t in tabs]
+    out += [next(grads) for _ in ins]
+    dk, dp, dbg, do, dd, dt = (
+        None if x is None else (torch.zeros_like(x) if gr is None else gr)
+        for gr, x in zip(out, tabs + ins))
+    return dk, dp, do, dd, dt, dbg
 
 
-def replay_bwd_fused(ktab, background, cfg: RenderConfig, o, d, time, ray_id,
-                     seed, codes, g, n_chunk: int):
+def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
+                     ray_id, seed, codes, g, n_chunk: int):
     """Run the replay backward over n_chunk lanes.
 
-    ktab (KT, S) f32 from `pack_ktab`; background (3,); o, d (n, 3) and
-    time (n,) the primary rays; ray_id (n,) the lanes' RNG ids; codes
-    (n, max_depth) int32 winner codes; g (n, 3) the radiance cotangent.
-    Returns (dktab (KT,S), d_o (n,3), d_d (n,3), d_time (n,), d_bg (3,)).
-    The CPU runs the plain version; CUDA runs the kernel.
+    ktab (KT, S) f32 from `pack_ktab` and ptab (KP, R) from `pack_ptab`,
+    each None when the scene has no such primitive; background (3,); o, d
+    (n, 3) and time (n,) the primary rays; ray_id (n,) the lanes' RNG ids;
+    codes (n, max_depth) int32 winner codes; g (n, 3) the radiance
+    cotangent. Returns (dktab (KT,S) or None, dptab (KP,R) or None,
+    d_o (n,3), d_d (n,3), d_time (n,), d_bg (3,)). The CPU runs the plain
+    version; CUDA runs the kernel.
     """
-    global LAUNCHES
-    device = ktab.device
+    global LAUNCHES, PLANAR_LAUNCHES
+    if ktab is None and ptab is None:
+        raise ValueError("replay_bwd_fused needs a sphere or a planar table")
+    device = background.device
     n = int(n_chunk)
     if device.type == "cpu":
-        return replay_bwd_reference(ktab, background, cfg, o, d, time,
+        return replay_bwd_reference(ktab, ptab, background, cfg, o, d, time,
                                     ray_id, seed, codes, g)
     if device.type != "cuda":
         raise NotImplementedError(f"no replay backward on {device}")
@@ -99,9 +146,10 @@ def replay_bwd_fused(ktab, background, cfg: RenderConfig, o, d, time, ray_id,
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
     lib = _build.load_library()
-    S = ktab.shape[1]
+    S = 0 if ktab is None else ktab.shape[1]
+    R = 0 if ptab is None else ptab.shape[1]
     D = cfg.max_depth
-    smem = lib.rtw_replay_bwd_smem_bytes(S)
+    smem = lib.rtw_replay_bwd_smem_bytes(S, 0)
     limit = ctypes.c_int(0)   # the opt-in shared memory of one block
     with torch.cuda.device(device):
         err = lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit))
@@ -112,8 +160,10 @@ def replay_bwd_fused(ktab, background, cfg: RenderConfig, o, d, time, ray_id,
             f" in one block's shared memory; this device allows "
             f"{limit.value} bytes, so at most "
             f"{(limit.value - 12) // (4 * KT)} spheres")
+    planar_shared = lib.rtw_replay_bwd_smem_bytes(S, R) <= limit.value
     f32 = torch.float32
-    ktab = ktab.detach().to(f32).contiguous()
+    tabs = [None if t is None else t.detach().to(f32).contiguous()
+            for t in (ktab, ptab)]
     bg = background.detach().to(f32).contiguous()
     o = o.detach().contiguous()
     d = d.detach().contiguous()
@@ -122,14 +172,16 @@ def replay_bwd_fused(ktab, background, cfg: RenderConfig, o, d, time, ray_id,
     rid = ray_id.to(torch.int64) & 0xFFFFFFFF
     rid = torch.where(rid >= 2**31, rid - 2**32, rid).to(torch.int32)
     g = g.detach().to(f32).contiguous()
-    _check(ktab, f32, (KT, S), device)
+    for t, rows, cols in ((tabs[0], KT, S), (tabs[1], KP, R)):
+        if t is not None:
+            _check(t, f32, (rows, cols), device)
     _check(bg, f32, (3,), device)
     for t, shape in ((o, (n, 3)), (d, (n, 3)), (g, (n, 3)), (time, (n,))):
         _check(t, f32, shape, device)
     _check(rid, torch.int32, (n,), device)
     _check(codes, torch.int32, (n, D), device)
 
-    dktab = torch.zeros((KT, S), dtype=f32, device=device)
+    dtabs = [None if t is None else torch.zeros_like(t) for t in tabs]
     d_bg = torch.zeros((3,), dtype=f32, device=device)
     d_o = torch.empty((n, 3), dtype=f32, device=device)
     d_d = torch.empty((n, 3), dtype=f32, device=device)
@@ -137,12 +189,16 @@ def replay_bwd_fused(ktab, background, cfg: RenderConfig, o, d, time, ray_id,
     scratch = torch.empty((D, _STATE, n), dtype=f32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [None if t is None else t.data_ptr() for t in tabs + dtabs]
         err = lib.rtw_replay_bwd(
-            ktab.data_ptr(), S, bg.data_ptr(), o.data_ptr(), d.data_ptr(),
-            time.data_ptr(), rid.data_ptr(), codes.data_ptr(), g.data_ptr(),
-            n, D, float(cfg.t_min), int(seed) & 0xFFFFFFFF,
-            scratch.data_ptr(), dktab.data_ptr(), d_o.data_ptr(),
-            d_d.data_ptr(), d_time.data_ptr(), d_bg.data_ptr(), stream)
+            ptrs[0], S, ptrs[1], R, int(planar_shared), bg.data_ptr(),
+            o.data_ptr(), d.data_ptr(), time.data_ptr(), rid.data_ptr(),
+            codes.data_ptr(), g.data_ptr(), n, D, float(cfg.t_min),
+            int(seed) & 0xFFFFFFFF, scratch.data_ptr(), ptrs[2], ptrs[3],
+            d_o.data_ptr(), d_d.data_ptr(), d_time.data_ptr(),
+            d_bg.data_ptr(), stream)
     _build.check(lib, err, "rtw_replay_bwd launch")
     LAUNCHES += 1
-    return dktab, d_o, d_d, d_time, d_bg
+    if R:
+        PLANAR_LAUNCHES += 1
+    return dtabs[0], dtabs[1], d_o, d_d, d_time, d_bg

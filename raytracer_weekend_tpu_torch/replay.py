@@ -1,11 +1,13 @@
 """Packed-row path replay: the fused render's differentiable backward.
 
-Port of `raytracer_weekend_tpu/replay.py`, sphere family. It re-traces the
-paths that the fused forward recorded as per-bounce winner codes
-(`ops.cuda.megakernel.render_fused(..., emit_paths=True)`), with the O(S)
-closest-hit search replaced by one row lookup per bounce. Under
+Port of `raytracer_weekend_tpu/replay.py`: spheres, rects and triangles. It
+re-traces the paths that the fused forward recorded as per-bounce winner
+codes (`ops.cuda.megakernel.render_fused(..., emit_paths=True)`), with the
+closest-hit search replaced by one row lookup per family and bounce. Under
 `torch.autograd` this function is the backward of the fused render: its
-autograd is the plain version of kernel K2 (`ops/cuda/replay_bwd.py`).
+autograd is the plain version of kernels K2 and K4 (`ops/cuda/replay_bwd.py`),
+and for uv-debug scenes, which those kernels do not cover, it is the
+backward itself (`fused_diff.py`).
 
 Gradient semantics are the staged path's: discrete choices (winners,
 hit/miss, reflect/refract) stay fixed; continuous factors (intersection t,
@@ -24,7 +26,7 @@ from raytracer_weekend_tpu_torch import materials as mat_mod
 from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
-from raytracer_weekend_tpu_torch.vecmath import dot
+from raytracer_weekend_tpu_torch.vecmath import cross, dot
 
 # Family ids inside the winner codes (fam + 4*idx); 0 = miss or dead.
 _C_MISS, _C_SPHERE, _C_PLANAR, _C_VOLUME = 0, 1, 2, 3
@@ -61,6 +63,17 @@ def _tail(row: torch.Tensor, s: int) -> dict:
 
 
 _SPH_TAIL = 8   # alpha(3) beta(3) r r2
+# The columns of a `_pack_planar` row, by name: the geometry and shading
+# coefficients, then the material tail of `_mat_cols`. The kernels' tables
+# (ops/cuda) select their rows from these by name.
+PLANAR_COLS = (
+    "nx", "ny", "nz", "k", "uax", "uay", "uaz", "ca", "ubx", "uby", "ubz",
+    "cb", "ns0x", "ns0y", "ns0z", "nsux", "nsuy", "nsuz", "nsvx", "nsvy",
+    "nsvz", "tu0", "tuu", "tuv", "tv0", "tvu", "tvv",
+    "mtype", "fuzz", "ior", "ttype", "c1r", "c1g", "c1b", "c2r", "c2g", "c2b",
+    "tscale", "img_id", "tid",
+)
+_PLA_TAIL = PLANAR_COLS.index("mtype")
 
 
 def _pack_spheres(scene: SceneData) -> torch.Tensor:
@@ -78,24 +91,85 @@ def _pack_spheres(scene: SceneData) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
-def _tex_value_packed(tail: dict, p: torch.Tensor) -> torch.Tensor:
-    """Texture value from packed row columns: SOLID and CHECKER.
+def _pack_planar(scene: SceneData, static: SceneStatic) -> torch.Tensor:
+    """(R + T, 27 + 13) unified rect + triangle rows, rects first (the
+    fused kernel's planar index order): the geometry affine coefficients
+    n(3) k ua(3) ca ub(3) cb, the shading interpolants ns0 nsu nsv (9), the
+    texture affines tu(3) tv(3), then the material tail.
 
-    The JAX version also evaluates NOISE, IMAGE and UVDEBUG here (the last
-    two from the hit's u, v); `replay_rays` raises for scenes that have
-    them, as `textures.texture_value` does.
+    The coefficient definitions of the JAX `_pack_planar` and of the fused
+    kernel's planar table: t = (k - n.o)/(n.d), u = ua.p + ca,
+    v = ub.p + cb, outward = ns0 + u*nsu + v*nsv, tex_uv = (tu|tv).(1, u, v).
+    """
+    parts = []
+    if static.n_rects:
+        rc = scene.rects
+        f_ax = rc.axis.long()
+        a_ax = torch.where(f_ax == 0, 1, 0)
+        b_ax = torch.where(f_ax == 2, 1, 2)
+        eye = torch.eye(3, dtype=torch.float32, device=f_ax.device)
+        n = eye[f_ax]
+        da = rc.a1 - rc.a0
+        db = rc.b1 - rc.b0
+        inv_da = 1.0 / torch.where(da == 0, 1.0, da)
+        inv_db = 1.0 / torch.where(db == 0, 1.0, db)
+        ua = eye[a_ax] * inv_da[:, None]
+        ub = eye[b_ax] * inv_db[:, None]
+        z = torch.zeros_like(rc.k)
+        z3 = torch.zeros_like(n)
+        one = torch.ones_like(rc.k)
+        geom = [n, rc.k[:, None], ua, (-rc.a0 * inv_da)[:, None],
+                ub, (-rc.b0 * inv_db)[:, None],
+                n, z3, z3,                                    # ns0/nsu/nsv
+                torch.stack([z, one, z], 1), torch.stack([z, z, one], 1)]
+        parts.append(torch.cat(geom + _mat_cols(scene, rc.mat), dim=1))
+    if static.n_triangles:
+        tr = scene.triangles
+        ab = tr.v1 - tr.v0
+        ac = tr.v2 - tr.v0
+        n = cross(ab, ac)
+        nsq = torch.sum(n * n, dim=1)
+        inv_nsq = (1.0 / torch.where(nsq == 0, 1.0, nsq))[:, None]
+        ua = cross(ac, n) * inv_nsq
+        ub = cross(n, ab) * inv_nsq
+        uv0 = tr.uv0
+        geom = [n, torch.sum(n * tr.v0, dim=1)[:, None],
+                ua, -torch.sum(ua * tr.v0, dim=1)[:, None],
+                ub, -torch.sum(ub * tr.v0, dim=1)[:, None],
+                tr.n0, tr.n1 - tr.n0, tr.n2 - tr.n0,
+                torch.stack([uv0[:, 0], (tr.uv1 - uv0)[:, 0],
+                             (tr.uv2 - uv0)[:, 0]], 1),
+                torch.stack([uv0[:, 1], (tr.uv1 - uv0)[:, 1],
+                             (tr.uv2 - uv0)[:, 1]], 1)]
+        parts.append(torch.cat(geom + _mat_cols(scene, tr.mat), dim=1))
+    return torch.cat(parts, dim=0)
+
+
+def _tex_value_packed(tail: dict, u: torch.Tensor, v: torch.Tensor,
+                      p: torch.Tensor) -> torch.Tensor:
+    """Texture value from packed row columns: SOLID, CHECKER and UVDEBUG.
+
+    The JAX version also evaluates NOISE and IMAGE here; `replay_rays`
+    raises for scenes that have them, as `textures.texture_value` does.
     """
     sines = torch.prod(torch.sin(tail["scale"][:, None] * p), dim=-1)
     odd = (tail["ttype"] == tex_mod.CHECKER) & (sines < 0.0)
-    return torch.where(odd[:, None], tail["c2"], tail["c1"])
+    out = torch.where(odd[:, None], tail["c2"], tail["c1"])
+    uvdbg = torch.stack([u, v, torch.zeros_like(u)], dim=-1)
+    return torch.where((tail["ttype"] == tex_mod.UVDEBUG)[:, None], uvdbg,
+                       out)
 
 
 def _check_replay_scope(static: SceneStatic) -> None:
-    from raytracer_weekend_tpu_torch.integrator import _check_spheres_only
-
-    _check_spheres_only(static)
-    if static.has_noise or static.has_image or static.has_uvdebug:
-        raise NotImplementedError(tex_mod._NOT_PORTED)
+    """The scenes the fused forward records codes for, without volumes."""
+    if static.n_volumes or static.has_noise or static.has_image:
+        raise NotImplementedError(
+            "replay covers sphere, rect and triangle scenes with solid, "
+            f"checker and uv-debug textures: {static}")
+    if not static.fused_simple:
+        raise NotImplementedError(
+            f"replay needs a fused_simple scene (uv-debug on planar "
+            f"primitives only): {static}")
 
 
 def replay_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
@@ -104,23 +178,29 @@ def replay_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     """Differentiable radiance replay along saved winner paths -> (B,3).
 
     `codes` (B, max_depth) int32 are the fused forward's per-bounce winner
-    records (fam + 4*idx; 0 = miss or dead). Sphere scenes with solid or
-    checker textures; planar, volume, noise, image and uv-debug scenes
-    raise `NotImplementedError`.
+    records (fam + 4*idx; 0 = miss or dead). Sphere, rect and triangle
+    scenes with solid, checker or (planar) uv-debug textures; volume, noise
+    and image scenes raise `NotImplementedError`.
     """
     _check_replay_scope(static)
-    return replay_packed(_pack_spheres(scene), scene.background, cfg, o, d,
-                         time, ray_id, seed, codes)
+    sph = _pack_spheres(scene) if static.n_spheres else None
+    pla = (_pack_planar(scene, static)
+           if static.n_rects or static.n_triangles else None)
+    return replay_packed(sph, pla, scene.background, cfg, o, d, time, ray_id,
+                         seed, codes)
 
 
-def replay_packed(sph_tab: torch.Tensor, background: torch.Tensor,
+def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
                   cfg: RenderConfig, o: torch.Tensor, d: torch.Tensor,
                   time: torch.Tensor, ray_id: torch.Tensor, seed,
                   codes: torch.Tensor) -> torch.Tensor:
-    """`replay_rays` on a packed sphere table (S, 21) -> (B,3).
+    """`replay_rays` on packed tables -> (B,3).
 
-    The body of the JAX `replay_rays` bounce scan, sphere arm. Gradients
-    reach `sph_tab`, `background`, `o`, `d` and `time`.
+    sph_tab (S, 21) from `_pack_spheres` and pla_tab (R + T, 40) from
+    `_pack_planar`, each None when its family is absent. The body of the JAX `replay_rays`
+    bounce scan. Gradients reach both tables, `background`, `o`, `d` and
+    `time`. A sphere's texture sees (u, v) = (0, 0): uv-debug textures sit
+    on planar primitives only (`_check_replay_scope`).
     """
     B = o.shape[0]
     dev = o.device
@@ -128,38 +208,74 @@ def replay_packed(sph_tab: torch.Tensor, background: torch.Tensor,
     throughput = torch.ones((B, 3), device=dev)
     radiance = torch.zeros((B, 3), device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
+    zero = torch.zeros((B,), device=dev)
 
     for depth in range(cfg.max_depth):
         code = codes[:, depth]
         hit_mask = alive & (code > 0)
-        is_sph = hit_mask & ((code & 3) == _C_SPHERE)
-        idx = torch.where(is_sph, code >> 2, 0)
+        fam = code & 3
+        is_sph = hit_mask & (fam == _C_SPHERE)
+        is_pla = hit_mask & (fam == _C_PLANAR)
 
         a = dot(d, d)
-        row = sph_tab[idx]                                   # (B, 21)
-        alpha, beta = row[:, 0:3], row[:, 3:6]
-        r, r2 = row[:, 6], row[:, 7]
-        tail = _tail(row, _SPH_TAIL)
-        center = alpha + time[:, None] * beta
-        oc = o - center
-        half_b = dot(oc, d)
-        c_term = dot(oc, oc) - r2
-        disc = half_b * half_b - a * c_term
-        sq = torch.sqrt(torch.where(disc > 0, disc, 1.0))
-        inv_a = 1.0 / a
-        root1 = (-half_b - sq) * inv_a
-        root2 = (-half_b + sq) * inv_a
-        t_s = torch.where(root1 >= cfg.t_min, root1, root2)
-        p_s = o + t_s[:, None] * d
-        out_s = (p_s - center) / r[:, None]
-        m = is_sph[:, None]
-        p = torch.where(m, p_s, o)
-        outward = torch.where(m, out_s, torch.tensor([1.0, 0.0, 0.0],
-                                                     device=dev))
-        mtype = torch.where(is_sph, tail["mtype"], 0)
-        fuzz = torch.where(is_sph, tail["fuzz"], 0.0)
-        ior = torch.where(is_sph, tail["ior"], 1.0)
-        texc = torch.where(m, _tex_value_packed(tail, p_s), 1.0)
+        p = o
+        outward = torch.tensor([1.0, 0.0, 0.0], device=dev).expand(B, 3)
+        mtype = torch.zeros((B,), dtype=torch.int32, device=dev)
+        fuzz = zero
+        ior = torch.ones((B,), device=dev)
+        texc = torch.ones((B, 3), device=dev)
+
+        if sph_tab is not None:
+            row = sph_tab[torch.where(is_sph, code >> 2, 0)]     # (B, 21)
+            alpha, beta = row[:, 0:3], row[:, 3:6]
+            r, r2 = row[:, 6], row[:, 7]
+            tail = _tail(row, _SPH_TAIL)
+            center = alpha + time[:, None] * beta
+            oc = o - center
+            half_b = dot(oc, d)
+            c_term = dot(oc, oc) - r2
+            disc = half_b * half_b - a * c_term
+            sq = torch.sqrt(torch.where(disc > 0, disc, 1.0))
+            inv_a = 1.0 / a
+            root1 = (-half_b - sq) * inv_a
+            root2 = (-half_b + sq) * inv_a
+            t_s = torch.where(root1 >= cfg.t_min, root1, root2)
+            p_s = o + t_s[:, None] * d
+            out_s = (p_s - center) / r[:, None]
+            m = is_sph
+            p = torch.where(m[:, None], p_s, p)
+            outward = torch.where(m[:, None], out_s, outward)
+            mtype = torch.where(m, tail["mtype"], mtype)
+            fuzz = torch.where(m, tail["fuzz"], fuzz)
+            ior = torch.where(m, tail["ior"], ior)
+            texc = torch.where(m[:, None],
+                               _tex_value_packed(tail, zero, zero, p_s), texc)
+
+        if pla_tab is not None:
+            row = pla_tab[torch.where(is_pla, code >> 2, 0)]     # (B, 40)
+            n, k = row[:, 0:3], row[:, 3]
+            ua, ca = row[:, 4:7], row[:, 7]
+            ub, cb = row[:, 8:11], row[:, 11]
+            ns0, nsu, nsv = row[:, 12:15], row[:, 15:18], row[:, 18:21]
+            tu, tv = row[:, 21:24], row[:, 24:27]
+            tail = _tail(row, _PLA_TAIL)
+            df = -dot(d, n)
+            inv_df = 1.0 / torch.where(df == 0.0, 1.0, df)
+            t_p = (dot(o, n) - k) * inv_df
+            p_p = o + t_p[:, None] * d
+            u_b = dot(ua, p_p) + ca        # in-plane / barycentric coords
+            v_b = dot(ub, p_p) + cb
+            out_p = ns0 + u_b[:, None] * nsu + v_b[:, None] * nsv
+            u_p = tu[:, 0] + u_b * tu[:, 1] + v_b * tu[:, 2]
+            v_p = tv[:, 0] + u_b * tv[:, 1] + v_b * tv[:, 2]
+            m = is_pla
+            p = torch.where(m[:, None], p_p, p)
+            outward = torch.where(m[:, None], out_p, outward)
+            mtype = torch.where(m, tail["mtype"], mtype)
+            fuzz = torch.where(m, tail["fuzz"], fuzz)
+            ior = torch.where(m, tail["ior"], ior)
+            texc = torch.where(m[:, None],
+                               _tex_value_packed(tail, u_p, v_p, p_p), texc)
 
         # Shared bounce tail: the semantics of integrator.trace_lanes.
         miss = alive & ~hit_mask

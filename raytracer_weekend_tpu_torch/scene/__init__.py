@@ -8,6 +8,7 @@ from raytracer_weekend_tpu_torch.scene.data import (
 )
 from raytracer_weekend_tpu_torch.scene.builder import (
     Checker,
+    Cuboid,
     Dielectric,
     DiffuseLight,
     Lambertian,
@@ -15,12 +16,18 @@ from raytracer_weekend_tpu_torch.scene.builder import (
     MovingSphere,
     SolidColor,
     Sphere,
+    Triangle,
+    UVDebug,
+    XYRectangle,
+    XZRectangle,
+    YZRectangle,
     build_scene,
 )
 
 __all__ = [
     "SceneData", "SceneStatic", "Spheres", "Rects", "Triangles", "Volumes",
-    "build_scene", "Sphere", "MovingSphere",
+    "build_scene", "Sphere", "MovingSphere", "XYRectangle", "XZRectangle",
+    "YZRectangle", "Cuboid", "Triangle",
     "Lambertian", "Metal", "Dielectric", "DiffuseLight",
-    "SolidColor", "Checker",
+    "SolidColor", "Checker", "UVDebug",
 ]

@@ -1,17 +1,25 @@
-"""Scene-construction DSL that compiles to SoA tables (sphere subset).
+"""Scene-construction DSL that compiles to SoA tables (spheres and planar family).
 
-Port of the sphere part of `raytracer_weekend_tpu/scene/builder.py`, in
-numpy up to the final tensors, so that the port builds scenes without jax.
-It covers `SolidColor`, `Checker`, `Lambertian`, `Metal`, `Dielectric`,
-`DiffuseLight`, `Sphere` and `MovingSphere`. Table order, material and
-texture interning, Morton order and the `SceneStatic` flags are the JAX
-builder's, so both builders give bit-equal tables for the same objects.
-Any other object raises `NotImplementedError`.
+Port of `raytracer_weekend_tpu/scene/builder.py`, in numpy up to the final
+tensors, so that the port builds scenes without jax. It covers `SolidColor`,
+`Checker`, `UVDebug`, `Lambertian`, `Metal`, `Dielectric`, `DiffuseLight`,
+`Sphere`, `MovingSphere`, the axis-aligned rectangles, `Cuboid` and
+`Triangle`, with the fluent `.rotate_y(deg).translate(offset)` transform on
+every geometry class. Table order, material and texture interning, Morton
+order and the `SceneStatic` flags are the JAX builder's, so both builders
+give bit-equal tables for the same objects. Constant media, noise and image
+textures raise `NotImplementedError`.
+
+Bake rules, as in the JAX builder: sphere centers and triangle vertices and
+normals are transformed; a rect or cuboid under a pure translation stays a
+rect with shifted bounds, and a rotated one becomes 2 triangles per rect
+with exact UVs and a constant normal.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -25,7 +33,7 @@ from raytracer_weekend_tpu_torch.scene.data import (
     VOL_SPHERE, Rects, SceneData, SceneStatic, Spheres, Triangles, Volumes)
 from raytracer_weekend_tpu_torch.textures import TextureTable
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1: planar, volumes, textures, BVH)"
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1: volumes, textures, BVH)"
 
 # ---------------------------------------------------------------------------
 # Textures
@@ -43,6 +51,11 @@ class Checker:
     even: SolidColor
     odd: SolidColor
     frequency: float
+
+
+@dataclasses.dataclass(frozen=True)
+class UVDebug:
+    """(u, v, 0) debug texture."""
 
 
 def _as_texture(value):
@@ -84,18 +97,62 @@ class DiffuseLight(_Material):
 
 
 # ---------------------------------------------------------------------------
+# Rigid Y-rotation + translation transform
+# ---------------------------------------------------------------------------
+
+def _rot_y(theta_deg: float, v: np.ndarray) -> np.ndarray:
+    """World = R(theta) * object."""
+    t = math.radians(theta_deg)
+    c, s = math.cos(t), math.sin(t)
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return np.stack([c * x + s * z, y, -s * x + c * z], axis=-1)
+
+
+class _Transformable:
+    """Fluent `.rotate_y(deg).translate(offset)`: each geometry object
+    carries one composed rigid transform world = R(theta) x + offset."""
+
+    theta: float = 0.0
+    offset: tuple = (0.0, 0.0, 0.0)
+
+    def _with_transform(self, theta, offset):
+        clone = dataclasses.replace(self)
+        object.__setattr__(clone, "theta", theta)
+        object.__setattr__(clone, "offset", tuple(offset))
+        return clone
+
+    def rotate_y(self, angle_degrees: float):
+        new_offset = _rot_y(angle_degrees, np.asarray(self.offset, np.float64))
+        return self._with_transform(self.theta + angle_degrees,
+                                    tuple(new_offset))
+
+    def translate(self, offset):
+        off = np.asarray(self.offset, np.float64) + np.asarray(offset,
+                                                               np.float64)
+        return self._with_transform(self.theta, tuple(off))
+
+    def _apply(self, pts: np.ndarray) -> np.ndarray:
+        return _rot_y(self.theta, pts) + np.asarray(self.offset, np.float64)
+
+    def _apply_vec(self, vecs: np.ndarray) -> np.ndarray:
+        return _rot_y(self.theta, vecs)
+
+
+# ---------------------------------------------------------------------------
 # Geometry
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class Sphere:
+class Sphere(_Transformable):
     center: tuple
     radius: float
     material: _Material
+    theta: float = 0.0
+    offset: tuple = (0.0, 0.0, 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
-class MovingSphere:
+class MovingSphere(_Transformable):
     """Linear center motion over [time0, time1]."""
     center0: tuple
     time0: float
@@ -103,27 +160,102 @@ class MovingSphere:
     time1: float
     radius: float
     material: _Material
+    theta: float = 0.0
+    offset: tuple = (0.0, 0.0, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Rect(_Transformable):
+    """axis = fixed coordinate (0=YZ, 1=XZ, 2=XY); (a, b) in UV order."""
+    axis: int
+    a0: float
+    a1: float
+    b0: float
+    b1: float
+    k: float
+    material: _Material
+    theta: float = 0.0
+    offset: tuple = (0.0, 0.0, 0.0)
+
+
+def XYRectangle(x0, x1, y0, y1, k, material) -> _Rect:
+    return _Rect(2, x0, x1, y0, y1, k, material)
+
+
+def XZRectangle(x0, x1, z0, z1, k, material) -> _Rect:
+    return _Rect(1, x0, x1, z0, z1, k, material)
+
+
+def YZRectangle(y0, y1, z0, z1, k, material) -> _Rect:
+    return _Rect(0, y0, y1, z0, z1, k, material)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cuboid(_Transformable):
+    """Axis-aligned box = 6 rects."""
+    p0: tuple
+    p1: tuple
+    material: _Material
+    theta: float = 0.0
+    offset: tuple = (0.0, 0.0, 0.0)
+
+    def sides(self) -> list[_Rect]:
+        x0, y0, z0 = self.p0
+        x1, y1, z1 = self.p1
+        m = self.material
+        rects = [
+            XYRectangle(x0, x1, y0, y1, z1, m),
+            XYRectangle(x0, x1, y0, y1, z0, m),
+            XZRectangle(x0, x1, z0, z1, y1, m),
+            XZRectangle(x0, x1, z0, z1, y0, m),
+            YZRectangle(y0, y1, z0, z1, x1, m),
+            YZRectangle(y0, y1, z0, z1, x0, m),
+        ]
+        return [r._with_transform(self.theta, self.offset) for r in rects]
+
+
+@dataclasses.dataclass(frozen=True)
+class Triangle(_Transformable):
+    """Normals/UVs entries may be None: the face normal and the default UVs
+    ((0,0), (1,0), (0,1)) stand in for them."""
+    vertices: tuple  # 3 x (3,)
+    material: _Material
+    normals: tuple = (None, None, None)
+    uvs: tuple = (None, None, None)
+    theta: float = 0.0
+    offset: tuple = (0.0, 0.0, 0.0)
+
+    @classmethod
+    def flat_shaded(cls, vertices, material):
+        return cls(tuple(tuple(v) for v in vertices), material)
 
 
 # ---------------------------------------------------------------------------
 # Compilation
 # ---------------------------------------------------------------------------
 
+_DEFAULT_UVS = ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0))
+
+_RECT_AXES = {0: (1, 2), 1: (0, 2), 2: (0, 1)}  # fixed axis -> (a_axis, b_axis)
+
+
 def build_scene(objects: Sequence, background=(0.7, 0.8, 1.0),
                 seed: int = 0,
                 bvh: str | bool = "auto") -> tuple[SceneData, SceneStatic]:
     """Compile DSL objects -> (SceneData on the CPU, SceneStatic).
 
-    `bvh` keeps the JAX signature: the JAX builder attaches a sphere BVH
-    above 512 spheres ("auto") or always (True). BVHs are not ported, so a
-    scene that would get one raises instead of silently differing.
+    `bvh` keeps the JAX signature. With "auto" (and False) the port builds
+    no tree and records `sphere_bvh` and `triangle_bvh` as False: the fused
+    path, the only path the port runs on a card, never reads a tree, and
+    the plain staged path brute-forces every primitive and finds the same
+    closest hit. BVHs are not ported, so `bvh=True` on a scene that would
+    get one raises.
     """
     comp = _Compiler(seed)
     for obj in objects:
         comp.add(obj)
-    n = len(comp.sph)
-    if n and (bvh is True or (bvh == "auto" and n > 512)):
-        raise NotImplementedError(f"sphere BVH (n_spheres={n}) {_NOT_PORTED}")
+    if bvh is True and (comp.sph or comp.tri):
+        raise NotImplementedError(f"BVH (bvh=True) {_NOT_PORTED}")
     return comp.finish(background)
 
 
@@ -136,6 +268,8 @@ class _Compiler:
         self.tex_ids: dict[int, int] = {}
         self.texs: list = []
         self.sph: list = []
+        self.rect: list = []
+        self.tri: list = []
 
     def _texture_id(self, tex) -> int:
         tex = _as_texture(tex)
@@ -156,22 +290,75 @@ class _Compiler:
         self.mat_ids[key] = mid
         return mid
 
+    # -- geometry lowering -------------------------------------------------
+
     def add(self, obj):
         if isinstance(obj, Sphere):
-            c = np.asarray(obj.center, np.float64)
+            c = obj._apply(np.asarray(obj.center, np.float64))
             self.sph.append((c, c, 0.0, 1.0, obj.radius,
                              self._material_id(obj.material)))
         elif isinstance(obj, MovingSphere):
-            c0 = np.asarray(obj.center0, np.float64)
-            c1 = np.asarray(obj.center1, np.float64)
+            c0 = obj._apply(np.asarray(obj.center0, np.float64))
+            c1 = obj._apply(np.asarray(obj.center1, np.float64))
             self.sph.append((c0, c1, obj.time0, obj.time1, obj.radius,
                              self._material_id(obj.material)))
+        elif isinstance(obj, _Rect):
+            self._add_rect(obj)
+        elif isinstance(obj, Cuboid):
+            for side in obj.sides():
+                self._add_rect(side)
+        elif isinstance(obj, Triangle):
+            self._add_triangle(obj)
         elif isinstance(obj, (list, tuple)):
             for sub in obj:
                 self.add(sub)
         else:
             raise NotImplementedError(
                 f"scene object {type(obj).__name__} {_NOT_PORTED}")
+
+    def _add_rect(self, r: _Rect):
+        mid = self._material_id(r.material)
+        a_ax, b_ax = _RECT_AXES[r.axis]
+        if r.theta == 0.0:
+            # A pure translation keeps the rect axis-aligned: shift bounds.
+            off = np.asarray(r.offset, np.float64)
+            self.rect.append((r.axis, r.a0 + off[a_ax], r.a1 + off[a_ax],
+                              r.b0 + off[b_ax], r.b1 + off[b_ax],
+                              r.k + off[r.axis], mid))
+            return
+        # A rotated rect -> 2 triangles with exact UVs and a constant normal.
+        corners_ab = [(r.a0, r.b0), (r.a1, r.b0), (r.a1, r.b1), (r.a0, r.b1)]
+        uvs = [(0.0, 0.0), (1.0, 0.0), (1.0, 1.0), (0.0, 1.0)]
+        pts = []
+        for a, b in corners_ab:
+            p = np.zeros(3)
+            p[a_ax] = a
+            p[b_ax] = b
+            p[r.axis] = r.k
+            pts.append(p)
+        pts = r._apply(np.stack(pts))
+        normal = np.zeros(3)
+        normal[r.axis] = 1.0
+        normal = r._apply_vec(normal)
+        n3 = (tuple(normal),) * 3
+        for ids in ((0, 1, 2), (0, 2, 3)):
+            self.tri.append((tuple(tuple(pts[i]) for i in ids), n3,
+                             tuple(uvs[i] for i in ids), mid))
+
+    def _add_triangle(self, t: Triangle):
+        verts = t._apply(np.asarray([np.asarray(v, np.float64)
+                                     for v in t.vertices]))
+        face_n = np.cross(verts[1] - verts[0], verts[2] - verts[0])
+        normals = [face_n if n is None
+                   else t._apply_vec(np.asarray(n, np.float64))
+                   for n in t.normals]
+        uvs = tuple(tuple(uv) if uv is not None else _DEFAULT_UVS[i]
+                    for i, uv in enumerate(t.uvs))
+        self.tri.append((tuple(tuple(v) for v in verts),
+                         tuple(tuple(n) for n in normals), uvs,
+                         self._material_id(t.material)))
+
+    # -- table emission ----------------------------------------------------
 
     @staticmethod
     def _morton_argsort(cent: np.ndarray) -> np.ndarray:
@@ -193,27 +380,66 @@ class _Compiler:
             q[:, 2])
         return np.argsort(code, kind="stable")
 
-    def finish(self, background) -> tuple[SceneData, SceneStatic]:
+    def _sort_spatially(self):
+        """Morton-order spheres, rects and triangles."""
         if len(self.sph) > 1:
             cent = np.asarray([(np.asarray(c0) + np.asarray(c1)) / 2
                                for c0, c1, *_ in self.sph])
             self.sph = [self.sph[i] for i in self._morton_argsort(cent)]
-        n_spheres = len(self.sph)
+        if len(self.rect) > 1:
+            cent = []
+            for axis, a0, a1, b0, b1, k, _ in self.rect:
+                a_ax, b_ax = _RECT_AXES[axis]
+                p = np.zeros(3)
+                p[a_ax] = (a0 + a1) / 2
+                p[b_ax] = (b0 + b1) / 2
+                p[axis] = k
+                cent.append(p)
+            self.rect = [self.rect[i]
+                         for i in self._morton_argsort(np.asarray(cent))]
+        if len(self.tri) > 1:
+            cent = np.asarray([np.mean(np.asarray(v), axis=0)
+                               for v, _, _, _ in self.tri])
+            self.tri = [self.tri[i] for i in self._morton_argsort(cent)]
+
+    def finish(self, background) -> tuple[SceneData, SceneStatic]:
+        self._sort_spatially()
+        n_spheres, n_rects, n_tris = len(self.sph), len(self.rect), len(
+            self.tri)
 
         spheres = self._emit_spheres()
+        rects = self._emit_rects()
+        tris = self._emit_triangles()
         materials, textures = self._emit_shading()
         data = SceneData(
-            spheres=spheres, rects=_dummy_rects(), triangles=_dummy_triangles(),
+            spheres=spheres, rects=rects, triangles=tris,
             volumes=_dummy_volumes(), materials=materials, textures=textures,
             background=torch.tensor(background, dtype=torch.float32))
 
-        # Every material and texture this builder accepts qualifies for the
-        # JAX fused megakernel, and the ones it rejects (noise, image and
-        # uv-debug textures, isotropic media, BVHs) are what the other flags
-        # record; so fused_simple is "has geometry" and those flags are False.
+        # Fused-megakernel eligibility, the JAX rule: Lambertian/Metal/
+        # Dielectric/DiffuseLight materials everywhere, and UV-debug
+        # textures on planar primitives only (their UVs come from the
+        # planar table; a sphere's spherical UV is not in the kernel).
+        mtype = materials.mtype.numpy()
+        ttype = textures.ttype.numpy()
+        tex_of = materials.tex.numpy()
+        fused_simple = False
+        if n_spheres or n_rects or n_tris:
+            ok = True
+            for present, fam, allowed in ((n_spheres, spheres, (0, 1, 2, 3)),
+                                          (n_rects, rects, (0, 1, 2, 3, 4)),
+                                          (n_tris, tris, (0, 1, 2, 3, 4))):
+                if present:
+                    m = fam.mat.numpy()[fam.valid.numpy()]
+                    ok &= bool(np.all(np.isin(mtype[m], (0, 1, 2, 3)))
+                               and np.all(np.isin(ttype[tex_of[m]], allowed)))
+            fused_simple = ok
+
         static = SceneStatic(
-            n_spheres=n_spheres, n_rects=0, n_triangles=0, n_volumes=0,
-            has_noise=False, has_image=False, fused_simple=n_spheres > 0)
+            n_spheres=n_spheres, n_rects=n_rects, n_triangles=n_tris,
+            n_volumes=0, has_noise=False, has_image=False,
+            has_uvdebug=bool(np.any(ttype == tex_mod.UVDEBUG)),
+            fused_simple=fused_simple)
         return data, static
 
     def _emit_spheres(self) -> Spheres:
@@ -228,6 +454,37 @@ class _Compiler:
         valid = np.ones(len(rows), bool) if not pad else np.zeros(1, bool)
         return Spheres(*map(torch.from_numpy,
                             (c0, c1, t0, t1, rad, mat, valid)))
+
+    def _emit_rects(self) -> Rects:
+        rows = self.rect or [(2, 0.0, 1.0, 0.0, 1.0, 0.0, 0)]
+        pad = not self.rect
+        cols = list(zip(*rows))
+        axis = np.asarray(cols[0], np.int32)
+        a0, a1, b0, b1, k = (np.asarray(c, np.float32) for c in cols[1:6])
+        mat = np.asarray(cols[6], np.int32)
+        valid = np.ones(len(rows), bool) if not pad else np.zeros(1, bool)
+        return Rects(*map(torch.from_numpy,
+                          (axis, a0, a1, b0, b1, k, mat, valid)))
+
+    def _emit_triangles(self) -> Triangles:
+        rows = self.tri or [
+            (((0, 0, 0), (1, 0, 0), (0, 1, 0)),
+             ((0, 0, 1),) * 3, _DEFAULT_UVS, 0)
+        ]
+        pad = not self.tri
+        verts = np.asarray([r[0] for r in rows], np.float32)   # (T,3,3)
+        norms = np.asarray([r[1] for r in rows], np.float32)
+        uvs = np.asarray([r[2] for r in rows], np.float32)      # (T,3,2)
+        mat = np.asarray([r[3] for r in rows], np.int32)
+        valid = np.ones(len(rows), bool) if not pad else np.zeros(1, bool)
+        t = torch.from_numpy
+        return Triangles(
+            v0=t(verts[:, 0].copy()), v1=t(verts[:, 1].copy()),
+            v2=t(verts[:, 2].copy()),
+            n0=t(norms[:, 0].copy()), n1=t(norms[:, 1].copy()),
+            n2=t(norms[:, 2].copy()),
+            uv0=t(uvs[:, 0].copy()), uv1=t(uvs[:, 1].copy()),
+            uv2=t(uvs[:, 2].copy()), mat=t(mat), valid=t(valid))
 
     def _emit_shading(self):
         if not self.mats:
@@ -286,6 +543,8 @@ class _Compiler:
                 color1[i] = even.color
                 color2[i] = odd.color
                 scale[i] = t.frequency
+            elif isinstance(t, UVDebug):
+                ttype[i] = tex_mod.UVDEBUG
             else:
                 raise NotImplementedError(
                     f"texture {type(t).__name__} {_NOT_PORTED}")
@@ -302,31 +561,7 @@ class _Compiler:
         return materials, textures
 
 
-# Empty-family dummy rows, exactly as the JAX builder emits them.
-
-def _dummy_rects() -> Rects:
-    f32, i32 = torch.float32, torch.int32
-    return Rects(axis=torch.tensor([2], dtype=i32),
-                 a0=torch.tensor([0.0], dtype=f32), a1=torch.tensor([1.0], dtype=f32),
-                 b0=torch.tensor([0.0], dtype=f32), b1=torch.tensor([1.0], dtype=f32),
-                 k=torch.tensor([0.0], dtype=f32), mat=torch.tensor([0], dtype=i32),
-                 valid=torch.tensor([False]))
-
-
-def _dummy_triangles() -> Triangles:
-    f32 = torch.float32
-    return Triangles(
-        v0=torch.tensor([[0.0, 0.0, 0.0]], dtype=f32),
-        v1=torch.tensor([[1.0, 0.0, 0.0]], dtype=f32),
-        v2=torch.tensor([[0.0, 1.0, 0.0]], dtype=f32),
-        n0=torch.tensor([[0.0, 0.0, 1.0]], dtype=f32),
-        n1=torch.tensor([[0.0, 0.0, 1.0]], dtype=f32),
-        n2=torch.tensor([[0.0, 0.0, 1.0]], dtype=f32),
-        uv0=torch.tensor([[0.0, 0.0]], dtype=f32),
-        uv1=torch.tensor([[1.0, 0.0]], dtype=f32),
-        uv2=torch.tensor([[0.0, 1.0]], dtype=f32),
-        mat=torch.tensor([0], dtype=torch.int32), valid=torch.tensor([False]))
-
+# The empty volume family's dummy row, exactly as the JAX builder emits it.
 
 def _dummy_volumes() -> Volumes:
     f32 = torch.float32

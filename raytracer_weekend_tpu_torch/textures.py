@@ -1,6 +1,6 @@
 """Table-driven textures evaluated over ray batches (port of `textures.py`).
 
-The port evaluates the SOLID and CHECKER arms. NOISE, IMAGE and UVDEBUG
+The port evaluates the SOLID, CHECKER and UVDEBUG arms. NOISE and IMAGE
 raise `NotImplementedError` until ROADMAP Queue 1 "Deferred textures" lands;
 the table keeps all the JAX leaves so scenes convert one to one.
 
@@ -9,7 +9,7 @@ Types:
   1 CHECKER  — 3D sine-product checker with frequency `scale`
   2 NOISE    — Perlin marble (not ported)
   3 IMAGE    — bitmap fetch (not ported)
-  4 UVDEBUG  — (u, v, 0) (not ported)
+  4 UVDEBUG  — (u, v, 0)
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ NOISE = 2
 IMAGE = 3
 UVDEBUG = 4
 
-_NOT_PORTED = ("noise, image and uv-debug textures are not ported yet "
+_NOT_PORTED = ("noise and image textures are not ported yet "
                "(ROADMAP Queue 1, 'Deferred textures')")
 
 
@@ -48,8 +48,9 @@ class TextureTable(NamedTuple):
 def texture_value(table: TextureTable, tex_id: torch.Tensor, u: torch.Tensor,
                   v: torch.Tensor, p: torch.Tensor, *, has_noise: bool = False,
                   has_image: bool = False) -> torch.Tensor:
-    """Evaluate per-lane texture color -> (B,3) (SOLID and CHECKER only)."""
-    if has_noise or has_image or bool((table.ttype > CHECKER).any()):
+    """Evaluate per-lane texture color -> (B,3) (SOLID, CHECKER, UVDEBUG)."""
+    if (has_noise or has_image
+            or bool(((table.ttype == NOISE) | (table.ttype == IMAGE)).any())):
         raise NotImplementedError(_NOT_PORTED)
     tex_id = tex_id.long()
     ttype = table.ttype[tex_id]
@@ -61,4 +62,6 @@ def texture_value(table: TextureTable, tex_id: torch.Tensor, u: torch.Tensor,
     sp = torch.sin(scale[..., None] * p)
     sines = sp[..., 0] * sp[..., 1] * sp[..., 2]
     checker = torch.where(sines[..., None] < 0.0, c2, c1)
-    return torch.where((ttype == CHECKER)[..., None], checker, c1)
+    out = torch.where((ttype == CHECKER)[..., None], checker, c1)
+    uvdbg = torch.stack([u, v, torch.zeros_like(u)], dim=-1)
+    return torch.where((ttype == UVDEBUG)[..., None], uvdbg, out)

@@ -1,19 +1,19 @@
 """Inverse rendering: fit scene parameters to a target image (port of `train.py`).
 
 Adam over every float leaf of the scene (texture colors, metal fuzz,
-dielectric IOR, sphere geometry, the background); integer and bool leaves
-(type tables, ids, valid masks) stay frozen, the counterpart of the JAX
-package's `optax.multi_transform` with `set_to_zero`.
+dielectric IOR, sphere, rect and triangle geometry, the background);
+integer and bool leaves (type tables, ids, valid masks) stay frozen, the
+counterpart of the JAX package's `optax.multi_transform` with `set_to_zero`.
 
     from raytracer_weekend_tpu_torch.train import InverseRenderer
     ir = InverseRenderer(static, cfg, cam, target_image)
     scene, history = ir.fit(scene, steps=100)
 
-The render follows the scene's device: on a CUDA device a sphere scene with
-solid/checker textures renders through `fused_diff.render_fused_diff` (the
-forward kernel with winner codes, the replay-backward kernel), in
-`cfg.ray_batch` lane chunks (the whole frame by default); on the CPU it runs
-the staged torch path under autograd.
+The render follows the scene's device: on a CUDA device a scene that
+`megakernel.fused_supported` admits renders through
+`fused_diff.render_fused_diff` (the forward kernel with winner codes, the
+replay-backward kernel), in `cfg.ray_batch` lane chunks (the whole frame by
+default); on the CPU it runs the staged torch path under autograd.
 """
 
 from __future__ import annotations
@@ -53,10 +53,10 @@ class InverseRenderer:
         if device.type == "cuda":
             if not integrator.fused_eligible(self.static, cfg, device):
                 raise NotImplementedError(
-                    "on CUDA the port differentiates sphere-only scenes with "
-                    "solid/checker Lambertian/Metal/Dielectric/DiffuseLight "
-                    f"materials; this scene is outside that slice "
-                    f"({self.static})")
+                    "on CUDA the port differentiates sphere, rect and "
+                    "triangle scenes with solid/checker/uv-debug Lambertian/"
+                    "Metal/Dielectric/DiffuseLight materials; this scene is "
+                    f"outside that slice ({self.static})")
             from raytracer_weekend_tpu_torch.fused_diff import (
                 render_fused_diff)
 

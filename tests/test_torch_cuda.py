@@ -12,9 +12,11 @@ import torch
 
 from raytracer_weekend_tpu_torch import integrator, rng
 from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.models import scenes
 from raytracer_weekend_tpu_torch.models.scenes import generate_scene
 from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd
+from raytracer_weekend_tpu_torch.scene.builder import build_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -88,7 +90,7 @@ def test_render_image_launches_kernel(cuda):
 def test_unsupported_scene_on_cuda_raises(cuda):
     cfg = RenderConfig(width=32, height=18, samples_per_pixel=4, max_depth=6)
     scene, static, cams = generate_scene("two_spheres", cfg.aspect_ratio)
-    static = type(static)(**{**static.__dict__, "n_rects": 1})
+    static = type(static)(**{**static.__dict__, "n_volumes": 1})
     with pytest.raises(NotImplementedError):
         integrator.render_image(scene.to(cuda), static, cfg, cams[0].to(cuda))
     with pytest.raises(NotImplementedError):
@@ -96,10 +98,18 @@ def test_unsupported_scene_on_cuda_raises(cuda):
                         static=static)
 
 
+def scene_by_name(name, aspect):
+    """A catalog scene, or the mesh_shards test scene, on the CPU."""
+    if name == "mesh_shards":
+        objs, cams, bg = scenes.mesh_shards(aspect)
+        return (*build_scene(objs, background=bg), cams)
+    return generate_scene(name, aspect)
+
+
 def _frame(name, cuda, **size):
     kw = dict(width=64, height=36, samples_per_pixel=4, max_depth=6, seed=3)
     cfg = RenderConfig(**{**kw, **size})
-    scene, static, cams = generate_scene(name, cfg.aspect_ratio)
+    scene, static, cams = scene_by_name(name, cfg.aspect_ratio)
     return scene.to(cuda), static, cfg, cams[0].to(cuda)
 
 
@@ -147,16 +157,18 @@ def test_replay_bwd_kernel_matches_reference(cuda, name):
     o, d, t, rid = integrator._pixel_rays(
         cam, cfg, torch.arange(n, device=cuda), cfg.seed)
     ktab = replay_bwd.pack_ktab(scene)
-    args = (ktab, scene.background, cfg, o, d, t, rid, cfg.seed, codes,
+    args = (ktab, None, scene.background, cfg, o, d, t, rid, cfg.seed, codes,
             2.0 * rad)
     before = replay_bwd.LAUNCHES
     got = replay_bwd.replay_bwd_fused(*args, n)
     assert replay_bwd.LAUNCHES == before + 1
     ref = replay_bwd.replay_bwd_reference(*args)
+    assert got[1] is None and ref[1] is None
     for g_, r_ in zip(got, ref):
-        assert g_.shape == r_.shape
-        _agree(g_, r_)
-    assert float(got[0].abs().max()) > 0 and float(got[4].abs().max()) > 0
+        if r_ is not None:
+            assert g_.shape == r_.shape
+            _agree(g_, r_)
+    assert float(got[0].abs().max()) > 0 and float(got[5].abs().max()) > 0
 
 
 def test_render_fused_diff_launches_both_kernels(cuda):
@@ -199,7 +211,103 @@ def test_replay_bwd_table_over_shared_memory_raises(cuda):
     z3 = torch.zeros((n, 3), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         replay_bwd.replay_bwd_fused(
-            torch.zeros((replay_bwd.KT, S), device=cuda),
+            torch.zeros((replay_bwd.KT, S), device=cuda), None,
             torch.zeros(3, device=cuda), cfg, z3, z3,
             torch.zeros(n, device=cuda), torch.arange(n, device=cuda), 0,
             torch.zeros((n, 2), dtype=torch.int32, device=cuda), z3, n)
+
+
+# ---- the planar family: K3 (forward) and K4 (backward) ---------------------
+
+PLANAR = ["cornell_box", "mesh_shards", "simple_triangle"]
+
+
+@pytest.mark.parametrize("name", PLANAR)
+def test_planar_kernel_matches_plain(cuda, name):
+    """K3 against the staged plain version, with the planar budgets of
+    tests/test_megakernel.py:119-128 (|dseg| <= n//200, bad lanes <=
+    n//100, mean abs < 1e-3): the kernel's affine plane test and the staged
+    (k - o_f)/d_f and scalar-triple forms differ by rounding on edges."""
+    scene, static, cfg, cam = _frame(name, cuda)
+    n = cfg.n_rays
+    before = mk.LAUNCHES, mk.PLANAR_LAUNCHES
+    got, seg = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed, static=static)
+    assert (mk.LAUNCHES, mk.PLANAR_LAUNCHES) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref, ref_seg = mk.render_fused_reference(scene, cfg, cam, 0, n, cfg.seed,
+                                             static=static)
+    assert bool(torch.isfinite(got).all())
+    assert abs(int(seg.sum()) - int(ref_seg.sum())) <= max(4, n // 200)
+    rel = (got - ref).abs() / (ref.abs() + 1e-3)
+    assert int((rel > 0.05).any(dim=1).sum()) <= max(4, n // 100)
+    assert float((got - ref).abs().mean()) < 1e-3
+    rad, seg2, codes = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                       static=static, emit_paths=True)
+    assert torch.equal(rad, got) and torch.equal(seg2, seg)
+    assert bool(((codes & 3) == 2).any())
+    _, _, ref_codes = mk.render_fused_reference(
+        scene, cfg, cam, 0, n, cfg.seed, static=static, emit_paths=True)
+    assert int((codes != ref_codes).any(1).sum()) <= max(4, n // 100)
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "mesh_shards",
+                                  "wavefront_cow_obj"])
+def test_planar_replay_bwd_kernel_matches_reference(cuda, name):
+    """K4 against torch.autograd through the replay on the kernel's own
+    codes, g = 2 rad, K2's budgets. The cow's table (5,805 rows) does not
+    fit shared memory and takes the warp-aggregated global reduction."""
+    size = dict(width=32, height=18) if name == "wavefront_cow_obj" else {}
+    scene, static, cfg, cam = _frame(name, cuda, **size)
+    n = cfg.n_rays
+    rad, _, codes = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                    static=static, emit_paths=True)
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    ktab = replay_bwd.pack_ktab(scene) if static.n_spheres else None
+    ptab = replay_bwd.pack_ptab(scene, static)
+    assert ptab.shape == (replay_bwd.KP, static.n_rects + static.n_triangles)
+    args = (ktab, ptab, scene.background, cfg, o, d, t, rid, cfg.seed,
+            codes, 2.0 * rad)
+    before = replay_bwd.LAUNCHES, replay_bwd.PLANAR_LAUNCHES
+    got = replay_bwd.replay_bwd_fused(*args, n)
+    assert (replay_bwd.LAUNCHES, replay_bwd.PLANAR_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    ref = replay_bwd.replay_bwd_reference(*args)
+    for g_, r_ in zip(got, ref):
+        assert (g_ is None) == (r_ is None)
+        if r_ is not None:
+            assert g_.shape == r_.shape
+            _agree(g_, r_)
+    assert float(got[1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "wavefront_cow_obj"])
+def test_render_image_launches_planar_kernel(cuda, name):
+    cfg = RenderConfig(width=32, height=18, samples_per_pixel=2, max_depth=4,
+                       seed=3)
+    scene, static, cams = generate_scene(name, cfg.aspect_ratio)
+    before = mk.PLANAR_LAUNCHES
+    img = integrator.render_image(scene.to(cuda), static, cfg,
+                                  cams[0].to(cuda))
+    assert mk.PLANAR_LAUNCHES == before + 1
+    assert img.shape == (18, 32, 3) and bool(torch.isfinite(img).all())
+
+
+def test_render_fused_diff_planar_launches_kernels(cuda):
+    """cornell_box and the cow (d(ptab) by global atomics) go through
+    K3-emit and K4; simple_triangle (uv-debug) through K3-emit and torch
+    autograd of the replay."""
+    from raytracer_weekend_tpu_torch.fused_diff import render_fused_diff
+
+    for name, k4 in (("cornell_box", 1), ("wavefront_cow_obj", 1),
+                     ("simple_triangle", 0)):
+        scene, static, cfg, cam = _frame(name, cuda, width=32, height=18)
+        c1 = scene.textures.color1.clone().requires_grad_()
+        scene = scene._replace(textures=scene.textures._replace(color1=c1))
+        before = mk.PLANAR_LAUNCHES, replay_bwd.PLANAR_LAUNCHES
+        rad = render_fused_diff(scene, static, cfg, cam, 0, cfg.n_rays,
+                                cfg.seed)
+        (g_c1,) = torch.autograd.grad((rad * rad).sum(), (c1,))
+        assert (mk.PLANAR_LAUNCHES, replay_bwd.PLANAR_LAUNCHES) == (
+            before[0] + 1, before[1] + k4)
+        assert bool(torch.isfinite(g_c1).all()) and float(g_c1.abs().max()) > 0

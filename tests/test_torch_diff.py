@@ -131,10 +131,10 @@ def test_replay_bwd_reference_matches_jax_kernel(pair):
     ktab = RB.pack_ktab(SceneData.from_leaves(leaves))
     np.testing.assert_array_equal(ktab.detach().numpy(),
                                   np.asarray(jk)[:RB.KT])
-    dk, do, dd, dt, dbg = RB.replay_bwd_fused(
-        ktab, ts.background, tc, o, d, tm, rid, 3, torch.from_numpy(jcodes),
-        torch.from_numpy(g), n)
-    assert dk.shape == (RB.KT, ts.spheres.c0.shape[0])
+    dk, dp, do, dd, dt, dbg = RB.replay_bwd_fused(
+        ktab, None, ts.background, tc, o, d, tm, rid, 3,
+        torch.from_numpy(jcodes), torch.from_numpy(g), n)
+    assert dk.shape == (RB.KT, ts.spheres.c0.shape[0]) and dp is None
 
     def close(got, want):
         got, want = np.asarray(got), np.asarray(want)
@@ -179,7 +179,7 @@ def test_replay_rejects_unported_families():
     ts, tst, tc, tcam = t
     o, d, tm, rid = TI._pixel_rays(tcam, tc, torch.arange(8), 3)
     codes = torch.zeros((8, tc.max_depth), dtype=torch.int32)
-    for field in ("n_rects", "n_volumes", "has_noise", "has_uvdebug"):
+    for field in ("n_volumes", "has_noise", "has_image"):
         static = type(tst)(**{**tst.__dict__, field: 1})
         with pytest.raises(NotImplementedError):
             replay.replay_rays(ts, static, tc, o, d, tm, rid, 3, codes)

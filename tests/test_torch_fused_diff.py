@@ -153,7 +153,7 @@ def test_background_grad_matches_finite_difference():
 def test_fused_diff_rejects_unsupported_scenes():
     _, t = _scenes("two_spheres")
     ts, tst, tc, tcam = t
-    for field in ("n_rects", "n_volumes", "has_noise", "has_image"):
+    for field in ("n_volumes", "has_noise", "has_image"):
         static = type(tst)(**{**tst.__dict__, field: 1})
         with pytest.raises(NotImplementedError):
             fused_diff.render_fused_diff(ts, static, tc, tcam, 0, 64, 3)

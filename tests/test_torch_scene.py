@@ -70,12 +70,16 @@ def test_builder_tables_bit_equal(name):
 
 
 def test_builder_rejects_unported_objects():
+    """BVHs are not ported: bvh=True raises, while "auto" builds no tree
+    above the JAX package's thresholds and records none."""
     with pytest.raises(NotImplementedError):
         TB.build_scene([object()])
     many = [TB.Sphere((i, 0, 0), 0.1, TB.Lambertian((0.5, 0.5, 0.5)))
             for i in range(513)]
     with pytest.raises(NotImplementedError, match="BVH"):
-        TB.build_scene(many)
+        TB.build_scene(many, bvh=True)
+    data, static = TB.build_scene(many)
+    assert data.sphere_bvh is None and not static.sphere_bvh
 
 
 @pytest.mark.parametrize("kw", [
@@ -127,9 +131,12 @@ def test_port_imports_no_jax():
             "from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd\n"
             "from raytracer_weekend_tpu_torch.models import scenes\n"
             "from raytracer_weekend_tpu_torch.scene import builder, convert\n"
+            "from raytracer_weekend_tpu_torch.scene import objloader\n"
+            "from raytracer_weekend_tpu_torch.ops import rect, triangle\n"
             "from raytracer_weekend_tpu_torch.ops.cuda import megakernel, _build\n"
             "from raytracer_weekend_tpu_torch.utils import image\n"
             "scenes.generate_scene('two_spheres', 1.5)\n"
+            "scenes.generate_scene('wavefront_cow_obj', 1.5)\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'raytracer_weekend_tpu' not in sys.modules\n"
             "print('ok')\n")
