@@ -6,8 +6,9 @@
 Drives the port's paths through the entry points a user calls: the forward
 render (`integrator.render_image`) and inverse rendering
 (`train.InverseRenderer.fit`, forward + backward through
-`fused_diff.render_fused_diff`), on jumpy_balls (spheres) and on
-cornell_box and the cow mesh (the planar family), all at 400x225, 16 spp,
+`fused_diff.render_fused_diff`), on jumpy_balls (spheres), on cornell_box
+and the cow mesh (the planar family) and on earth, two_perlin_spheres and
+simple_light (deferred image and Perlin textures), all at 400x225, 16 spp,
 depth 8. It builds the CUDA kernels from the sources in the checkout and
 holds each against its plain torch version first. Phases, one line each
 (or a few):
@@ -43,9 +44,28 @@ holds each against its plain torch version first. Phases, one line each
      on cornell_box from color1 + 0.2 with the counts reset just before,
      the cow's forward+backward frame through render_fused_diff at full
      size, and one simple_triangle forward+backward (uv-debug: K3-emit,
-     then torch autograd of the replay, no K4).
+     then torch autograd of the replay, no K4);
+  9. deferred textures, forward: K8 against its plain version on 2^20
+     random points and on two_perlin_spheres' real records with their live
+     mask (max abs 1e-5, dead points 0); render_image on earth,
+     two_perlin_spheres and simple_light at full size (K6a and the combine,
+     with the launch counts reset just before) against the plain staged
+     path with the budgets of tests/test_megakernel.py:322-328 (segments
+     n // 50, see DEFER_BUDGETS), their segments equal to those of the same
+     geometry with solid textures (K1/K3); K6a's records against the plain
+     version's on 64x36 frames; frame time and segments/s;
+ 10. deferred textures, backward: K9 against its plain version on
+     two_perlin_spheres' records (norm_rel 1e-4, every dead point's d_p
+     exactly 0), K7 against its plain version and the plain version in
+     float64 (the witness) on each scene's own codes, with the combine's
+     real cotangents and with random ones (K2's budgets, on the lanes left
+     after HELD_OUT below), each scene's forward+backward frame
+     and InverseRenderer.fit for 3 Adam steps on earth's image atlas, with
+     the launch counts reset just before.
 
-Then one JSON line describing each kernel, and as the last line
+Then one JSON line describing each kernel (launches on the main path, max
+abs error against its plain version, ms and plain ms, the least time the
+card could take for the same work and what bounds it), and as the last line
 {"ok": true, "device": {...}}. Any failure is an uncaught exception: the
 exit code is not 0 and the last line is not printed. Without a CUDA device,
 or without the rest of the repository beside it, the script fails.
@@ -71,13 +91,92 @@ PLAIN_CHUNK = 1 << 17
 # the entries that are zero in the plain version, relative to the largest
 # entry of any of its outputs.
 K2_NORM_REL, K2_COS, K2_ZERO = 1e-3, 0.9999, 1e-6
+# K7 is held to K2's budgets on the lanes whose float32 gradient is defined
+# to 1e-3. Noise records give the spheres' quadratics (the radius-1000
+# ground's above all) nonzero geometry cotangents, and two kinds of lane are
+# held out (their cotangents zeroed), at most n // HELD_OUT of them:
+# - path flips: the plain staged path traced in float64 from the same rays
+#   gives other codes than the forward kernel. Hits within rounding of
+#   tangency, whose derivative (through 1/sqrt(disc)) is unbounded and
+#   whose side of disc = 0 each float32 version picks for itself, and the
+#   forward kernel's spurious re-hits of the ground (ROADMAP Queue 3);
+# - ill-conditioned lanes: the plain version in float64 (the witness)
+#   moves by more than ILL_REL of the lane's largest d_o, d_d, d_time entry
+#   when the lane's rays move by one float32 ulp, or the plain version in
+#   float32 is that far from it. Rays nearly tangent to a sphere, where
+#   1/sqrt(disc) turns the rounding of disc = hb^2 - a*c into the
+#   gradient's error: each float32 version rounds its own way, and either
+#   can be lucky on a lane.
+HELD_OUT, ILL_REL = 100, 1e-4
 
 
 # Kernel-vs-plain flip budgets (|Δsegments| <= n // seg, lanes with rel err
 # > 0.05 <= n // bad, mean abs err < mean): spheres, tests/test_megakernel.py
-# :66-70; the planar family, :119-128.
+# :66-70; the planar family, :119-128; deferred textures, :322-328.
 SPHERE_BUDGETS = dict(seg=300, bad=64, mean=3e-3)
 PLANAR_BUDGETS = dict(seg=200, bad=100, mean=1e-3)
+# The segment budget of the deferred scenes is n // 50, not :322-328's
+# n // 200: on two_perlin_spheres and simple_light the forward kernel (K1's
+# sphere test, which K6a shares: its segments equal K1's on the same
+# geometry) finds spurious hits of rays leaving the radius-1000 ground
+# ~0.3% of lanes; the float32 and float64 staged paths agree that they miss
+# (ROADMAP Queue 3).
+DEFER_BUDGETS = dict(seg=50, bad=100, mean=5e-3)
+
+# The least time the card could take for a kernel's work: the larger of its
+# FP32 operations over the H100 SXM's FP32 rate outside the tensor cores and
+# its bytes (each input read once, each output written once) over the HBM
+# rate (published peaks at 700 W). Operations are
+# counted from the CUDA sources per unit of this run's work, FP32 only
+# (integer hashing, compares and selects are not counted), so the bound is
+# a lower bound.
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+OPS_SPHERE_TEST = 25     # one moving-sphere test of render_kernel's loop
+OPS_PLANAR_TEST = 12     # one plane test: two dots, a subtraction, a division
+OPS_SHADE = 60           # hit record, texture and scatter of one segment
+OPS_BWD_BOUNCE = 250     # replay_bwd_kernel: recompute and chain one bounce
+# perlin_turb.cu, one octave of one live point, an FMA counted as two:
+# fractions and Hermite weights 18, the 8 corners 74 (a 5-operation dot and
+# a weighted add each, and 18 blend and offset operations shared), the
+# octave's scale 6; K9 recomputes the octaves (98) for the sign, then 263 per
+# octave (24 per corner with its 3 shared-memory adds, 26 shared, d_p 21).
+OPS_TURB_OCTAVE = 98
+OPS_TURB_VJP_OCTAVE = 361
+
+
+def bound(entry, ops, nbytes):
+    """`entry` with bound_ms, bound_by and library_ms (no single PyTorch call
+    computes any of these kernels' functions: null)."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    entry.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 library_ms=None)
+    return entry
+
+
+def forward_work(n, D, segs, S, R, emit=False, defer=False):
+    """(FP32 operations, bytes) of one render_kernel launch over n lanes
+    that traced `segs` segments against S spheres and R planar rows."""
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    ops = segs * (S * OPS_SPHERE_TEST + R * OPS_PLANAR_TEST + OPS_SHADE)
+    nbytes = (4 * (len(mk.TABLE_ROWS) * S + len(mk.PLANAR_ROWS) * R
+                   + mk.PAR_SIZE) + 16 * n + (4 * n * D if emit else 0)
+              + (28 * n * D if defer else 0))
+    return ops, nbytes
+
+
+def backward_work(n, D, segs, S, R, defer=False, noise=False):
+    """(FP32 operations, bytes) of one replay_bwd_kernel launch: tables read
+    and their cotangents written; rays, ids, codes and g (per bounce when
+    deferring, with cabc for noise) read; d_o, d_d, d_time written."""
+    from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
+
+    tables = 8 * (rb.KT * S + rb.KP * R)
+    lanes = n * (32 + 4 * D + (12 * D if defer else 12)
+                 + (12 * D if noise else 0) + 28)
+    return segs * OPS_BWD_BOUNCE, tables + lanes + 24
 
 
 def _budgets(got, ref, got_seg, ref_seg, n, seg, bad, mean):
@@ -98,6 +197,28 @@ def _budgets(got, ref, got_seg, ref_seg, n, seg, bad, mean):
                     finite=finite)
 
 
+def ptxas_registers(log):
+    """['name<flags>: N regs[, spills]', ...] from the build's ptxas log; the
+    template flags are the kernel's bool parameters in order."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
+                      r"(I(?:Lb[01]E)+E)?", ln)
+        if m:
+            flags = re.findall(r"Lb([01])E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(flags)}>" if flags else "")
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)}")
+            name = None
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and int(m.group(1)) and out:
+            out[-1] += f" (spills {m.group(1)} B)"
+    return out
+
+
 def _cuda_ms(fn, reps):
     """Median milliseconds of `fn()` over `reps` runs, by CUDA events."""
     import torch
@@ -114,9 +235,10 @@ def _cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def _agree(name, got, ref, scale):
-    """K2-vs-plain budgets for one output; raise when exceeded. `scale` is
-    the largest entry of the plain version's outputs."""
+def _agree(name, got, ref, scale, check=True):
+    """K2-vs-plain budgets for one output; raise when exceeded, or with
+    `check` false return the stats with `ok`. `scale` is the largest entry
+    of the plain version's outputs."""
     import torch
 
     finite = bool(torch.isfinite(got).all())
@@ -132,21 +254,28 @@ def _agree(name, got, ref, scale):
         cos = float((got * ref).sum()) / (na * float(got.norm()) + 1e-30)
         stats.update(norm_rel=nrel, cos=cos)
         ok = ok and nrel <= K2_NORM_REL and cos >= K2_COS
-    if not ok:
+    if check and not ok:
         raise AssertionError(f"K2 vs plain outside budgets: {stats}")
-    return stats
+    return dict(stats, ok=ok)
 
 
 def plain_backward(ktab, ptab, bg, cfg, o, d, t, rid, seed, codes, g,
-                   windows):
-    """replay_bwd_reference in lane windows; the table and background
+                   windows, cabc=None, dtype=None):
+    """replay_bwd_reference in lane windows (in `dtype`, float64 for the
+    witness; the inputs' float32 by default); the table and background
     cotangents summed over them."""
     import torch
 
     from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
 
+    def cast(x):
+        return x if x is None or dtype is None else x.to(dtype)
+
+    ktab, ptab, bg, o, d, t, g, cabc = map(cast, (ktab, ptab, bg, o, d, t, g,
+                                                  cabc))
     parts = [rb.replay_bwd_reference(ktab, ptab, bg, cfg, o[w], d[w], t[w],
-                                     rid[w], seed, codes[w], g[w])
+                                     rid[w], seed, codes[w], g[w],
+                                     None if cabc is None else cabc[w])
              for w in windows]
 
     def total(i):
@@ -159,10 +288,10 @@ def plain_backward(ktab, ptab, bg, cfg, o, d, t, rid, seed, codes, g,
 OUTPUTS = ("d_ktab", "d_ptab", "d_o", "d_d", "d_time", "d_bg")
 
 
-def agree_all(got, ref):
+def agree_all(got, ref, check=True):
     """The K2/K4 budgets on every output the plain version has."""
     scale = max(float(r.abs().max()) for r in ref if r is not None)
-    return [_agree(name, a, b, scale)
+    return [_agree(name, a, b, scale, check)
             for name, a, b in zip(OUTPUTS, got, ref) if b is not None]
 
 
@@ -294,9 +423,8 @@ def main() -> None:
     _build.load_library()
     build_s = time.perf_counter() - t0
     log = lib_path.with_name(lib_path.name + ".log").read_text()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     print(f"phase 2 build: {build_s:.2f} s -> {lib_path.relative_to(ROOT)}; "
-          f"ptxas: {' | '.join(regs)}", flush=True)
+          f"ptxas: {' | '.join(ptxas_registers(log))}", flush=True)
 
     # ---- 3. PCG4D probe --------------------------------------------------
     import numpy as np
@@ -389,7 +517,8 @@ def main() -> None:
           f"{abs(segs - REFERENCE_SEGMENTS)}; plain version frame "
           f"{plain_ms:.3f} ms; image -> {png}", flush=True)
 
-    kernels = [{
+    S = scene.spheres.c0.shape[0]
+    kernels = [bound({
         "name": "megakernel_sphere_forward",
         "route": "cuda",
         "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
@@ -398,10 +527,12 @@ def main() -> None:
         "max_abs_err": jstats["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]
+    }, *forward_work(n, cfg.max_depth, segs, S, 0))]
     kernels += training_path(scene, static, cfg, cam, k_rad, k_seg, smi)
     k3, cornell = planar_forward(dev, smi)
     kernels += [k3, planar_training(dev, smi, cornell)]
+    k6a, k8, frames = deferred_forward(dev, smi)
+    kernels += [k6a, k8, *deferred_training(dev, smi, frames)]
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -510,7 +641,8 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
           f"autograd.grad of the sum) {fb_ms:.3f} ms, {segs / (fb_ms / 1e3):.4e}"
           f" segments/s; plain forward+backward frame {plain_fb_ms:.3f} ms",
           flush=True)
-    return [{
+    S, D = ktab.shape[1], cfg.max_depth
+    return [bound({
         "name": "megakernel_sphere_forward_emit",
         "route": "cuda",
         "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
@@ -519,7 +651,7 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         "max_abs_err": emit_err,
         "ms": emit_ms,
         "plain_ms": plain_emit_ms,
-    }, {
+    }, *forward_work(n, D, segs, S, 0, emit=True)), bound({
         "name": "replay_bwd_sphere",
         "route": "cuda",
         "source": "raytracer_weekend_tpu_torch/csrc/replay_bwd.cu",
@@ -528,7 +660,7 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
-    }]
+    }, *backward_work(n, D, segs, S, 0))]
 
 
 # ---- the planar family (phases 7 and 8) ------------------------------------
@@ -552,7 +684,8 @@ def load_scene(name, size, dev):
         objs, cams, bg = scenes.mesh_shards(cfg.aspect_ratio)
         scene, static = build_scene(objs, background=bg)
     else:
-        scene, static, cams = scenes.generate_scene(name, cfg.aspect_ratio)
+        scene, static, cams = scenes.generate_scene(name, cfg.aspect_ratio,
+                                                    device=dev)
     return scene.to(dev), static, cfg, cams[0].to(dev)
 
 
@@ -560,15 +693,18 @@ def lane_windows(n, size):
     return [slice(s, min(s + size, n)) for s in range(0, n, size)]
 
 
-def plain_forward(scene, static, cfg, cam, window, emit=False):
-    """render_fused_reference in lane windows, concatenated."""
+def plain_forward(scene, static, cfg, cam, window, emit=False,
+                  records=False):
+    """render_fused_reference (with `records`, records_reference: the
+    kernel's own outputs before any combine) in lane windows, concatenated."""
     import torch
 
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
-    parts = [mk.render_fused_reference(
-        scene, cfg, cam, w.start, w.stop - w.start, cfg.seed, static=static,
-        emit_paths=emit) for w in lane_windows(cfg.n_rays, window)]
+    fn = mk.records_reference if records else mk.render_fused_reference
+    parts = [fn(scene, cfg, cam, w.start, w.stop - w.start, cfg.seed,
+                static=static, emit_paths=emit)
+             for w in lane_windows(cfg.n_rays, window)]
     return tuple(torch.cat([p[i] for p in parts]) for i in range(len(parts[0])))
 
 
@@ -636,7 +772,8 @@ def planar_forward(dev, smi):
               flush=True)
         if name == "cornell_box":
             cornell = (scene, static, cfg, cam, k_rad, k_seg)
-    return {
+    c_scene, c_static, c_cfg = cornell[:3]
+    return bound({
         "name": "megakernel_planar_forward",
         "route": "cuda",
         "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
@@ -645,7 +782,9 @@ def planar_forward(dev, smi):
         "max_abs_err": cstats["max_abs_err"],
         "ms": k3_ms,
         "plain_ms": plain_ms,
-    }, cornell
+    }, *forward_work(c_cfg.n_rays, c_cfg.max_depth,
+                     cstats["kernel_segments"], 0,
+                     c_static.n_rects + c_static.n_triangles)), cornell
 
 
 def planar_training(dev, smi, cornell):
@@ -688,7 +827,7 @@ def planar_training(dev, smi, cornell):
     limit = ctypes.c_int(0)
     _build.check(lib, lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit)),
                  "cudaDeviceGetAttribute")
-    k4_ms = k4_plain_ms = None
+    k4_ms = k4_plain_ms = k4_work = None
     k4_err = 0.0
     for name, size, frame in (("cornell_box", FULL, cornell),
                               ("wavefront_cow_obj", COW_REDUCED, None)):
@@ -726,6 +865,7 @@ def planar_training(dev, smi, cornell):
         if name == "cornell_box":
             k4_ms = _cuda_ms(k4, 5)
             k4_plain_ms = _cuda_ms(k4_plain, 3)
+            k4_work = backward_work(nl, cf.max_depth, int(k_seg.sum()), S, R)
             timing = (f"; replay_bwd_fused frame {k4_ms:.3f} ms, plain "
                       f"version {k4_plain_ms:.3f} ms (median; {smi})")
         print(f"phase 8 K4 vs plain {name} {cf.width}x{cf.height} spp "
@@ -785,7 +925,7 @@ def planar_training(dev, smi, cornell):
     print(f"phase 8 uv-debug: simple_triangle {cf.width}x{cf.height} forward "
           f"(K3-emit) + backward (torch autograd of the replay, no K4): "
           f"d loss/d v1 = {g_v1.cpu().tolist()}", flush=True)
-    return {
+    return bound({
         "name": "replay_bwd_planar",
         "route": "cuda",
         "source": "raytracer_weekend_tpu_torch/csrc/replay_bwd.cu",
@@ -794,7 +934,515 @@ def planar_training(dev, smi, cornell):
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": k4_plain_ms,
-    }
+    }, *k4_work)
+
+
+
+# ---- deferred image and Perlin textures (phases 9 and 10) --------------------
+
+DEFERRED = ("earth", "two_perlin_spheres", "simple_light")
+RECORDS_SIZE = dict(width=64, height=36, samples_per_pixel=16, max_depth=8)
+TURB_ABS, TURB_NORM_REL = 1e-5, 1e-4
+TURB_WINDOW = 1 << 21     # points per window of the turbulence's plain twin
+
+
+def plain_staged(scene, static, cfg, cam, window):
+    """The staged path with inline noise and image texels (the deferred
+    render's semantic reference) in lane windows -> (radiance, segments)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+
+    parts = []
+    for w in lane_windows(cfg.n_rays, window):
+        ids = torch.arange(w.start, w.stop, device=scene.device)
+        o, d, t, rid = integrator._pixel_rays(cam, cfg, ids, cfg.seed)
+        parts.append(integrator.trace_lanes(scene, static, cfg, o, d, t, rid,
+                                            cfg.seed))
+    return tuple(torch.cat([p[i] for p in parts]) for i in (0, 1))
+
+
+def noise_points(scene, dcode, abc):
+    """The turbulence's inputs in the combine: every record's abc (n*D, 3)
+    and its live mask, the records that defer a noise texel."""
+    from raytracer_weekend_tpu_torch import textures
+
+    tid = (dcode.abs() - 1).clamp_min(0).long()
+    live = (dcode != 0) & (scene.textures.ttype[tid] == textures.NOISE)
+    return abc.reshape(-1, 3), live.reshape(-1)
+
+
+def brief(stats):
+    """{output: [norm_rel, cos]} of agree_all's stats, nonzero outputs."""
+    return {s["output"]: [s["norm_rel"], s["cos"]] for s in stats
+            if "norm_rel" in s}
+
+
+def norm_rel(got, ref):
+    """|got - ref| / |ref| in float64."""
+    ref = ref.double()
+    return float((got.double() - ref).norm() / ref.norm())
+
+
+def ill_lanes(ref, wit):
+    """(n,) bool: the lanes whose per-lane outputs (d_o, d_d, d_time) the
+    float32 plain version `ref` and the float64 witness `wit` give apart
+    by more than ILL_REL of the lane's largest entry (plus K2_ZERO of the
+    largest entry of any lane)."""
+    import torch
+
+    def lanes(r):
+        return torch.cat([r[2].double(), r[3].double(), r[4].double()[:, None]],
+                         dim=1)
+
+    w = lanes(wit)
+    top = w.abs().amax(dim=1)
+    err = (lanes(ref) - w).abs().amax(dim=1)
+    return err > ILL_REL * top + K2_ZERO * float(top.max())
+
+
+def float64_codes(scene, static, cfg, o, d, t, rid, windows):
+    """The winner codes of the plain staged path traced in float64 from the
+    same rays, in lane windows."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.scene.data import SceneData
+
+    scene64 = SceneData.from_leaves([le.double() if le.is_floating_point()
+                                     else le for le in scene.leaves()])
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        parts = [integrator.trace_lanes(
+            scene64, static, cfg, o[w].double(), d[w].double(),
+            t[w].double(), rid[w], cfg.seed, emit_paths=True,
+            emit_deferred=mk.defers(static))[2] for w in windows]
+    finally:
+        torch.set_default_dtype(prev)
+    return torch.cat(parts)
+
+
+def turb_plain(grad, perm, p, live):
+    """K8's plain version in windows of TURB_WINDOW points."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+
+    return torch.cat([pt.turbulence_reference(grad, perm, p[w], 7, live[w])
+                      for w in lane_windows(p.shape[0], TURB_WINDOW)])
+
+
+def turb_vjp_plain(grad, perm, p, ct, live):
+    """K9's plain version in windows: d_grad summed, d_p concatenated."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+
+    parts = [pt.turbulence_vjp_reference(grad, perm, p[w], ct[w], 7, live[w])
+             for w in lane_windows(p.shape[0], TURB_WINDOW)]
+    return sum(q[0] for q in parts), torch.cat([q[1] for q in parts])
+
+
+def deferred_forward(dev, smi):
+    """Phase 9: K8 against its plain version (random points; the real
+    records of two_perlin_spheres with their live mask), the deferred
+    forward path on earth, two_perlin_spheres and simple_light at full size
+    (render_image through K6a and the combine against the plain staged
+    path, with the launch counts reset just before), and K6a's records
+    against the plain version's on 64x36 frames. Returns the kernels line's
+    K6a and K8 entries and each scene's (scene, static, cfg, cam, rad,
+    seg)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+
+    # ---- 9a. K8 against its plain version -----------------------------------
+    scene, static, cfg, cam = load_scene("two_perlin_spheres", FULL, dev)
+    grad, perm = scene.textures.perlin_grad, scene.textures.perlin_perm
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p = torch.randn((1 << 20, 3), device=dev, generator=gen) * 7.0
+    rand_err = float((pt.turbulence(grad, perm, p)
+                      - pt.turbulence_reference(grad, perm, p)).abs().max())
+    _, _, ctb, abc, dcode = mk.render_fused_records(
+        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static)
+    pts, live = noise_points(scene, dcode, abc)
+    got = pt.turbulence(grad, perm, pts, 7, live)
+    ref = turb_plain(grad, perm, pts, live)
+    torch.cuda.synchronize()
+    real_err = float((got - ref).abs().max())
+    dead_zero = bool((got[~live] == 0).all())
+    n_live = int(live.sum())
+    print(f"phase 9 K8 vs plain: 2^20 random points max abs {rand_err:.3e}; "
+          f"two_perlin_spheres' records {pts.shape[0]} points, {n_live} live:"
+          f" max abs {real_err:.3e}, dead points 0: {dead_zero} (budget "
+          f"{TURB_ABS})", flush=True)
+    if not (rand_err <= TURB_ABS and real_err <= TURB_ABS and dead_zero):
+        raise AssertionError("K8 vs plain outside budgets")
+    k8_ms = _cuda_ms(lambda: pt.turbulence(grad, perm, pts, 7, live), 5)
+    k8_plain_ms = _cuda_ms(lambda: turb_plain(grad, perm, pts, live), 1)
+    k8_err = max(rand_err, real_err)
+    # Bytes: a live point reads p; every point reads its mask byte and writes
+    # its turbulence; the tables (6 KB) are read once.
+    k8_work = (n_live * 7 * OPS_TURB_OCTAVE,
+               n_live * 12 + pts.shape[0] * 5 + 6144)
+
+    # ---- 9b. the forward main path on the three scenes ----------------------
+    frames, failed = {}, []
+    k6a_launches = k8_launches = 0
+    k6a_err = 0.0
+    for name in DEFERRED:
+        scene, static, cfg, cam = load_scene(name, FULL, dev)
+        k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
+                                       cfg.seed, static=static)
+        p_rad, p_seg = plain_staged(scene, static, cfg, cam, PLAIN_CHUNK)
+        # The same geometry with solid textures takes K1/K3 (no deferral).
+        solid = scene._replace(textures=scene.textures._replace(
+            ttype=torch.zeros_like(scene.textures.ttype)))
+        _, s_seg = mk.render_fused(solid, cfg, cam, 0, cfg.n_rays, cfg.seed,
+                                   static=type(static)(**{
+                                       **static.__dict__, "has_noise": False,
+                                       "has_image": False}))
+        torch.cuda.synchronize()
+        ok, stats = _budgets(k_rad, p_rad, k_seg.sum(), p_seg.sum(),
+                             cfg.n_rays, **DEFER_BUDGETS)
+        same_paths = bool(torch.equal(k_seg, s_seg))
+        ok = ok and same_paths
+        stats.update(kernel_segments=int(k_seg.sum()),
+                     plain_segments=int(p_seg.sum()),
+                     segments_equal_solid_twin=same_paths)
+        print(f"phase 9 K6a + combine vs the plain staged path {name} "
+              f"{cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} depth "
+              f"{cfg.max_depth}: {json.dumps(stats)}", flush=True)
+        if not ok:
+            failed.append((name, stats))
+        k6a_err = max(k6a_err, stats["max_abs_err"])
+        mk.DEFER_LAUNCHES = pt.TURB_LAUNCHES = 0
+        frame_ms, png = time_render_image(name, scene, static, cfg, cam,
+                                          k_rad)
+        launches, turbs = mk.DEFER_LAUNCHES, pt.TURB_LAUNCHES
+        want_turb = static.has_noise and not static.defer_single_hit
+        if launches < 1 or (want_turb and turbs < 1):
+            raise AssertionError(f"render_image({name}) launched K6a "
+                                 f"{launches} and K8 {turbs} times")
+        k6a_launches += launches
+        k8_launches += turbs
+        fused_ms = _cuda_ms(lambda: mk.render_fused(
+            scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static), 5)
+        med = statistics.median(frame_ms)
+        segs = int(k_seg.sum())
+        print(f"phase 9 main path: render_image {name} {cfg.width}x"
+              f"{cfg.height} spp {cfg.samples_per_pixel} depth "
+              f"{cfg.max_depth} on {smi}: {launches} K6a and {turbs} K8 "
+              f"launches, median frame {med:.3f} ms (min {min(frame_ms):.3f},"
+              f" max {max(frame_ms):.3f}), {segs} segments/frame, "
+              f"{segs / (med / 1e3):.4e} segments/s; render_fused (K6a + "
+              f"combine) {fused_ms:.3f} ms by CUDA events; image -> {png}",
+              flush=True)
+        frames[name] = (scene, static, cfg, cam, k_rad, k_seg)
+    if failed:
+        raise AssertionError(f"K6a + combine vs plain outside budgets: "
+                             f"{failed}")
+
+    # ---- 9c. K6a's records against the plain version's, 64x36 ---------------
+    for name in DEFERRED:
+        scene, static, cfg, cam = load_scene(name, RECORDS_SIZE, dev)
+        n = cfg.n_rays
+        _, _, codes, ctb, abc, dcode = mk.render_fused_records(
+            scene, cfg, cam, 0, n, cfg.seed, static=static, emit_paths=True)
+        _, _, r_codes, r_ctb, r_abc, r_dcode = plain_forward(
+            scene, static, cfg, cam, PLAIN_CHUNK, emit=True, records=True)
+        torch.cuda.synchronize()
+        same = (codes == r_codes).all(dim=1)
+        live = (dcode != 0) & same[:, None]
+        # Far grazing ground hits (t of hundreds along a short scattered
+        # direction) move by up to hundreds of units between the two
+        # quadratics; hit points are compared at 1e-3 with a 2% budget.
+        far = int((~torch.isclose(abc[live], r_abc[live], rtol=1e-3,
+                                  atol=1e-3).all(-1)).sum())
+        ctb_far = int((~torch.isclose(ctb[same], r_ctb[same], rtol=1e-4,
+                                      atol=1e-4).all(-1)).any(-1).sum())
+        stats = dict(lanes=n, code_lanes_differ=int((~same).sum()),
+                     dcode_equal=bool(torch.equal(dcode[same], r_dcode[same])),
+                     live_records=int(live.sum()), abc_far=far,
+                     abc_max_abs=float((abc[live] - r_abc[live]).abs().max()),
+                     ctb_lanes_far=ctb_far,
+                     dead_abc_zero=bool((abc[dcode == 0] == 0).all()))
+        print(f"phase 9 K6a records vs plain {name} {cfg.width}x{cfg.height}"
+              f" spp {cfg.samples_per_pixel} depth {cfg.max_depth}: "
+              f"{json.dumps(stats)}", flush=True)
+        if not (stats["code_lanes_differ"] <= max(4, n // 100)
+                and stats["dcode_equal"] and stats["dead_abc_zero"]
+                and far <= max(4, stats["live_records"] // 50)
+                and ctb_far <= max(4, n // 100)):
+            raise AssertionError(f"K6a records vs plain: {stats}")
+
+    # K6a alone (no combine) on two_perlin_spheres, and its plain version.
+    scene, static, cfg, cam, _, k_seg = frames["two_perlin_spheres"]
+    k6a_ms = _cuda_ms(lambda: mk.render_fused_records(
+        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static), 5)
+    k6a_plain_ms = _cuda_ms(lambda: plain_forward(
+        scene, static, cfg, cam, PLAIN_CHUNK, records=True), 1)
+    print(f"phase 9 timing two_perlin_spheres: K6a (render_fused_records) "
+          f"{k6a_ms:.3f} ms, plain {k6a_plain_ms:.3f} ms; K8 on the frame's "
+          f"{pts.shape[0]} records {k8_ms:.3f} ms, plain {k8_plain_ms:.3f} ms"
+          f" (median; {smi})", flush=True)
+    k6a = bound({
+        "name": "megakernel_deferred_records",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
+        "launches": k6a_launches,
+        "max_abs_err": k6a_err,
+        "ms": k6a_ms,
+        "plain_ms": k6a_plain_ms,
+    }, *forward_work(cfg.n_rays, cfg.max_depth, int(k_seg.sum()),
+                     scene.spheres.c0.shape[0], 0, defer=True))
+    k8 = bound({
+        "name": "perlin_turbulence",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/perlin_turb.cu",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/perlin_turb.py:37",
+        "launches": k8_launches,
+        "max_abs_err": k8_err,
+        "ms": k8_ms,
+        "plain_ms": k8_plain_ms,
+    }, *k8_work)
+    return k6a, k8, frames
+
+
+def deferred_training(dev, smi, frames):
+    """Phase 10: K9 against its plain version on two_perlin_spheres' records
+    (real live mask), K7 against its plain version on each scene's own codes
+    with the combine's real cotangents, the forward+backward frame of each
+    scene through render_fused_diff and InverseRenderer.fit on earth (the
+    image atlas), with the launch counts reset just before. Returns the
+    kernels line's K7 and K9 entries."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import fused_diff, integrator, textures
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+    from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
+    from raytracer_weekend_tpu_torch.train import InverseRenderer
+
+    # ---- 10a. K9 against its plain version ----------------------------------
+    scene, static, cfg, cam = frames["two_perlin_spheres"][:4]
+    grad, perm = scene.textures.perlin_grad, scene.textures.perlin_perm
+    _, _, _, abc, dcode = mk.render_fused_records(
+        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static)
+    pts, live = noise_points(scene, dcode, abc)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    ct = torch.randn(pts.shape[0], device=dev, generator=gen)
+    dg, dp = pt.turbulence_vjp(grad, perm, pts, ct, 7, live)
+    rg, rp = turb_vjp_plain(grad, perm, pts, ct, live)
+    torch.cuda.synchronize()
+    k9_stats = dict(points=pts.shape[0], live=int(live.sum()),
+                    dead_dp_zero=bool((dp[~live] == 0).all()),
+                    d_grad_norm_rel=float((dg - rg).norm() / rg.norm()),
+                    d_p_norm_rel=float((dp - rp).norm() / rp.norm()))
+    print(f"phase 10 K9 vs plain, two_perlin_spheres' records: "
+          f"{json.dumps(k9_stats)} (budget {TURB_NORM_REL})", flush=True)
+    if not (k9_stats["dead_dp_zero"]
+            and k9_stats["d_grad_norm_rel"] <= TURB_NORM_REL
+            and k9_stats["d_p_norm_rel"] <= TURB_NORM_REL):
+        raise AssertionError(f"K9 vs plain: {k9_stats}")
+    k9_err = float(max((dg - rg).abs().max(), (dp - rp).abs().max()))
+    k9_ms = _cuda_ms(lambda: pt.turbulence_vjp(grad, perm, pts, ct, 7, live),
+                     5)
+    k9_plain_ms = _cuda_ms(lambda: turb_vjp_plain(grad, perm, pts, ct, live),
+                           1)
+    # Bytes: a live point reads p and ct; every point reads its mask byte and
+    # writes d_p; the tables are read and d_grad (3 KB) written once.
+    k9_work = (k9_stats["live"] * 7 * OPS_TURB_VJP_OCTAVE,
+               k9_stats["live"] * 16 + pts.shape[0] * 13 + 6144 + 3072)
+
+    # The combine reads a texture table of at most _SELECT_ROWS rows by one
+    # select per row (textures._rows), not by index_select, whose backward
+    # adds every record into the same few rows: both, forward+backward, on
+    # the records' texture ids and on random ids over _SELECT_ROWS rows.
+    tid = (dcode.abs() - 1).clamp_min(0).long().reshape(-1)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows_ms = {}
+    for k_rows, ids in ((scene.textures.color1.shape[0], tid),
+                        (textures._SELECT_ROWS, torch.randint(
+                            0, textures._SELECT_ROWS, tid.shape, device=dev,
+                            generator=gen))):
+        tab = torch.rand((k_rows, 3), device=dev, generator=gen,
+                         requires_grad=True)
+        ct_rows = torch.rand((ids.shape[0], 3), device=dev, generator=gen)
+        for how, read in (("select", textures._rows),
+                          ("index_select",
+                           lambda tb, ix: torch.index_select(tb, 0, ix))):
+            def rows_fb():
+                return torch.autograd.grad(read(tab, ids), tab, ct_rows)
+            rows_fb()
+            rows_ms[f"{how}, {k_rows} rows"] = _cuda_ms(rows_fb, 5)
+    print(f"phase 10 texture-row reads, forward+backward over "
+          f"{tid.shape[0]} records (ms, median of 5; {smi}): "
+          f"{json.dumps(rows_ms)}", flush=True)
+
+    # ---- 10b. K7 against its plain version and the float64 witness -------------
+    k7_err, k7_ms, k7_plain_ms, k7_work = 0.0, None, None, None
+    for name in DEFERRED:
+        scene, static, cfg, cam, k_rad, k_seg = frames[name]
+        n, seed = cfg.n_rays, cfg.seed
+        rad, _, codes, *recs = mk.render_fused(
+            scene, cfg, cam, 0, n, seed, static=static, emit_paths=True,
+            emit_deferred=True)
+        g_k, cabc, _ = fused_diff.combine_vjp(scene, static, recs, 2.0 * rad,
+                                              [])
+        o, d, t, rid = integrator._pixel_rays(
+            cam, cfg, torch.arange(n, dtype=torch.int64, device=dev), seed)
+        ktab = rb.pack_ktab(scene).detach()
+        ptab = (rb.pack_ptab(scene, static).detach()
+                if static.n_rects + static.n_triangles else None)
+        wins = lane_windows(n, PLAIN_CHUNK)
+        # Random cotangents: g on every record, cabc on the noise records
+        # (the only ones whose hit point the combine reads).
+        gen = torch.Generator(device=dev).manual_seed(11)
+        g_r = torch.randn(g_k.shape, device=dev, generator=gen)
+        c_r = None if cabc is None else torch.randn(
+            g_k.shape, device=dev, generator=gen) * \
+            noise_points(scene, recs[2], recs[1])[1].view(n, -1, 1)
+        flips = (codes != float64_codes(scene, static, cfg, o, d, t, rid,
+                                        wins)).any(dim=1)
+
+        def k7(g, c):
+            return rb.replay_bwd_fused(ktab, ptab, scene.background, cfg, o,
+                                       d, t, rid, seed, codes, g, n, cabc=c)
+
+        def k7_plain(g, c, dtype=None, rays=(o, d)):
+            return plain_backward(ktab, ptab, scene.background, cfg, *rays, t,
+                                  rid, seed, codes, g, wins, cabc=c,
+                                  dtype=dtype)
+
+        # The same rays moved by one float32 ulp, each component up or down.
+        gen_j = torch.Generator(device=dev).manual_seed(13)
+        jittered = tuple(
+            x.double() * (1.0 + 2.0 ** -23 * (2 * torch.randint(
+                0, 2, x.shape, device=dev, generator=gen_j) - 1))
+            for x in (o, d))
+
+        for kind, g, c in (("real", g_k, cabc), ("random", g_r, c_r)):
+            got, ref = k7(g, c), k7_plain(g, c)
+            wit = k7_plain(g, c, torch.float64)
+            ill = (ill_lanes(ref, wit)
+                   | ill_lanes(k7_plain(g, c, torch.float64, jittered), wit))
+            torch.cuda.synchronize()
+            held = ill | flips
+            keep = (~held).to(g.dtype).view(n, 1, 1)
+            g_h, c_h = g * keep, None if c is None else c * keep
+            witness = {f"{nm} K7/plain32 vs float64": [norm_rel(a, w),
+                                                        norm_rel(b, w)]
+                       for nm, a, b, w in zip(OUTPUTS, got, ref, wit)
+                       if w is not None and bool((w != 0).any())}
+            got, ref = k7(g_h, c_h), k7_plain(g_h, c_h)
+            wit = k7_plain(g_h, c_h, torch.float64)
+            torch.cuda.synchronize()
+            # float32's resolution of each output on the held lanes: the
+            # plain version's distance from the witness.
+            res = {nm: norm_rel(b, w) for nm, b, w in zip(OUTPUTS, ref, wit)
+                   if w is not None and bool((w != 0).any())}
+            plain = agree_all(got, ref, check=False)
+            f64 = agree_all(got, wit, check=False)
+            stats = dict(held_out=dict(ill_conditioned=int(ill.sum()),
+                                       path_flips=int(flips.sum()),
+                                       total=int(held.sum()),
+                                       budget=max(4, n // HELD_OUT)),
+                         all_lanes=witness, float32_resolution=res,
+                         plain=brief(plain), float64=brief(f64))
+            print(f"phase 10 K7 vs plain {name} {cfg.width}x{cfg.height} "
+                  f"spp {cfg.samples_per_pixel} depth {cfg.max_depth}, "
+                  f"{kind} cotangents"
+                  f"{' (g = the combine VJP of 2 rad)' if kind == 'real' else ''}"
+                  f": {json.dumps(stats)}", flush=True)
+            if int(held.sum()) > max(4, n // HELD_OUT):
+                raise AssertionError(f"K7: {int(held.sum())} lanes held out")
+            if not all(s_["ok"] for s_ in plain + f64):
+                raise AssertionError(f"K7 vs plain outside budgets: {stats}")
+            k7_err = max(k7_err, max(s_["max_abs_err"] for s_ in plain))
+        if name == "two_perlin_spheres":
+            k7_ms = _cuda_ms(lambda: k7(g_k, cabc), 5)
+            k7_plain_ms = _cuda_ms(lambda: k7_plain(g_k, cabc), 1)
+            k7_work = backward_work(n, cfg.max_depth, int(k_seg.sum()),
+                                    ktab.shape[1], 0, defer=True, noise=True)
+            print(f"phase 10 timing two_perlin_spheres: replay_bwd_fused (K7)"
+                  f" {k7_ms:.3f} ms, plain {k7_plain_ms:.3f} ms (median; "
+                  f"{smi})", flush=True)
+
+    # ---- 10c. forward+backward frames -----------------------------------------
+    k7_launches = k9_launches = 0
+    for name in DEFERRED:
+        scene, static, cfg, cam, _, k_seg = frames[name]
+        mk.DEFER_LAUNCHES = pt.TURB_LAUNCHES = 0
+        rb.DEFER_LAUNCHES = pt.TURB_VJP_LAUNCHES = 0
+        fb_ms, grads = fwd_bwd_ms(scene, static, cfg, cam)
+        counts = dict(K6a=mk.DEFER_LAUNCHES, K8=pt.TURB_LAUNCHES,
+                      K7=rb.DEFER_LAUNCHES, K9=pt.TURB_VJP_LAUNCHES)
+        noise = static.has_noise and not static.defer_single_hit
+        if (min(counts["K6a"], counts["K7"]) < 1
+                or (noise and min(counts["K8"], counts["K9"]) < 1)):
+            raise AssertionError(f"{name} forward+backward launches {counts}")
+        k7_launches += counts["K7"]
+        k9_launches += counts["K9"]
+        segs = int(k_seg.sum())
+        print(f"phase 10 forward+backward {name} {cfg.width}x{cfg.height} "
+              f"spp {cfg.samples_per_pixel} depth {cfg.max_depth} on {smi}: "
+              f"launches {json.dumps(counts)}, frame {fb_ms:.3f} ms, "
+              f"{segs / (fb_ms / 1e3):.4e} segments/s; every gradient finite",
+              flush=True)
+
+    # ---- 10d. InverseRenderer.fit on earth: the image atlas -------------------
+    scene, static, cfg, cam, _, _ = frames["earth"]
+    target = integrator.render_image(scene, static, cfg, cam) / \
+        cfg.samples_per_pixel
+    start = scene._replace(textures=scene.textures._replace(
+        images=scene.textures.images * 0.8))
+    images = start.textures.images.clone().requires_grad_()
+    ir = InverseRenderer(static, cfg, cam, target)
+    loss = ir.loss(start._replace(textures=start.textures._replace(
+        images=images)))
+    (g_img,) = torch.autograd.grad(loss, images)
+    texels = int((g_img.abs().sum(-1) > 0).sum())
+    mk.DEFER_LAUNCHES = rb.DEFER_LAUNCHES = 0
+    hist, step_ms = fit_three_steps(static, cfg, cam, target, start)
+    fit_counts = (mk.DEFER_LAUNCHES, rb.DEFER_LAUNCHES)
+    if min(fit_counts) < 1 or texels == 0:
+        raise AssertionError(f"earth fit: K6a/K7 launches {fit_counts}, "
+                             f"{texels} texels with a gradient")
+    k7_launches += fit_counts[1]
+    print(f"phase 10 training path: InverseRenderer.fit earth {cfg.width}x"
+          f"{cfg.height} spp {cfg.samples_per_pixel} depth {cfg.max_depth}, "
+          f"3 Adam steps from the atlas x 0.8 on {smi}: {fit_counts[0]} K6a "
+          f"and {fit_counts[1]} K7 launches; {texels} texels with a nonzero "
+          f"gradient (max {float(g_img.abs().max()):.3e}); loss "
+          f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} (median after warm-up "
+          f"{statistics.median(step_ms[1:]):.3f})", flush=True)
+    k7 = bound({
+        "name": "replay_bwd_deferred",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/replay_bwd.cu",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/replay_bwd.py:191",
+        "launches": k7_launches,
+        "max_abs_err": k7_err,
+        "ms": k7_ms,
+        "plain_ms": k7_plain_ms,
+    }, *k7_work)
+    k9 = bound({
+        "name": "perlin_turbulence_vjp",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/perlin_turb.cu",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/perlin_turb.py:228",
+        "launches": k9_launches,
+        "max_abs_err": k9_err,
+        "ms": k9_ms,
+        "plain_ms": k9_plain_ms,
+    }, *k9_work)
+    return k7, k9
 
 
 if __name__ == "__main__":

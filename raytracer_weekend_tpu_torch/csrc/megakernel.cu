@@ -1,11 +1,13 @@
 // Fused forward path-tracing kernel, one thread per lane: spheres, and the
-// planar family (axis-aligned rects and triangles in one table).
+// planar family (axis-aligned rects and triangles in one table), with noise
+// and image texels deferred to the host (kDefer).
 //
 // Replaces: raytracer_weekend_tpu/ops/pallas/megakernel.py:_kernel, its
 // sphere branch (has_sph: K1, and K1-emit with emit_paths=True) and its
-// planar branch (has_planar, tables from _build_planar_tables: K3), without
-// volumes and with defer_tex=False, reached through render_fused ->
-// _render_fused_core -> pl.pallas_call.
+// planar branch (has_planar, tables from _build_planar_tables: K3) and its
+// deferred-texture record arm (defer_tex=True without phase I/O: K6a),
+// without volumes, reached through render_fused -> _render_fused_core ->
+// pl.pallas_call.
 // It computes what that kernel computes, not its TPU layout: per lane
 // (lane = pixel*spp + sample) the thin-lens primary ray with a shutter time,
 // then up to max_depth bounces of closest hit over the moving spheres and
@@ -23,7 +25,22 @@
 // planar statement sits behind `if constexpr` or a constant-false test, so
 // it compiles to the sphere kernel as it was before the planar branch
 // existed and a sphere scene's launch stays bitwise the same, as kEmit =
-// false does without the codes. The arithmetic follows the staged reference (integrator.
+// false does without the codes.
+//
+// With kDefer (scenes with noise or image textures) a noise or image texel
+// is shaded as 1.0 and the lane writes, per bounce, its deferred-texture
+// record in lane-major order: ctb (D x 3 f32) the bounce's radiance
+// contribution (miss background or emission, texel 1.0), abc (D x 3 f32)
+// the hit point for a noise texel, the pre-flip outward normal for a
+// sphere's image texel and (u, v, 0) in the winner's in-plane coordinates
+// for a planar image texel, else 0, and dcode (D x int32) +(texid + 1), or
+// -(texid + 1) for a planar winner, where the texel was deferred, else 0;
+// bounces after the lane left the loop read as zero records. The host folds
+// the true texels back in (ops/cuda/megakernel.py: combine_deferred); the
+// radiance the kernel writes then lacks them. Every kDefer statement sits
+// behind `if constexpr`, so the other instantiations are unchanged.
+//
+// The arithmetic follows the staged reference (integrator.
 // trace_rays in both packages), which the wrapper's plain version reproduces
 // in torch; the planar test is the JAX kernel's affine form
 //     t = (k - n.o)/(n.d),  u = ua.p + ca,  v = ub.p + cb,
@@ -83,6 +100,7 @@ enum Row {
   C1R, C1G, C1B,
   C2R, C2G, C2B,
   TSCALE,
+  TEXID,              // texture row id (the deferred record's code)
   N_ROWS
 };
 
@@ -106,6 +124,7 @@ enum PRow {
   NSVX, NSVY, NSVZ,
   TU0, TUU, TUV,      // uv-debug u = tu0 + u*tuu + v*tuv
   TV0, TVU, TVV,      //          v = tv0 + u*tvu + v*tvv
+  P_TEXID,            // texture row id (the deferred record's code)
   N_PROWS
 };
 static_assert(P_MTYPE == MTYPE && P_FUZZ == FUZZ && P_IOR == IOR &&
@@ -129,12 +148,32 @@ struct Launch {
   uint32_t seed;
 };
 
-template <bool kEmit, bool kSph, bool kPla>
+// The per-lane rows of the deferred-texture records (kDefer).
+struct Records {
+  float* __restrict__ ctb;   // (n_chunk, max_depth, 3)
+  float* __restrict__ abc;   // (n_chunk, max_depth, 3)
+  int* __restrict__ dcode;   // (n_chunk, max_depth)
+};
+
+__device__ __forceinline__ void put_record(const Records& R, long long k,
+                                           float cr, float cg, float cb,
+                                           float a, float b, float c,
+                                           int code) {
+  R.ctb[3 * k + 0] = cr;
+  R.ctb[3 * k + 1] = cg;
+  R.ctb[3 * k + 2] = cb;
+  R.abc[3 * k + 0] = a;
+  R.abc[3 * k + 1] = b;
+  R.abc[3 * k + 2] = c;
+  R.dcode[k] = code;
+}
+
+template <bool kEmit, bool kSph, bool kPla, bool kDefer>
 __global__ void __launch_bounds__(kBlock)
 render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
               const float* __restrict__ par, Launch L,
               float* __restrict__ rad, int* __restrict__ seg,
-              int* __restrict__ codes) {
+              int* __restrict__ codes, Records rec) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= L.n_chunk) return;
   const int S = L.n_spheres;
@@ -186,6 +225,8 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   // This lane's row of the (n_chunk, max_depth) codes.
   int* __restrict__ lane_codes = kEmit ? codes + (long long)i * L.max_depth
                                        : nullptr;
+  // This lane's records: record k sits at index lane0 + k.
+  const long long lane0 = (long long)i * L.max_depth;
 
   for (int depth = 0; depth < L.max_depth; ++depth) {
     ++nseg;  // this lane is alive at the start of the bounce
@@ -248,6 +289,11 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
 
     if (win < 0) {  // miss -> background, terminate
       if (kEmit) lane_codes[depth] = 0;
+      if constexpr (kDefer) {
+        put_record(rec, lane0 + depth, tpr * par[P_BACKGROUND + 0],
+                   tpg * par[P_BACKGROUND + 1], tpb * par[P_BACKGROUND + 2],
+                   0.f, 0.f, 0.f, 0);
+      }
       rr += tpr * par[P_BACKGROUND + 0];
       rg += tpg * par[P_BACKGROUND + 1];
       rb += tpb * par[P_BACKGROUND + 2];
@@ -315,8 +361,39 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
       }
     }
 
-    // ---- scatter (materials.scatter_packed) ------------------------------
     const float mtype = row_ptr[MTYPE * st];
+    if constexpr (kDefer) {
+      // A noise or image texel is shaded as 1.0 and recorded for the host.
+      const float ttype = row_ptr[TTYPE * st];
+      float ra = 0.f, rb = 0.f, rc = 0.f;
+      int dcode = 0;
+      if (ttype == 2.0f || ttype == 3.0f) {
+        bool on_planar = false;
+        if constexpr (kPla) on_planar = planar;
+        const int texid =
+            (int)row_ptr[(on_planar ? (int)P_TEXID : (int)TEXID) * st];
+        dcode = on_planar ? -(texid + 1) : texid + 1;
+        if (ttype == 2.0f) {  // noise: the hit point
+          ra = px;
+          rb = py;
+          rc = pz;
+        } else if (on_planar) {  // planar image: its in-plane (u, v)
+          ra = bu;
+          rb = bv;
+        } else {  // sphere image: the pre-flip outward normal
+          ra = front ? nx : -nx;
+          rb = front ? ny : -ny;
+          rc = front ? nz : -nz;
+        }
+        tr = tg = tb = 1.0f;
+      }
+      const bool emits = mtype == 3.0f;
+      put_record(rec, lane0 + depth, emits ? tpr * tr : 0.f,
+                 emits ? tpg * tg : 0.f, emits ? tpb * tb : 0.f, ra, rb, rc,
+                 dcode);
+    }
+
+    // ---- scatter (materials.scatter_packed) ------------------------------
     if (mtype == 3.0f) {  // diffuse light: emit tp * tex and stop
       rr += tpr * tr;
       rg += tpg * tg;
@@ -396,6 +473,10 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   if (kEmit) {  // bounces [nseg, max_depth) were never started
     for (int k = nseg; k < L.max_depth; ++k) lane_codes[k] = 0;
   }
+  if constexpr (kDefer) {
+    for (int k = nseg; k < L.max_depth; ++k)
+      put_record(rec, lane0 + k, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
+  }
 }
 
 __global__ void rand4_kernel(const uint32_t* __restrict__ ids, int n,
@@ -405,20 +486,20 @@ __global__ void rand4_kernel(const uint32_t* __restrict__ ids, int n,
   if (i < n) out[i] = rand4(seed, ids[i], depth, salt);
 }
 
-template <bool kEmit>
+template <bool kEmit, bool kDefer>
 void launch_render(const float* tab, const float* ptab, const float* par,
                    const Launch& L, float* rad, int* seg, int* codes,
-                   cudaStream_t stream) {
+                   const Records& rec, cudaStream_t stream) {
   const int grid = (L.n_chunk + kBlock - 1) / kBlock;
   if (L.n_planar == 0) {
-    render_kernel<kEmit, true, false><<<grid, kBlock, 0, stream>>>(
-        tab, ptab, par, L, rad, seg, codes);
+    render_kernel<kEmit, true, false, kDefer><<<grid, kBlock, 0, stream>>>(
+        tab, ptab, par, L, rad, seg, codes, rec);
   } else if (L.n_spheres == 0) {
-    render_kernel<kEmit, false, true><<<grid, kBlock, 0, stream>>>(
-        tab, ptab, par, L, rad, seg, codes);
+    render_kernel<kEmit, false, true, kDefer><<<grid, kBlock, 0, stream>>>(
+        tab, ptab, par, L, rad, seg, codes, rec);
   } else {
-    render_kernel<kEmit, true, true><<<grid, kBlock, 0, stream>>>(
-        tab, ptab, par, L, rad, seg, codes);
+    render_kernel<kEmit, true, true, kDefer><<<grid, kBlock, 0, stream>>>(
+        tab, ptab, par, L, rad, seg, codes, rec);
   }
 }
 
@@ -430,23 +511,37 @@ extern "C" {
 // table `tab` (N_ROWS x n_spheres) and planar table `ptab` (N_PROWS x
 // n_planar), either count 0 (and its table unused) but not both. With a
 // non-null `codes` (n_chunk x max_depth int32) it also writes the winner
-// codes. Returns cudaGetLastError() after the launch (0 on success); it does
-// not sync.
+// codes. With non-null `ctb`, `abc` (n_chunk x max_depth x 3 f32) and
+// `dcode` (n_chunk x max_depth int32) it defers noise and image texels and
+// writes their records. Returns cudaGetLastError() after the launch (0 on
+// success); it does not sync.
 int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                      int n_planar, const float* par, long long lane_start,
                      int n_chunk, int width, int height, int spp,
                      int max_depth, float t_min, unsigned int seed,
-                     float* rad, int* seg, int* codes, void* stream) {
+                     float* rad, int* seg, int* codes, float* ctb,
+                     float* abc, int* dcode, void* stream) {
   if (n_chunk <= 0) return 0;
   if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
+  const bool defer = ctb != nullptr;
+  if (defer && (abc == nullptr || dcode == nullptr))
+    return (int)cudaErrorInvalidValue;
   rtw::Launch L{lane_start, n_chunk, n_spheres, n_planar, width, height,
                 spp, max_depth, t_min, seed};
-  if (codes) {
-    rtw::launch_render<true>(tab, ptab, par, L, rad, seg, codes,
-                             (cudaStream_t)stream);
+  const rtw::Records rec{ctb, abc, dcode};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (codes && defer) {
+    rtw::launch_render<true, true>(tab, ptab, par, L, rad, seg, codes, rec,
+                                   st);
+  } else if (codes) {
+    rtw::launch_render<true, false>(tab, ptab, par, L, rad, seg, codes, rec,
+                                    st);
+  } else if (defer) {
+    rtw::launch_render<false, true>(tab, ptab, par, L, rad, seg, nullptr,
+                                    rec, st);
   } else {
-    rtw::launch_render<false>(tab, ptab, par, L, rad, seg, nullptr,
-                              (cudaStream_t)stream);
+    rtw::launch_render<false, false>(tab, ptab, par, L, rad, seg, nullptr,
+                                     rec, st);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
-// Replay backward of the fused render, one thread per lane: spheres (K2) and
-// the planar family (K4: axis-aligned rects and triangles in one table).
+// Replay backward of the fused render, one thread per lane: spheres (K2), the
+// planar family (K4: axis-aligned rects and triangles in one table) and the
+// deferred-texture branch of both (K7).
 //
 // Replaces: raytracer_weekend_tpu/ops/pallas/replay_bwd.py:_kernel, its
-// sphere branch (has_sph) and its planar branch (has_pla, table of
-// pack_ptab), defer=False, reached through replay_bwd_fused ->
-// _kernel_entry -> pl.pallas_call. For the radiance estimator
+// sphere branch (has_sph), its planar branch (has_pla, table of pack_ptab)
+// and its deferred branch (defer, defer_noise), reached through
+// replay_bwd_fused -> _kernel_entry -> pl.pallas_call. For the radiance estimator
 //     rad = sum_k tp_k * emit_k + miss * tp * background
 // with the winners that the forward kernel recorded held fixed (the codes of
 // csrc/megakernel.cu, kEmit), it returns the vector-Jacobian product with
@@ -49,6 +50,19 @@
 // group's 32 values by shuffles, and one lane per group adds the nonzero
 // sums to global memory. The per-lane math is a few hundred FP32 operations
 // per bounce; the scratch is 36 bytes per bounce written once and read once.
+//
+// Deferred textures (kDefer, kDeferNoise): for a scene whose noise and image
+// texels the forward deferred (csrc/megakernel.cu, kDefer), those texels
+// are 1.0 here, as in the forward, and their cotangent belongs to the
+// host's combine, not to the table's color rows. The radiance cotangent is
+// then per bounce, g (B, D, 3): the cotangent of the bounce's contribution
+// ctb_k, which the autograd of the host's combine gives (g times the
+// product of the deferred texels up to that bounce); a lane reads its own
+// row of bounce k in the reverse sweep. With kDeferNoise, cabc (B, D, 3),
+// the combine's cotangent of a noise record's hit point, joins the hit
+// point's cotangent of each bounce whose winner has a noise texture, and so
+// rides the family's geometry chain back to the tables and the ray. As with
+// kSph/kPla, every deferred statement sits behind `if constexpr`.
 //
 // Numerics: no fast math; sinf/cosf/sqrtf/cbrtf and IEEE division, as in
 // megakernel.cu. Float atomics make the table cotangents and d_background
@@ -130,14 +144,17 @@ struct Bounce {
   bool alive2;                    // the path goes on
   float pnx, pny, pnz, inv_df;    // planar: plane normal, 1/(-d.n)
   float ub, vb;                   // planar: in-plane coordinates
+  bool table_tex;                 // kDefer: a solid/checker texel
+  bool noise;                     // kDefer: a (deferred) noise texel
 };
 
 // The family-independent part of a bounce, from the outward normal
 // (b.snx..) and hit point (b.px..) on: front face, shading normal, texture
 // and scatter. `col` is the winner's column of its table and `st` the
 // table's row stride; kM is the table's MTYPE row, followed in both tables
-// by FUZZ, IOR, TTYPE, C1R..C1B, C2R..C2B, TSCALE.
-template <int kM>
+// by FUZZ, IOR, TTYPE, C1R..C1B, C2R..C2B, TSCALE. With kDefer a noise or
+// image texel (ttype 2 or 3) is 1.0.
+template <int kM, bool kDefer>
 __device__ __forceinline__ void shade(const float* __restrict__ col, int st,
                                       uint32_t seed, uint32_t rid,
                                       uint32_t depth, float dx, float dy,
@@ -156,6 +173,12 @@ __device__ __forceinline__ void shade(const float* __restrict__ col, int st,
   b.tr = b.use2 ? col[(kM + 7) * st] : col[(kM + 4) * st];
   b.tg = b.use2 ? col[(kM + 8) * st] : col[(kM + 5) * st];
   b.tb = b.use2 ? col[(kM + 9) * st] : col[(kM + 6) * st];
+  if constexpr (kDefer) {
+    const float ttype = col[(kM + 3) * st];
+    b.table_tex = ttype <= 1.5f;
+    b.noise = ttype == 2.0f;
+    if (!b.table_tex) b.tr = b.tg = b.tb = 1.0f;
+  }
 
   b.mtype = col[kM * st];
   const float len = sqrtf(b.a + 1e-20f);
@@ -223,6 +246,7 @@ __device__ __forceinline__ void shade(const float* __restrict__ col, int st,
   }
 }
 
+template <bool kDefer>
 __device__ __forceinline__ void recompute(
     const float* __restrict__ tab, int S, int s, float time, float t_min,
     uint32_t seed, uint32_t rid, uint32_t depth, float ox, float oy, float oz,
@@ -253,12 +277,13 @@ __device__ __forceinline__ void recompute(
   b.snx = (b.px - cx) / b.r;
   b.sny = (b.py - cy) / b.r;
   b.snz = (b.pz - cz) / b.r;
-  shade<MTYPE>(col, S, seed, rid, depth, dx, dy, dz, b);
+  shade<MTYPE, kDefer>(col, S, seed, rid, depth, dx, dy, dz, b);
 }
 
 // A planar bounce: t = (o.n - k) / df with df = -d.n, the in-plane
 // coordinates u_b = ua.p + ca, v_b = ub.p + cb, and the raw outward normal
 // ns0 + u_b*nsu + v_b*nsv (replay._pack_planar's coefficients).
+template <bool kDefer>
 __device__ __forceinline__ void recompute_planar(
     const float* __restrict__ ptab, int NR, int r, uint32_t seed,
     uint32_t rid, uint32_t depth, float ox, float oy, float oz, float dx,
@@ -284,7 +309,7 @@ __device__ __forceinline__ void recompute_planar(
           b.vb * col[P_SVY * NR];
   b.snz = col[P_S0Z * NR] + b.ub * col[P_SUZ * NR] +
           b.vb * col[P_SVZ * NR];
-  shade<P_MTYPE>(col, NR, seed, rid, depth, dx, dy, dz, b);
+  shade<P_MTYPE, kDefer>(col, NR, seed, rid, depth, dx, dy, dz, b);
 }
 
 // The sphere a code names, or -1 for a miss, a dead bounce or a code that is
@@ -326,7 +351,7 @@ __device__ __forceinline__ void add_column(float* __restrict__ dst, int NR,
   }
 }
 
-template <bool kSph, bool kPla, bool kPShared>
+template <bool kSph, bool kPla, bool kPShared, bool kDefer, bool kDeferNoise>
 __global__ void __launch_bounds__(kBlock)
 replay_bwd_kernel(const float* __restrict__ tab,
                   const float* __restrict__ ptab,
@@ -335,6 +360,7 @@ replay_bwd_kernel(const float* __restrict__ tab,
                   const float* __restrict__ times,
                   const int* __restrict__ ray_ids,
                   const int* __restrict__ codes, const float* __restrict__ g,
+                  const float* __restrict__ cabc,
                   Launch L, float* __restrict__ st,
                   float* __restrict__ dtab, float* __restrict__ dptab,
                   float* __restrict__ d_o, float* __restrict__ d_d,
@@ -357,7 +383,14 @@ replay_bwd_kernel(const float* __restrict__ tab,
     const int* __restrict__ lane_codes = codes + (long long)i * D;
     const uint32_t rid = (uint32_t)ray_ids[i];
     const float time = times[i];
-    const float gr = g[3 * i + 0], gg = g[3 * i + 1], gb = g[3 * i + 2];
+    // The radiance cotangent: per lane, or with kDefer per bounce (read in
+    // the reverse sweep).
+    float gr = 0.f, gg = 0.f, gb = 0.f;
+    if constexpr (!kDefer) {
+      gr = g[3 * i + 0];
+      gg = g[3 * i + 1];
+      gb = g[3 * i + 2];
+    }
 
     // ---- forward sweep: re-trace the saved path, keep (o, d, tp) ---------
     float ox = o0[3 * i + 0], oy = o0[3 * i + 1], oz = o0[3 * i + 2];
@@ -381,11 +414,11 @@ replay_bwd_kernel(const float* __restrict__ tab,
       if (s < 0 && r < 0) break;  // miss: background, the path ends
       Bounce b;
       if (!kSph || (kPla && r >= 0)) {
-        recompute_planar(ptab, NR, r, L.seed, rid, (uint32_t)k, ox, oy, oz,
-                         dx, dy, dz, b);
+        recompute_planar<kDefer>(ptab, NR, r, L.seed, rid, (uint32_t)k, ox,
+                                 oy, oz, dx, dy, dz, b);
       } else {
-        recompute(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k, ox, oy,
-                  oz, dx, dy, dz, b);
+        recompute<kDefer>(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k,
+                          ox, oy, oz, dx, dy, dz, b);
       }
       if (b.mtype != 2.0f) {  // dielectric attenuates by 1
         tpr *= b.tr;
@@ -418,6 +451,12 @@ replay_bwd_kernel(const float* __restrict__ tab,
       tpr = sk[6 * n];
       tpg = sk[7 * n];
       tpb = sk[8 * n];
+      if constexpr (kDefer) {
+        const float* __restrict__ gk = g + ((long long)i * D + k) * 3;
+        gr = gk[0];
+        gg = gk[1];
+        gb = gk[2];
+      }
       const int s = kSph ? code_sphere(lane_codes[k], S) : -1;
       const int r = kPla ? code_planar(lane_codes[k], NR) : -1;
       if (s < 0 && r < 0) {  // miss: rad += tp * bg
@@ -432,16 +471,16 @@ replay_bwd_kernel(const float* __restrict__ tab,
       }
       Bounce b;
       if (!kSph || (kPla && r >= 0)) {
-        recompute_planar(ptab, NR, r, L.seed, rid, (uint32_t)k, ox, oy, oz,
-                         dx, dy, dz, b);
+        recompute_planar<kDefer>(ptab, NR, r, L.seed, rid, (uint32_t)k, ox,
+                                 oy, oz, dx, dy, dz, b);
       } else {
-        recompute(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k, ox, oy,
-                  oz, dx, dy, dz, b);
+        recompute<kDefer>(tab, S, s, time, L.t_min, L.seed, rid, (uint32_t)k,
+                          ox, oy, oz, dx, dy, dz, b);
       }
 
       // o', d' = alive2 ? (p, nd) : (o, d)
       const float al = b.alive2 ? 1.f : 0.f;
-      const float cpx = al * cox, cpy = al * coy, cpz = al * coz;
+      float cpx = al * cox, cpy = al * coy, cpz = al * coz;
       const float cndx = al * cdx, cndy = al * cdy, cndz = al * cdz;
       cox -= cpx;
       coy -= cpy;
@@ -449,6 +488,15 @@ replay_bwd_kernel(const float* __restrict__ tab,
       cdx -= cndx;
       cdy -= cndy;
       cdz -= cndz;
+      if constexpr (kDeferNoise) {
+        // A noise record's abc is this bounce's hit point p.
+        if (b.noise) {
+          const float* __restrict__ ck = cabc + ((long long)i * D + k) * 3;
+          cpx += ck[0];
+          cpy += ck[1];
+          cpz += ck[2];
+        }
+      }
 
       // rad += light ? tp * tex : 0 ;  tp' = tp * att
       const bool light = b.mtype == 3.0f;
@@ -469,6 +517,10 @@ replay_bwd_kernel(const float* __restrict__ tab,
         ctr *= b.tr;
         ctg *= b.tg;
         ctb *= b.tb;
+      }
+      if constexpr (kDefer) {
+        // A deferred texel's cotangent belongs to the host's combine.
+        if (!b.table_tex) ctexr = ctexg = ctexb = 0.f;
       }
 
       // nd -> (u, n, fuzz, ior)
@@ -680,22 +732,37 @@ replay_bwd_kernel(const float* __restrict__ tab,
   }
 }
 
-template <bool kSph, bool kPla, bool kPShared>
-int launch(const float* ktab, const float* ptab, const float* bg,
-           const float* o, const float* d, const float* time,
-           const int* ray_id, const int* codes, const float* g,
-           const Launch& L, long long smem, float* scratch, float* dtab,
-           float* dptab, float* d_o, float* d_d, float* d_time, float* d_bg,
+// The operands of one launch.
+struct Args {
+  const float *ktab, *ptab, *bg, *o, *d, *time;
+  const int *ray_id, *codes;
+  const float *g, *cabc;
+  float *scratch, *dtab, *dptab, *d_o, *d_d, *d_time, *d_bg;
+};
+
+template <bool kSph, bool kPla, bool kPShared, bool kDefer, bool kDeferNoise>
+int launch(const Args& a, const Launch& L, long long smem,
            cudaStream_t stream) {
-  auto* kernel = replay_bwd_kernel<kSph, kPla, kPShared>;
+  auto* kernel = replay_bwd_kernel<kSph, kPla, kPShared, kDefer, kDeferNoise>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (L.n + kBlock - 1) / kBlock;
   kernel<<<grid, kBlock, (size_t)smem, stream>>>(
-      ktab, ptab, bg, o, d, time, ray_id, codes, g, L, scratch, dtab, dptab,
-      d_o, d_d, d_time, d_bg);
+      a.ktab, a.ptab, a.bg, a.o, a.d, a.time, a.ray_id, a.codes, a.g, a.cabc,
+      L, a.scratch, a.dtab, a.dptab, a.d_o, a.d_d, a.d_time, a.d_bg);
   return (int)cudaGetLastError();
+}
+
+// The family instantiation, dispatched on the deferred-texture flags.
+template <bool kSph, bool kPla, bool kPShared>
+int launch_tex(const Args& a, bool defer, const Launch& L, long long smem,
+               cudaStream_t stream) {
+  if (!defer)
+    return launch<kSph, kPla, kPShared, false, false>(a, L, smem, stream);
+  if (a.cabc)
+    return launch<kSph, kPla, kPShared, true, true>(a, L, smem, stream);
+  return launch<kSph, kPla, kPShared, true, false>(a, L, smem, stream);
 }
 
 }  // namespace bwd
@@ -725,42 +792,38 @@ int rtw_replay_bwd_smem_limit(int* bytes) {
 // (and its table unused) but not both. `dtab`, `dptab` and `d_bg` must be
 // zero on entry: the kernel adds into them. With `planar_shared` each
 // block reduces d(ptab) in shared memory, else by warp-aggregated global
-// atomics. `scratch` holds max_depth * 9 * n floats. Returns the first CUDA
-// error (0 on success); it does not sync.
+// atomics. `scratch` holds max_depth * 9 * n floats. With `defer` the
+// cotangent `g` is per bounce (n x max_depth x 3) and noise and image texels
+// are 1.0 (K7); a non-null `cabc` (n x max_depth x 3) then adds to the noise
+// records' hit points. Returns the first CUDA error (0 on success); it does
+// not sync.
 int rtw_replay_bwd(const float* ktab, int n_spheres, const float* ptab,
                    int n_planar, int planar_shared, const float* bg,
                    const float* o, const float* d, const float* time,
-                   const int* ray_id, const int* codes, const float* g, int n,
-                   int max_depth, float t_min, unsigned int seed,
-                   float* scratch, float* dtab, float* dptab, float* d_o,
-                   float* d_d, float* d_time, float* d_bg, void* stream) {
+                   const int* ray_id, const int* codes, const float* g,
+                   const float* cabc, int defer, int n, int max_depth,
+                   float t_min, unsigned int seed, float* scratch,
+                   float* dtab, float* dptab, float* d_o, float* d_d,
+                   float* d_time, float* d_bg, void* stream) {
   using namespace rtw::bwd;
   if (n <= 0) return 0;
   if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
+  if (cabc && !defer) return (int)cudaErrorInvalidValue;
   const Launch L{n, n_spheres, n_planar, max_depth, t_min, seed};
+  const Args a{ktab, ptab, bg, o, d, time, ray_id, codes, g, cabc,
+               scratch, dtab, dptab, d_o, d_d, d_time, d_bg};
   const long long smem =
       rtw_replay_bwd_smem_bytes(n_spheres, planar_shared ? n_planar : 0);
   const cudaStream_t st = (cudaStream_t)stream;
   if (n_planar == 0)
-    return launch<true, false, true>(ktab, ptab, bg, o, d, time, ray_id,
-                                     codes, g, L, smem, scratch, dtab, dptab,
-                                     d_o, d_d, d_time, d_bg, st);
+    return launch_tex<true, false, true>(a, defer, L, smem, st);
   if (n_spheres == 0) {
     if (planar_shared)
-      return launch<false, true, true>(ktab, ptab, bg, o, d, time, ray_id,
-                                       codes, g, L, smem, scratch, dtab,
-                                       dptab, d_o, d_d, d_time, d_bg, st);
-    return launch<false, true, false>(ktab, ptab, bg, o, d, time, ray_id,
-                                      codes, g, L, smem, scratch, dtab, dptab,
-                                      d_o, d_d, d_time, d_bg, st);
+      return launch_tex<false, true, true>(a, defer, L, smem, st);
+    return launch_tex<false, true, false>(a, defer, L, smem, st);
   }
-  if (planar_shared)
-    return launch<true, true, true>(ktab, ptab, bg, o, d, time, ray_id,
-                                    codes, g, L, smem, scratch, dtab, dptab,
-                                    d_o, d_d, d_time, d_bg, st);
-  return launch<true, true, false>(ktab, ptab, bg, o, d, time, ray_id, codes,
-                                   g, L, smem, scratch, dtab, dptab, d_o, d_d,
-                                   d_time, d_bg, st);
+  if (planar_shared) return launch_tex<true, true, true>(a, defer, L, smem, st);
+  return launch_tex<true, true, false>(a, defer, L, smem, st);
 }
 
 }  // extern "C"

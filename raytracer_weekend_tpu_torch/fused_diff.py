@@ -2,20 +2,28 @@
 
 Port of `raytracer_weekend_tpu/fused_diff.py`, for the scenes that
 `megakernel.fused_supported` admits: spheres, rects and triangles with
-solid, checker or (planar) uv-debug textures. The fused forward has no
-autodiff rule of its own, so `render_fused_diff` is a
+solid, checker, noise, image or (planar) uv-debug textures. The fused
+forward has no autodiff rule of its own, so `render_fused_diff` is a
 `torch.autograd.Function` that pairs
 
   forward   the fused render emitting per-bounce winner codes: the CUDA
             kernel K1-emit/K3 on a card, its plain version on the CPU
             (`ops.cuda.megakernel.render_fused(..., emit_paths=True)`);
+            for a scene with noise or image textures also the deferred
+            records (K6a, `emit_deferred=True`), combined into the radiance
+            (K8 for the turbulence);
   backward  the replay backward on those saved codes. As in the JAX
             package this is a static choice on `SceneStatic`:
             * no uv-debug texture: kernels K2/K4 on a card, torch.autograd
               through `replay.replay_packed` on the CPU
               (`ops.cuda.replay_bwd.replay_bwd_fused`), chained to the
               scene and camera leaves through the autograd of `pack_ktab`,
-              `pack_ptab` and `integrator._pixel_rays`;
+              `pack_ptab` and `integrator._pixel_rays`. With deferred
+              texels, torch autograd of the combine first gives the
+              texture table's gradients (the turbulence's through K9), the
+              per-bounce cotangents g_k of the records' contributions and
+              the cotangents cabc of the noise records' hit points, and
+              K2/K4 with their deferred branch K7 take those;
             * uv-debug (simple_triangle): torch.autograd through
               `replay.replay_rays` on every device, the port of the JAX
               package's XLA replay for the scenes its kernel does not cover.
@@ -24,6 +32,9 @@ Discrete choices (winners, hit/miss, reflect/refract) are held fixed and
 continuous factors differentiate: the staged path's gradient semantics.
 The JAX package's peeled-primary prepass (`prepare_peel`) is a TPU table
 layout and is not ported; volume scenes raise `NotImplementedError`.
+Without `remat` or `lax.map` pieces (TPU compile-time workarounds), the
+deferred combine's autograd keeps its texel intermediates for the whole
+frame.
 """
 
 from __future__ import annotations
@@ -49,20 +60,26 @@ class _FusedDiff(torch.autograd.Function):
         static, cfg, lane_start, n_chunk, seed, n_scene = spec
         scene = SceneData.from_leaves(leaves[:n_scene])
         cam = Camera(*leaves[n_scene:])
-        rad, _, codes = megakernel.render_fused(
+        defer = _defers(static)
+        rad, _, codes, *recs = megakernel.render_fused(
             scene, cfg, cam, lane_start, n_chunk, seed, static=static,
-            emit_paths=True)
+            emit_paths=True, emit_deferred=defer)
         ctx.spec = spec
-        ctx.save_for_backward(codes, *leaves)
+        ctx.n_recs = len(recs)
+        ctx.save_for_backward(*recs, codes, *leaves)
         return rad
 
     @staticmethod
     def backward(ctx, g):
         static, cfg, lane_start, n_chunk, seed, n_scene = ctx.spec
-        codes, *leaves = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        recs, codes, leaves = (saved[:ctx.n_recs], saved[ctx.n_recs],
+                               list(saved[ctx.n_recs + 1:]))
         wanted = [i for i, t in enumerate(leaves)
                   if t.is_floating_point() and ctx.needs_input_grad[1 + i]]
         g = g.to(torch.float32)
+        grads_c = [None] * len(wanted)
+        cabc = None
         with torch.enable_grad():
             for i in wanted:
                 leaves[i] = leaves[i].detach().requires_grad_()
@@ -75,6 +92,9 @@ class _FusedDiff(torch.autograd.Function):
                 rad = replay.replay_rays(scene, static, cfg, o, d, time,
                                          ray_id, seed, codes)
             else:
+                if recs:
+                    g, cabc, grads_c = combine_vjp(
+                        scene, static, recs, g, [leaves[i] for i in wanted])
                 ktab = (replay_bwd.pack_ktab(scene) if static.n_spheres
                         else None)
                 ptab = (replay_bwd.pack_ptab(scene, static)
@@ -84,7 +104,7 @@ class _FusedDiff(torch.autograd.Function):
         else:
             dktab, dptab, d_o, d_d, d_time, d_bg = replay_bwd.replay_bwd_fused(
                 ktab, ptab, scene.background, cfg, o, d, time, ray_id, seed,
-                codes, g, n_chunk)
+                codes, g, n_chunk, cabc=cabc)
             # Chain through the packings and _pixel_rays to the leaves.
             pairs = [(ktab, dktab), (ptab, dptab), (scene.background, d_bg),
                      (o, d_o), (d, d_d), (time, d_time)]
@@ -95,9 +115,50 @@ class _FusedDiff(torch.autograd.Function):
                 [t for t, _ in pairs], [leaves[i] for i in wanted],
                 grad_outputs=[c for _, c in pairs], allow_unused=True)
         out = [None] * len(leaves)
-        for i, gr in zip(wanted, grads):
-            out[i] = torch.zeros_like(leaves[i]) if gr is None else gr
+        for i, gr, gc in zip(wanted, grads, grads_c):
+            parts = [x for x in (gr, gc) if x is not None]
+            out[i] = (sum(parts[1:], parts[0]) if parts
+                      else torch.zeros_like(leaves[i]))
         return (None, *out)
+
+
+def _defers(static: SceneStatic) -> bool:
+    """The forward defers noise and image texels and the backward takes the
+    kernels' deferred branch (not for uv-debug scenes, which replay)."""
+    return megakernel.defers(static) and not static.has_uvdebug
+
+
+def combine_vjp(scene, static, recs, g, wanted_leaves):
+    """The deferred combine's VJP with the radiance cotangent g (n, 3) ->
+    (g_k (n, D, 3), the records' contribution cotangents; cabc (n, D, 3)
+    or None for a scene without noise, the noise hit points' cotangents;
+    the gradients of `wanted_leaves`, each None where unused).
+
+    Dead records (dcode 0) are differentiated at abc = 0.5: whatever abc
+    held there, the masked-zero cotangent times a NaN Jacobian of the
+    spherical UV (atan2/asin at 0 or at the poles) would poison every
+    geometry gradient. The turbulence runs through `turbulence_diff`
+    (K8 forward, K9 backward; their plain versions on the CPU).
+    """
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb
+
+    ctb, abc, dcode = recs
+    ctb = ctb.detach().requires_grad_()
+    abc = torch.where((dcode != 0)[..., None], abc, 0.5).requires_grad_()
+
+    def noise_fn(grad, perm, p, live):
+        return perlin_turb.turbulence_diff(grad, perm, p, 7, live)
+
+    rad = megakernel.combine(scene, static, ctb, abc, dcode,
+                             noise_fn=noise_fn)
+    wrt = [ctb, abc] + wanted_leaves
+    grads = torch.autograd.grad(rad, wrt, grad_outputs=g, allow_unused=True)
+    g_k, cabc = grads[0], grads[1]
+    if g_k is None:
+        g_k = torch.zeros_like(ctb)
+    if not static.has_noise or cabc is None:
+        cabc = None     # image texels (nearest fetch): d(abc) is 0
+    return g_k, cabc, list(grads[2:])
 
 
 def render_fused_diff(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
@@ -107,17 +168,19 @@ def render_fused_diff(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     of `scene` and `cam` (lanes [lane_start, lane_start + n_chunk)).
 
     On a CUDA device the forward is the fused kernel with codes (K1-emit,
-    with the planar branch K3 when the scene has rects or triangles) and the
-    backward kernel K2/K4, or torch autograd of the replay for uv-debug
-    scenes; a build, load or launch failure raises and nothing falls back.
-    On the CPU both are their plain torch versions. Scenes outside
-    `megakernel.fused_supported` raise `NotImplementedError`.
+    with the planar branch K3 when the scene has rects or triangles, and
+    the deferred records K6a with K8 when it has noise or image textures)
+    and the backward kernel K2/K4 (K7, after K9, for deferred texels), or
+    torch autograd of the replay for uv-debug scenes; a build, load or
+    launch failure raises and nothing falls back. On the CPU both are
+    their plain torch versions. Scenes outside `megakernel.fused_supported`
+    raise `NotImplementedError`.
     """
     if not megakernel.fused_supported(static, cfg):
         raise NotImplementedError(
             "render_fused_diff covers sphere, rect and triangle scenes with "
-            "solid/checker/uv-debug Lambertian/Metal/Dielectric/DiffuseLight "
-            f"materials: {static}")
+            "Lambertian/Metal/Dielectric/DiffuseLight materials; volumes are "
+            f"not ported yet: {static}")
     spec = (static, cfg, int(lane_start), int(n_chunk), int(seed),
             len(scene.leaves()))
     return _FusedDiff.apply(spec, *scene.leaves(), *cam)

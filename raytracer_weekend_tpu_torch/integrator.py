@@ -1,6 +1,7 @@
 """Wavefront path-tracing integrator (port of `integrator.py`).
 
-Spheres, axis-aligned rects and triangles; volumes are not ported yet.
+Spheres, axis-aligned rects and triangles with solid, checker, noise, image
+and uv-debug textures; volumes are not ported yet.
 The reference's recursion `emitted + attenuation * sample_ray(...)` is
 re-associated into the iterative form
 
@@ -29,6 +30,7 @@ import torch
 
 from raytracer_weekend_tpu_torch import materials as mat_mod
 from raytracer_weekend_tpu_torch import rng as rt_rng
+from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.camera import Camera, get_rays
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops import rect as rect_ops
@@ -125,7 +127,8 @@ def trace_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
 
 def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                 o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
-                ray_id: torch.Tensor, seed, emit_paths: bool = False):
+                ray_id: torch.Tensor, seed, emit_paths: bool = False,
+                emit_deferred: bool = False):
     """`trace_rays` with per-lane segment counts -> ((B,3) f32, (B,) int32).
 
     With `emit_paths`, also the per-bounce winner codes (B, max_depth)
@@ -134,6 +137,18 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     first, then triangles offset by `static.n_rects`); else 0. These are the
     JAX megakernel's `emit_paths` codes (there f32); `replay.replay_rays`
     re-traces a path from them.
+
+    With `emit_deferred`, noise and image texels are shaded as 1.0 (so the
+    radiance lacks them) and the per-bounce deferred-texture records follow
+    the codes: ctb (B, D, 3) f32, the bounce's radiance contribution (miss
+    background or emission, texels 1.0); abc (B, D, 3) f32, the hit point
+    for a noise texel, the pre-flip outward normal for a sphere's image
+    texel, (u, v, 0) in the primitive's own in-plane coordinates for a
+    planar image texel, else 0; dcode (B, D) int32, +(texid + 1) (sphere or
+    noise) or -(texid + 1) (planar image) where a live hit's texel was
+    deferred, else 0. This is the plain version of the fused kernel's
+    deferred-texture records (`ops.cuda.megakernel.combine_deferred` folds
+    them back in).
     """
     if static.n_volumes:
         raise NotImplementedError(_NOT_PORTED)
@@ -143,7 +158,12 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     radiance = torch.zeros((B, 3), device=o.device)
     alive = torch.ones((B,), dtype=torch.bool, device=o.device)
     segments = torch.zeros((B,), dtype=torch.int32, device=o.device)
-    codes = []
+    codes, records = [], []
+    pla = None
+    if emit_deferred and (static.n_rects or static.n_triangles):
+        from raytracer_weekend_tpu_torch import replay
+
+        pla = replay._pack_planar(scene, static)
 
     for depth in range(cfg.max_depth):
         segments = segments + alive.to(torch.int32)
@@ -152,15 +172,15 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
 
         # Miss -> background, terminate.
         miss = alive & ~hit_mask
-        radiance = radiance + torch.where(miss[:, None],
-                                          throughput * background, 0.0)
+        miss_c = torch.where(miss[:, None], throughput * background, 0.0)
+        radiance = radiance + miss_c
         alive = alive & hit_mask
-        if emit_paths:
-            idx32 = idx.to(torch.int32)
-            planar = torch.where(fam == _FAM_TRI, idx32 + static.n_rects,
+        idx32 = idx.to(torch.int32)
+        planar_idx = torch.where(fam == _FAM_TRI, idx32 + static.n_rects,
                                  idx32)
+        if emit_paths:
             code = torch.where(fam == _FAM_SPHERE, 1 + 4 * idx32,
-                               2 + 4 * planar)
+                               2 + 4 * planar_idx)
             codes.append(torch.where(alive, code, 0))
 
         p, normal, front_face, u, v, mat_id = _hit_record(
@@ -168,10 +188,15 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
         sc = mat_mod.scatter(
             scene.materials, scene.textures, mat_id, d, p, normal, front_face,
             u, v, seed, ray_id, depth,
-            has_noise=static.has_noise, has_image=static.has_image)
+            has_noise=static.has_noise, has_image=static.has_image,
+            defer=emit_deferred)
 
-        radiance = radiance + torch.where(alive[:, None],
-                                          throughput * sc.emitted, 0.0)
+        emit_c = torch.where(alive[:, None], throughput * sc.emitted, 0.0)
+        radiance = radiance + emit_c
+        if emit_deferred:
+            records.append(_deferred_record(
+                scene, p, normal, front_face, mat_id, fam, planar_idx, alive,
+                pla) + (miss_c + emit_c,))
         throughput = torch.where(alive[:, None],
                                  throughput * sc.attenuation, throughput)
         alive = alive & sc.alive
@@ -180,9 +205,36 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
         o = torch.where(alive[:, None], p, o)
         d = torch.where(alive[:, None], sc.direction, d)
     # Depth exhausted with live rays -> they contribute black.
+    out = (radiance, segments)
     if emit_paths:
-        return radiance, segments, torch.stack(codes, dim=1)
-    return radiance, segments
+        out += (torch.stack(codes, dim=1),)
+    if emit_deferred:
+        dcode, abc, ctb = (torch.stack(r, dim=1) for r in zip(*records))
+        out += (ctb, abc, dcode)
+    return out
+
+
+def _deferred_record(scene: SceneData, p, normal, front_face, mat_id, fam,
+                     planar_idx, alive, pla):
+    """One bounce's (dcode (B,) int32, abc (B,3)) deferred-texture record
+    (see `trace_lanes`); `pla` is `replay._pack_planar`'s table or None."""
+    tid = scene.materials.tex[mat_id.long()].long()
+    ttype = scene.textures.ttype[tid]
+    is_noise = ttype == tex_mod.NOISE
+    deferred = alive & (is_noise | (ttype == tex_mod.IMAGE))
+    planar = (fam == _FAM_RECT) | (fam == _FAM_TRI)
+    abc = torch.where(front_face[:, None], normal, -normal)  # pre-flip
+    if pla is not None:
+        row = pla[torch.where(planar, planar_idx, 0).long()]
+        u_b = dot(row[:, 4:7], p) + row[:, 7]
+        v_b = dot(row[:, 8:11], p) + row[:, 11]
+        uv0 = torch.stack([u_b, v_b, torch.zeros_like(u_b)], dim=-1)
+        abc = torch.where(planar[:, None], uv0, abc)
+    abc = torch.where(is_noise[:, None], p, abc)
+    abc = torch.where(deferred[:, None], abc, 0.0)
+    code = (tid + 1).to(torch.int32)
+    dcode = torch.where(deferred, torch.where(planar, -code, code), 0)
+    return dcode, abc
 
 
 def _pixel_rays(cam: Camera, cfg: RenderConfig, pixel_ids: torch.Tensor, seed):
@@ -241,8 +293,8 @@ def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     if device.type == "cuda" and not use_fused:
         raise NotImplementedError(
             "on CUDA the port renders sphere, rect and triangle scenes with "
-            "solid/checker/uv-debug Lambertian/Metal/Dielectric/DiffuseLight "
-            f"materials; this scene is outside that slice ({static})")
+            "Lambertian/Metal/Dielectric/DiffuseLight materials; this scene "
+            f"is outside that slice ({static})")
 
     chunks = []
     for start in range(0, n_lanes, batch):

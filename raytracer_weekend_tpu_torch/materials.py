@@ -52,15 +52,25 @@ def scatter(materials: MaterialTable, textures: tex_mod.TextureTable,
             mat_id: torch.Tensor, ray_dir: torch.Tensor, p: torch.Tensor,
             normal: torch.Tensor, front_face: torch.Tensor, u: torch.Tensor,
             v: torch.Tensor, seed, ray_id: torch.Tensor, depth, *,
-            has_noise: bool = False, has_image: bool = False) -> ScatterResult:
-    """Shade a batch of hits: the vectorized union of all `scatter` impls."""
+            has_noise: bool = False, has_image: bool = False,
+            defer: bool = False) -> ScatterResult:
+    """Shade a batch of hits: the vectorized union of all `scatter` impls.
+
+    With `defer`, noise and image texels are shaded as 1.0 and left to the
+    caller (the fused render's deferred-texture records).
+    """
     mat_id = mat_id.long()
     mtype = materials.mtype[mat_id]
     fuzz = materials.fuzz[mat_id]
     ior = materials.ior[mat_id]
+    tex_id = materials.tex[mat_id]
     tex_color = tex_mod.texture_value(
-        textures, materials.tex[mat_id], u, v, p,
-        has_noise=has_noise, has_image=has_image)
+        textures, tex_id, u, v, p,
+        has_noise=has_noise and not defer, has_image=has_image and not defer)
+    if defer:
+        ttype = textures.ttype[tex_id.long()]
+        deferred = (ttype == tex_mod.NOISE) | (ttype == tex_mod.IMAGE)
+        tex_color = torch.where(deferred[..., None], 1.0, tex_color)
     return scatter_packed(mtype, fuzz, ior, tex_color, ray_dir, p, normal,
                           front_face, seed, ray_id, depth)
 

@@ -1,10 +1,12 @@
-"""The sphere and planar scenes of the catalog (port of `models/scenes.py`).
+"""The sphere, planar and textured scenes of the catalog (port of `models/scenes.py`).
 
 Each generator returns (objects, cameras, background), with the same
 geometry, materials, camera parameters and seeded numpy draws as the JAX
-package's, so both builders compile them to bit-equal tables. The catalog's
-noise, image-texture and constant-medium scenes wait for their families
-(ROADMAP Queue 1).
+package's, so both builders compile them to bit-equal tables. The
+earthmap's texels come from `assets/earthmap.npz`, the JPEG of `models/`
+decoded once with Pillow, so a machine without Pillow renders the same
+texels. The catalog's constant-medium scenes wait for volumes (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from raytracer_weekend_tpu_torch.camera import Camera, make_camera
 from raytracer_weekend_tpu_torch.scene import builder as B
@@ -22,6 +25,8 @@ _DIM_SKY = (0.085, 0.1, 0.125)
 
 # Model assets live in the repository's models/ directory.
 _MODEL_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "models")
+_EARTHMAP = os.path.join(os.path.dirname(__file__), "..", "assets",
+                         "earthmap.npz")
 
 
 def model_path(name: str) -> str:
@@ -30,6 +35,14 @@ def model_path(name: str) -> str:
         raise FileNotFoundError(f"model asset {name} not found in "
                                 f"{os.path.normpath(_MODEL_DIR)}")
     return p
+
+
+def earthmap() -> np.ndarray:
+    """models/earthmap.jpg as Pillow decodes it, (512, 1024, 3) float32 in
+    [0, 1]: the package's uint8 copy / 255, bit for bit the JAX builder's
+    `ImageTexture(path)` texels."""
+    with np.load(_EARTHMAP) as z:
+        return z["earthmap"].astype(np.float32) / 255.0
 
 
 def _cam(look_from, look_at, vfov, aspect, aperture=0.0, focus=10.0,
@@ -84,6 +97,35 @@ def two_spheres(aspect, seed=0):
         B.Sphere((0, 10, 0), 10.0, ground),
     ]
     return objs, [_cam((13, 2, 3), (0, 0, 0), 40.0, aspect)], DEFAULT_BACKGROUND
+
+
+def two_perlin_spheres(aspect, seed=0):
+    mat = B.Lambertian(B.NoiseTexture(4.0))
+    objs = [
+        B.Sphere((0, -1000, 0), 1000.0, mat),
+        B.Sphere((0, 2, 0), 2.0, mat),
+    ]
+    return objs, [_cam((13, 2, 3), (0, 0, 0), 40.0, aspect)], DEFAULT_BACKGROUND
+
+
+def earth(aspect, seed=0):
+    tex = B.ImageTexture(data=earthmap())
+    objs = [B.Sphere((0, 0, 0), 2.0, B.Lambertian(tex))]
+    return objs, [_cam((13, 2, 3), (0, 0, 0), 20.0, aspect)], DEFAULT_BACKGROUND
+
+
+def simple_light(aspect, seed=0):
+    """A noise ground and sphere lit by an earthmap-textured rect and sphere
+    light (image-texture emission), on a black background."""
+    emissive = B.DiffuseLight(B.ImageTexture(data=earthmap()))
+    ground = B.Lambertian(B.NoiseTexture(4.0))
+    objs = [
+        B.Sphere((0, -1000, 0), 1000.0, ground),
+        B.Sphere((0, 2, 0), 2.0, ground),
+        B.XYRectangle(3.0, 5.0, 1.0, 3.0, -2.0, emissive),
+        B.Sphere((0, 6, 0), 2.0, emissive),
+    ]
+    return objs, [_cam((26, 3, 6), (0, 2, 0), 20.0, aspect)], (0.0, 0.0, 0.0)
 
 
 def cornell_box(aspect, seed=0):
@@ -170,6 +212,9 @@ def mesh_shards(aspect, seed=0):
 SCENES = {
     "jumpy_balls": jumpy_balls,
     "two_spheres": two_spheres,
+    "two_perlin_spheres": two_perlin_spheres,
+    "earth": earth,
+    "simple_light": simple_light,
     "cornell_box": cornell_box,
     "simple_triangle": simple_triangle,
     "wavefront_cow_obj": wavefront_cow_obj,
@@ -177,10 +222,19 @@ SCENES = {
 }
 
 
-def generate_scene(name: str, aspect_ratio: float, seed: int = 0):
-    """Build a named scene -> (scene_data, scene_static, cameras), on the CPU."""
+def generate_scene(name: str, aspect_ratio: float, seed: int = 0,
+                   device="cuda"):
+    """Build a named scene -> (scene_data, scene_static, cameras) on `device`.
+
+    The default is the card: with no CUDA device this raises, and it never
+    builds on the CPU unless the caller asks with `device="cpu"`.
+    """
     if name not in SCENES:
         raise KeyError(f"unknown scene {name!r}; options: {sorted(SCENES)}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"generate_scene({name!r}) on {device}: torch sees "
+                           f"no CUDA device; pass device='cpu' for the CPU")
     objs, cams, background = SCENES[name](aspect_ratio, seed)
     data, static = B.build_scene(objs, background=background, seed=seed)
-    return data, static, cams
+    return data.to(device), static, [c.to(device) for c in cams]

@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("megakernel.cu", "replay_bwd.cu")
+SOURCES = ("megakernel.cu", "replay_bwd.cu", "perlin_turb.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -102,16 +102,22 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.rtw_render_fused.argtypes = [_P, _I, _P, _I, _P, _LL, _I, _I, _I,
-                                         _I, _I, _F, _U, _P, _P, _P, _P]
+                                         _I, _I, _F, _U, _P, _P, _P, _P, _P,
+                                         _P, _P]
         lib.rtw_render_fused.restype = _I
         lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P,
-                                       _P, _P, _P, _I, _I, _F, _U, _P, _P,
-                                       _P, _P, _P, _P, _P, _P]
+                                       _P, _P, _P, _P, _I, _I, _I, _F, _U,
+                                       _P, _P, _P, _P, _P, _P, _P, _P]
         lib.rtw_replay_bwd.restype = _I
         lib.rtw_replay_bwd_smem_bytes.argtypes = [_I, _I]
         lib.rtw_replay_bwd_smem_bytes.restype = _LL
         lib.rtw_replay_bwd_smem_limit.argtypes = [_P]
         lib.rtw_replay_bwd_smem_limit.restype = _I
+        lib.rtw_turbulence.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
+        lib.rtw_turbulence.restype = _I
+        lib.rtw_turbulence_vjp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P,
+                                           _P, _P]
+        lib.rtw_turbulence_vjp.restype = _I
         lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
         lib.rtw_rand4.restype = _I
         lib.rtw_error_string.argtypes = [_I]

@@ -1,11 +1,16 @@
-"""Replay backward of the fused render: kernels K2 (spheres) and K4 (planar).
+"""Replay backward of the fused render: kernels K2 (spheres), K4 (planar), K7 (deferred).
 
 Counterpart of `raytracer_weekend_tpu/ops/pallas/replay_bwd.py`, sphere and
-planar branches. Given the winner codes that the fused forward recorded
-(`megakernel.render_fused(..., emit_paths=True)`) and the radiance
-cotangent g, `replay_bwd_fused` returns the cotangents of the sphere table
-`pack_ktab(scene)`, of the planar table `pack_ptab(scene, static)`, of the
-primary rays (o, d, time) and of the background:
+planar branches and their deferred-texture branch. Given the winner codes
+that the fused forward recorded (`megakernel.render_fused(...,
+emit_paths=True)`) and the radiance cotangent g, `replay_bwd_fused` returns
+the cotangents of the sphere table `pack_ktab(scene)`, of the planar table
+`pack_ptab(scene, static)`, of the primary rays (o, d, time) and of the
+background. For a scene whose noise and image texels the forward deferred,
+g is per bounce, (n, D, 3): the cotangent of the records' contributions
+ctb, which the autograd of the deferred combine gives (`fused_diff.py`);
+those texels are 1.0 here, and `cabc` (n, D, 3), the cotangent of the noise
+records' hit points, joins each such bounce's hit point (K7):
 
   * for tensors on a CUDA device it launches the hand-written kernel in
     `csrc/replay_bwd.cu` (built at first use by `_build.py`) and raises if
@@ -15,8 +20,9 @@ primary rays (o, d, time) and of the background:
     warp-aggregated global atomics (a mesh: the cow's 5,805 primitives
     need 743 KB);
   * for tensors on the CPU it runs `replay_bwd_reference`: torch.autograd
-    through `replay.replay_packed` on the same codes, which is what the
-    CUDA kernel is held against on the card.
+    through `replay.replay_packed` (its deferred form for a per-bounce g)
+    on the same codes, which is what the CUDA kernel is held against on the
+    card.
 
 The host chains the results through the autograd of `pack_ktab`,
 `pack_ptab` and `integrator._pixel_rays` to the scene and camera leaves
@@ -36,11 +42,12 @@ from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops.cuda.megakernel import _check
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
 
-# Launches of the CUDA kernel in this process, and those whose scene has
-# planar primitives (the planar branch). Only the launch in
-# `replay_bwd_fused` adds to them.
+# Launches of the CUDA kernel in this process, those whose scene has planar
+# primitives (the planar branch) and those with a per-bounce cotangent (the
+# deferred branch, K7). Only the launch in `replay_bwd_fused` adds to them.
 LAUNCHES = 0
 PLANAR_LAUNCHES = 0
+DEFER_LAUNCHES = 0
 
 # Rows of the sphere table, in the order of `enum KRow` in
 # csrc/replay_bwd.cu: the first KT columns of replay's packed sphere rows
@@ -87,12 +94,14 @@ def pack_ptab(scene: SceneData, static: SceneStatic) -> torch.Tensor:
 
 
 def replay_bwd_reference(ktab, ptab, background, cfg: RenderConfig, o, d,
-                         time, ray_id, seed, codes, g):
+                         time, ray_id, seed, codes, g, cabc=None):
     """Plain torch version: the VJP of the replay with cotangent g.
 
-    ktab and ptab as `replay_bwd_fused` takes them, either None. Returns
-    (dktab (KT,S) or None, dptab (KP,R) or None, d_o (B,3), d_d (B,3),
-    d_time (B,), d_bg (3,)).
+    ktab and ptab as `replay_bwd_fused` takes them, either None; with a
+    per-bounce g (B, D, 3) the VJP of the replay's deferred form with the
+    cotangents (g, cabc), cabc (B, D, 3) or None. Returns (dktab (KT,S) or
+    None, dptab (KP,R) or None, d_o (B,3), d_d (B,3), d_time (B,), d_bg
+    (3,)).
     """
     with torch.enable_grad():
         tabs = [None if t is None else t.detach().requires_grad_()
@@ -107,10 +116,20 @@ def replay_bwd_reference(ktab, ptab, background, cfg: RenderConfig, o, d,
             pla = p.new_zeros((p.shape[1], len(replay.PLANAR_COLS)))
             pla = pla.index_copy(1, torch.tensor(_KP_COLS, device=p.device),
                                  p.T)
-        rad = replay.replay_packed(sph, pla, bg, cfg, o_, d_, t_, ray_id,
-                                   seed, codes)
         wrt = [t for t in tabs if t is not None] + ins
-        grads = iter(torch.autograd.grad(rad, wrt, grad_outputs=g,
+        if g.dim() == 3:
+            ctb, pn = replay.replay_packed(
+                sph, pla, bg, cfg, o_, d_, t_, ray_id, seed, codes,
+                replay.Texels(defer=True))
+            outs, cots = [ctb], [g]
+            if cabc is not None:
+                outs.append(pn)
+                cots.append(cabc)
+        else:
+            outs = [replay.replay_packed(sph, pla, bg, cfg, o_, d_, t_,
+                                         ray_id, seed, codes)]
+            cots = [g]
+        grads = iter(torch.autograd.grad(outs, wrt, grad_outputs=cots,
                                          allow_unused=True))
     out = [None if t is None else next(grads) for t in tabs]
     out += [next(grads) for _ in ins]
@@ -121,25 +140,31 @@ def replay_bwd_reference(ktab, ptab, background, cfg: RenderConfig, o, d,
 
 
 def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
-                     ray_id, seed, codes, g, n_chunk: int):
+                     ray_id, seed, codes, g, n_chunk: int, cabc=None):
     """Run the replay backward over n_chunk lanes.
 
     ktab (KT, S) f32 from `pack_ktab` and ptab (KP, R) from `pack_ptab`,
     each None when the scene has no such primitive; background (3,); o, d
     (n, 3) and time (n,) the primary rays; ray_id (n,) the lanes' RNG ids;
-    codes (n, max_depth) int32 winner codes; g (n, 3) the radiance
-    cotangent. Returns (dktab (KT,S) or None, dptab (KP,R) or None,
-    d_o (n,3), d_d (n,3), d_time (n,), d_bg (3,)). The CPU runs the plain
-    version; CUDA runs the kernel.
+    codes (n, max_depth) int32 winner codes; g the radiance cotangent, (n,
+    3), or (n, max_depth, 3) per bounce for a scene whose noise and image
+    texels were deferred (K7: those texels are 1.0), with cabc (n,
+    max_depth, 3) or None the cotangent of the noise records' hit points.
+    Returns (dktab (KT,S) or None, dptab (KP,R) or None, d_o (n,3), d_d
+    (n,3), d_time (n,), d_bg (3,)). The CPU runs the plain version; CUDA
+    runs the kernel.
     """
-    global LAUNCHES, PLANAR_LAUNCHES
+    global LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
     if ktab is None and ptab is None:
         raise ValueError("replay_bwd_fused needs a sphere or a planar table")
+    defer = g.dim() == 3
+    if cabc is not None and not defer:
+        raise ValueError("cabc needs a per-bounce cotangent g (n, D, 3)")
     device = background.device
     n = int(n_chunk)
     if device.type == "cpu":
         return replay_bwd_reference(ktab, ptab, background, cfg, o, d, time,
-                                    ray_id, seed, codes, g)
+                                    ray_id, seed, codes, g, cabc)
     if device.type != "cuda":
         raise NotImplementedError(f"no replay backward on {device}")
 
@@ -172,11 +197,15 @@ def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
     rid = ray_id.to(torch.int64) & 0xFFFFFFFF
     rid = torch.where(rid >= 2**31, rid - 2**32, rid).to(torch.int32)
     g = g.detach().to(f32).contiguous()
+    g_shape = (n, D, 3) if defer else (n, 3)
+    if cabc is not None:
+        cabc = cabc.detach().to(f32).contiguous()
+        _check(cabc, f32, (n, D, 3), device)
     for t, rows, cols in ((tabs[0], KT, S), (tabs[1], KP, R)):
         if t is not None:
             _check(t, f32, (rows, cols), device)
     _check(bg, f32, (3,), device)
-    for t, shape in ((o, (n, 3)), (d, (n, 3)), (g, (n, 3)), (time, (n,))):
+    for t, shape in ((o, (n, 3)), (d, (n, 3)), (g, g_shape), (time, (n,))):
         _check(t, f32, shape, device)
     _check(rid, torch.int32, (n,), device)
     _check(codes, torch.int32, (n, D), device)
@@ -193,7 +222,9 @@ def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
         err = lib.rtw_replay_bwd(
             ptrs[0], S, ptrs[1], R, int(planar_shared), bg.data_ptr(),
             o.data_ptr(), d.data_ptr(), time.data_ptr(), rid.data_ptr(),
-            codes.data_ptr(), g.data_ptr(), n, D, float(cfg.t_min),
+            codes.data_ptr(), g.data_ptr(),
+            None if cabc is None else cabc.data_ptr(), int(defer), n, D,
+            float(cfg.t_min),
             int(seed) & 0xFFFFFFFF, scratch.data_ptr(), ptrs[2], ptrs[3],
             d_o.data_ptr(), d_d.data_ptr(), d_time.data_ptr(),
             d_bg.data_ptr(), stream)
@@ -201,4 +232,6 @@ def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
     LAUNCHES += 1
     if R:
         PLANAR_LAUNCHES += 1
+    if defer:
+        DEFER_LAUNCHES += 1
     return dtabs[0], dtabs[1], d_o, d_d, d_time, d_bg

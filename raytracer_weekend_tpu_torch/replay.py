@@ -1,13 +1,16 @@
 """Packed-row path replay: the fused render's differentiable backward.
 
-Port of `raytracer_weekend_tpu/replay.py`: spheres, rects and triangles. It
-re-traces the paths that the fused forward recorded as per-bounce winner
-codes (`ops.cuda.megakernel.render_fused(..., emit_paths=True)`), with the
+Port of `raytracer_weekend_tpu/replay.py`: spheres, rects and triangles with
+solid, checker, noise, image and uv-debug textures. It re-traces the paths
+that the fused forward recorded as per-bounce winner codes
+(`ops.cuda.megakernel.render_fused(..., emit_paths=True)`), with the
 closest-hit search replaced by one row lookup per family and bounce. Under
 `torch.autograd` this function is the backward of the fused render: its
 autograd is the plain version of kernels K2 and K4 (`ops/cuda/replay_bwd.py`),
-and for uv-debug scenes, which those kernels do not cover, it is the
-backward itself (`fused_diff.py`).
+its deferred form (`replay_packed(..., Texels(defer=True))`: per-bounce
+contributions with noise and image texels shaded as 1.0, and the noise hit
+points) that of K7, and for uv-debug scenes, which those kernels do not
+cover, it is the backward itself (`fused_diff.py`).
 
 Gradient semantics are the staged path's: discrete choices (winners,
 hit/miss, reflect/refract) stay fixed; continuous factors (intersection t,
@@ -20,11 +23,15 @@ autograd transpose is an index_add.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from raytracer_weekend_tpu_torch import materials as mat_mod
+from raytracer_weekend_tpu_torch import perlin
 from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.ops.sphere import sphere_uv
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
 from raytracer_weekend_tpu_torch.vecmath import cross, dot
 
@@ -145,27 +152,51 @@ def _pack_planar(scene: SceneData, static: SceneStatic) -> torch.Tensor:
     return torch.cat(parts, dim=0)
 
 
-def _tex_value_packed(tail: dict, u: torch.Tensor, v: torch.Tensor,
-                      p: torch.Tensor) -> torch.Tensor:
-    """Texture value from packed row columns: SOLID, CHECKER and UVDEBUG.
+class Texels(NamedTuple):
+    """How the replay shades noise and image texels: inline from `table`
+    (the flags say which arms the scene has), or as 1.0 with `defer`."""
 
-    The JAX version also evaluates NOISE and IMAGE here; `replay_rays`
-    raises for scenes that have them, as `textures.texture_value` does.
-    """
+    table: Optional[tex_mod.TextureTable] = None
+    has_noise: bool = False
+    has_image: bool = False
+    defer: bool = False
+
+
+def _tex_value_packed(tail: dict, u: torch.Tensor, v: torch.Tensor,
+                      p: torch.Tensor, tex: Texels) -> torch.Tensor:
+    """Texture value from packed row columns: SOLID, CHECKER and UVDEBUG are
+    column math; NOISE and IMAGE (when `tex` says the scene has them) use
+    the shared texture code, or shade as 1.0 when `tex.defer`."""
+    ttype = tail["ttype"]
     sines = torch.prod(torch.sin(tail["scale"][:, None] * p), dim=-1)
-    odd = (tail["ttype"] == tex_mod.CHECKER) & (sines < 0.0)
+    odd = (ttype == tex_mod.CHECKER) & (sines < 0.0)
     out = torch.where(odd[:, None], tail["c2"], tail["c1"])
+    is_noise = ttype == tex_mod.NOISE
+    is_image = ttype == tex_mod.IMAGE
+    if tex.defer:
+        out = torch.where((is_noise | is_image)[:, None], 1.0, out)
+    else:
+        if tex.has_noise:
+            tx = tex.table
+            turb = perlin.turbulence(tx.perlin_grad, tx.perlin_perm, p,
+                                     depth=7)
+            marble = 0.5 * (1.0 + torch.sin(tail["scale"] * p[:, 2]
+                                            + 10.0 * turb))
+            out = torch.where(is_noise[:, None],
+                              marble[:, None].expand_as(out), out)
+        if tex.has_image:
+            img = tex_mod._image_fetch(tex.table, tail["img_id"], u, v)
+            out = torch.where(is_image[:, None], img, out)
     uvdbg = torch.stack([u, v, torch.zeros_like(u)], dim=-1)
-    return torch.where((tail["ttype"] == tex_mod.UVDEBUG)[:, None], uvdbg,
-                       out)
+    return torch.where((ttype == tex_mod.UVDEBUG)[:, None], uvdbg, out)
 
 
 def _check_replay_scope(static: SceneStatic) -> None:
     """The scenes the fused forward records codes for, without volumes."""
-    if static.n_volumes or static.has_noise or static.has_image:
+    if static.n_volumes:
         raise NotImplementedError(
-            "replay covers sphere, rect and triangle scenes with solid, "
-            f"checker and uv-debug textures: {static}")
+            "replay covers sphere, rect and triangle scenes; volumes are "
+            f"not ported yet: {static}")
     if not static.fused_simple:
         raise NotImplementedError(
             f"replay needs a fused_simple scene (uv-debug on planar "
@@ -179,28 +210,37 @@ def replay_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
 
     `codes` (B, max_depth) int32 are the fused forward's per-bounce winner
     records (fam + 4*idx; 0 = miss or dead). Sphere, rect and triangle
-    scenes with solid, checker or (planar) uv-debug textures; volume, noise
-    and image scenes raise `NotImplementedError`.
+    scenes with solid, checker, noise, image or (planar) uv-debug textures,
+    the texels evaluated inline; volume scenes raise `NotImplementedError`.
     """
     _check_replay_scope(static)
     sph = _pack_spheres(scene) if static.n_spheres else None
     pla = (_pack_planar(scene, static)
            if static.n_rects or static.n_triangles else None)
     return replay_packed(sph, pla, scene.background, cfg, o, d, time, ray_id,
-                         seed, codes)
+                         seed, codes,
+                         Texels(scene.textures, static.has_noise,
+                                static.has_image))
 
 
 def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
                   cfg: RenderConfig, o: torch.Tensor, d: torch.Tensor,
                   time: torch.Tensor, ray_id: torch.Tensor, seed,
-                  codes: torch.Tensor) -> torch.Tensor:
+                  codes: torch.Tensor, tex: Texels = Texels()):
     """`replay_rays` on packed tables -> (B,3).
 
     sph_tab (S, 21) from `_pack_spheres` and pla_tab (R + T, 40) from
-    `_pack_planar`, each None when its family is absent. The body of the JAX `replay_rays`
-    bounce scan. Gradients reach both tables, `background`, `o`, `d` and
-    `time`. A sphere's texture sees (u, v) = (0, 0): uv-debug textures sit
-    on planar primitives only (`_check_replay_scope`).
+    `_pack_planar`, each None when its family is absent. The body of the
+    JAX `replay_rays` bounce scan. Gradients reach both tables,
+    `background`, `o`, `d`, `time` and the texture table of `tex`. A
+    sphere's image texel reads its spherical UV; uv-debug textures sit on
+    planar primitives only (the builder's `fused_simple`).
+
+    With `tex.defer` it returns the deferred form instead: (ctb (B, D, 3),
+    the per-bounce radiance contributions with noise and image texels
+    shaded as 1.0; pn (B, D, 3), the hit point of each bounce whose winner
+    has a noise texture, else 0), the pair whose vector-Jacobian product
+    with the cotangents (g_k, cabc) is the deferred backward (kernel K7).
     """
     B = o.shape[0]
     dev = o.device
@@ -209,6 +249,7 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
     radiance = torch.zeros((B, 3), device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
     zero = torch.zeros((B,), device=dev)
+    ctbs, pns = [], []
 
     for depth in range(cfg.max_depth):
         code = codes[:, depth]
@@ -224,6 +265,7 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
         fuzz = zero
         ior = torch.ones((B,), device=dev)
         texc = torch.ones((B, 3), device=dev)
+        noise_hit = torch.zeros((B,), dtype=torch.bool, device=dev)
 
         if sph_tab is not None:
             row = sph_tab[torch.where(is_sph, code >> 2, 0)]     # (B, 21)
@@ -242,6 +284,9 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
             t_s = torch.where(root1 >= cfg.t_min, root1, root2)
             p_s = o + t_s[:, None] * d
             out_s = (p_s - center) / r[:, None]
+            u_s = v_s = zero
+            if tex.has_image and not tex.defer:
+                u_s, v_s = sphere_uv(out_s)
             m = is_sph
             p = torch.where(m[:, None], p_s, p)
             outward = torch.where(m[:, None], out_s, outward)
@@ -249,7 +294,9 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
             fuzz = torch.where(m, tail["fuzz"], fuzz)
             ior = torch.where(m, tail["ior"], ior)
             texc = torch.where(m[:, None],
-                               _tex_value_packed(tail, zero, zero, p_s), texc)
+                               _tex_value_packed(tail, u_s, v_s, p_s, tex),
+                               texc)
+            noise_hit = noise_hit | (m & (tail["ttype"] == tex_mod.NOISE))
 
         if pla_tab is not None:
             row = pla_tab[torch.where(is_pla, code >> 2, 0)]     # (B, 40)
@@ -275,23 +322,30 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
             fuzz = torch.where(m, tail["fuzz"], fuzz)
             ior = torch.where(m, tail["ior"], ior)
             texc = torch.where(m[:, None],
-                               _tex_value_packed(tail, u_p, v_p, p_p), texc)
+                               _tex_value_packed(tail, u_p, v_p, p_p, tex),
+                               texc)
+            noise_hit = noise_hit | (m & (tail["ttype"] == tex_mod.NOISE))
 
         # Shared bounce tail: the semantics of integrator.trace_lanes.
         miss = alive & ~hit_mask
-        radiance = radiance + torch.where(miss[:, None],
-                                          throughput * background, 0.0)
+        miss_c = torch.where(miss[:, None], throughput * background, 0.0)
+        radiance = radiance + miss_c
         alive = hit_mask
 
         front_face = dot(d, outward) < 0.0
         normal = torch.where(front_face[:, None], outward, -outward)
         sc = mat_mod.scatter_packed(mtype, fuzz, ior, texc, d, p, normal,
                                     front_face, seed, ray_id, depth)
-        radiance = radiance + torch.where(alive[:, None],
-                                          throughput * sc.emitted, 0.0)
+        emit_c = torch.where(alive[:, None], throughput * sc.emitted, 0.0)
+        radiance = radiance + emit_c
+        if tex.defer:
+            ctbs.append(miss_c + emit_c)
+            pns.append(torch.where(noise_hit[:, None], p, 0.0))
         throughput = torch.where(alive[:, None],
                                  throughput * sc.attenuation, throughput)
         alive = alive & sc.alive
         o = torch.where(alive[:, None], p, o)
         d = torch.where(alive[:, None], sc.direction, d)
+    if tex.defer:
+        return torch.stack(ctbs, dim=1), torch.stack(pns, dim=1)
     return radiance

@@ -2,13 +2,14 @@
 
 Port of `raytracer_weekend_tpu/scene/builder.py`, in numpy up to the final
 tensors, so that the port builds scenes without jax. It covers `SolidColor`,
-`Checker`, `UVDebug`, `Lambertian`, `Metal`, `Dielectric`, `DiffuseLight`,
-`Sphere`, `MovingSphere`, the axis-aligned rectangles, `Cuboid` and
-`Triangle`, with the fluent `.rotate_y(deg).translate(offset)` transform on
-every geometry class. Table order, material and texture interning, Morton
-order and the `SceneStatic` flags are the JAX builder's, so both builders
-give bit-equal tables for the same objects. Constant media, noise and image
-textures raise `NotImplementedError`.
+`Checker`, `NoiseTexture`, `ImageTexture`, `UVDebug`, `Lambertian`,
+`Metal`, `Dielectric`, `DiffuseLight`, `Sphere`, `MovingSphere`, the
+axis-aligned rectangles, `Cuboid` and `Triangle`, with the fluent
+`.rotate_y(deg).translate(offset)` transform on every geometry class. Table
+order, material and texture interning, Morton order, the image atlas and
+the `SceneStatic` flags are the JAX builder's, so both builders give
+bit-equal tables for the same objects. Constant media raise
+`NotImplementedError`.
 
 Bake rules, as in the JAX builder: sphere centers and triangle vertices and
 normals are transformed; a rect or cuboid under a pure translation stays a
@@ -33,7 +34,7 @@ from raytracer_weekend_tpu_torch.scene.data import (
     VOL_SPHERE, Rects, SceneData, SceneStatic, Spheres, Triangles, Volumes)
 from raytracer_weekend_tpu_torch.textures import TextureTable
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1: volumes, textures, BVH)"
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1: volumes, BVH)"
 
 # ---------------------------------------------------------------------------
 # Textures
@@ -51,6 +52,35 @@ class Checker:
     even: SolidColor
     odd: SolidColor
     frequency: float
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseTexture:
+    """Perlin marble with frequency `scale`."""
+    scale: float
+
+
+class ImageTexture:
+    """Bitmap texture. `data` is (H, W, 3) float in [0, 1].
+
+    With a `path` the file is decoded with Pillow, as the JAX builder does
+    (RGB, float32 / 255); without Pillow that raises `ImportError`. The
+    catalog's earthmap comes decoded with the package
+    (`models.scenes.earthmap`), so it needs no decoder.
+    """
+
+    def __init__(self, path: str | None = None, data=None):
+        if data is None:
+            if path is None:
+                raise ValueError("ImageTexture needs a path or an array")
+            from PIL import Image
+
+            with Image.open(path) as im:
+                data = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+        self.data = np.asarray(data, dtype=np.float32)
+        if self.data.ndim != 3 or self.data.shape[-1] != 3:
+            raise ValueError(f"image must be (H,W,3), got {self.data.shape}")
+        self.path = path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -410,16 +440,18 @@ class _Compiler:
         spheres = self._emit_spheres()
         rects = self._emit_rects()
         tris = self._emit_triangles()
-        materials, textures = self._emit_shading()
+        materials, textures, has_noise, has_image = self._emit_shading()
         data = SceneData(
             spheres=spheres, rects=rects, triangles=tris,
             volumes=_dummy_volumes(), materials=materials, textures=textures,
             background=torch.tensor(background, dtype=torch.float32))
 
         # Fused-megakernel eligibility, the JAX rule: Lambertian/Metal/
-        # Dielectric/DiffuseLight materials everywhere, and UV-debug
-        # textures on planar primitives only (their UVs come from the
-        # planar table; a sphere's spherical UV is not in the kernel).
+        # Dielectric/DiffuseLight materials everywhere; solid, checker, noise
+        # and image textures everywhere (noise and image run in the kernel's
+        # deferred-texture mode), and UV-debug textures on planar primitives
+        # only (their UVs come from the planar table; a sphere's spherical
+        # UV is not in the kernel).
         mtype = materials.mtype.numpy()
         ttype = textures.ttype.numpy()
         tex_of = materials.tex.numpy()
@@ -435,11 +467,22 @@ class _Compiler:
                                and np.all(np.isin(ttype[tex_of[m]], allowed)))
             fused_simple = ok
 
+        # Single-deferred-hit eligibility: one sphere, nothing else, an image
+        # texture, a material that cannot re-enter the body (a Lambertian or
+        # metal scatter from a convex surface points outward, so a path
+        # meets the sphere at most once; dielectrics refract through).
+        defer_single_hit = False
+        if (has_image and not has_noise and n_spheres == 1
+                and n_rects + n_tris == 0):
+            mt0 = int(mtype[int(spheres.mat[0])])
+            defer_single_hit = mt0 in (mat_mod.LAMBERTIAN, mat_mod.METAL,
+                                       mat_mod.DIFFUSE_LIGHT)
+
         static = SceneStatic(
             n_spheres=n_spheres, n_rects=n_rects, n_triangles=n_tris,
-            n_volumes=0, has_noise=False, has_image=False,
+            n_volumes=0, has_noise=has_noise, has_image=has_image,
             has_uvdebug=bool(np.any(ttype == tex_mod.UVDEBUG)),
-            fused_simple=fused_simple)
+            defer_single_hit=defer_single_hit, fused_simple=fused_simple)
         return data, static
 
     def _emit_spheres(self) -> Spheres:
@@ -529,6 +572,9 @@ class _Compiler:
         color1 = np.zeros((K, 3), np.float32)
         color2 = np.zeros((K, 3), np.float32)
         scale = np.zeros(K, np.float32)
+        image_id = np.zeros(K, np.int32)
+        images: list[np.ndarray] = []
+        has_noise = False
         for i, t in enumerate(self.texs):
             if isinstance(t, SolidColor):
                 ttype[i] = tex_mod.SOLID
@@ -543,22 +589,43 @@ class _Compiler:
                 color1[i] = even.color
                 color2[i] = odd.color
                 scale[i] = t.frequency
+            elif isinstance(t, NoiseTexture):
+                ttype[i] = tex_mod.NOISE
+                scale[i] = t.scale
+                has_noise = True
+            elif isinstance(t, ImageTexture):
+                ttype[i] = tex_mod.IMAGE
+                image_id[i] = len(images)
+                images.append(t.data)
             elif isinstance(t, UVDebug):
                 ttype[i] = tex_mod.UVDEBUG
             else:
                 raise NotImplementedError(
                     f"texture {type(t).__name__} {_NOT_PORTED}")
 
+        # The image atlas: every image padded to the largest height and width.
+        has_image = bool(images)
+        if images:
+            max_h = max(im.shape[0] for im in images)
+            max_w = max(im.shape[1] for im in images)
+            atlas = np.zeros((len(images), max_h, max_w, 3), np.float32)
+            hw = np.zeros((len(images), 2), np.int32)
+            for i, im in enumerate(images):
+                atlas[i, :im.shape[0], :im.shape[1]] = im
+                hw[i] = im.shape[:2]
+        else:
+            atlas = np.zeros((1, 1, 1, 3), np.float32)
+            hw = np.ones((1, 2), np.int32)
+
         grad, perm = perlin_mod.make_perlin_tables(self.seed)
         textures = TextureTable(
             ttype=torch.from_numpy(ttype), color1=torch.from_numpy(color1),
             color2=torch.from_numpy(color2), scale=torch.from_numpy(scale),
-            image_id=torch.zeros(K, dtype=torch.int32),
+            image_id=torch.from_numpy(image_id),
             perlin_grad=torch.from_numpy(grad), perlin_perm=torch.from_numpy(perm),
-            images=torch.zeros((1, 1, 1, 3), dtype=torch.float32),
-            image_hw=torch.ones((1, 2), dtype=torch.int32),
+            images=torch.from_numpy(atlas), image_hw=torch.from_numpy(hw),
         )
-        return materials, textures
+        return materials, textures, has_noise, has_image
 
 
 # The empty volume family's dummy row, exactly as the JAX builder emits it.

@@ -1,7 +1,8 @@
 """Inverse rendering: fit scene parameters to a target image (port of `train.py`).
 
-Adam over every float leaf of the scene (texture colors, metal fuzz,
-dielectric IOR, sphere, rect and triangle geometry, the background);
+Adam over every float leaf of the scene (texture colors, image texels,
+noise scale and Perlin gradients, metal fuzz, dielectric IOR, sphere, rect
+and triangle geometry, the background);
 integer and bool leaves (type tables, ids, valid masks) stay frozen, the
 counterpart of the JAX package's `optax.multi_transform` with `set_to_zero`.
 
@@ -54,9 +55,9 @@ class InverseRenderer:
             if not integrator.fused_eligible(self.static, cfg, device):
                 raise NotImplementedError(
                     "on CUDA the port differentiates sphere, rect and "
-                    "triangle scenes with solid/checker/uv-debug Lambertian/"
-                    "Metal/Dielectric/DiffuseLight materials; this scene is "
-                    f"outside that slice ({self.static})")
+                    "triangle scenes with Lambertian/Metal/Dielectric/"
+                    "DiffuseLight materials; this scene is outside that "
+                    f"slice ({self.static})")
             from raytracer_weekend_tpu_torch.fused_diff import (
                 render_fused_diff)
 

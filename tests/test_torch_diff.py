@@ -174,12 +174,22 @@ def test_replay_bwd_reference_matches_jax_kernel(pair):
     assert live >= 2   # color1 and color2 (two_spheres: both checker)
 
 
-def test_replay_rejects_unported_families():
+@pytest.mark.parametrize("field", ["n_volumes", "has_noise", "has_image"])
+def test_replay_rejects_unported_families(field):
+    """Volume scenes raise. The noise and image arms are ported: a scene
+    flagged so (with no such texture in it) replays to the radiance of the
+    unflagged scene."""
     _, t = _scenes("two_spheres")
     ts, tst, tc, tcam = t
-    o, d, tm, rid = TI._pixel_rays(tcam, tc, torch.arange(8), 3)
-    codes = torch.zeros((8, tc.max_depth), dtype=torch.int32)
-    for field in ("n_volumes", "has_noise", "has_image"):
-        static = type(tst)(**{**tst.__dict__, field: 1})
+    n = 256
+    o, d, tm, rid = TI._pixel_rays(tcam, tc, torch.arange(n), 3)
+    _, _, codes = mk.render_fused(ts, tc, tcam, 0, n, 3, static=tst,
+                                  emit_paths=True)
+    static = type(tst)(**{**tst.__dict__, field: 1})
+    if field == "n_volumes":
         with pytest.raises(NotImplementedError):
             replay.replay_rays(ts, static, tc, o, d, tm, rid, 3, codes)
+        return
+    want = replay.replay_rays(ts, tst, tc, o, d, tm, rid, 3, codes)
+    got = replay.replay_rays(ts, static, tc, o, d, tm, rid, 3, codes)
+    assert torch.equal(got, want) and float(want.max()) > 0

@@ -150,10 +150,27 @@ def test_background_grad_matches_finite_difference():
     assert abs(fd - float(grad[c])) <= 1e-3 * abs(fd)
 
 
-def test_fused_diff_rejects_unsupported_scenes():
+@pytest.mark.parametrize("field", ["n_volumes", "has_noise", "has_image"])
+def test_fused_diff_rejects_unsupported_scenes(field):
+    """Volume scenes raise. Noise and image textures are supported: a scene
+    flagged so takes the deferred-texture forward and backward, which with
+    no such texture in it give the radiance and the gradients of the
+    unflagged scene."""
     _, t = _scenes("two_spheres")
     ts, tst, tc, tcam = t
-    for field in ("n_volumes", "has_noise", "has_image"):
-        static = type(tst)(**{**tst.__dict__, field: 1})
+    static = type(tst)(**{**tst.__dict__, field: 1})
+    if field == "n_volumes":
         with pytest.raises(NotImplementedError):
             fused_diff.render_fused_diff(ts, static, tc, tcam, 0, 64, 3)
+        return
+    out = []
+    for st in (tst, static):
+        bg = ts.background.clone().requires_grad_()
+        c1 = ts.textures.color1.clone().requires_grad_()
+        sc = ts._replace(background=bg,
+                         textures=ts.textures._replace(color1=c1))
+        rad = fused_diff.render_fused_diff(sc, st, tc, tcam, 0, 64, 3)
+        out.append((rad, *torch.autograd.grad((rad * rad).sum(), (bg, c1))))
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+    assert float(out[1][1].abs().max()) > 0

@@ -135,8 +135,10 @@ def test_port_imports_no_jax():
             "from raytracer_weekend_tpu_torch.ops import rect, triangle\n"
             "from raytracer_weekend_tpu_torch.ops.cuda import megakernel, _build\n"
             "from raytracer_weekend_tpu_torch.utils import image\n"
-            "scenes.generate_scene('two_spheres', 1.5)\n"
-            "scenes.generate_scene('wavefront_cow_obj', 1.5)\n"
+            "from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb\n"
+            "scenes.generate_scene('two_spheres', 1.5, device='cpu')\n"
+            "scenes.generate_scene('wavefront_cow_obj', 1.5, device='cpu')\n"
+            "scenes.generate_scene('simple_light', 1.5, device='cpu')\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'raytracer_weekend_tpu' not in sys.modules\n"
             "print('ok')\n")
