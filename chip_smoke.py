@@ -50,8 +50,8 @@ holds each against its plain torch version first. Phases, one line each
      mask (max abs 1e-5, dead points 0); render_image on earth,
      two_perlin_spheres and simple_light at full size (K6a and the combine,
      with the launch counts reset just before) against the plain staged
-     path with the budgets of tests/test_megakernel.py:322-328 (segments
-     n // 50, see DEFER_BUDGETS), their segments equal to those of the same
+     path with the budgets of tests/test_megakernel.py:322-328, their
+     segments equal to those of the same
      geometry with solid textures (K1/K3); K6a's records against the plain
      version's on 64x36 frames; frame time and segments/s;
  10. deferred textures, backward: K9 against its plain version on
@@ -61,7 +61,23 @@ holds each against its plain torch version first. Phases, one line each
      real cotangents and with random ones (K2's budgets, on the lanes left
      after HELD_OUT below), each scene's forward+backward frame
      and InverseRenderer.fit for 3 Adam steps on earth's image atlas, with
-     the launch counts reset just before.
+     the launch counts reset just before;
+ 11. constant-density media, forward: K5 against its plain version with
+     the budgets of tests/test_megakernel.py:214-258 on smokey_cornell_box
+     (full size) and sphere_medium (64x36), and of
+     :359-381 on book2 at 160x90, 4 spp, depth 8 (its plain version alone
+     would take minutes at full size); render_image of smokey_cornell_box
+     and book2 at full size with the launch count reset just before;
+ 12. the depth-phased render (K6b): bench.py's book2_criterion through
+     render_image, bitwise the single-pass launch, live lanes per phase,
+     deep against single-pass frame ms in turns; one phase's launch against
+     its plain version from the same state; jumpy_balls at depth 20;
+ 13. media, training: K5-emit on smokey_cornell_box (bitwise K5's radiance
+     and segments, codes against the plain version's), its
+     forward+backward frame (K5-emit, then torch autograd of the replay:
+     no kernel of the reference covers that backward), 3 Adam steps of
+     InverseRenderer.fit from the media's albedo + 0.2, and book2's
+     forward+backward at 400x225, 4 spp.
 
 Then one JSON line describing each kernel (launches on the main path, max
 abs error against its plain version, ms and plain ms, the least time the
@@ -112,16 +128,23 @@ HELD_OUT, ILL_REL = 100, 1e-4
 
 # Kernel-vs-plain flip budgets (|Δsegments| <= n // seg, lanes with rel err
 # > 0.05 <= n // bad, mean abs err < mean): spheres, tests/test_megakernel.py
-# :66-70; the planar family, :119-128; deferred textures, :322-328.
+# :66-70; the planar family, :119-128; deferred textures, :322-328; media,
+# :214-258; book2, :359-381 (every bounce is a race between the mist and a
+# surface, and its ground is 400 cuboids sharing edges).
 SPHERE_BUDGETS = dict(seg=300, bad=64, mean=3e-3)
 PLANAR_BUDGETS = dict(seg=200, bad=100, mean=1e-3)
-# The segment budget of the deferred scenes is n // 50, not :322-328's
-# n // 200: on two_perlin_spheres and simple_light the forward kernel (K1's
-# sphere test, which K6a shares: its segments equal K1's on the same
-# geometry) finds spurious hits of rays leaving the radius-1000 ground
-# ~0.3% of lanes; the float32 and float64 staged paths agree that they miss
-# (ROADMAP Queue 3).
-DEFER_BUDGETS = dict(seg=50, bad=100, mean=5e-3)
+# The deferred scenes' segments are held to :322-328's n // 200. Until the
+# forward kernel's sphere test kept |o|^2 - 2 o.c apart from |c|^2 - r^2 it
+# computed o - c first, and rays leaving the radius-1000 ground re-hit it
+# on ~0.3% of two_perlin_spheres' and simple_light's lanes, so this budget
+# was n // 50.
+DEFER_BUDGETS = dict(seg=200, bad=100, mean=5e-3)
+VOLUME_BUDGETS = dict(seg=200, bad=100, mean=1e-3)
+BOOK2_BUDGETS = dict(seg=20, bad=100, mean=2e-2)
+# book2 at BOOK2_REDUCED measured Δseg 217, 132 bad lanes and mean 5.1e-3
+# of 57,600 lanes on an H100 80GB HBM3 at 700 W:
+# held to about twice that, tighter than :359-381.
+BOOK2_REDUCED_BUDGETS = dict(seg=100, bad=200, mean=1e-2)
 
 # The least time the card could take for a kernel's work: the larger of its
 # FP32 operations over the H100 SXM's FP32 rate outside the tensor cores and
@@ -132,8 +155,11 @@ DEFER_BUDGETS = dict(seg=50, bad=100, mean=5e-3)
 # a lower bound.
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
-OPS_SPHERE_TEST = 25     # one moving-sphere test of render_kernel's loop
+OPS_SPHERE_TEST = 29     # one moving-sphere test: lerp 8, hb 6, cc 12, disc 3
 OPS_PLANAR_TEST = 12     # one plane test: two dots, a subtraction, a division
+# One medium of the volume loop: the frame change 15, the slab test 25 (or
+# the sphere's roots 28), the clamps, the log and the candidate 10.
+OPS_VOLUME_TEST = 50
 OPS_SHADE = 60           # hit record, texture and scatter of one segment
 OPS_BWD_BOUNCE = 250     # replay_bwd_kernel: recompute and chain one bounce
 # perlin_turb.cu, one octave of one live point, an FMA counted as two:
@@ -155,15 +181,20 @@ def bound(entry, ops, nbytes):
     return entry
 
 
-def forward_work(n, D, segs, S, R, emit=False, defer=False):
-    """(FP32 operations, bytes) of one render_kernel launch over n lanes
-    that traced `segs` segments against S spheres and R planar rows."""
+def forward_work(n, D, segs, S, R, emit=False, defer=False, V=0,
+                 phase_lanes=0):
+    """(FP32 operations, bytes) of the render_kernel launches over n lanes
+    that traced `segs` segments against S spheres, R planar rows and V
+    media; a phase state (60 bytes) was read or written `phase_lanes`
+    times."""
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
-    ops = segs * (S * OPS_SPHERE_TEST + R * OPS_PLANAR_TEST + OPS_SHADE)
+    ops = segs * (S * OPS_SPHERE_TEST + R * OPS_PLANAR_TEST
+                  + V * OPS_VOLUME_TEST + OPS_SHADE)
     nbytes = (4 * (len(mk.TABLE_ROWS) * S + len(mk.PLANAR_ROWS) * R
-                   + mk.PAR_SIZE) + 16 * n + (4 * n * D if emit else 0)
-              + (28 * n * D if defer else 0))
+                   + len(mk.VOL_COLS) * V + mk.PAR_SIZE) + 16 * n
+              + (4 * n * D if emit else 0) + (28 * n * D if defer else 0)
+              + 4 * mk.STATE_SIZE * phase_lanes)
     return ops, nbytes
 
 
@@ -352,8 +383,10 @@ def fwd_bwd_ms(scene, static, cfg, cam):
         return torch.autograd.grad(rad.sum(), floats)
 
     grads = fwd_bwd()
-    if not all(bool(torch.isfinite(g).all()) for g in grads):
-        raise AssertionError("non-finite forward+backward gradients")
+    bad = [i for i, g in enumerate(grads) if not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"non-finite forward+backward gradients: float "
+                             f"leaves {bad} of {len(grads)}")
     return _cuda_ms(fwd_bwd, 5), grads
 
 
@@ -521,7 +554,7 @@ def main() -> None:
     kernels = [bound({
         "name": "megakernel_sphere_forward",
         "route": "cuda",
-        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
         "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
         "launches": launches,
         "max_abs_err": jstats["max_abs_err"],
@@ -533,6 +566,9 @@ def main() -> None:
     kernels += [k3, planar_training(dev, smi, cornell)]
     k6a, k8, frames = deferred_forward(dev, smi)
     kernels += [k6a, k8, *deferred_training(dev, smi, frames)]
+    k5, smokey = volume_forward(dev, smi)
+    kernels += [k5, deep_phases(dev, smi)]
+    volume_training(dev, smi, smokey)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -645,7 +681,7 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
     return [bound({
         "name": "megakernel_sphere_forward_emit",
         "route": "cuda",
-        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
         "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
         "launches": emit_launches,
         "max_abs_err": emit_err,
@@ -674,14 +710,15 @@ COW_CHUNK = 1 << 12
 
 
 def load_scene(name, size, dev):
-    """(scene, static, cfg, cam) on `dev`: a catalog scene, or mesh_shards."""
+    """(scene, static, cfg, cam) on `dev`: a catalog scene, or one of the
+    test scenes mesh_shards and sphere_medium."""
     from raytracer_weekend_tpu_torch.config import RenderConfig
     from raytracer_weekend_tpu_torch.models import scenes
     from raytracer_weekend_tpu_torch.scene.builder import build_scene
 
     cfg = RenderConfig(**size)
-    if name == "mesh_shards":
-        objs, cams, bg = scenes.mesh_shards(cfg.aspect_ratio)
+    if name in ("mesh_shards", "sphere_medium"):
+        objs, cams, bg = getattr(scenes, name)(cfg.aspect_ratio)
         scene, static = build_scene(objs, background=bg)
     else:
         scene, static, cams = scenes.generate_scene(name, cfg.aspect_ratio,
@@ -776,7 +813,7 @@ def planar_forward(dev, smi):
     return bound({
         "name": "megakernel_planar_forward",
         "route": "cuda",
-        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
         "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
         "launches": launches,
         "max_abs_err": cstats["max_abs_err"],
@@ -1192,7 +1229,7 @@ def deferred_forward(dev, smi):
     k6a = bound({
         "name": "megakernel_deferred_records",
         "route": "cuda",
-        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cu",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
         "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
         "launches": k6a_launches,
         "max_abs_err": k6a_err,
@@ -1443,6 +1480,352 @@ def deferred_training(dev, smi, frames):
         "plain_ms": k9_plain_ms,
     }, *k9_work)
     return k7, k9
+
+
+# ---- constant-density media and the depth-phased render (phases 11-13) ------
+
+BOOK2_REDUCED = dict(width=160, height=90, samples_per_pixel=4, max_depth=8)
+# bench.py --config book2_criterion (bench.py:88-93): book2 built from seed
+# 1337, 40x22, 100 spp, depth 50, render seed 1337, one chunk.
+CRITERION = dict(width=40, height=22, samples_per_pixel=100, max_depth=50,
+                 seed=1337, ray_batch=1 << 17)
+# book2's plain version holds (B, 1006) and (B, 2401) planes per bounce:
+# ~14 KB a lane for each plane.
+BOOK2_CHUNK = 1 << 12
+BOOK2_TIMING_CHUNK = 1 << 14
+# book2's forward+backward (torch autograd of the replay, its turbulence
+# evaluated for every lane and bounce) at full width with 4 spp: the
+# replay's autograd at 16 spp would hold ~25 GB of turbulence intermediates.
+BOOK2_DIFF = dict(width=400, height=225, samples_per_pixel=4, max_depth=8)
+
+
+def volume_forward(dev, smi):
+    """Phase 11: K5 against its plain version with the budgets of
+    tests/test_megakernel.py:214-258 on smokey_cornell_box (full size, plain
+    in 2^17-lane windows) and sphere_medium (64x36, 4 spp, depth 6), and
+    of :359-381 on book2 at 160x90, 4 spp, depth 8 (its plain version in
+    2^12-lane windows: at full size it alone would take minutes); then the
+    forward main path, render_image of smokey_cornell_box and book2 at full
+    size with the launch count reset just before each. Returns the kernels
+    line's K5 entry and smokey's (scene, static, cfg, cam, rad, seg)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    failed, frames = [], {}
+    for name, size, window, budgets in (
+            ("smokey_cornell_box", FULL, PLAIN_CHUNK, VOLUME_BUDGETS),
+            ("sphere_medium", SMALL, PLAIN_CHUNK, VOLUME_BUDGETS),
+            ("book2_final_scene", BOOK2_REDUCED, BOOK2_CHUNK,
+             BOOK2_REDUCED_BUDGETS)):
+        scene, static, cfg, cam = load_scene(name, size, dev)
+        k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
+                                       cfg.seed, static=static)
+        p_rad, p_seg = plain_forward(scene, static, cfg, cam, window)
+        torch.cuda.synchronize()
+        ok, stats = _budgets(k_rad, p_rad, k_seg.sum(), p_seg.sum(),
+                             cfg.n_rays, **budgets)
+        stats.update(kernel_segments=int(k_seg.sum()),
+                     plain_segments=int(p_seg.sum()))
+        print(f"phase 11 K5 vs plain {name} {cfg.width}x{cfg.height} spp "
+              f"{cfg.samples_per_pixel} depth {cfg.max_depth} (plain in "
+              f"{window}-lane windows): {json.dumps(stats)}", flush=True)
+        if not ok:
+            failed.append((name, stats))
+        frames[name] = (scene, static, cfg, cam, k_rad, k_seg, window, stats)
+    if failed:
+        raise AssertionError(f"K5 vs plain outside budgets: {failed}")
+
+    scene, static, cfg, cam, k_rad, k_seg, window, sstats = \
+        frames["smokey_cornell_box"]
+    k5_ms = _cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
+                                             cfg.seed, static=static), 5)
+    plain_ms = _cuda_ms(lambda: plain_forward(scene, static, cfg, cam,
+                                              window), 3)
+    print(f"phase 11 K5 timing smokey_cornell_box: render_fused frame "
+          f"{k5_ms:.3f} ms, plain version frame {plain_ms:.3f} ms (median; "
+          f"{smi})", flush=True)
+    smokey = (scene, static, cfg, cam, k_rad, k_seg)
+
+    launches = 0
+    for name in ("smokey_cornell_box", "book2_final_scene"):
+        if name == "smokey_cornell_box":
+            scene, static, cfg, cam, k_rad, k_seg = smokey
+        else:
+            scene, static, cfg, cam = load_scene(name, FULL, dev)
+            k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
+                                           cfg.seed, static=static)
+        mk.VOL_LAUNCHES = 0
+        frame_ms, png = time_render_image(name, scene, static, cfg, cam,
+                                          k_rad)
+        count = mk.VOL_LAUNCHES
+        if count < 1:
+            raise AssertionError(f"render_image({name}) did not launch K5")
+        launches += count
+        med = statistics.median(frame_ms)
+        segs = int(k_seg.sum())
+        print(f"phase 11 main path: render_image {name} {cfg.width}x"
+              f"{cfg.height} spp {cfg.samples_per_pixel} depth "
+              f"{cfg.max_depth} on {smi}: {count} K5 launches, median frame "
+              f"{med:.3f} ms (min {min(frame_ms):.3f}, max "
+              f"{max(frame_ms):.3f}), {segs} segments/frame, "
+              f"{segs / (med / 1e3):.4e} segments/s; image -> {png}",
+              flush=True)
+    s_scene, s_static, s_cfg = smokey[:3]
+    return bound({
+        "name": "megakernel_volume_forward",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
+        "launches": launches,
+        "max_abs_err": sstats["max_abs_err"],
+        "ms": k5_ms,
+        "plain_ms": plain_ms,
+    }, *forward_work(s_cfg.n_rays, s_cfg.max_depth,
+                     sstats["kernel_segments"], 0,
+                     s_static.n_rects + s_static.n_triangles,
+                     V=s_static.n_volumes)), smokey
+
+
+def deep_phases(dev, smi):
+    """Phase 12: the depth-phased render (K6b). bench.py's book2_criterion
+    through render_image (the launch counts reset just before), bitwise the
+    single-pass launch on the same frame; the live lanes of each phase;
+    deep against single-pass frame ms in turns; one phase's launch against
+    its plain version from the same state (the live lanes after the first
+    phase, book2 budgets); the plain depth-phased render timed in 2^12-lane
+    windows; and jumpy_balls at depth 20 (400x225, 4 spp), bitwise the
+    same. Returns the kernels line's K6b entry."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.scene.builder import build_scene
+
+    cfg = RenderConfig(**CRITERION)
+    objs, cams, bg = scenes.book2_final_scene(cfg.aspect_ratio, seed=1337)
+    scene, static = build_scene(objs, background=bg, seed=cfg.seed)
+    scene, cam = scene.to(dev), cams[0].to(dev)
+    n = cfg.n_rays
+
+    def single():
+        return mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                               static=static, deep=False)
+
+    def deep(live=None):
+        return mk.render_fused_deep(scene, cfg, cam, 0, n, cfg.seed,
+                                    static=static, live_counts=live)
+
+    s_rad, s_seg = single()
+    live = []
+    d_rad, d_seg = deep(live)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(d_rad, s_rad) and torch.equal(d_seg, s_seg)
+    mk.PHASE_LAUNCHES = 0
+    frame_ms, png = time_render_image("book2_criterion", scene, static, cfg,
+                                      cam, s_rad)
+    k6b_launches = mk.PHASE_LAUNCHES
+    if not bitwise or k6b_launches < 1:
+        raise AssertionError(f"book2_criterion: deep bitwise {bitwise}, "
+                             f"{k6b_launches} K6b launches in render_image")
+    times = {"single": [], "deep": []}
+    for who in ("single", "deep", "deep", "single"):
+        times[who].append(_cuda_ms(single if who == "single" else deep, 5))
+    single_ms, deep_ms = (statistics.median(times[k])
+                          for k in ("single", "deep"))
+    segs = int(s_seg.sum())
+    print(f"phase 12 main path: render_image book2_criterion {cfg.width}x"
+          f"{cfg.height} spp {cfg.samples_per_pixel} depth {cfg.max_depth} "
+          f"seeds 1337 on {smi}: {k6b_launches} K6b launches, lanes bitwise "
+          f"the single pass's; live lanes after each phase {live} of {n}; "
+          f"median frame {statistics.median(frame_ms):.3f} ms, {segs} "
+          f"segments/frame; render_fused_deep {deep_ms:.3f} ms against the "
+          f"single pass {single_ms:.3f} ms (CUDA events, medians of 5 in "
+          f"turns single/deep/deep/single: {json.dumps(times)}); image -> "
+          f"{png}", flush=True)
+
+    # One phase's launch against its plain version from the same state.
+    cfg10 = dataclasses.replace(cfg, max_depth=mk.PHASE_LEN)
+    *_, st = mk._launch(scene, cfg10, cam, 0, n, cfg.seed, static,
+                        phase=True)
+    alive = st[:, 13] > 0.0
+    keep = torch.nonzero(alive).squeeze(1)
+    lanes = keep.to(torch.int32)
+    st_in = st[keep].contiguous()
+    nl = lanes.shape[0]
+
+    def phase_kernel():
+        return mk._launch(scene, cfg10, cam, 0, nl, cfg.seed, static,
+                          phase=True, state=st_in, lanes=lanes,
+                          d0=mk.PHASE_LEN)
+
+    def phase_plain():
+        outs = [mk.phase_reference(scene, cfg10, cam, lanes[w], st_in[w],
+                                   mk.PHASE_LEN, cfg.seed, static=static)
+                for w in lane_windows(nl, BOOK2_CHUNK)]
+        return [torch.cat([o[i] for o in outs]) for i in range(len(outs[0]))]
+
+    k_out, p_out = phase_kernel(), phase_plain()
+    torch.cuda.synchronize()
+    ok, stats = _budgets(k_out[-1][:, 9:12], p_out[-1][:, 9:12],
+                         k_out[1].sum(), p_out[1].sum(), nl, **BOOK2_BUDGETS)
+    alive_same = int((k_out[-1][:, 13] == p_out[-1][:, 13]).sum())
+    stats.update(alive_equal=alive_same)
+    print(f"phase 12 K6b vs plain: book2_criterion's second phase (bounces "
+          f"10-19) from the kernel's state of its {nl} live lanes, radiance "
+          f"and segments in the state: {json.dumps(stats)}", flush=True)
+    if not ok:
+        raise AssertionError(f"K6b vs plain outside budgets: {stats}")
+    k6b_err = stats["max_abs_err"]
+    phase_ms = _cuda_ms(phase_kernel, 5)
+
+    def plain_deep():
+        return [mk.render_fused_deep(scene, cfg, cam, w.start,
+                                     w.stop - w.start, cfg.seed,
+                                     static=static, plain=True)
+                for w in lane_windows(n, BOOK2_TIMING_CHUNK)]
+
+    plain_deep_ms = _cuda_ms(plain_deep, 1)
+    print(f"phase 12 timing: one phased launch (bounces 10-19, {nl} lanes) "
+          f"{phase_ms:.3f} ms; the plain depth-phased render of the frame "
+          f"in {BOOK2_TIMING_CHUNK}-lane windows {plain_deep_ms:.3f} ms "
+          f"({smi})", flush=True)
+
+    # jumpy_balls at depth 20.
+    jc = RenderConfig(width=400, height=225, samples_per_pixel=4,
+                      max_depth=20)
+    jscene, jstatic, jcams = scenes.generate_scene("jumpy_balls",
+                                                   jc.aspect_ratio,
+                                                   device=dev)
+    jcam = jcams[0].to(dev)
+    j_single = mk.render_fused(jscene, jc, jcam, 0, jc.n_rays, jc.seed,
+                               static=jstatic, deep=False)
+    jlive = []
+    j_deep = mk.render_fused_deep(jscene, jc, jcam, 0, jc.n_rays, jc.seed,
+                                  static=jstatic, live_counts=jlive)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(j_deep, j_single)):
+        raise AssertionError("jumpy_balls depth 20: deep != single pass")
+    jt = {"single": [], "deep": []}
+    for who in ("single", "deep", "deep", "single"):
+        fn = (mk.render_fused_deep if who == "deep" else
+              lambda *a, **k: mk.render_fused(*a, **k, deep=False))
+        jt[who].append(_cuda_ms(lambda: fn(jscene, jc, jcam, 0, jc.n_rays,
+                                           jc.seed, static=jstatic), 5))
+    print(f"phase 12 jumpy_balls {jc.width}x{jc.height} spp "
+          f"{jc.samples_per_pixel} depth {jc.max_depth}: deep bitwise the "
+          f"single pass; live lanes after the first phase {jlive} of "
+          f"{jc.n_rays}; deep {statistics.median(jt['deep']):.3f} ms, single "
+          f"{statistics.median(jt['single']):.3f} ms ({json.dumps(jt)}; "
+          f"{smi})", flush=True)
+    # Every phase writes rad, seg and the records of its lanes; the first
+    # writes their state, each later one reads and writes it.
+    lanes_run = n + sum(live)
+    return bound({
+        "name": "megakernel_phase_io",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
+        "launches": k6b_launches,
+        "max_abs_err": k6b_err,
+        "ms": deep_ms,
+        "plain_ms": plain_deep_ms,
+    }, *forward_work(lanes_run, mk.PHASE_LEN, segs, static.n_spheres,
+                     static.n_rects + static.n_triangles, defer=True,
+                     V=static.n_volumes, phase_lanes=n + 2 * sum(live)))
+
+
+def volume_training(dev, smi, smokey):
+    """Phase 13: K5-emit on smokey_cornell_box at full size (bitwise K5's
+    radiance and segments, codes against the plain version's), one
+    forward+backward frame through render_fused_diff (K5-emit, then torch
+    autograd of the replay), InverseRenderer.fit for 3 Adam steps from the
+    media's albedo + 0.2 with the counts reset just before, and book2's
+    forward+backward frame at BOOK2_DIFF."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
+
+    scene, static, cfg, cam, k_rad, k_seg = smokey
+    n, seed = cfg.n_rays, cfg.seed
+    e_rad, e_seg, codes = mk.render_fused(scene, cfg, cam, 0, n, seed,
+                                          static=static, emit_paths=True)
+    p_rad, p_seg, p_codes = plain_forward(scene, static, cfg, cam,
+                                          PLAIN_CHUNK, emit=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(e_rad, k_rad) and torch.equal(e_seg, k_seg)):
+        raise AssertionError("K5-emit changed smokey's radiance/segments")
+    nz = (codes > 0).sum(1)
+    if not bool(((nz == e_seg) | (nz == e_seg - 1)).all()):
+        raise AssertionError("K5-emit codes: nonzero count not seg or seg-1")
+    code_lanes = int((codes != p_codes).any(1).sum())
+    media_codes = int(((codes & 3) == 3).sum())
+    if code_lanes > n // 100 or media_codes == 0:
+        raise AssertionError(f"K5-emit codes differ from the plain version's"
+                             f" on {code_lanes} lanes (budget {n // 100}), "
+                             f"{media_codes} medium codes")
+    print(f"phase 13 K5-emit smokey_cornell_box: radiance and segments "
+          f"bitwise K5's; codes differ from the plain version's on "
+          f"{code_lanes} of {n} lanes (budget {n // 100}); {media_codes} "
+          f"medium scatters", flush=True)
+
+    before = mk.VOL_LAUNCHES, mk.EMIT_LAUNCHES, rb.LAUNCHES
+    fb_ms, grads = fwd_bwd_ms(scene, static, cfg, cam)
+    counts = (mk.VOL_LAUNCHES - before[0], mk.EMIT_LAUNCHES - before[1],
+              rb.LAUNCHES - before[2])
+    if min(counts[:2]) < 1 or counts[2] != 0:
+        raise AssertionError(f"smokey forward+backward: K5/K5-emit/K2 "
+                             f"launches {counts}")
+    segs = int(k_seg.sum())
+    print(f"phase 13 forward+backward smokey_cornell_box {cfg.width}x"
+          f"{cfg.height} spp {cfg.samples_per_pixel} depth {cfg.max_depth} "
+          f"(K5-emit, then torch autograd of the replay) on {smi}: frame "
+          f"{fb_ms:.3f} ms, {segs / (fb_ms / 1e3):.4e} segments/s; every "
+          f"gradient finite", flush=True)
+
+    from raytracer_weekend_tpu_torch import integrator
+
+    target = integrator.render_image(scene, static, cfg, cam) / \
+        cfg.samples_per_pixel
+    tids = scene.materials.tex[scene.volumes.mat.long()].long()
+    color1 = scene.textures.color1.clone()
+    color1[tids] += 0.2
+    start = scene._replace(textures=scene.textures._replace(color1=color1))
+    mk.VOL_LAUNCHES = mk.EMIT_LAUNCHES = rb.LAUNCHES = 0
+    hist, step_ms = fit_three_steps(static, cfg, cam, target, start)
+    fit_counts = (mk.VOL_LAUNCHES, mk.EMIT_LAUNCHES, rb.LAUNCHES)
+    if min(fit_counts[:2]) < 1 or fit_counts[2] != 0:
+        raise AssertionError(f"smokey fit: K5/K5-emit/K2 launches "
+                             f"{fit_counts}")
+    print(f"phase 13 training path: InverseRenderer.fit smokey_cornell_box "
+          f"{cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} depth "
+          f"{cfg.max_depth}, 3 Adam steps from the media's albedo + 0.2 on "
+          f"{smi}: {fit_counts[1]} K5-emit launches, none of K2; loss "
+          f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} (median after warm-up "
+          f"{statistics.median(step_ms[1:]):.3f})", flush=True)
+
+    b_scene, b_static, b_cfg, b_cam = load_scene("book2_final_scene",
+                                                 BOOK2_DIFF, dev)
+    _, b_seg = mk.render_fused(b_scene, b_cfg, b_cam, 0, b_cfg.n_rays,
+                               b_cfg.seed, static=b_static)
+    torch.cuda.reset_peak_memory_stats(dev)
+    b_ms, b_grads = fwd_bwd_ms(b_scene, b_static, b_cfg, b_cam)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not any(bool(g.any()) for g in b_grads):
+        raise AssertionError("book2 forward+backward: all-zero gradients")
+    segs = int(b_seg.sum())
+    print(f"phase 13 forward+backward book2_final_scene {b_cfg.width}x"
+          f"{b_cfg.height} spp {b_cfg.samples_per_pixel} depth "
+          f"{b_cfg.max_depth} (K5-emit with K6a and the combine, then torch "
+          f"autograd of the replay, its turbulence through the plain "
+          f"autograd) on {smi}: frame {b_ms:.3f} ms, {segs / (b_ms / 1e3):.4e}"
+          f" segments/s, peak memory {peak:.2f} GiB; every gradient finite",
+          flush=True)
 
 
 if __name__ == "__main__":

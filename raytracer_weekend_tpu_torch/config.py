@@ -23,7 +23,8 @@ class RenderConfig:
       ray_batch: number of lanes traced per chunk; 0 means one chunk.
       t_min: minimum hit distance, ref uses 0.001.
       use_log10_volume_sampling: the reference's log10 constant-medium
-        distance quirk (volumes are not ported yet; kept for parity).
+        distance quirk (True: -1/density * log10(U); False: the standard
+        ln). Both the staged path and the fused kernel obey it.
       use_pallas: kept for field parity with the JAX config. The port does
         not read it: its dispatch follows the scene's device.
     """

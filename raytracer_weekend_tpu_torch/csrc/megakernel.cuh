@@ -1,0 +1,737 @@
+// Fused forward path-tracing kernel, one thread per lane: spheres, the
+// planar family (axis-aligned rects and triangles in one table) and
+// constant-density media (kVol), with noise and image texels deferred to
+// the host (kDefer) and the lane state written out and read back between
+// depth phases (kPhase). The template lives here; megakernel.cu and
+// megakernel_vp.cu instantiate it, so that two nvcc processes compile it.
+//
+// Replaces: raytracer_weekend_tpu/ops/pallas/megakernel.py:_kernel, its
+// sphere branch (has_sph: K1, and K1-emit with emit_paths=True), its planar
+// branch (has_planar, tables from _build_planar_tables: K3), its
+// deferred-texture record arm (defer_tex=True: K6a), its volume branch
+// (n_vol, the table of _build_vol_par: K5) and its phase I/O (phase_in /
+// phase_out of render_fused_deep: K6b), reached through render_fused ->
+// _render_fused_core -> pl.pallas_call.
+// It computes what that kernel computes, not its TPU layout: per lane
+// (lane = pixel*spp + sample) the thin-lens primary ray with a shutter time,
+// then up to max_depth bounces of closest hit over the moving spheres, the
+// planar primitives and the media, the hit record (signed-radius outward
+// normal for a sphere; the raw, unnormalised barycentric shading normal
+// ns0 + u*nsu + v*nsv for a planar primitive), the front-face flip,
+// solid/checker/uv-debug texture, and the Lambertian/Metal/Dielectric/
+// DiffuseLight scatter, or the isotropic scatter of a medium; out come the
+// lane's radiance (3 x f32) and its traced segment count (int32). With kEmit
+// it also writes the lane's winner code per bounce, int32 1 + 4*sphere,
+// 2 + 4*planar (the unified planar index: rects first, then triangles) or
+// 3 + 4*volume where the lane was alive and hit, 0 after a miss and for the
+// bounces after the lane left the loop: the record the backward replays
+// (csrc/replay_bwd.cu, replay.py). kSph and kPla say which families the
+// scene has; in the sphere-only instantiation (kSph, !kPla) every planar
+// statement sits behind `if constexpr` or a constant-false test, so it
+// compiles to the sphere kernel as it was before the planar branch existed,
+// as kEmit = false does without the codes, and likewise every kVol and
+// kPhase statement.
+//
+// The sphere test keeps the large terms apart (the JAX kernel's K0 row, the
+// staged ops/sphere.py grouping):
+//     hb = o.d - d.c(t),  c(t) = c0 + w*dc,
+//     cc = (|o|^2 - 2 o.c(t)) + (K0 + w*(K1 + w*K2)),
+// K0 = |c0|^2 - r^2, K1 = 2 c0.dc and K2 = |dc|^2 from the host in float64.
+// Computing o - c first rounded away the offset of an origin on the
+// radius-1000 ground (ulp(1000) = 6e-5), so rays leaving it re-hit it.
+//
+// With kDefer (scenes with noise or image textures) a noise or image texel
+// is shaded as 1.0 and the lane writes, per bounce, its deferred-texture
+// record in lane-major order: ctb (D x 3 f32) the bounce's radiance
+// contribution (miss background or emission, texel 1.0), abc (D x 3 f32)
+// the hit point for a noise texel, the pre-flip outward normal for a
+// sphere's image texel and (u, v, 0) in the winner's in-plane coordinates
+// for a planar image texel, else 0, and dcode (D x int32) +(texid + 1), or
+// -(texid + 1) for a planar winner, where the texel was deferred, else 0;
+// bounces after the lane left the loop, and medium scatters, read as zero
+// records. The host folds the true texels back in (ops/cuda/megakernel.py:
+// combine_deferred); the radiance the kernel writes then lacks them.
+//
+// With kVol each live lane tests every medium per bounce (ops/volume.py):
+// the ray moved into the medium's frame (Y-rotation, translation), the
+// boundary's [enter, exit] from the sphere's roots or the box's slabs (NaN
+// from 0 * inf where a ray runs parallel to a slab propagates through the
+// min/max and compares false, as torch's does), clamped to t_min and to 0,
+// the scatter distance -1/density * log(U) (times 1/ln 10 under the
+// reference's log10 flag, a launch parameter), and the candidate
+// enter + distance/|d| against the surfaces' best with strict <. A medium
+// winner scatters isotropically (a direction in the unit ball, not unit
+// length: the next bounce's a = |d|^2 is < 1) and attenuates by the
+// medium's solid albedo.
+//
+// With kPhase the lane writes its state after the launch's bounces, 15
+// floats (o, d, throughput, radiance, time, alive, segments), and, given a
+// state in, reads it and its global lane id (compacted lanes are not
+// contiguous) instead of casting the primary ray, and runs bounces
+// d0 .. d0 + max_depth - 1, the random numbers keyed on the absolute depth,
+// so a lane's path does not depend on its phase or batch position.
+//
+// The arithmetic follows the staged reference (integrator.
+// trace_rays in both packages), which the wrapper's plain version reproduces
+// in torch; the planar test is the JAX kernel's affine form
+//     t = (k - n.o)/(n.d),  u = ua.p + ca,  v = ub.p + cb,
+//     hit: t >= t_min, u >= 0, v >= 0, v <= 1, u + flag*v <= 1
+// (flag 0 for a rect, 1 for a triangle), where the plain version uses the
+// staged (k - o_f)/d_f and scalar triple products: the two differ by
+// rounding on wall corners and cuboid edges. A padded or degenerate row has
+// all-zero coefficients, so t = 0/0 = NaN and it never hits.
+//
+// What bounds it on an H100: FP32 issue and divergence. Every live lane tests
+// every primitive each bounce (jumpy_balls: ~486 spheres x ~2.6 segments per
+// lane, ~25 flops per test; the cow: 5,806 planar primitives, ~12 flops per
+// test; book2: 1,006 spheres and 2,401 rects), and lanes of a warp die at
+// different depths and take different material branches. Memory traffic is
+// tiny: the tables are read by index, each read one broadcast to the warp
+// from L1, and outputs are 16 bytes per lane (plus 4 per bounce with the
+// codes, 28 with the records, 120 of state per phase).
+//
+// What the design does about it: the per-primitive tests are the direct
+// forms (for a sphere, one lerp of the center, two dots, one compare on the
+// discriminant with the square root behind `disc > 0`; for a planar
+// primitive, two dots and a division, with the in-plane coordinates only
+// behind `t >= t_min && t < best`); the families share one running closest
+// t, so the planar loop starts from the sphere winner and strict `<` keeps
+// the sphere on an exact tie and the lowest index among planar ties, as
+// argmin and the family merge do in the plain version. Tables are
+// structure-of-arrays read through `const __restrict__`; the material and
+// texture rows sit at the same row numbers in both tables, so the shading
+// reads the winner's column through one pointer and one stride. A lane
+// leaves the depth loop as soon as it dies, and only the winning material's
+// branch draws its random numbers. Later work: shared-memory staging, ray
+// sorting by material, a BVH (the cow's planar loop dominates its frame).
+//
+// Numerics: no fast math. The ground is a radius-1000 sphere with a checker
+// of frequency 10, so sinf takes arguments in the thousands; __sinf would
+// flip checker cells; the slab test needs IEEE division by 0.
+// sinf/cosf/sqrtf/cbrtf/logf and IEEE division throughout.
+//
+// Build (the wrapper does this at first use, see ops/cuda/_build.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o librtw.so megakernel.cu megakernel_vp.cu
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "pcg4d.cuh"
+
+namespace rtw {
+
+// Sphere table rows, each S floats long (ops/cuda/megakernel.py:TABLE_ROWS).
+enum Row {
+  C0X, C0Y, C0Z,      // center at t0
+  DCX, DCY, DCZ,      // c1 - c0
+  T0, INV_DT, DT,     // t0, 1/(t1 - t0), t1 - t0
+  R2,                 // radius^2, or -inf for a padding row (never hits)
+  RADIUS,             // signed radius
+  MTYPE, FUZZ, IOR,   // material, pre-gathered per sphere
+  TTYPE,              // texture type: 0 solid, 1 checker
+  C1R, C1G, C1B,
+  C2R, C2G, C2B,
+  TSCALE,
+  TEXID,              // texture row id (the deferred record's code)
+  K0,                 // |c0|^2 - r^2, or +inf for a padding row
+  K1, K2,             // 2 c0.dc, |dc|^2
+  N_ROWS
+};
+
+// Planar table rows, each R floats long (ops/cuda/megakernel.py:
+// PLANAR_ROWS). Rows MTYPE..TSCALE (11-21) are the sphere table's rows of
+// the same names: the shading code reads either table's winner column.
+enum PRow {
+  PNX, PNY, PNZ,      // plane normal n (unnormalised for a triangle)
+  PK,                 // plane offset: t = (k - n.o)/(n.d)
+  UAX, UAY, UAZ,      // u = ua.p + ca
+  CA,
+  UBX, UBY, UBZ,      // v = ub.p + cb
+  P_MTYPE, P_FUZZ, P_IOR, P_TTYPE,
+  P_C1R, P_C1G, P_C1B,
+  P_C2R, P_C2G, P_C2B,
+  P_TSCALE,
+  CB,
+  FLAG,               // 0 rect (u <= 1), 1 triangle (u + v <= 1)
+  NS0X, NS0Y, NS0Z,   // shading normal = ns0 + u*nsu + v*nsv
+  NSUX, NSUY, NSUZ,
+  NSVX, NSVY, NSVZ,
+  TU0, TUU, TUV,      // uv-debug u = tu0 + u*tuu + v*tuv
+  TV0, TVU, TVV,      //          v = tv0 + u*tvu + v*tvv
+  P_TEXID,            // texture row id (the deferred record's code)
+  N_PROWS
+};
+static_assert(P_MTYPE == MTYPE && P_FUZZ == FUZZ && P_IOR == IOR &&
+                  P_TTYPE == TTYPE && P_C1R == C1R && P_C2R == C2R &&
+                  P_TSCALE == TSCALE,
+              "the shading rows must be shared by both tables");
+
+// Volume table columns, a row of N_VCOLS floats per medium
+// (ops/cuda/megakernel.py:VOL_COLS, the JAX _build_vol_par layout plus a
+// valid flag: the [1, 0] slab of an invalid JAX row is the unit box again
+// under min/max, so the kernel skips invalid rows instead).
+enum VCol {
+  V_ISBOX,
+  V_CX, V_CY, V_CZ, V_R2,   // sphere boundary (object frame)
+  V_B0X, V_B0Y, V_B0Z,      // box boundary (object frame)
+  V_B1X, V_B1Y, V_B1Z,
+  V_COS, V_SIN,             // Y-rotation
+  V_OFFX, V_OFFY, V_OFFZ,   // translation
+  V_NID,                    // -1/density
+  V_CR, V_CG, V_CB,         // isotropic albedo (solid color)
+  V_VALID,
+  N_VCOLS
+};
+
+// The lane state between depth phases (kPhase), 15 floats per lane.
+enum StateCol {
+  S_OX, S_OY, S_OZ, S_DX, S_DY, S_DZ, S_TPR, S_TPG, S_TPB,
+  S_RR, S_RG, S_RB, S_TIME, S_ALIVE, S_SEG, N_STATE
+};
+
+// Camera and background, as megakernel.py:_pack_par packs them.
+enum Par {
+  P_ORIGIN = 0, P_LOWER_LEFT = 3, P_HORIZONTAL = 6, P_VERTICAL = 9,
+  P_U = 12, P_V = 15, P_LENS_RADIUS = 18, P_TIME0 = 19, P_DTIME = 20,
+  P_BACKGROUND = 21, N_PAR = 24
+};
+
+constexpr int kBlock = 128;
+
+struct Launch {
+  long long lane_start;
+  int n_chunk, n_spheres, n_planar, width, height, spp, max_depth;
+  float t_min;
+  uint32_t seed;
+};
+
+// Media (kVol) and phase I/O (kPhase). st_in and gid are null for the
+// first phase, which casts its primary rays.
+struct Extra {
+  const float* __restrict__ vtab;   // (n_volumes, N_VCOLS)
+  int n_volumes;
+  float log_scale;                  // 1/ln 10 (the log10 quirk) or 1
+  const float* __restrict__ st_in;  // (n_chunk, N_STATE)
+  const int* __restrict__ gid;      // (n_chunk,) global lane ids
+  float* __restrict__ st_out;       // (n_chunk, N_STATE)
+  int d0;                           // absolute depth of the first bounce
+};
+
+// min/max that return NaN when either operand is NaN (torch.minimum/
+// maximum); fminf/fmaxf would drop it.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+// The per-lane rows of the deferred-texture records (kDefer).
+struct Records {
+  float* __restrict__ ctb;   // (n_chunk, max_depth, 3)
+  float* __restrict__ abc;   // (n_chunk, max_depth, 3)
+  int* __restrict__ dcode;   // (n_chunk, max_depth)
+};
+
+__device__ __forceinline__ void put_record(const Records& R, long long k,
+                                           float cr, float cg, float cb,
+                                           float a, float b, float c,
+                                           int code) {
+  R.ctb[3 * k + 0] = cr;
+  R.ctb[3 * k + 1] = cg;
+  R.ctb[3 * k + 2] = cb;
+  R.abc[3 * k + 0] = a;
+  R.abc[3 * k + 1] = b;
+  R.abc[3 * k + 2] = c;
+  R.dcode[k] = code;
+}
+
+template <bool kEmit, bool kSph, bool kPla, bool kDefer, bool kVol,
+          bool kPhase>
+__global__ void __launch_bounds__(kBlock)
+render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
+              const float* __restrict__ par, Launch L, Extra X,
+              float* __restrict__ rad, int* __restrict__ seg,
+              int* __restrict__ codes, Records rec) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= L.n_chunk) return;
+  const int S = L.n_spheres;
+  const int R = L.n_planar;
+  const float* __restrict__ c0x = tab + C0X * S;
+  const float* __restrict__ c0y = tab + C0Y * S;
+  const float* __restrict__ c0z = tab + C0Z * S;
+  const float* __restrict__ dcx = tab + DCX * S;
+  const float* __restrict__ dcy = tab + DCY * S;
+  const float* __restrict__ dcz = tab + DCZ * S;
+  const float* __restrict__ t0s = tab + T0 * S;
+  const float* __restrict__ inv_dt = tab + INV_DT * S;
+  const float* __restrict__ k0s = tab + K0 * S;
+  const float* __restrict__ k1s = tab + K1 * S;
+  const float* __restrict__ k2s = tab + K2 * S;
+
+  const bool resume = kPhase && X.st_in != nullptr;
+  const long long lane = resume ? (long long)X.gid[i] : L.lane_start + i;
+  const uint32_t rid = (uint32_t)lane;
+  float ox, oy, oz, dx, dy, dz, time;
+  float tpr = 1.f, tpg = 1.f, tpb = 1.f;  // throughput
+  float rr = 0.f, rg = 0.f, rb = 0.f;     // radiance
+  int nseg = 0;
+  bool alive = true;
+  if (resume) {  // the state the previous phase wrote (kPhase only)
+    const float* __restrict__ st = X.st_in + (long long)i * N_STATE;
+    ox = st[S_OX]; oy = st[S_OY]; oz = st[S_OZ];
+    dx = st[S_DX]; dy = st[S_DY]; dz = st[S_DZ];
+    tpr = st[S_TPR]; tpg = st[S_TPG]; tpb = st[S_TPB];
+    rr = st[S_RR]; rg = st[S_RG]; rb = st[S_RB];
+    time = st[S_TIME];
+    alive = st[S_ALIVE] > 0.f;
+    nseg = (int)st[S_SEG];
+  } else {
+    // ---- primary ray (integrator._pixel_rays + camera.get_rays) ---------
+    const long long pix = lane / L.spp;
+    const float col = (float)(pix % L.width);
+    const float row = (float)(L.height - 1 - pix / L.width);  // bottom-up
+
+    const float4 uj = rand4(L.seed, rid, 0u, SALT_PIXEL_JITTER);
+    const float fs = (col + uj.x) / (float)(L.width - 1);
+    const float ft = (row + uj.y) / (float)(L.height - 1);
+
+    const float4 ul = rand4(L.seed, rid, 0u, SALT_LENS);
+    const float lr = sqrtf(ul.x);
+    const float lphi = TWO_PI_F * ul.y;
+    const float lens = par[P_LENS_RADIUS];
+    const float rdx = lens * (lr * cosf(lphi));
+    const float rdy = lens * (lr * sinf(lphi));
+
+    time = par[P_TIME0] + rand4(L.seed, rid, 0u, SALT_TIME).x * par[P_DTIME];
+
+    float o[3], d[3];
+    for (int k = 0; k < 3; ++k) {
+      const float off = par[P_U + k] * rdx + par[P_V + k] * rdy;
+      o[k] = par[P_ORIGIN + k] + off;
+      d[k] = par[P_LOWER_LEFT + k] + fs * par[P_HORIZONTAL + k] +
+             ft * par[P_VERTICAL + k] - par[P_ORIGIN + k] - off;
+    }
+    ox = o[0]; oy = o[1]; oz = o[2];
+    dx = d[0]; dy = d[1]; dz = d[2];
+  }
+  const int seg0 = nseg;  // segments before this launch's bounces
+  // This lane's row of the (n_chunk, max_depth) codes.
+  int* __restrict__ lane_codes = kEmit ? codes + (long long)i * L.max_depth
+                                       : nullptr;
+  // This lane's records: record k sits at index lane0 + k.
+  const long long lane0 = (long long)i * L.max_depth;
+
+  for (int k = 0; k < L.max_depth && (!kPhase || alive); ++k) {
+    // The absolute depth keys the random numbers.
+    const int depth = kPhase ? X.d0 + k : k;
+    ++nseg;  // this lane is alive at the start of the bounce
+
+    // ---- closest sphere: strict < keeps the first minimum ----------------
+    const float a = dx * dx + dy * dy + dz * dz;
+    const float inv_a = 1.0f / a;
+    float best = INFINITY;
+    int win = -1;
+    if constexpr (kSph) {
+      const float oo = ox * ox + oy * oy + oz * oz;
+      const float od = ox * dx + oy * dy + oz * dz;
+      for (int s = 0; s < S; ++s) {
+        const float w = (time - t0s[s]) * inv_dt[s];
+        const float cx = c0x[s] + w * dcx[s];
+        const float cy = c0y[s] + w * dcy[s];
+        const float cz = c0z[s] + w * dcz[s];
+        const float hb = od - (dx * cx + dy * cy + dz * cz);
+        const float cc = (oo - 2.0f * (ox * cx + oy * cy + oz * cz)) +
+                         (k0s[s] + w * (k1s[s] + w * k2s[s]));
+        const float disc = hb * hb - a * cc;
+        if (disc > 0.f) {
+          const float sq = sqrtf(disc);
+          float root = (-hb - sq) * inv_a;
+          if (!(root >= L.t_min)) root = (-hb + sq) * inv_a;  // t_min select
+          if (root >= L.t_min && root < best) {
+            best = root;
+            win = s;
+          }
+        }
+      }
+    }
+
+    // ---- closest planar primitive, against the sphere winner's t --------
+    bool planar = false;     // the winner is planar primitive `win`
+    float bu = 0.f, bv = 0.f;  // its in-plane / barycentric coordinates
+    if constexpr (kPla) {
+      for (int r = 0; r < R; ++r) {
+        const float nx = ptab[PNX * R + r];
+        const float ny = ptab[PNY * R + r];
+        const float nz = ptab[PNZ * R + r];
+        const float t = (ptab[PK * R + r] - (nx * ox + ny * oy + nz * oz)) /
+                        (nx * dx + ny * dy + nz * dz);
+        if (t >= L.t_min && t < best) {  // NaN (a padded row) fails both
+          const float hx = ox + t * dx;
+          const float hy = oy + t * dy;
+          const float hz = oz + t * dz;
+          const float u = ptab[UAX * R + r] * hx + ptab[UAY * R + r] * hy +
+                          ptab[UAZ * R + r] * hz + ptab[CA * R + r];
+          const float v = ptab[UBX * R + r] * hx + ptab[UBY * R + r] * hy +
+                          ptab[UBZ * R + r] * hz + ptab[CB * R + r];
+          if (u >= 0.f && v >= 0.f && v <= 1.f &&
+              u + ptab[FLAG * R + r] * v <= 1.f) {
+            best = t;
+            win = r;
+            planar = true;
+            bu = u;
+            bv = v;
+          }
+        }
+      }
+    }
+
+    // ---- closest medium scatter, against the surfaces' best (ops/volume) -
+    int vwin = -1;
+    if constexpr (kVol) {
+      const float ray_len = sqrtf(a);
+      for (int v = 0; v < X.n_volumes; ++v) {
+        const float* __restrict__ vp = X.vtab + v * N_VCOLS;
+        if (vp[V_VALID] == 0.f) continue;
+        const float cth = vp[V_COS], sth = vp[V_SIN];
+        const float otx = ox - vp[V_OFFX];
+        const float oty = oy - vp[V_OFFY];
+        const float otz = oz - vp[V_OFFZ];
+        const float oox = cth * otx - sth * otz;
+        const float ooz = sth * otx + cth * otz;
+        const float odx = cth * dx - sth * dz;
+        const float odz = sth * dx + cth * dz;
+        float enter, exitt;
+        bool ok;
+        if (vp[V_ISBOX] != 0.f) {  // slab test
+          const float ivx = 1.0f / odx, ivy = 1.0f / dy, ivz = 1.0f / odz;
+          const float tx0 = (vp[V_B0X] - oox) * ivx;
+          const float tx1 = (vp[V_B1X] - oox) * ivx;
+          const float ty0 = (vp[V_B0Y] - oty) * ivy;
+          const float ty1 = (vp[V_B1Y] - oty) * ivy;
+          const float tz0 = (vp[V_B0Z] - ooz) * ivz;
+          const float tz1 = (vp[V_B1Z] - ooz) * ivz;
+          enter = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
+                          nan_min(tz0, tz1));
+          exitt = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
+                          nan_max(tz0, tz1));
+          ok = enter < exitt;
+        } else {  // the sphere's roots
+          const float ocx = oox - vp[V_CX];
+          const float ocy = oty - vp[V_CY];
+          const float ocz = ooz - vp[V_CZ];
+          const float ao = odx * odx + dy * dy + odz * odz;
+          const float hb = ocx * odx + ocy * dy + ocz * odz;
+          const float ct = ocx * ocx + ocy * ocy + ocz * ocz - vp[V_R2];
+          const float disc = hb * hb - ao * ct;
+          ok = disc > 0.f;
+          const float sq = sqrtf(ok ? disc : 1.0f);
+          const float iao = 1.0f / ao;
+          enter = (-hb - sq) * iao;
+          exitt = (-hb + sq) * iao;
+        }
+        const float t1c = nan_max(enter, L.t_min);
+        if (!(ok && t1c < exitt)) continue;
+        const float tin = fmaxf(t1c, 0.f);
+        const float dist_in = (exitt - tin) * ray_len;
+        float u = rand4(L.seed, rid, (uint32_t)depth, SALT_VOLUME + v).x;
+        u = fminf(fmaxf(u, 1e-12f), 1.0f);
+        const float hd = vp[V_NID] * (logf(u) * X.log_scale);
+        if (!(hd <= dist_in)) continue;
+        const float tv = tin + hd / ray_len;
+        if (tv < best) {
+          best = tv;
+          vwin = v;
+        }
+      }
+    }
+
+    if (win < 0 && vwin < 0) {  // miss -> background, terminate
+      if (kEmit) lane_codes[k] = 0;
+      if constexpr (kDefer) {
+        put_record(rec, lane0 + k, tpr * par[P_BACKGROUND + 0],
+                   tpg * par[P_BACKGROUND + 1], tpb * par[P_BACKGROUND + 2],
+                   0.f, 0.f, 0.f, 0);
+      }
+      rr += tpr * par[P_BACKGROUND + 0];
+      rg += tpg * par[P_BACKGROUND + 1];
+      rb += tpb * par[P_BACKGROUND + 2];
+      alive = false;
+      break;
+    }
+
+    if constexpr (kVol) {
+      if (vwin >= 0) {  // medium scatter: isotropic over the solid albedo
+        if (kEmit) lane_codes[k] = 3 + 4 * vwin;
+        if constexpr (kDefer) {
+          put_record(rec, lane0 + k, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
+        }
+        const float* __restrict__ vp = X.vtab + vwin * N_VCOLS;
+        ox = ox + best * dx;
+        oy = oy + best * dy;
+        oz = oz + best * dz;
+        const float4 q = rand4(L.seed, rid, (uint32_t)depth, SALT_ISOTROPIC);
+        const float3 b = unit_vector(q.x, q.y);
+        const float br = cbrtf(q.z);
+        dx = b.x * br;
+        dy = b.y * br;
+        dz = b.z * br;
+        tpr *= vp[V_CR];
+        tpg *= vp[V_CG];
+        tpb *= vp[V_CB];
+        continue;
+      }
+    }
+
+    if (kEmit) lane_codes[k] = (kPla && planar) ? 2 + 4 * win : 1 + 4 * win;
+
+    // ---- hit record (ops.sphere.sphere_record / the planar affine) -------
+    // The winner's column, and the row stride of its table.
+    const float* __restrict__ row_ptr = tab + win;
+    int st = S;
+    if constexpr (kPla) {
+      if (planar) {
+        row_ptr = ptab + win;
+        st = R;
+      }
+    }
+    const float px = ox + best * dx;
+    const float py = oy + best * dy;
+    const float pz = oz + best * dz;
+    float nx, ny, nz;
+    if (!kSph || (kPla && planar)) {  // raw barycentric shading normal
+      nx = row_ptr[NS0X * st] + bu * row_ptr[NSUX * st] +
+           bv * row_ptr[NSVX * st];
+      ny = row_ptr[NS0Y * st] + bu * row_ptr[NSUY * st] +
+           bv * row_ptr[NSVY * st];
+      nz = row_ptr[NS0Z * st] + bu * row_ptr[NSUZ * st] +
+           bv * row_ptr[NSVZ * st];
+    } else {
+      const float w = (time - row_ptr[T0 * S]) / row_ptr[DT * S];
+      const float r = row_ptr[RADIUS * S];
+      nx = (px - (row_ptr[C0X * S] + w * row_ptr[DCX * S])) / r;
+      ny = (py - (row_ptr[C0Y * S] + w * row_ptr[DCY * S])) / r;
+      nz = (pz - (row_ptr[C0Z * S] + w * row_ptr[DCZ * S])) / r;
+    }
+    const bool front = (dx * nx + dy * ny + dz * nz) < 0.f;
+    if (!front) {
+      nx = -nx;
+      ny = -ny;
+      nz = -nz;
+    }
+
+    // ---- texture: solid / checker / uv-debug -----------------------------
+    float tr = row_ptr[C1R * st], tg = row_ptr[C1G * st],
+          tb = row_ptr[C1B * st];
+    if (row_ptr[TTYPE * st] == 1.0f) {
+      const float sc = row_ptr[TSCALE * st];
+      const float sines = sinf(sc * px) * sinf(sc * py) * sinf(sc * pz);
+      if (sines < 0.f) {
+        tr = row_ptr[C2R * st];
+        tg = row_ptr[C2G * st];
+        tb = row_ptr[C2B * st];
+      }
+    }
+    if constexpr (kPla) {
+      // (u, v, 0); the builder admits uv-debug on planar primitives only.
+      if (planar && row_ptr[TTYPE * st] == 4.0f) {
+        tr = row_ptr[TU0 * st] + bu * row_ptr[TUU * st] +
+             bv * row_ptr[TUV * st];
+        tg = row_ptr[TV0 * st] + bu * row_ptr[TVU * st] +
+             bv * row_ptr[TVV * st];
+        tb = 0.f;
+      }
+    }
+
+    const float mtype = row_ptr[MTYPE * st];
+    if constexpr (kDefer) {
+      // A noise or image texel is shaded as 1.0 and recorded for the host.
+      const float ttype = row_ptr[TTYPE * st];
+      float ra = 0.f, rb = 0.f, rc = 0.f;
+      int dcode = 0;
+      if (ttype == 2.0f || ttype == 3.0f) {
+        bool on_planar = false;
+        if constexpr (kPla) on_planar = planar;
+        const int texid =
+            (int)row_ptr[(on_planar ? (int)P_TEXID : (int)TEXID) * st];
+        dcode = on_planar ? -(texid + 1) : texid + 1;
+        if (ttype == 2.0f) {  // noise: the hit point
+          ra = px;
+          rb = py;
+          rc = pz;
+        } else if (on_planar) {  // planar image: its in-plane (u, v)
+          ra = bu;
+          rb = bv;
+        } else {  // sphere image: the pre-flip outward normal
+          ra = front ? nx : -nx;
+          rb = front ? ny : -ny;
+          rc = front ? nz : -nz;
+        }
+        tr = tg = tb = 1.0f;
+      }
+      const bool emits = mtype == 3.0f;
+      put_record(rec, lane0 + k, emits ? tpr * tr : 0.f,
+                 emits ? tpg * tg : 0.f, emits ? tpb * tb : 0.f, ra, rb, rc,
+                 dcode);
+    }
+
+    // ---- scatter (materials.scatter_packed) ------------------------------
+    if (mtype == 3.0f) {  // diffuse light: emit tp * tex and stop
+      rr += tpr * tr;
+      rg += tpg * tg;
+      rb += tpb * tb;
+      alive = false;
+      break;
+    }
+    const float len = sqrtf(a + 1e-20f);  // vecmath.normalize(d, eps=1e-20)
+    const float ux = dx / len, uy = dy / len, uz = dz / len;
+    const float udn = ux * nx + uy * ny + uz * nz;
+    float ndx, ndy, ndz;
+    if (mtype == 1.0f) {  // metal: fuzzed mirror, absorbs when dot <= 0
+      const float4 um = rand4(L.seed, rid, (uint32_t)depth, SALT_METAL);
+      const float3 b = unit_vector(um.x, um.y);
+      const float br = cbrtf(um.z);
+      const float fuzz = row_ptr[FUZZ * st];
+      ndx = (ux - 2.0f * udn * nx) + fuzz * (b.x * br);
+      ndy = (uy - 2.0f * udn * ny) + fuzz * (b.y * br);
+      ndz = (uz - 2.0f * udn * nz) + fuzz * (b.z * br);
+      if (!((ndx * nx + ndy * ny + ndz * nz) > 0.f)) {
+        alive = false;
+        break;
+      }
+      tpr *= tr;
+      tpg *= tg;
+      tpb *= tb;
+    } else if (mtype == 2.0f) {  // dielectric: Schlick against the draw ud
+      const float ud =
+          rand4(L.seed, rid, (uint32_t)depth, SALT_DIELECTRIC).x;
+      const float ior = row_ptr[IOR * st];
+      const float ratio = front ? 1.0f / ior : ior;
+      const float cos_t = fminf(-udn, 1.0f);
+      const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 1e-12f));
+      float r0 = (1.0f - ratio) / (1.0f + ratio);
+      r0 = r0 * r0;
+      const float omc = 1.0f - cos_t;
+      const float omc2 = omc * omc;
+      const float refl = r0 + (1.0f - r0) * (omc * (omc2 * omc2));
+      if (ratio * sin_t > 1.0f || refl > ud) {
+        ndx = ux - 2.0f * udn * nx;
+        ndy = uy - 2.0f * udn * ny;
+        ndz = uz - 2.0f * udn * nz;
+      } else {  // refract (vecmath.refract)
+        const float rpx = ratio * (ux + cos_t * nx);
+        const float rpy = ratio * (uy + cos_t * ny);
+        const float rpz = ratio * (uz + cos_t * nz);
+        const float rp2 = rpx * rpx + rpy * rpy + rpz * rpz;
+        const float pm = -sqrtf(fmaxf(fabsf(1.0f - rp2), 1e-12f));
+        ndx = rpx + pm * nx;
+        ndy = rpy + pm * ny;
+        ndz = rpz + pm * nz;
+      }
+    } else {  // lambertian: normal + unit vector, degenerate -> normal
+      const float4 ulm = rand4(L.seed, rid, (uint32_t)depth, SALT_LAMBERTIAN);
+      const float3 v = unit_vector(ulm.x, ulm.y);
+      ndx = nx + v.x;
+      ndy = ny + v.y;
+      ndz = nz + v.z;
+      if (fabsf(ndx) < 1e-8f && fabsf(ndy) < 1e-8f && fabsf(ndz) < 1e-8f) {
+        ndx = nx;
+        ndy = ny;
+        ndz = nz;
+      }
+      tpr *= tr;
+      tpg *= tg;
+      tpb *= tb;
+    }
+    // The scattered ray keeps the parent's shutter time.
+    ox = px;
+    oy = py;
+    oz = pz;
+    dx = ndx;
+    dy = ndy;
+    dz = ndz;
+  }
+
+  rad[3 * i + 0] = rr;
+  rad[3 * i + 1] = rg;
+  rad[3 * i + 2] = rb;
+  seg[i] = nseg;
+  const int started = nseg - seg0;  // bounces this launch began
+  if (kEmit) {  // bounces [started, max_depth) were never started
+    for (int k = started; k < L.max_depth; ++k) lane_codes[k] = 0;
+  }
+  if constexpr (kDefer) {
+    for (int k = started; k < L.max_depth; ++k)
+      put_record(rec, lane0 + k, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
+  }
+  if constexpr (kPhase) {
+    float* __restrict__ so = X.st_out + (long long)i * N_STATE;
+    so[S_OX] = ox; so[S_OY] = oy; so[S_OZ] = oz;
+    so[S_DX] = dx; so[S_DY] = dy; so[S_DZ] = dz;
+    so[S_TPR] = tpr; so[S_TPG] = tpg; so[S_TPB] = tpb;
+    so[S_RR] = rr; so[S_RG] = rg; so[S_RB] = rb;
+    so[S_TIME] = time;
+    so[S_ALIVE] = alive ? 1.f : 0.f;
+    so[S_SEG] = (float)nseg;
+  }
+}
+
+// One launch of render_kernel with the geometry flags of the scene's
+// families: (kSph, !kPla), (!kSph, kPla) or both; with media (kVol) always
+// both, either loop then running over the family's count, which may be 0.
+template <bool kEmit, bool kDefer, bool kVol, bool kPhase>
+void launch_render(const float* tab, const float* ptab, const float* par,
+                   const Launch& L, const Extra& X, float* rad, int* seg,
+                   int* codes, const Records& rec, cudaStream_t stream) {
+  const int grid = (L.n_chunk + kBlock - 1) / kBlock;
+  if constexpr (kVol) {
+    render_kernel<kEmit, true, true, kDefer, kVol, kPhase>
+        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
+                                      rec);
+  } else if (L.n_planar == 0) {
+    render_kernel<kEmit, true, false, kDefer, kVol, kPhase>
+        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
+                                      rec);
+  } else if (L.n_spheres == 0) {
+    render_kernel<kEmit, false, true, kDefer, kVol, kPhase>
+        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
+                                      rec);
+  } else {
+    render_kernel<kEmit, true, true, kDefer, kVol, kPhase>
+        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
+                                      rec);
+  }
+}
+
+// The instantiations megakernel_vp.cu compiles: media, and the phased
+// launches (no codes).
+#define RTW_VP_LAUNCHERS(PREFIX)                                            \
+  PREFIX template void launch_render<false, false, true, false>(            \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
+  PREFIX template void launch_render<false, true, true, false>(             \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
+  PREFIX template void launch_render<true, false, true, false>(             \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
+  PREFIX template void launch_render<true, true, true, false>(              \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
+  PREFIX template void launch_render<false, false, false, true>(            \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
+  PREFIX template void launch_render<false, true, false, true>(             \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
+  PREFIX template void launch_render<false, false, true, true>(             \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
+  PREFIX template void launch_render<false, true, true, true>(              \
+      const float*, const float*, const float*, const Launch&,             \
+      const Extra&, float*, int*, int*, const Records&, cudaStream_t);
+
+}  // namespace rtw

@@ -17,6 +17,8 @@ constexpr uint32_t SALT_TIME = 0xC2B2AE3Du;
 constexpr uint32_t SALT_LAMBERTIAN = 0x27D4EB2Fu;
 constexpr uint32_t SALT_METAL = 0x165667B1u;
 constexpr uint32_t SALT_DIELECTRIC = 0xD3A2646Cu;
+constexpr uint32_t SALT_ISOTROPIC = 0xFD7046C5u;
+constexpr uint32_t SALT_VOLUME = 0xB55A4F09u;  // + volume index
 
 // f32(2*pi), the value the JAX and torch versions multiply by.
 constexpr float TWO_PI_F = 6.283185307179586f;

@@ -8,7 +8,7 @@
 // replay_bwd_fused -> _kernel_entry -> pl.pallas_call. For the radiance estimator
 //     rad = sum_k tp_k * emit_k + miss * tp * background
 // with the winners that the forward kernel recorded held fixed (the codes of
-// csrc/megakernel.cu, kEmit), it returns the vector-Jacobian product with
+// csrc/megakernel.cuh, kEmit), it returns the vector-Jacobian product with
 // the radiance cotangent g: d(ktab) (KT, S) for the sphere table of
 // ops/cuda/replay_bwd.py:pack_ktab, d(ptab) (KP, R) for the planar table of
 // pack_ptab, d_o and d_d (B, 3), d_time (B,) and d_background (3,). Its
@@ -52,7 +52,7 @@
 // per bounce; the scratch is 36 bytes per bounce written once and read once.
 //
 // Deferred textures (kDefer, kDeferNoise): for a scene whose noise and image
-// texels the forward deferred (csrc/megakernel.cu, kDefer), those texels
+// texels the forward deferred (csrc/megakernel.cuh, kDefer), those texels
 // are 1.0 here, as in the forward, and their cotangent belongs to the
 // host's combine, not to the table's color rows. The radiance cotangent is
 // then per bounce, g (B, D, 3): the cotangent of the bounce's contribution
@@ -65,7 +65,7 @@
 // kSph/kPla, every deferred statement sits behind `if constexpr`.
 //
 // Numerics: no fast math; sinf/cosf/sqrtf/cbrtf and IEEE division, as in
-// megakernel.cu. Float atomics make the table cotangents and d_background
+// megakernel.cuh. Float atomics make the table cotangents and d_background
 // depend on the order of additions, so they match their plain version
 // within tolerances, not bitwise.
 #include <cooperative_groups.h>

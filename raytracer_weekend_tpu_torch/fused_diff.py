@@ -1,20 +1,22 @@
 """Differentiable fused rendering: fused forward, replay backward.
 
 Port of `raytracer_weekend_tpu/fused_diff.py`, for the scenes that
-`megakernel.fused_supported` admits: spheres, rects and triangles with
-solid, checker, noise, image or (planar) uv-debug textures. The fused
+`megakernel.fused_supported` admits: spheres, rects, triangles and
+constant-density media with solid, checker, noise, image or (planar)
+uv-debug textures. The fused
 forward has no autodiff rule of its own, so `render_fused_diff` is a
 `torch.autograd.Function` that pairs
 
   forward   the fused render emitting per-bounce winner codes: the CUDA
-            kernel K1-emit/K3 on a card, its plain version on the CPU
+            kernel K1-emit/K3/K5 on a card, its plain version on the CPU
             (`ops.cuda.megakernel.render_fused(..., emit_paths=True)`);
             for a scene with noise or image textures also the deferred
             records (K6a, `emit_deferred=True`), combined into the radiance
             (K8 for the turbulence);
   backward  the replay backward on those saved codes. As in the JAX
             package this is a static choice on `SceneStatic`:
-            * no uv-debug texture: kernels K2/K4 on a card, torch.autograd
+            * neither uv-debug textures nor media: kernels K2/K4 on a
+              card, torch.autograd
               through `replay.replay_packed` on the CPU
               (`ops.cuda.replay_bwd.replay_bwd_fused`), chained to the
               scene and camera leaves through the autograd of `pack_ktab`,
@@ -24,14 +26,18 @@ forward has no autodiff rule of its own, so `render_fused_diff` is a
               per-bounce cotangents g_k of the records' contributions and
               the cotangents cabc of the noise records' hit points, and
               K2/K4 with their deferred branch K7 take those;
-            * uv-debug (simple_triangle): torch.autograd through
-              `replay.replay_rays` on every device, the port of the JAX
-              package's XLA replay for the scenes its kernel does not cover.
+            * uv-debug (simple_triangle) or media (smokey_cornell_box,
+              book2): torch.autograd through `replay.replay_rays` on every
+              device, the port of the JAX package's XLA replay for the
+              scenes its kernel does not cover (JAX `fused_diff.py:198-207`).
+              The forward of a medium scene still combines its deferred
+              texels (K6a, K8) into the radiance; the replay evaluates them
+              inline, the turbulence through its plain autograd.
 
 Discrete choices (winners, hit/miss, reflect/refract) are held fixed and
 continuous factors differentiate: the staged path's gradient semantics.
 The JAX package's peeled-primary prepass (`prepare_peel`) is a TPU table
-layout and is not ported; volume scenes raise `NotImplementedError`.
+layout and is not ported.
 Without `remat` or `lax.map` pieces (TPU compile-time workarounds), the
 deferred combine's autograd keeps its texel intermediates for the whole
 frame.
@@ -88,7 +94,7 @@ class _FusedDiff(torch.autograd.Function):
             ids = lane_start + torch.arange(n_chunk, dtype=torch.int64,
                                             device=scene.device)
             o, d, time, ray_id = integrator._pixel_rays(cam, cfg, ids, seed)
-            if static.has_uvdebug:
+            if _replays(static):
                 rad = replay.replay_rays(scene, static, cfg, o, d, time,
                                          ray_id, seed, codes)
             else:
@@ -99,7 +105,7 @@ class _FusedDiff(torch.autograd.Function):
                         else None)
                 ptab = (replay_bwd.pack_ptab(scene, static)
                         if static.n_rects or static.n_triangles else None)
-        if static.has_uvdebug:
+        if _replays(static):
             pairs = [(rad, g)]
         else:
             dktab, dptab, d_o, d_d, d_time, d_bg = replay_bwd.replay_bwd_fused(
@@ -122,10 +128,16 @@ class _FusedDiff(torch.autograd.Function):
         return (None, *out)
 
 
+def _replays(static: SceneStatic) -> bool:
+    """The backward is torch autograd of `replay.replay_rays`: the scenes
+    kernels K2/K4/K7 do not cover (uv-debug textures, media)."""
+    return static.has_uvdebug or static.n_volumes > 0
+
+
 def _defers(static: SceneStatic) -> bool:
-    """The forward defers noise and image texels and the backward takes the
-    kernels' deferred branch (not for uv-debug scenes, which replay)."""
-    return megakernel.defers(static) and not static.has_uvdebug
+    """The forward returns the deferred records and the backward takes the
+    kernels' deferred branch (not for the scenes that replay)."""
+    return megakernel.defers(static) and not _replays(static)
 
 
 def combine_vjp(scene, static, recs, g, wanted_leaves):
@@ -168,19 +180,19 @@ def render_fused_diff(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     of `scene` and `cam` (lanes [lane_start, lane_start + n_chunk)).
 
     On a CUDA device the forward is the fused kernel with codes (K1-emit,
-    with the planar branch K3 when the scene has rects or triangles, and
-    the deferred records K6a with K8 when it has noise or image textures)
-    and the backward kernel K2/K4 (K7, after K9, for deferred texels), or
-    torch autograd of the replay for uv-debug scenes; a build, load or
-    launch failure raises and nothing falls back. On the CPU both are
-    their plain torch versions. Scenes outside `megakernel.fused_supported`
-    raise `NotImplementedError`.
+    with the planar branch K3 when the scene has rects or triangles, the
+    volume branch K5 when it has media, and the deferred records K6a with
+    K8 when it has noise or image textures) and the backward kernel K2/K4
+    (K7, after K9, for deferred texels), or torch autograd of the replay
+    for uv-debug and medium scenes; a build, load or launch failure raises
+    and nothing falls back. On the CPU both are their plain torch versions.
+    Scenes outside `megakernel.fused_supported` raise `NotImplementedError`.
     """
     if not megakernel.fused_supported(static, cfg):
         raise NotImplementedError(
-            "render_fused_diff covers sphere, rect and triangle scenes with "
-            "Lambertian/Metal/Dielectric/DiffuseLight materials; volumes are "
-            f"not ported yet: {static}")
+            "render_fused_diff covers sphere, rect, triangle and constant-"
+            "medium scenes with Lambertian/Metal/Dielectric/DiffuseLight "
+            f"materials: {static}")
     spec = (static, cfg, int(lane_start), int(n_chunk), int(seed),
             len(scene.leaves()))
     return _FusedDiff.apply(spec, *scene.leaves(), *cam)

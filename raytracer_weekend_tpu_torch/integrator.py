@@ -1,7 +1,7 @@
 """Wavefront path-tracing integrator (port of `integrator.py`).
 
-Spheres, axis-aligned rects and triangles with solid, checker, noise, image
-and uv-debug textures; volumes are not ported yet.
+Spheres, axis-aligned rects, triangles and constant-density media with
+solid, checker, noise, image and uv-debug textures.
 The reference's recursion `emitted + attenuation * sample_ray(...)` is
 re-associated into the iterative form
 
@@ -16,8 +16,10 @@ with a strict `<`, so on an exact tie the earlier family keeps the lane.
 
 `render_image` dispatches on the scene's device:
   * CUDA, and `fused_supported`: the hand-written CUDA megakernel
-    (`ops.cuda.megakernel.render_fused`). A build, load or launch failure
-    raises; nothing falls back to the plain path.
+    (`ops.cuda.megakernel.render_fused`; a whole frame at `max_depth >= 16`
+    renders in depth phases with compaction between them,
+    `render_fused_deep`). A build, load or launch failure raises; nothing
+    falls back to the plain path.
   * CPU: the plain staged path below (`render_chunk`).
   * CUDA, scene outside the slice: `NotImplementedError`.
 """
@@ -36,20 +38,20 @@ from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops import rect as rect_ops
 from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
 from raytracer_weekend_tpu_torch.ops import triangle as tri_ops
+from raytracer_weekend_tpu_torch.ops import volume as vol_ops
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
 from raytracer_weekend_tpu_torch.vecmath import dot
 
 _INF = math.inf
 
 # Family ids for the winner select.
-_FAM_NONE, _FAM_SPHERE, _FAM_RECT, _FAM_TRI = -1, 0, 1, 2
-
-_NOT_PORTED = "volumes are not ported yet (ROADMAP Queue 1, 'Volumes')"
+_FAM_NONE, _FAM_SPHERE, _FAM_RECT, _FAM_TRI, _FAM_VOL = -1, 0, 1, 2, 3
 
 
 def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
-                 cfg: RenderConfig):
-    """Closest hit over the ported families -> (t, fam, idx) per ray."""
+                 cfg: RenderConfig, seed, ray_id, depth):
+    """Closest hit over the families -> (t, fam, idx) per ray. A medium's
+    scatter candidate draws from (seed, ray_id, depth) and merges last."""
     B = o.shape[0]
     t_best = torch.full((B,), _INF, device=o.device)
     fam = torch.full((B,), _FAM_NONE, dtype=torch.int32, device=o.device)
@@ -64,6 +66,10 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
     if static.n_triangles:
         hits.append((_FAM_TRI, tri_ops.hit_triangles(scene.triangles, o, d,
                                                      cfg.t_min)))
+    if static.n_volumes:
+        hits.append((_FAM_VOL, vol_ops.hit_volumes(
+            scene.volumes, o, d, cfg.t_min, seed, ray_id, depth,
+            use_log10=cfg.use_log10_volume_sampling)))
     for fam_id, (t_new, i_new) in hits:
         better = t_new < t_best
         t_best = torch.where(better, t_new, t_best)
@@ -95,6 +101,9 @@ def _hit_record(scene: SceneData, static: SceneStatic, o, d, time, t, fam,
     if static.n_triangles:
         records.append((_FAM_TRI, lambda i: tri_ops.triangle_record(
             scene.triangles, i, o, d, t_safe)))
+    if static.n_volumes:
+        records.append((_FAM_VOL, lambda i: vol_ops.volume_record(
+            scene.volumes, i, o, d, t_safe)))
     for fam_id, record in records:
         m = fam == fam_id
         rp, rn, ru, rv, rm = record(torch.where(m, idx, 0))
@@ -104,8 +113,9 @@ def _hit_record(scene: SceneData, static: SceneStatic, o, d, time, t, fam,
         v = torch.where(m, rv, v)
         mat_id = torch.where(m, rm, mat_id)
 
-    # Front-face normal flip.
-    front_face = dot(d, outward) < 0.0
+    # Front-face normal flip; a medium scatter is front-facing (its
+    # isotropic phase reads neither).
+    front_face = (dot(d, outward) < 0.0) | (fam == _FAM_VOL)
     normal = torch.where(front_face[:, None], outward, -outward)
     return p, normal, front_face, u, v, mat_id
 
@@ -128,15 +138,16 @@ def trace_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
 def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                 o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
                 ray_id: torch.Tensor, seed, emit_paths: bool = False,
-                emit_deferred: bool = False):
+                emit_deferred: bool = False, *, d0: int = 0, carry=None,
+                return_carry: bool = False):
     """`trace_rays` with per-lane segment counts -> ((B,3) f32, (B,) int32).
 
     With `emit_paths`, also the per-bounce winner codes (B, max_depth)
     int32, where the lane was alive and hit: 1 + 4*idx for sphere `idx`,
     2 + 4*idx for planar primitive `idx` of the unified planar index (rects
-    first, then triangles offset by `static.n_rects`); else 0. These are the
-    JAX megakernel's `emit_paths` codes (there f32); `replay.replay_rays`
-    re-traces a path from them.
+    first, then triangles offset by `static.n_rects`), 3 + 4*idx for medium
+    `idx`; else 0. These are the JAX megakernel's `emit_paths` codes (there
+    f32); `replay.replay_rays` re-traces a path from them.
 
     With `emit_deferred`, noise and image texels are shaded as 1.0 (so the
     radiance lacks them) and the per-bounce deferred-texture records follow
@@ -148,16 +159,24 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     noise) or -(texid + 1) (planar image) where a live hit's texel was
     deferred, else 0. This is the plain version of the fused kernel's
     deferred-texture records (`ops.cuda.megakernel.combine_deferred` folds
-    them back in).
+    them back in). A medium scatter records nothing.
+
+    One depth phase of the depth-phased render (the plain version of the
+    kernel's phase I/O): bounces d0 .. d0 + max_depth - 1, the random
+    numbers keyed on the absolute depth, from `carry` = (throughput,
+    radiance, alive, segments) where given (else a fresh lane); with
+    `return_carry` the outputs end with the lane's (o, d, throughput,
+    radiance, alive, segments) after the phase.
     """
-    if static.n_volumes:
-        raise NotImplementedError(_NOT_PORTED)
     B = o.shape[0]
     background = scene.background
-    throughput = torch.ones((B, 3), device=o.device)
-    radiance = torch.zeros((B, 3), device=o.device)
-    alive = torch.ones((B,), dtype=torch.bool, device=o.device)
-    segments = torch.zeros((B,), dtype=torch.int32, device=o.device)
+    if carry is None:
+        throughput = torch.ones((B, 3), device=o.device)
+        radiance = torch.zeros((B, 3), device=o.device)
+        alive = torch.ones((B,), dtype=torch.bool, device=o.device)
+        segments = torch.zeros((B,), dtype=torch.int32, device=o.device)
+    else:
+        throughput, radiance, alive, segments = carry
     codes, records = [], []
     pla = None
     if emit_deferred and (static.n_rects or static.n_triangles):
@@ -165,9 +184,10 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
 
         pla = replay._pack_planar(scene, static)
 
-    for depth in range(cfg.max_depth):
+    for depth in range(d0, d0 + cfg.max_depth):
         segments = segments + alive.to(torch.int32)
-        t, fam, idx = _closest_hit(scene, static, o, d, time, cfg)
+        t, fam, idx = _closest_hit(scene, static, o, d, time, cfg, seed,
+                                   ray_id, depth)
         hit_mask = torch.isfinite(t)
 
         # Miss -> background, terminate.
@@ -181,6 +201,7 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
         if emit_paths:
             code = torch.where(fam == _FAM_SPHERE, 1 + 4 * idx32,
                                2 + 4 * planar_idx)
+            code = torch.where(fam == _FAM_VOL, 3 + 4 * idx32, code)
             codes.append(torch.where(alive, code, 0))
 
         p, normal, front_face, u, v, mat_id = _hit_record(
@@ -211,6 +232,8 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     if emit_deferred:
         dcode, abc, ctb = (torch.stack(r, dim=1) for r in zip(*records))
         out += (ctb, abc, dcode)
+    if return_carry:
+        out += ((o, d, throughput, radiance, alive, segments),)
     return out
 
 
@@ -221,7 +244,8 @@ def _deferred_record(scene: SceneData, p, normal, front_face, mat_id, fam,
     tid = scene.materials.tex[mat_id.long()].long()
     ttype = scene.textures.ttype[tid]
     is_noise = ttype == tex_mod.NOISE
-    deferred = alive & (is_noise | (ttype == tex_mod.IMAGE))
+    deferred = (alive & (is_noise | (ttype == tex_mod.IMAGE))
+                & (fam != _FAM_VOL))
     planar = (fam == _FAM_RECT) | (fam == _FAM_TRI)
     abc = torch.where(front_face[:, None], normal, -normal)  # pre-flip
     if pla is not None:
@@ -292,9 +316,9 @@ def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     use_fused = fused_eligible(static, cfg, device)
     if device.type == "cuda" and not use_fused:
         raise NotImplementedError(
-            "on CUDA the port renders sphere, rect and triangle scenes with "
-            "Lambertian/Metal/Dielectric/DiffuseLight materials; this scene "
-            f"is outside that slice ({static})")
+            "on CUDA the port renders sphere, rect, triangle and constant-"
+            "medium scenes with Lambertian/Metal/Dielectric/DiffuseLight "
+            f"materials; this scene is outside that slice ({static})")
 
     chunks = []
     for start in range(0, n_lanes, batch):

@@ -1,12 +1,11 @@
-"""The sphere, planar and textured scenes of the catalog (port of `models/scenes.py`).
+"""The catalog's scenes but the textured monument (port of `models/scenes.py`).
 
 Each generator returns (objects, cameras, background), with the same
 geometry, materials, camera parameters and seeded numpy draws as the JAX
 package's, so both builders compile them to bit-equal tables. The
 earthmap's texels come from `assets/earthmap.npz`, the JPEG of `models/`
 decoded once with Pillow, so a machine without Pillow renders the same
-texels. The catalog's constant-medium scenes wait for volumes (ROADMAP
-Queue 1).
+texels. The textured monument waits for its texture (ROADMAP item 13b).
 """
 
 from __future__ import annotations
@@ -128,19 +127,27 @@ def simple_light(aspect, seed=0):
     return objs, [_cam((26, 3, 6), (0, 2, 0), 20.0, aspect)], (0.0, 0.0, 0.0)
 
 
-def cornell_box(aspect, seed=0):
-    """Rect walls, a ceiling light, two rotated cuboids (as triangles)."""
+def _cornell_walls(light_rect):
+    """The Cornell room's five walls and its light -> (white, objects)."""
     red = B.Lambertian((0.65, 0.05, 0.05))
     white = B.Lambertian((0.73, 0.73, 0.73))
     green = B.Lambertian((0.12, 0.45, 0.15))
-    light = B.DiffuseLight((15.0, 15.0, 15.0))
-    objs = [
+    return white, [
         B.YZRectangle(0.0, 555.0, 0.0, 555.0, 555.0, green),
         B.YZRectangle(0.0, 555.0, 0.0, 555.0, 0.0, red),
-        B.XZRectangle(213.0, 343.0, 227.0, 332.0, 554.0, light),
+        light_rect,
         B.XZRectangle(0.0, 555.0, 0.0, 555.0, 0.0, white),
         B.XZRectangle(0.0, 555.0, 0.0, 555.0, 555.0, white),
         B.XYRectangle(0.0, 555.0, 0.0, 555.0, 555.0, white),
+    ]
+
+
+def cornell_box(aspect, seed=0):
+    """Rect walls, a ceiling light, two rotated cuboids (as triangles)."""
+    light = B.DiffuseLight((15.0, 15.0, 15.0))
+    white, objs = _cornell_walls(
+        B.XZRectangle(213.0, 343.0, 227.0, 332.0, 554.0, light))
+    objs += [
         B.Cuboid((0, 0, 0), (165, 330, 165), white)
          .rotate_y(15.0).translate((265, 0, 295)),
         B.Cuboid((0, 0, 0), (165, 165, 165), white)
@@ -148,6 +155,84 @@ def cornell_box(aspect, seed=0):
     ]
     cam = _cam((278, 278, -800), (278, 278, 0), 40.0, aspect)
     return objs, [cam], (0.0, 0.0, 0.0)
+
+
+def smokey_cornell_box(aspect, seed=0):
+    """The Cornell room with its two cuboids as constant-density smoke."""
+    light = B.DiffuseLight((7.0, 7.0, 7.0))
+    white, objs = _cornell_walls(
+        B.XZRectangle(113.0, 443.0, 127.0, 432.0, 554.0, light))
+    box1 = (B.Cuboid((0, 0, 0), (165, 330, 165), white)
+            .rotate_y(15.0).translate((265, 0, 295)))
+    box2 = (B.Cuboid((0, 0, 0), (165, 165, 165), white)
+            .rotate_y(-18.0).translate((130, 0, 65)))
+    objs += [
+        B.ConstantMedium(box1, 0.005, B.SolidColor((0.0, 0.0, 0.0))),
+        B.ConstantMedium(box2, 0.005, B.SolidColor((1.0, 1.0, 1.0))),
+    ]
+    cam = _cam((278, 278, -800), (278, 278, 0), 40.0, aspect)
+    return objs, [cam], (0.0, 0.0, 0.0)
+
+
+def book2_final_scene(aspect, seed=0):
+    """The Next Week's final scene: 400 ground cuboids of random heights, a
+    light, moving, glass, metal, earth and marble spheres, a medium inside a
+    glass sphere, a mist over everything and a rotated cluster of 1000
+    spheres; 1,006 spheres, 2,401 rects, 2 media."""
+    rng = np.random.default_rng(seed + 2)
+    ground = B.Lambertian((0.48, 0.83, 0.53))
+    objs = []
+    for i in range(20):
+        for j in range(20):
+            w = 100.0
+            x0, z0 = -1000.0 + i * w, -1000.0 + j * w
+            y1 = rng.uniform(1.0, 101.0)
+            objs.append(B.Cuboid((x0, 0.0, z0), (x0 + w, y1, z0 + w), ground))
+
+    objs.append(B.XZRectangle(123.0, 423.0, 147.0, 412.0, 554.0,
+                              B.DiffuseLight((7.0, 7.0, 7.0))))
+    objs.append(B.MovingSphere((400, 400, 200), 0.0, (430, 400, 200), 1.0,
+                               50.0, B.Lambertian((0.7, 0.3, 0.1))))
+    objs.append(B.Sphere((260, 150, 45), 50.0, B.Dielectric(1.5)))
+    objs.append(B.Sphere((0, 150, 145), 50.0, B.Metal((0.8, 0.8, 0.9), 1.0)))
+
+    boundary = B.Sphere((360, 150, 145), 70.0, B.Dielectric(1.5))
+    objs.append(boundary)
+    objs.append(B.ConstantMedium(boundary, 0.2, B.SolidColor((0.2, 0.4, 0.9))))
+    mist = B.Sphere((0, 0, 0), 5000.0, B.Dielectric(1.5))
+    objs.append(B.ConstantMedium(mist, 0.0001, B.SolidColor((1.0, 1.0, 1.0))))
+
+    objs.append(B.Sphere((400, 200, 400), 100.0,
+                         B.Lambertian(B.ImageTexture(data=earthmap()))))
+    objs.append(B.Sphere((220, 280, 300), 80.0,
+                         B.Lambertian(B.NoiseTexture(0.1))))
+
+    white = B.Lambertian((0.73, 0.73, 0.73))
+    for _ in range(1000):
+        c = rng.uniform(0.0, 165.0, 3)
+        objs.append(B.Sphere(tuple(c), 10.0, white)
+                    .rotate_y(15.0).translate((-100, 270, 395)))
+
+    look_from = (478, 278, -600)
+    look_at = (278, 278, 0)
+    focus = float(np.linalg.norm(np.subtract(look_at, look_from)))
+    cam = _cam(look_from, look_at, 40.0, aspect, focus=focus)
+    return objs, [cam], (0.0, 0.0, 0.0)
+
+
+def animated_book2_final(aspect, seed=0):
+    """book2's world under 30 dolly cameras (aperture 1)."""
+    objs, _, bg = book2_final_scene(aspect, seed)
+    look_at = np.array([278.0, 278.0, 278.0])
+    frames = int(10.0 * 3.0)
+    cams = []
+    for frame in range(frames):
+        from_x = 478.0 - frame * (2.0 * 478.0) / frames
+        look_from = np.array([from_x, 278.0, -600.0])
+        focus = float(np.linalg.norm(look_at - look_from))
+        cams.append(_cam(tuple(look_from), tuple(look_at), 40.0, aspect,
+                         aperture=1.0, focus=focus))
+    return objs, cams, bg
 
 
 def simple_triangle(aspect, seed=0):
@@ -209,6 +294,26 @@ def mesh_shards(aspect, seed=0):
     return objs, [cam], (0.05, 0.05, 0.08)
 
 
+def sphere_medium(aspect, seed=0):
+    """Not a catalog scene: the sphere-boundary medium (book2's subsurface
+    ball) between a floor, a light and a red sphere, the scene of the JAX
+    package's tests/test_megakernel.py:228-258. The kernel tests use it for
+    a medium with a sphere boundary."""
+    objs = [
+        B.XZRectangle(-6, 6, -6, 6, -1.5, B.Lambertian((0.5, 0.5, 0.5))),
+        B.XZRectangle(-2, 2, -2, 2, 5.0, B.DiffuseLight((5, 5, 5))),
+        B.ConstantMedium(B.Sphere((0.0, 0.0, 0.0), 1.2,
+                                  B.Lambertian((1, 1, 1))),
+                         density=0.6, texture=B.SolidColor((0.2, 0.4, 0.9))),
+        B.Sphere((2.5, 0.0, 0.5), 0.8, B.Lambertian((0.8, 0.2, 0.2))),
+    ]
+    cam = make_camera(look_from=(0, 1, -7), look_at=(0, 0, 0),
+                      up_vector=(0, 1, 0), vertical_field_of_view=40.0,
+                      aspect_ratio=aspect, aperture=0.0, focus_dist=7.0,
+                      time0=0.0, time1=1.0)
+    return objs, [cam], (0.02, 0.02, 0.03)
+
+
 SCENES = {
     "jumpy_balls": jumpy_balls,
     "two_spheres": two_spheres,
@@ -216,6 +321,9 @@ SCENES = {
     "earth": earth,
     "simple_light": simple_light,
     "cornell_box": cornell_box,
+    "smokey_cornell_box": smokey_cornell_box,
+    "book2_final_scene": book2_final_scene,
+    "animated_book2_final_scene": animated_book2_final,
     "simple_triangle": simple_triangle,
     "wavefront_cow_obj": wavefront_cow_obj,
     "wavefront_suspension_obj": wavefront_suspension_obj,

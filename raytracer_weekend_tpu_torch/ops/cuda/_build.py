@@ -25,7 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("megakernel.cu", "replay_bwd.cu", "perlin_turb.cu")
+SOURCES = ("megakernel.cu", "megakernel_vp.cu", "replay_bwd.cu",
+           "perlin_turb.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -101,9 +102,10 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.rtw_render_fused.argtypes = [_P, _I, _P, _I, _P, _LL, _I, _I, _I,
-                                         _I, _I, _F, _U, _P, _P, _P, _P, _P,
-                                         _P, _P]
+        lib.rtw_render_fused.argtypes = [_P, _I, _P, _I, _P, _I, _P, _LL,
+                                         _I, _I, _I, _I, _I, _I, _F, _U, _I,
+                                         _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P]
         lib.rtw_render_fused.restype = _I
         lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P,
                                        _P, _P, _P, _P, _I, _I, _I, _F, _U,

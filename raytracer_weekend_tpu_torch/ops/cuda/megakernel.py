@@ -2,12 +2,13 @@
 
 Counterpart of `raytracer_weekend_tpu/ops/pallas/megakernel.py`, sphere
 branch (K1), planar branch (K3: axis-aligned rects and triangles in one
-table) and deferred-texture record arm (K6a). `render_fused` renders a
-window of lanes (lane = pixel*spp + sample) and returns per-lane radiance
-and traced segment counts:
+table), volume branch (K5: constant-density media), deferred-texture
+record arm (K6a) and phase I/O (K6b, `render_fused_deep`). `render_fused`
+renders a window of lanes (lane = pixel*spp + sample) and returns per-lane
+radiance and traced segment counts:
 
   * for a scene on a CUDA device it launches the hand-written kernel in
-    `csrc/megakernel.cu` (built at first use by `_build.py`) and raises if
+    `csrc/megakernel.cuh` (built at first use by `_build.py`) and raises if
     the library does not build or load, or the launch fails;
   * for a scene on the CPU it runs `render_fused_reference`, the plain torch
     version (`integrator._pixel_rays` + `integrator.trace_lanes`), which is
@@ -15,9 +16,13 @@ and traced segment counts:
 
 With `emit_paths=True` it also returns the per-bounce winner codes (n, D)
 int32 where the lane was alive and hit: 1 + 4*idx for sphere idx, 2 + 4*idx
-for planar primitive idx (rects first, then triangles); else 0. That is the
-JAX kernel's `emit_paths` output (there f32), which the backward replays
-(`fused_diff.py`).
+for planar primitive idx (rects first, then triangles), 3 + 4*idx for
+medium idx; else 0. That is the JAX kernel's `emit_paths` output (there
+f32), which the backward replays (`fused_diff.py`).
+
+A whole frame at `max_depth >= 16` without codes renders in depth phases
+(`render_fused_deep`): the kernel writes each lane's state after a phase of
+bounces, the host gathers the live lanes and the next phase resumes them.
 
 Scenes with noise or image textures render in deferred-texture mode: the
 kernel shades those texels as 1.0 and writes per-bounce records (ctb, abc,
@@ -32,8 +37,8 @@ own texel. The turbulence of noise texels runs on kernel K8
 
 None of the JAX kernel's TPU layout is carried over (K-split bf16 tables,
 one-hot MXU gathers, sublane planes, chunk lists and their AABB culling,
-`p_stream`, peeled primaries, block tiling, deep-phase compaction): a thread
-carries a lane and reads table rows by index.
+`p_stream`, peeled primaries, block tiling, power-of-two phase buckets): a
+thread carries a lane and reads table rows by index.
 """
 
 from __future__ import annotations
@@ -45,26 +50,43 @@ from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.camera import Camera
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops.sphere import sphere_uv
-from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+from raytracer_weekend_tpu_torch.scene.data import (
+    VOL_BOX, SceneData, SceneStatic)
 from raytracer_weekend_tpu_torch.textures import TextureTable
 
 # Launches of the CUDA kernel in this process, without and with the winner
 # codes, those whose scene has planar primitives (the planar branch, with or
-# without codes), and those in deferred-texture mode (K6a, with or without
-# codes). Only the launch in `render_fused` adds to them.
+# without codes), those in deferred-texture mode (K6a, with or without
+# codes), those whose scene has media (K5) and those with phase I/O (K6b).
+# Only the launch in `_launch` adds to them.
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
 PLANAR_LAUNCHES = 0
 DEFER_LAUNCHES = 0
+VOL_LAUNCHES = 0
+PHASE_LAUNCHES = 0
 
-# Rows of the sphere table, in the order of `enum Row` in csrc/megakernel.cu.
+# Rows of the sphere table, in the order of `enum Row` in csrc/megakernel.cuh.
 TABLE_ROWS = (
     "c0x", "c0y", "c0z", "dcx", "dcy", "dcz", "t0", "inv_dt", "dt", "r2",
     "radius", "mtype", "fuzz", "ior", "ttype",
     "c1r", "c1g", "c1b", "c2r", "c2g", "c2b", "tscale", "tid",
+    "k0", "k1", "k2",
 )
 PAR_SIZE = 24
-# Rows of the planar table, in the order of `enum PRow` in csrc/megakernel.cu.
+# Columns of a row of the volume table (`enum VCol`): the JAX
+# `_build_vol_par` layout, then a valid flag.
+VOL_COLS = (
+    "isbox", "cx", "cy", "cz", "r2", "b0x", "b0y", "b0z", "b1x", "b1y", "b1z",
+    "cos", "sin", "offx", "offy", "offz", "nid", "cr", "cg", "cb", "valid",
+)
+# The lane state between depth phases (`enum StateCol`): o, d, throughput,
+# radiance, time, alive, segments.
+STATE_SIZE = 15
+# Bounces per phase of the depth-phased render.
+PHASE_LEN = 10
+DEEP_MIN_DEPTH = 16
+# Rows of the planar table, in the order of `enum PRow` in csrc/megakernel.cuh.
 # The shading rows (mtype .. tscale) sit at the sphere table's row numbers.
 PLANAR_ROWS = (
     "nx", "ny", "nz", "k", "uax", "uay", "uaz", "ca", "ubx", "uby", "ubz",
@@ -79,15 +101,15 @@ assert PLANAR_ROWS[11:22] == TABLE_ROWS[11:22]
 def fused_supported(static: SceneStatic, cfg: RenderConfig) -> bool:
     """The CUDA megakernel renders this (scene, config).
 
-    Scenes of spheres and/or rects and triangles that the builder marks
-    `fused_simple` (Lambertian/Metal/Dielectric/DiffuseLight materials over
-    solid, checker, noise, image or, on planar primitives, uv-debug
-    textures), without volumes. The JAX kernel's 2,048-sphere and
-    128k-primitive caps came from TPU VMEM and are not carried over.
+    Scenes of spheres and/or rects and triangles, with or without media,
+    that the builder marks `fused_simple` (Lambertian/Metal/Dielectric/
+    DiffuseLight materials over solid, checker, noise, image or, on planar
+    primitives, uv-debug textures; media with solid isotropic albedos). The
+    JAX kernel's 2,048-sphere, 128k-primitive and 8-medium caps came from
+    TPU VMEM and an unrolled loop, and are not carried over.
     """
     return (static.fused_simple
             and static.n_spheres + static.n_rects + static.n_triangles > 0
-            and static.n_volumes == 0
             and cfg.width > 1 and cfg.height > 1)
 
 
@@ -100,7 +122,10 @@ def build_sphere_table(scene: SceneData) -> torch.Tensor:
     """(len(TABLE_ROWS), S) float32 SoA table on the scene's device.
 
     Material and texture fields are gathered per sphere, so the kernel reads
-    one column per hit. Padding rows get r2 = -inf and never hit.
+    one column per hit. The sphere test's static terms k0 = |c0|^2 - r^2,
+    k1 = 2 c0.dc and k2 = |dc|^2 are computed in float64 from the float32
+    rows and rounded once (k0 is exactly 0 for the radius-1000 ground).
+    Padding rows get r2 = -inf and k0 = +inf and never hit.
     """
     sp, mt, tx = scene.spheres, scene.materials, scene.textures
     mat = sp.mat.long()
@@ -108,6 +133,8 @@ def build_sphere_table(scene: SceneData) -> torch.Tensor:
     dt = sp.t1 - sp.t0
     dc = sp.c1 - sp.c0
     r2 = torch.where(sp.valid, sp.radius * sp.radius, -torch.inf)
+    c0d, dcd, rd = sp.c0.double(), dc.double(), sp.radius.double()
+    k0 = torch.where(sp.valid, (c0d * c0d).sum(-1) - rd * rd, torch.inf)
     cols = {
         "c0x": sp.c0[:, 0], "c0y": sp.c0[:, 1], "c0z": sp.c0[:, 2],
         "dcx": dc[:, 0], "dcy": dc[:, 1], "dcz": dc[:, 2],
@@ -120,8 +147,28 @@ def build_sphere_table(scene: SceneData) -> torch.Tensor:
         "c2r": tx.color2[tex, 0], "c2g": tx.color2[tex, 1],
         "c2b": tx.color2[tex, 2],
         "tscale": tx.scale[tex], "tid": tex,
+        "k0": k0, "k1": 2.0 * (c0d * dcd).sum(-1), "k2": (dcd * dcd).sum(-1),
     }
     return torch.stack([cols[r].to(torch.float32) for r in TABLE_ROWS])
+
+
+def build_vol_table(scene: SceneData) -> torch.Tensor:
+    """(V, len(VOL_COLS)) float32 table of the media on the scene's device:
+    the JAX `_build_vol_par` rows (boundary, Y-rotation, translation,
+    -1/density, the isotropic albedo, a solid color), plus valid = 1/0.
+    Invalid rows also get r2 = -1e30 and a [1, 0] slab, as in JAX; the
+    kernel skips them by the flag."""
+    vol = scene.volumes
+    col = scene.textures.color1[scene.materials.tex[vol.mat.long()].long()]
+    valid = vol.valid
+    r2 = torch.where(valid, vol.radius * vol.radius, -1e30)
+    bmin = torch.where(valid[:, None], vol.bmin, 1.0)
+    bmax = torch.where(valid[:, None], vol.bmax, 0.0)
+    cols = [(vol.vtype == VOL_BOX).float(), *vol.center.unbind(1), r2,
+            *bmin.unbind(1), *bmax.unbind(1), vol.cos_t, vol.sin_t,
+            *vol.offset.unbind(1), vol.neg_inv_density, *col.unbind(1),
+            valid.float()]
+    return torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous()
 
 
 def build_planar_table(scene: SceneData, static: SceneStatic) -> torch.Tensor:
@@ -227,7 +274,8 @@ def combine(scene: SceneData, static: SceneStatic, ctb, abc, dcode,
 
 
 def combine_deferred(textures: TextureTable, ctb, abc, dcode, *,
-                     has_noise: bool, has_image: bool, noise_fn=None):
+                     has_noise: bool, has_image: bool, noise_fn=None,
+                     init=None, return_factors: bool = False):
     """rad = sum_k ctb_k * prod_{j<=k} f_k over the deferred texels -> (n,3).
 
     The JAX `_combine_deferred`: the texel f_k of record k is
@@ -237,6 +285,12 @@ def combine_deferred(textures: TextureTable, ctb, abc, dcode, *,
     product is inclusive at the emitting bounce. Differentiable in the
     texture table, ctb and abc (at records where dcode is 0, abc must be a
     regular point for the spherical UV's Jacobian: the caller's anchor).
+
+    With `return_factors` it returns (rad, F), F (n, 3) the running factor
+    product after the last record (the JAX `return_factors`), and `init`
+    = (rad, F) of the records before these continues that sum and product
+    where they stopped: the depth-phased render chains its phases so, and
+    gets the single pass's sums operation for operation.
     """
     absid = dcode.abs()
     live = absid > 0
@@ -255,12 +309,12 @@ def combine_deferred(textures: TextureTable, ctb, abc, dcode, *,
     # The running product over the D bounces as D products: on a card,
     # torch's scan along a short innermost dimension runs one row per
     # thread and took longer than the whole forward kernel.
-    cp, rad = None, None
+    rad, cp = (None, None) if init is None else init
     for k in range(f.shape[1]):
         cp = f[:, k] if cp is None else cp * f[:, k]
         term = ctb[:, k] * cp
         rad = term if rad is None else rad + term
-    return rad
+    return (rad, cp) if return_factors else rad
 
 
 def combine_deferred_single(textures: TextureTable, ctb, abc, dcode):
@@ -303,7 +357,7 @@ def _check(t: torch.Tensor, dtype, shape, device) -> None:
 def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
                  lane_start: int, n_chunk: int, seed, *,
                  static: SceneStatic, emit_paths: bool = False,
-                 emit_deferred: bool = False):
+                 emit_deferred: bool = False, deep: bool | None = None):
     """Render lanes [lane_start, lane_start + n_chunk).
 
     Returns (radiance (n_chunk, 3) f32, segments (n_chunk,) int32) on the
@@ -312,11 +366,24 @@ def render_fused(scene: SceneData, cfg: RenderConfig, cam: Camera,
     the deferred-texture records ctb (n_chunk, max_depth, 3) f32, abc
     (n_chunk, max_depth, 3) f32 and dcode (n_chunk, max_depth) int32. The
     CPU runs the plain version; CUDA runs the kernel, and for a deferring
-    scene the combine with K8.
+    scene the combine with K8. `deep` (by default: a whole frame at
+    max_depth >= 16, without codes or records, as JAX `render_fused`
+    chooses) renders in depth phases, `render_fused_deep`: the same lanes
+    bit for bit.
     """
     if emit_deferred and not defers(static):
         raise ValueError("emit_deferred needs a scene with noise or image "
                          "textures")
+    if deep is None:
+        deep = (cfg.max_depth >= DEEP_MIN_DEPTH and int(lane_start) == 0
+                and int(n_chunk) == cfg.n_rays and not emit_paths
+                and not emit_deferred)
+    if deep:
+        if emit_paths or emit_deferred:
+            raise ValueError("the depth-phased render emits no codes or "
+                             "records")
+        return render_fused_deep(scene, cfg, cam, lane_start, n_chunk, seed,
+                                 static=static)
     out = render_fused_records(scene, cfg, cam, lane_start, n_chunk, seed,
                                static=static, emit_paths=emit_paths)
     return _finish(scene, static, out, emit_deferred)
@@ -328,39 +395,70 @@ def render_fused_records(scene: SceneData, cfg: RenderConfig, cam: Camera,
     """The fused kernel's own outputs, before any combine: (radiance,
     segments), with `emit_paths` the codes, and for a deferring scene the
     records (ctb, abc, dcode), the radiance then lacking the deferred
-    texels. CUDA launches the kernel (K1/K3, K6a when deferring); the CPU
-    runs `records_reference`."""
-    global LAUNCHES, EMIT_LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
-    device = scene.device
-    if device.type == "cpu":
+    texels. CUDA launches the kernel (K1/K3/K5, K6a when deferring); the
+    CPU runs `records_reference`."""
+    if scene.device.type == "cpu":
         return records_reference(scene, cfg, cam, lane_start, n_chunk, seed,
                                  static=static, emit_paths=emit_paths)
+    return _launch(scene, cfg, cam, lane_start, n_chunk, seed, static,
+                   emit_paths=emit_paths)
+
+
+def build_tables(scene: SceneData, static: SceneStatic, cam: Camera):
+    """(sphere table or None, planar table or None, volume table or None,
+    camera parameters): what a launch reads."""
+    return (build_sphere_table(scene) if static.n_spheres else None,
+            (build_planar_table(scene, static)
+             if static.n_rects + static.n_triangles else None),
+            build_vol_table(scene) if static.n_volumes else None,
+            pack_par(scene, cam))
+
+
+def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
+            lane_start: int, n_chunk: int, seed, static: SceneStatic, *,
+            emit_paths: bool = False, phase: bool = False, state=None,
+            lanes=None, d0: int = 0, tables=None):
+    """One launch of the CUDA kernel -> (rad, seg, [codes], [ctb, abc,
+    dcode], [state]). With `phase` it runs bounces d0 .. d0 + max_depth - 1
+    and returns the lanes' state (n, 15) last; with `state` (n, 15) and
+    `lanes` (n,) int32 global lane ids it resumes those lanes. Raises off
+    CUDA, outside `fused_supported`, and if the build or launch fails."""
+    global LAUNCHES, EMIT_LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
+    global VOL_LAUNCHES, PHASE_LAUNCHES
+    device = scene.device
     if device.type != "cuda":
-        raise NotImplementedError(f"no fused render on {device}")
+        raise NotImplementedError(f"no fused kernel on {device}")
     if not fused_supported(static, cfg):
         raise NotImplementedError(f"the CUDA megakernel does not cover this "
                                   f"scene/config: {static}, {cfg}")
     n_chunk = int(n_chunk)
     lane_start = int(lane_start)
-    if n_chunk < 0 or lane_start < 0 or lane_start + n_chunk > cfg.n_rays:
+    if state is None and (n_chunk < 0 or lane_start < 0
+                          or lane_start + n_chunk > cfg.n_rays):
         raise ValueError(f"lane window [{lane_start}, {lane_start + n_chunk}) "
                          f"outside [0, {cfg.n_rays})")
     if n_chunk >= 2**31:
         raise ValueError("n_chunk must fit in int32")
+    if (state is not None or d0) and not phase:
+        raise ValueError("a state in or d0 needs phase=True")
 
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
     lib = _build.load_library()
-    n_spheres = scene.spheres.c0.shape[0] if static.n_spheres else 0
-    n_planar = static.n_rects + static.n_triangles
-    tab = build_sphere_table(scene) if n_spheres else None
-    ptab = build_planar_table(scene, static) if n_planar else None
-    par = pack_par(scene, cam)
+    tab, ptab, vtab, par = tables or build_tables(scene, static, cam)
+    n_spheres = 0 if tab is None else tab.shape[1]
+    n_planar = 0 if ptab is None else ptab.shape[1]
+    n_vol = 0 if vtab is None else vtab.shape[0]
     if n_spheres:
         _check(tab, torch.float32, (len(TABLE_ROWS), n_spheres), device)
     if n_planar:
         _check(ptab, torch.float32, (len(PLANAR_ROWS), n_planar), device)
+    if n_vol:
+        _check(vtab, torch.float32, (n_vol, len(VOL_COLS)), device)
     _check(par, torch.float32, (PAR_SIZE,), device)
+    if state is not None:
+        _check(state, torch.float32, (n_chunk, STATE_SIZE), device)
+        _check(lanes, torch.int32, (n_chunk,), device)
     rad = torch.empty((n_chunk, 3), dtype=torch.float32, device=device)
     seg = torch.empty((n_chunk,), dtype=torch.int32, device=device)
     D = cfg.max_depth
@@ -373,28 +471,139 @@ def render_fused_records(scene: SceneData, cfg: RenderConfig, cam: Camera,
                 torch.empty((n_chunk, D, 3), dtype=torch.float32,
                             device=device),
                 torch.empty((n_chunk, D), dtype=torch.int32, device=device)]
+    st_out = (torch.empty((n_chunk, STATE_SIZE), dtype=torch.float32,
+                          device=device) if phase else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rtw_render_fused(
-            tab.data_ptr() if n_spheres else None, n_spheres,
-            ptab.data_ptr() if n_planar else None, n_planar,
-            par.data_ptr(), lane_start, n_chunk,
-            cfg.width, cfg.height, cfg.samples_per_pixel, D,
-            float(cfg.t_min), int(seed) & 0xFFFFFFFF, rad.data_ptr(),
-            seg.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in [codes] + recs),
-            stream)
+            ptr(tab), n_spheres, ptr(ptab), n_planar, ptr(vtab), n_vol,
+            par.data_ptr(), lane_start, n_chunk, cfg.width, cfg.height,
+            cfg.samples_per_pixel, D, int(d0), float(cfg.t_min),
+            int(seed) & 0xFFFFFFFF, int(cfg.use_log10_volume_sampling),
+            rad.data_ptr(), seg.data_ptr(), ptr(codes), *map(ptr, recs),
+            ptr(state), ptr(lanes), ptr(st_out), stream)
     _build.check(lib, err, "rtw_render_fused launch")
     if n_planar:
         PLANAR_LAUNCHES += 1
     if recs[0] is not None:
         DEFER_LAUNCHES += 1
+    if n_vol:
+        VOL_LAUNCHES += 1
+    if phase:
+        PHASE_LAUNCHES += 1
     if emit_paths:
         EMIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
-    return (rad, seg) + ((codes,) if emit_paths else ()) + (
-        tuple(recs) if recs[0] is not None else ())
+    return ((rad, seg) + ((codes,) if emit_paths else ())
+            + (tuple(recs) if recs[0] is not None else ())
+            + ((st_out,) if phase else ()))
+
+
+def phase_reference(scene: SceneData, cfg: RenderConfig, cam: Camera,
+                    lanes: torch.Tensor, state, d0: int, seed, *,
+                    static: SceneStatic):
+    """Plain torch version of one phased launch: bounces d0 .. d0 +
+    max_depth - 1 of the lanes with global ids `lanes`, from their primary
+    rays (`state` None) or from `state` (n, 15) -> (rad, seg, [ctb, abc,
+    dcode], state (n, 15)), `integrator.trace_lanes` with d0 and a carry."""
+    if state is None:
+        o, d, time, ray_id = integrator._pixel_rays(cam, cfg, lanes.long(),
+                                                    seed)
+        carry = None
+    else:
+        ray_id = lanes.long() & 0xFFFFFFFF
+        o, d, time = state[:, 0:3], state[:, 3:6], state[:, 12]
+        carry = (state[:, 6:9], state[:, 9:12], state[:, 13] > 0.0,
+                 state[:, 14].to(torch.int32))
+    *out, fin = integrator.trace_lanes(
+        scene, static, cfg, o, d, time, ray_id, seed,
+        emit_deferred=defers(static), d0=d0, carry=carry, return_carry=True)
+    o, d, tp, rad, alive, seg = fin
+    st = torch.cat([o, d, tp, rad, time[:, None],
+                    alive.to(torch.float32)[:, None],
+                    seg.to(torch.float32)[:, None]], dim=1)
+    return (*out, st)
+
+
+def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
+                      lane_start: int, n_chunk: int, seed, *,
+                      static: SceneStatic, phase_len: int = PHASE_LEN,
+                      plain: bool = False, live_counts: list | None = None):
+    """Depth-phased render with compaction between phases -> (radiance
+    (n, 3), segments (n,)), the lanes of `render_fused(..., deep=False)`
+    bit for bit.
+
+    The JAX `render_fused_deep`: the depth range splits into phases of
+    `phase_len` bounces; after each the kernel (K6b: the phase I/O of
+    csrc/megakernel.cuh) has written every lane's state, the host counts the
+    survivors (one sync per phase; appended to `live_counts` when given),
+    gathers them in order and the next phase resumes only those. A lane's
+    random numbers key on its global id and the absolute depth, so its path
+    does not depend on its phase or batch position. Each phase's totals are
+    scattered back to the lanes' original slots. Deferred texels chain
+    across phases: the combine continues each lane's running sum and factor
+    product where the last phase left them (`combine_deferred(init=...,
+    return_factors=True)`), so the sums are the single pass's, operation
+    for operation. The JAX power-of-two bucket and its `min_bucket` only
+    spared XLA recompiles: here each phase runs on exactly the live lanes.
+    On the CPU, or with `plain`, each phase is `phase_reference`.
+    """
+    import dataclasses
+
+    dev = scene.device
+    plain = plain or dev.type == "cpu"
+    D, n = cfg.max_depth, int(n_chunk)
+    defer = defers(static)
+    # The single pass's turbulence: K8 on the card, its plain twin here.
+    noise_fn = _turbulence_plain if plain else _turbulence_k8
+    tables = None if plain else build_tables(scene, static, cam)
+    rad_bank = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    seg_bank = torch.zeros((n,), dtype=torch.int32, device=dev)
+    slots = torch.arange(n, device=dev)          # bank slot of each lane
+    lanes = (int(lane_start) + slots).to(torch.int32)
+    state, acc = None, None
+    d0 = 0
+    while d0 < D:
+        cfg_p = dataclasses.replace(cfg, max_depth=min(phase_len, D - d0))
+        if plain:
+            out = phase_reference(scene, cfg_p, cam, lanes, state, d0, seed,
+                                  static=static)
+        else:
+            out = _launch(scene, cfg_p, cam, lane_start, lanes.shape[0],
+                          seed, static, phase=True, state=state,
+                          lanes=None if state is None else lanes, d0=d0,
+                          tables=tables)
+        rad, seg, *recs, st = out
+        if defer:
+            acc = combine_deferred(scene.textures, *recs,
+                                   has_noise=static.has_noise,
+                                   has_image=static.has_image,
+                                   noise_fn=noise_fn, init=acc,
+                                   return_factors=True)
+            rad = acc[0]
+        rad_bank[slots] = rad
+        seg_bank[slots] = seg
+        d0 += cfg_p.max_depth
+        if d0 >= D:
+            break
+        alive = st[:, 13] > 0.0
+        live = int(alive.sum())                  # one host sync per phase
+        if live_counts is not None:
+            live_counts.append(live)
+        if live == 0:
+            break
+        if live < st.shape[0]:
+            keep = torch.nonzero(alive).squeeze(1)
+            st, slots, lanes = st[keep], slots[keep], lanes[keep]
+            if acc is not None:
+                acc = (acc[0][keep], acc[1][keep])
+        state = st.contiguous()
+    return rad_bank, seg_bank
 
 
 def rand4_device(ray_id: torch.Tensor, depth: int, salt: int,

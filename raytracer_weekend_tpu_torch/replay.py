@@ -1,7 +1,8 @@
 """Packed-row path replay: the fused render's differentiable backward.
 
-Port of `raytracer_weekend_tpu/replay.py`: spheres, rects and triangles with
-solid, checker, noise, image and uv-debug textures. It re-traces the paths
+Port of `raytracer_weekend_tpu/replay.py`: spheres, rects, triangles and
+constant-density media with solid, checker, noise, image and uv-debug
+textures. It re-traces the paths
 that the fused forward recorded as per-bounce winner codes
 (`ops.cuda.megakernel.render_fused(..., emit_paths=True)`), with the
 closest-hit search replaced by one row lookup per family and bounce. Under
@@ -9,16 +10,19 @@ closest-hit search replaced by one row lookup per family and bounce. Under
 autograd is the plain version of kernels K2 and K4 (`ops/cuda/replay_bwd.py`),
 its deferred form (`replay_packed(..., Texels(defer=True))`: per-bounce
 contributions with noise and image texels shaded as 1.0, and the noise hit
-points) that of K7, and for uv-debug scenes, which those kernels do not
-cover, it is the backward itself (`fused_diff.py`).
+points) that of K7, and for uv-debug and volume scenes, which those kernels
+do not cover, it is the backward itself (`fused_diff.py`).
 
 Gradient semantics are the staged path's: discrete choices (winners,
 hit/miss, reflect/refract) stay fixed; continuous factors (intersection t,
 normals, textures, scatter math) differentiate.
 
 The JAX package's one-hot MXU row gather (`_rows`/`_rows_mxu`, with its bf16
-mantissa split) is a TPU workaround; here a row is `tab[idx]`, whose
-autograd transpose is an index_add.
+mantissa split) is a TPU workaround; here a row is read as the textures'
+rows are (`textures._rows`: one select per row of a table of at most 8
+rows, else `index_select`), because the backward of `tab[idx]` adds every
+lane's cotangent into a few rows one after another: seconds a frame on a
+card for a room of 6 rects.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from raytracer_weekend_tpu_torch import perlin
 from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops.sphere import sphere_uv
-from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+from raytracer_weekend_tpu_torch.ops.volume import volume_candidates
+from raytracer_weekend_tpu_torch.scene.data import (
+    SceneData, SceneStatic, Volumes)
 from raytracer_weekend_tpu_torch.vecmath import cross, dot
 
 # Family ids inside the winner codes (fam + 4*idx); 0 = miss or dead.
@@ -191,12 +197,16 @@ def _tex_value_packed(tail: dict, u: torch.Tensor, v: torch.Tensor,
     return torch.where((ttype == tex_mod.UVDEBUG)[:, None], uvdbg, out)
 
 
+class Media(NamedTuple):
+    """The media a replay re-samples: the volume table and each medium's
+    isotropic albedo (V, 3)."""
+
+    volumes: Volumes
+    albedo: torch.Tensor
+
+
 def _check_replay_scope(static: SceneStatic) -> None:
-    """The scenes the fused forward records codes for, without volumes."""
-    if static.n_volumes:
-        raise NotImplementedError(
-            "replay covers sphere, rect and triangle scenes; volumes are "
-            f"not ported yet: {static}")
+    """The scenes the fused forward records codes for."""
     if not static.fused_simple:
         raise NotImplementedError(
             f"replay needs a fused_simple scene (uv-debug on planar "
@@ -209,32 +219,41 @@ def replay_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     """Differentiable radiance replay along saved winner paths -> (B,3).
 
     `codes` (B, max_depth) int32 are the fused forward's per-bounce winner
-    records (fam + 4*idx; 0 = miss or dead). Sphere, rect and triangle
-    scenes with solid, checker, noise, image or (planar) uv-debug textures,
-    the texels evaluated inline; volume scenes raise `NotImplementedError`.
+    records (fam + 4*idx; 0 = miss or dead). Sphere, rect, triangle and
+    constant-medium scenes with solid, checker, noise, image or (planar)
+    uv-debug textures, the texels evaluated inline.
     """
     _check_replay_scope(static)
     sph = _pack_spheres(scene) if static.n_spheres else None
     pla = (_pack_planar(scene, static)
            if static.n_rects or static.n_triangles else None)
+    media = None
+    if static.n_volumes:
+        vol = scene.volumes
+        tid = scene.materials.tex[vol.mat.long()].long()
+        media = Media(vol, scene.textures.color1[tid])
     return replay_packed(sph, pla, scene.background, cfg, o, d, time, ray_id,
                          seed, codes,
                          Texels(scene.textures, static.has_noise,
-                                static.has_image))
+                                static.has_image), media)
 
 
 def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
                   cfg: RenderConfig, o: torch.Tensor, d: torch.Tensor,
                   time: torch.Tensor, ray_id: torch.Tensor, seed,
-                  codes: torch.Tensor, tex: Texels = Texels()):
+                  codes: torch.Tensor, tex: Texels = Texels(),
+                  media: Optional[Media] = None):
     """`replay_rays` on packed tables -> (B,3).
 
     sph_tab (S, 21) from `_pack_spheres` and pla_tab (R + T, 40) from
-    `_pack_planar`, each None when its family is absent. The body of the
-    JAX `replay_rays` bounce scan. Gradients reach both tables,
-    `background`, `o`, `d`, `time` and the texture table of `tex`. A
-    sphere's image texel reads its spherical UV; uv-debug textures sit on
-    planar primitives only (the builder's `fused_simple`).
+    `_pack_planar`, each None when its family is absent, and `media` where
+    the scene has volumes. The body of the JAX `replay_rays` bounce scan.
+    Gradients reach both tables, `background`, `o`, `d`, `time`, the media
+    and the texture table of `tex`. A sphere's image texel reads its
+    spherical UV; uv-debug textures sit on planar primitives only (the
+    builder's `fused_simple`). A medium winner re-samples its candidate
+    (`ops.volume.volume_candidates` of the known medium) and scatters
+    isotropically over its albedo.
 
     With `tex.defer` it returns the deferred form instead: (ctb (B, D, 3),
     the per-bounce radiance contributions with noise and image texels
@@ -257,6 +276,7 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
         fam = code & 3
         is_sph = hit_mask & (fam == _C_SPHERE)
         is_pla = hit_mask & (fam == _C_PLANAR)
+        is_vol = hit_mask & (fam == _C_VOLUME)
 
         a = dot(d, d)
         p = o
@@ -268,7 +288,7 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
         noise_hit = torch.zeros((B,), dtype=torch.bool, device=dev)
 
         if sph_tab is not None:
-            row = sph_tab[torch.where(is_sph, code >> 2, 0)]     # (B, 21)
+            row = tex_mod._rows(sph_tab, torch.where(is_sph, code >> 2, 0))
             alpha, beta = row[:, 0:3], row[:, 3:6]
             r, r2 = row[:, 6], row[:, 7]
             tail = _tail(row, _SPH_TAIL)
@@ -299,7 +319,7 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
             noise_hit = noise_hit | (m & (tail["ttype"] == tex_mod.NOISE))
 
         if pla_tab is not None:
-            row = pla_tab[torch.where(is_pla, code >> 2, 0)]     # (B, 40)
+            row = tex_mod._rows(pla_tab, torch.where(is_pla, code >> 2, 0))
             n, k = row[:, 0:3], row[:, 3]
             ua, ca = row[:, 4:7], row[:, 7]
             ub, cb = row[:, 8:11], row[:, 11]
@@ -326,13 +346,28 @@ def replay_packed(sph_tab, pla_tab, background: torch.Tensor,
                                texc)
             noise_hit = noise_hit | (m & (tail["ttype"] == tex_mod.NOISE))
 
+        if media is not None:
+            cand = volume_candidates(
+                media.volumes, o, d, cfg.t_min, seed, ray_id, depth,
+                use_log10=cfg.use_log10_volume_sampling)      # (B, V)
+            vidx = torch.where(is_vol, code >> 2, 0)
+            t_v = torch.gather(cand, 1, vidx[:, None])[:, 0]
+            t_v = torch.where(torch.isfinite(t_v), t_v, 0.0)
+            m = is_vol
+            p = torch.where(m[:, None], o + t_v[:, None] * d, p)
+            # outward stays the (1, 0, 0) placeholder: isotropic ignores it.
+            mtype = torch.where(m, mat_mod.ISOTROPIC, mtype)
+            texc = torch.where(m[:, None], tex_mod._rows(media.albedo, vidx),
+                               texc)
+
         # Shared bounce tail: the semantics of integrator.trace_lanes.
         miss = alive & ~hit_mask
         miss_c = torch.where(miss[:, None], throughput * background, 0.0)
         radiance = radiance + miss_c
         alive = hit_mask
 
-        front_face = dot(d, outward) < 0.0
+        # A medium scatter is front-facing, as in integrator._hit_record.
+        front_face = (dot(d, outward) < 0.0) | is_vol
         normal = torch.where(front_face[:, None], outward, -outward)
         sc = mat_mod.scatter_packed(mtype, fuzz, ior, texc, d, p, normal,
                                     front_face, seed, ray_id, depth)

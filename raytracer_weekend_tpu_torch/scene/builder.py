@@ -3,13 +3,14 @@
 Port of `raytracer_weekend_tpu/scene/builder.py`, in numpy up to the final
 tensors, so that the port builds scenes without jax. It covers `SolidColor`,
 `Checker`, `NoiseTexture`, `ImageTexture`, `UVDebug`, `Lambertian`,
-`Metal`, `Dielectric`, `DiffuseLight`, `Sphere`, `MovingSphere`, the
-axis-aligned rectangles, `Cuboid` and `Triangle`, with the fluent
+`Metal`, `Dielectric`, `DiffuseLight`, `Isotropic`, `Sphere`,
+`MovingSphere`, the axis-aligned rectangles, `Cuboid`, `Triangle` and
+`ConstantMedium` (a Sphere or Cuboid boundary), with the fluent
 `.rotate_y(deg).translate(offset)` transform on every geometry class. Table
 order, material and texture interning, Morton order, the image atlas and
 the `SceneStatic` flags are the JAX builder's, so both builders give
-bit-equal tables for the same objects. Constant media raise
-`NotImplementedError`.
+bit-equal tables for the same objects. BVHs are not built (see
+`build_scene`).
 
 Bake rules, as in the JAX builder: sphere centers and triangle vertices and
 normals are transformed; a rect or cuboid under a pure translation stays a
@@ -31,10 +32,10 @@ from raytracer_weekend_tpu_torch import perlin as perlin_mod
 from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.materials import MaterialTable
 from raytracer_weekend_tpu_torch.scene.data import (
-    VOL_SPHERE, Rects, SceneData, SceneStatic, Spheres, Triangles, Volumes)
+    VOL_BOX, VOL_SPHERE, Rects, SceneData, SceneStatic, Spheres, Triangles,
+    Volumes)
 from raytracer_weekend_tpu_torch.textures import TextureTable
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1: volumes, BVH)"
 
 # ---------------------------------------------------------------------------
 # Textures
@@ -124,6 +125,11 @@ class Dielectric(_Material):
 class DiffuseLight(_Material):
     def __init__(self, emit):
         self.emit = _as_texture(emit)
+
+
+class Isotropic(_Material):
+    def __init__(self, albedo):
+        self.albedo = _as_texture(albedo)
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +266,18 @@ class Triangle(_Transformable):
         return cls(tuple(tuple(v) for v in vertices), material)
 
 
+@dataclasses.dataclass(frozen=True)
+class ConstantMedium(_Transformable):
+    """A constant-density medium inside a Sphere or Cuboid boundary (either
+    possibly transformed), with an isotropic phase function over
+    `texture`."""
+    boundary: object
+    density: float
+    texture: object
+    theta: float = 0.0
+    offset: tuple = (0.0, 0.0, 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Compilation
 # ---------------------------------------------------------------------------
@@ -285,7 +303,8 @@ def build_scene(objects: Sequence, background=(0.7, 0.8, 1.0),
     for obj in objects:
         comp.add(obj)
     if bvh is True and (comp.sph or comp.tri):
-        raise NotImplementedError(f"BVH (bvh=True) {_NOT_PORTED}")
+        raise NotImplementedError("BVH (bvh=True) is not ported yet (ROADMAP "
+                                  "item 14)")
     return comp.finish(background)
 
 
@@ -300,6 +319,7 @@ class _Compiler:
         self.sph: list = []
         self.rect: list = []
         self.tri: list = []
+        self.vol: list = []
 
     def _texture_id(self, tex) -> int:
         tex = _as_texture(tex)
@@ -339,12 +359,14 @@ class _Compiler:
                 self._add_rect(side)
         elif isinstance(obj, Triangle):
             self._add_triangle(obj)
+        elif isinstance(obj, ConstantMedium):
+            self._add_medium(obj)
         elif isinstance(obj, (list, tuple)):
             for sub in obj:
                 self.add(sub)
         else:
             raise NotImplementedError(
-                f"scene object {type(obj).__name__} {_NOT_PORTED}")
+                f"scene object {type(obj).__name__} is not supported")
 
     def _add_rect(self, r: _Rect):
         mid = self._material_id(r.material)
@@ -388,6 +410,26 @@ class _Compiler:
                          tuple(tuple(n) for n in normals), uvs,
                          self._material_id(t.material)))
 
+    def _add_medium(self, m: ConstantMedium):
+        mid = self._material_id(Isotropic(m.texture))
+        neg_inv_density = -1.0 / m.density
+        b = m.boundary
+        # The medium's own transform composes outside the boundary's:
+        # world = Rm (Rb x + tb) + tm.
+        if isinstance(b, Sphere):
+            center = m._apply(b._apply(np.asarray(b.center, np.float64)))
+            self.vol.append((VOL_SPHERE, tuple(center), b.radius,
+                             (0, 0, 0), (1, 1, 1), 0.0, (0, 0, 0),
+                             neg_inv_density, mid))
+        elif isinstance(b, Cuboid):
+            offset = m._apply(np.asarray(b.offset, np.float64))
+            self.vol.append((VOL_BOX, (0, 0, 0), 1.0, tuple(b.p0),
+                             tuple(b.p1), m.theta + b.theta, tuple(offset),
+                             neg_inv_density, mid))
+        else:
+            raise TypeError(f"ConstantMedium boundary must be Sphere or "
+                            f"Cuboid, got {type(b)}")
+
     # -- table emission ----------------------------------------------------
 
     @staticmethod
@@ -411,7 +453,8 @@ class _Compiler:
         return np.argsort(code, kind="stable")
 
     def _sort_spatially(self):
-        """Morton-order spheres, rects and triangles."""
+        """Morton-order spheres, rects and triangles (volumes keep their
+        order: the random stream salts by volume index)."""
         if len(self.sph) > 1:
             cent = np.asarray([(np.asarray(c0) + np.asarray(c1)) / 2
                                for c0, c1, *_ in self.sph])
@@ -436,14 +479,16 @@ class _Compiler:
         self._sort_spatially()
         n_spheres, n_rects, n_tris = len(self.sph), len(self.rect), len(
             self.tri)
+        n_vols = len(self.vol)
 
         spheres = self._emit_spheres()
         rects = self._emit_rects()
         tris = self._emit_triangles()
+        vols = self._emit_volumes()
         materials, textures, has_noise, has_image = self._emit_shading()
         data = SceneData(
-            spheres=spheres, rects=rects, triangles=tris,
-            volumes=_dummy_volumes(), materials=materials, textures=textures,
+            spheres=spheres, rects=rects, triangles=tris, volumes=vols,
+            materials=materials, textures=textures,
             background=torch.tensor(background, dtype=torch.float32))
 
         # Fused-megakernel eligibility, the JAX rule: Lambertian/Metal/
@@ -451,7 +496,8 @@ class _Compiler:
         # and image textures everywhere (noise and image run in the kernel's
         # deferred-texture mode), and UV-debug textures on planar primitives
         # only (their UVs come from the planar table; a sphere's spherical
-        # UV is not in the kernel).
+        # UV is not in the kernel); constant media qualify when their
+        # isotropic phase texture is a solid color (every catalog scene's).
         mtype = materials.mtype.numpy()
         ttype = textures.ttype.numpy()
         tex_of = materials.tex.numpy()
@@ -465,6 +511,10 @@ class _Compiler:
                     m = fam.mat.numpy()[fam.valid.numpy()]
                     ok &= bool(np.all(np.isin(mtype[m], (0, 1, 2, 3)))
                                and np.all(np.isin(ttype[tex_of[m]], allowed)))
+            if n_vols:
+                m = vols.mat.numpy()[vols.valid.numpy()]
+                ok &= bool(np.all(mtype[m] == mat_mod.ISOTROPIC)
+                           and np.all(ttype[tex_of[m]] == tex_mod.SOLID))
             fused_simple = ok
 
         # Single-deferred-hit eligibility: one sphere, nothing else, an image
@@ -473,14 +523,14 @@ class _Compiler:
         # meets the sphere at most once; dielectrics refract through).
         defer_single_hit = False
         if (has_image and not has_noise and n_spheres == 1
-                and n_rects + n_tris == 0):
+                and n_rects + n_tris + n_vols == 0):
             mt0 = int(mtype[int(spheres.mat[0])])
             defer_single_hit = mt0 in (mat_mod.LAMBERTIAN, mat_mod.METAL,
                                        mat_mod.DIFFUSE_LIGHT)
 
         static = SceneStatic(
             n_spheres=n_spheres, n_rects=n_rects, n_triangles=n_tris,
-            n_volumes=0, has_noise=has_noise, has_image=has_image,
+            n_volumes=n_vols, has_noise=has_noise, has_image=has_image,
             has_uvdebug=bool(np.any(ttype == tex_mod.UVDEBUG)),
             defer_single_hit=defer_single_hit, fused_simple=fused_simple)
         return data, static
@@ -555,9 +605,14 @@ class _Compiler:
                 texids.append(self._texture_id(m.emit))
                 fuzz.append(0.0)
                 ior.append(1.0)
+            elif isinstance(m, Isotropic):
+                mtypes.append(mat_mod.ISOTROPIC)
+                texids.append(self._texture_id(m.albedo))
+                fuzz.append(0.0)
+                ior.append(1.0)
             else:
                 raise NotImplementedError(
-                    f"material {type(m).__name__} {_NOT_PORTED}")
+                    f"material {type(m).__name__} is not supported")
 
         materials = MaterialTable(
             mtype=torch.tensor(mtypes, dtype=torch.int32),
@@ -601,7 +656,7 @@ class _Compiler:
                 ttype[i] = tex_mod.UVDEBUG
             else:
                 raise NotImplementedError(
-                    f"texture {type(t).__name__} {_NOT_PORTED}")
+                    f"texture {type(t).__name__} is not supported")
 
         # The image atlas: every image padded to the largest height and width.
         has_image = bool(images)
@@ -628,17 +683,24 @@ class _Compiler:
         return materials, textures, has_noise, has_image
 
 
-# The empty volume family's dummy row, exactly as the JAX builder emits it.
-
-def _dummy_volumes() -> Volumes:
-    f32 = torch.float32
-    return Volumes(
-        vtype=torch.tensor([VOL_SPHERE], dtype=torch.int32),
-        center=torch.tensor([[0.0, 1e9, 0.0]], dtype=f32),
-        radius=torch.tensor([1.0], dtype=f32),
-        bmin=torch.tensor([[0.0, 0.0, 0.0]], dtype=f32),
-        bmax=torch.tensor([[1.0, 1.0, 1.0]], dtype=f32),
-        cos_t=torch.tensor([1.0], dtype=f32), sin_t=torch.tensor([0.0], dtype=f32),
-        offset=torch.tensor([[0.0, 0.0, 0.0]], dtype=f32),
-        neg_inv_density=torch.tensor([-1.0], dtype=f32),
-        mat=torch.tensor([0], dtype=torch.int32), valid=torch.tensor([False]))
+    def _emit_volumes(self) -> Volumes:
+        """The volume table; without volumes one invalid row, exactly as the
+        JAX builder emits it."""
+        rows = self.vol or [(VOL_SPHERE, (0, 1e9, 0), 1.0, (0, 0, 0),
+                             (1, 1, 1), 0.0, (0, 0, 0), -1.0, 0)]
+        cols = list(zip(*rows))
+        theta = np.radians(np.asarray(cols[5], np.float64))
+        valid = (np.ones(len(rows), bool) if self.vol
+                 else np.zeros(1, bool))
+        t = torch.from_numpy
+        return Volumes(
+            vtype=t(np.asarray(cols[0], np.int32)),
+            center=t(np.asarray(cols[1], np.float32)),
+            radius=t(np.asarray(cols[2], np.float32)),
+            bmin=t(np.asarray(cols[3], np.float32)),
+            bmax=t(np.asarray(cols[4], np.float32)),
+            cos_t=t(np.cos(theta).astype(np.float32)),
+            sin_t=t(np.sin(theta).astype(np.float32)),
+            offset=t(np.asarray(cols[6], np.float32)),
+            neg_inv_density=t(np.asarray(cols[7], np.float32)),
+            mat=t(np.asarray(cols[8], np.int32)), valid=t(valid))

@@ -2,7 +2,8 @@
 
 Adam over every float leaf of the scene (texture colors, image texels,
 noise scale and Perlin gradients, metal fuzz, dielectric IOR, sphere, rect
-and triangle geometry, the background);
+and triangle geometry, the media's boundaries and densities, the
+background);
 integer and bool leaves (type tables, ids, valid masks) stay frozen, the
 counterpart of the JAX package's `optax.multi_transform` with `set_to_zero`.
 
@@ -13,7 +14,8 @@ counterpart of the JAX package's `optax.multi_transform` with `set_to_zero`.
 The render follows the scene's device: on a CUDA device a scene that
 `megakernel.fused_supported` admits renders through
 `fused_diff.render_fused_diff` (the forward kernel with winner codes, the
-replay-backward kernel), in `cfg.ray_batch` lane chunks (the whole frame by
+replay-backward kernel, or for uv-debug and medium scenes torch autograd
+of the replay), in `cfg.ray_batch` lane chunks (the whole frame by
 default); on the CPU it runs the staged torch path under autograd.
 """
 
@@ -54,10 +56,10 @@ class InverseRenderer:
         if device.type == "cuda":
             if not integrator.fused_eligible(self.static, cfg, device):
                 raise NotImplementedError(
-                    "on CUDA the port differentiates sphere, rect and "
-                    "triangle scenes with Lambertian/Metal/Dielectric/"
-                    "DiffuseLight materials; this scene is outside that "
-                    f"slice ({self.static})")
+                    "on CUDA the port differentiates sphere, rect, "
+                    "triangle and constant-medium scenes with Lambertian/"
+                    "Metal/Dielectric/DiffuseLight materials; this scene is "
+                    f"outside that slice ({self.static})")
             from raytracer_weekend_tpu_torch.fused_diff import (
                 render_fused_diff)
 

@@ -176,9 +176,9 @@ def test_replay_bwd_reference_matches_jax_kernel(pair):
 
 @pytest.mark.parametrize("field", ["n_volumes", "has_noise", "has_image"])
 def test_replay_rejects_unported_families(field):
-    """Volume scenes raise. The noise and image arms are ported: a scene
-    flagged so (with no such texture in it) replays to the radiance of the
-    unflagged scene."""
+    """Every family is ported now: a scene flagged with media, noise or
+    image textures (with no such thing in it: the volume table's one row is
+    invalid) replays to the radiance of the unflagged scene."""
     _, t = _scenes("two_spheres")
     ts, tst, tc, tcam = t
     n = 256
@@ -186,10 +186,6 @@ def test_replay_rejects_unported_families(field):
     _, _, codes = mk.render_fused(ts, tc, tcam, 0, n, 3, static=tst,
                                   emit_paths=True)
     static = type(tst)(**{**tst.__dict__, field: 1})
-    if field == "n_volumes":
-        with pytest.raises(NotImplementedError):
-            replay.replay_rays(ts, static, tc, o, d, tm, rid, 3, codes)
-        return
     want = replay.replay_rays(ts, tst, tc, o, d, tm, rid, 3, codes)
     got = replay.replay_rays(ts, static, tc, o, d, tm, rid, 3, codes)
     assert torch.equal(got, want) and float(want.max()) > 0

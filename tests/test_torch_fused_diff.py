@@ -152,17 +152,15 @@ def test_background_grad_matches_finite_difference():
 
 @pytest.mark.parametrize("field", ["n_volumes", "has_noise", "has_image"])
 def test_fused_diff_rejects_unsupported_scenes(field):
-    """Volume scenes raise. Noise and image textures are supported: a scene
-    flagged so takes the deferred-texture forward and backward, which with
-    no such texture in it give the radiance and the gradients of the
-    unflagged scene."""
+    """Media, noise and image textures are supported: a scene flagged with
+    media takes the medium route (the forward with the volume family, the
+    backward torch autograd of the replay), one flagged with noise or image
+    textures the deferred-texture forward and backward; with no such thing
+    in the scene (the volume table's one row is invalid) both give the
+    radiance and the gradients of the unflagged scene."""
     _, t = _scenes("two_spheres")
     ts, tst, tc, tcam = t
     static = type(tst)(**{**tst.__dict__, field: 1})
-    if field == "n_volumes":
-        with pytest.raises(NotImplementedError):
-            fused_diff.render_fused_diff(ts, static, tc, tcam, 0, 64, 3)
-        return
     out = []
     for st in (tst, static):
         bg = ts.background.clone().requires_grad_()

@@ -24,8 +24,10 @@ ASPECT = 32 / 18
 
 
 def _jax_scene(name):
+    """The JAX build without BVHs (book2's 1,006 spheres would get one under
+    "auto"), which is what the port builds."""
     objs, cams, bg = getattr(jscenes, name)(ASPECT, seed=0)
-    data, static = JB.build_scene(objs, background=bg, seed=0)
+    data, static = JB.build_scene(objs, background=bg, seed=0, bvh=False)
     return jax.tree_util.tree_map(np.asarray, data), static, cams[0]
 
 
@@ -47,7 +49,8 @@ def test_render_config_fields_match():
                                                       j.n_rays)
 
 
-@pytest.mark.parametrize("name", ["jumpy_balls", "two_spheres"])
+@pytest.mark.parametrize("name", ["jumpy_balls", "two_spheres",
+                                  "smokey_cornell_box", "book2_final_scene"])
 def test_builder_tables_bit_equal(name):
     jdata, jstatic, _ = _jax_scene(name)
     tdata, tstatic, _ = _torch_scene(name)
@@ -67,6 +70,9 @@ def test_builder_tables_bit_equal(name):
                                   np.asarray(jdata.background))
     if name == "jumpy_balls":
         assert tstatic.n_spheres == 486 and tstatic.fused_simple
+    if name == "book2_final_scene":
+        assert (tstatic.n_spheres, tstatic.n_rects, tstatic.n_volumes) == (
+            1006, 2401, 2) and tstatic.fused_simple
 
 
 def test_builder_rejects_unported_objects():
@@ -139,6 +145,8 @@ def test_port_imports_no_jax():
             "scenes.generate_scene('two_spheres', 1.5, device='cpu')\n"
             "scenes.generate_scene('wavefront_cow_obj', 1.5, device='cpu')\n"
             "scenes.generate_scene('simple_light', 1.5, device='cpu')\n"
+            "scenes.generate_scene('book2_final_scene', 1.5, device='cpu')\n"
+            "from raytracer_weekend_tpu_torch.ops import volume\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'raytracer_weekend_tpu' not in sys.modules\n"
             "print('ok')\n")
