@@ -7,9 +7,11 @@ Drives the port's paths through the entry points a user calls: the forward
 render (`integrator.render_image`) and inverse rendering
 (`train.InverseRenderer.fit`, forward + backward through
 `fused_diff.render_fused_diff`), on jumpy_balls (spheres), on cornell_box
-and the cow mesh (the planar family) and on earth, two_perlin_spheres and
-simple_light (deferred image and Perlin textures), all at 400x225, 16 spp,
-depth 8. It builds the CUDA kernels from the sources in the checkout and
+and the cow mesh (the planar family), on earth, two_perlin_spheres and
+simple_light (deferred image and Perlin textures) and on the media scenes,
+all at 400x225, 16 spp, depth 8; then the staged path (`render_chunk`,
+and `render_image` and `InverseRenderer.fit` for scenes outside the fused
+megakernel) through the closest-hit kernels K10-K12. It builds the CUDA kernels from the sources in the checkout and
 holds each against its plain torch version first. Phases, one line each
 (or a few):
 
@@ -33,9 +35,10 @@ holds each against its plain torch version first. Phases, one line each
      budgets of tests/test_megakernel.py:119-128 on cornell_box (full
      size, plain in 2^17-lane windows), simple_triangle and mesh_shards
      (64x36, 4 spp, depth 6) and the cow (160x90, 4 spp, depth 8, plain in
-     2^12-lane windows); then render_image on cornell_box and the cow at
-     full size with the planar launch count reset just before each: frame
-     time, segments per frame and segments/s, PNGs to build/;
+     2^12-lane windows); then render_image on cornell_box, the cow and the
+     textured monument at full size with the planar launch count reset
+     just before each: frame time, segments per frame and segments/s, PNGs
+     to build/;
   8. the planar training path: K3-emit on cornell_box (bitwise K3's
      radiance and segments, codes against the plain codes), K4 against its
      plain version on the kernel's own codes on cornell_box (full size,
@@ -77,7 +80,28 @@ holds each against its plain torch version first. Phases, one line each
      forward+backward frame (K5-emit, then torch autograd of the replay:
      no kernel of the reference covers that backward), 3 Adam steps of
      InverseRenderer.fit from the media's albedo + 0.2, and book2's
-     forward+backward at 400x225, 4 spp.
+     forward+backward at 400x225, 4 spp;
+ 14. the staged path: K10, K11 and K12 against their plain versions on the
+     primary and first-bounce rays of jumpy_balls, cornell_box and the cow
+     and on 100k random rays against random tables (near-ties and lanes
+     beyond tolerance counted against budgets), each timed on one scene's
+     primary rays; their autograd.Functions' VJP (a random cotangent on t)
+     against the same route in float64, leaf by leaf, on the real rays of
+     cornell_box, the cow and jumpy_balls with a uv-debug ground; the
+     staged frame of the three scenes at full size in 2^18-lane chunks
+     against the fused path's segments and radiance, its ms and
+     segments/s, and through use_pallas=False; render_image of jumpy_balls
+     with a uv-debug ground (outside the megakernel: K10) and 3 Adam steps
+     of InverseRenderer.fit on it (timed; finite gradients; its loss
+     rises, as through the plain brute force: the fit moves the spheres'
+     geometry), 3 Adam steps on jumpy_balls with an isotropic sphere (K10,
+     the loss falls); render_image and 3 Adam steps on smokey_cornell_box
+     with a checker albedo (K11 and the plain medium test; the loss falls),
+     each of these main-path runs with the K10-K12 counts reset just
+     before; K2 on 3,970 spheres on a checker ground, d(ktab) by global
+     atomics: against its plain version and float64 at 64x36x4 d6, the
+     lanes on a checker cell edge held out, and against its plain version
+     at full size, timed.
 
 Then one JSON line describing each kernel (launches on the main path, max
 abs error against its plain version, ms and plain ms, the least time the
@@ -337,10 +361,10 @@ def fit_inputs(scene, static, cfg, cam):
     return target, start
 
 
-def fit_three_steps(static, cfg, cam, target, start):
+def fit_three_steps(static, cfg, cam, target, start, falling=True):
     """3 Adam steps of InverseRenderer.fit -> (loss history, step ms by the
-    host clock between synchronized callbacks); raises unless the loss fell
-    and every parameter is finite."""
+    host clock between synchronized callbacks); raises unless every
+    parameter is finite and (with `falling`) the loss fell."""
     import torch
 
     from raytracer_weekend_tpu_torch.train import InverseRenderer
@@ -355,7 +379,7 @@ def fit_three_steps(static, cfg, cam, target, start):
     stamps.append(time.perf_counter())
     fitted, hist = InverseRenderer(static, cfg, cam, target).fit(
         start, steps=3, callback=on_step)
-    if not hist[-1] < hist[0]:
+    if falling and not hist[-1] < hist[0]:
         raise AssertionError(f"the loss did not drop: {hist}")
     if not all(bool(torch.isfinite(le).all()) for le in fitted.leaves()
                if le.is_floating_point()):
@@ -569,6 +593,7 @@ def main() -> None:
     k5, smokey = volume_forward(dev, smi)
     kernels += [k5, deep_phases(dev, smi)]
     volume_training(dev, smi, smokey)
+    kernels += staged_path(dev, smi)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -711,13 +736,14 @@ COW_CHUNK = 1 << 12
 
 def load_scene(name, size, dev):
     """(scene, static, cfg, cam) on `dev`: a catalog scene, or one of the
-    test scenes mesh_shards and sphere_medium."""
+    test scenes of `models.scenes` (mesh_shards, sphere_medium,
+    many_spheres, jumpy_balls_uvdebug, smokey_checker_medium)."""
     from raytracer_weekend_tpu_torch.config import RenderConfig
     from raytracer_weekend_tpu_torch.models import scenes
     from raytracer_weekend_tpu_torch.scene.builder import build_scene
 
     cfg = RenderConfig(**size)
-    if name in ("mesh_shards", "sphere_medium"):
+    if name not in scenes.SCENES:
         objs, cams, bg = getattr(scenes, name)(cfg.aspect_ratio)
         scene, static = build_scene(objs, background=bg)
     else:
@@ -787,7 +813,7 @@ def planar_forward(dev, smi):
           flush=True)
 
     launches = 0
-    for name in ("cornell_box", "wavefront_cow_obj"):
+    for name in ("cornell_box", "wavefront_cow_obj", "textured_monument"):
         scene, static, cfg, cam = load_scene(name, FULL, dev)
         k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
                                        cfg.seed, static=static)
@@ -985,13 +1011,24 @@ TURB_WINDOW = 1 << 21     # points per window of the turbulence's plain twin
 
 def plain_staged(scene, static, cfg, cam, window):
     """The staged path with inline noise and image texels (the deferred
-    render's semantic reference) in lane windows -> (radiance, segments)."""
+    render's semantic reference), with the plain brute-force closest hit,
+    in lane windows -> (radiance, segments)."""
+    import dataclasses
+
+    return staged_frame(scene, static, dataclasses.replace(
+        cfg, use_pallas=False), cam, window)
+
+
+def staged_frame(scene, static, cfg, cam, chunk):
+    """The staged path over the whole frame in lane chunks (render_chunk's
+    rays and `trace_lanes`, which also counts segments; its closest hit as
+    `cfg.use_pallas` selects) -> (radiance, segments)."""
     import torch
 
     from raytracer_weekend_tpu_torch import integrator
 
     parts = []
-    for w in lane_windows(cfg.n_rays, window):
+    for w in lane_windows(cfg.n_rays, chunk):
         ids = torch.arange(w.start, w.stop, device=scene.device)
         o, d, t, rid = integrator._pixel_rays(cam, cfg, ids, cfg.seed)
         parts.append(integrator.trace_lanes(scene, static, cfg, o, d, t, rid,
@@ -1039,8 +1076,10 @@ def ill_lanes(ref, wit):
 
 
 def float64_codes(scene, static, cfg, o, d, t, rid, windows):
-    """The winner codes of the plain staged path traced in float64 from the
-    same rays, in lane windows."""
+    """The winner codes of the plain staged path (the plain brute-force
+    closest hit) traced in float64 from the same rays, in lane windows."""
+    import dataclasses
+
     import torch
 
     from raytracer_weekend_tpu_torch import integrator
@@ -1049,6 +1088,7 @@ def float64_codes(scene, static, cfg, o, d, t, rid, windows):
 
     scene64 = SceneData.from_leaves([le.double() if le.is_floating_point()
                                      else le for le in scene.leaves()])
+    cfg = dataclasses.replace(cfg, use_pallas=False)
     prev = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     try:
@@ -1826,6 +1866,632 @@ def volume_training(dev, smi, smokey):
           f"autograd) on {smi}: frame {b_ms:.3f} ms, {segs / (b_ms / 1e3):.4e}"
           f" segments/s, peak memory {peak:.2f} GiB; every gradient finite",
           flush=True)
+
+
+# ---- the staged path: K10, K11, K12 (phase 14) --------------------------------
+
+# The closest-hit kernels are held to their plain versions with the budgets
+# of `ops.cuda.checks.hit_budgets`.
+# FP32 operations per ray-primitive pair (the JAX CostEstimates:
+# sphere_intersect.py:149, rect_intersect.py:114, triangle_intersect.py:134).
+OPS_PAIR = {"spheres": 40, "rects": 30, "triangles": 45}
+# Bytes per ray the kernels move (rays in, t and idx out) and per table row.
+BYTES_RAY = {"spheres": 48, "rects": 32, "triangles": 44}
+# Each kernel is timed on the primary rays of one scene.
+TIMED = {"spheres": "jumpy_balls", "rects": "cornell_box",
+         "triangles": "wavefront_cow_obj"}
+STAGED_CHUNK = 1 << 18
+# The uv-debug jumpy's fit holds the whole frame's staged autograd graph.
+STAGED_FIT = dict(width=400, height=225, samples_per_pixel=16, max_depth=8)
+MANY_SMALL = dict(width=64, height=36, samples_per_pixel=4, max_depth=6)
+# The closest-hit Functions' VJP on the card against their route in
+# float64, per leaf (norm_rel), for a random cotangent on t. The winner
+# recompute in float32 (the JAX custom_vjp's) loses digits to cancellation:
+# rects and triangles few (measured at most 3.0e-4, the cow's vertices),
+# spheres many (disc = hb^2 - |d|^2 c is about r^2 / |o - c|^2 of hb^2 for
+# a small sphere far away, and less near its rim; measured at most 0.111,
+# the t0 of jumpy's spheres, on an H100 80GB HBM3 at 700 W). Held to about
+# twice that, or K2's 1e-3.
+VJP_NORM_REL = {"spheres": 0.25, "rects": 1e-3, "triangles": 1e-3}
+
+
+def row_reads(tab, idx, smi):
+    """Forward+backward of reading the winners' rows `tab[idx]` (the
+    backward sorts the ids and adds each row's duplicates one after
+    another) against `textures._rows` (`index_select`, whose backward is an
+    atomic `index_add_`, for a table of more than 8 rows), by CUDA events;
+    raises unless `_rows`, which the hit records and K10-K12's backward
+    read rows with, is the faster."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import textures
+
+    leaf = tab.detach().clone().requires_grad_()
+    ct = torch.rand((idx.shape[0], *tab.shape[1:]), device=tab.device)
+    times = {}
+    for how, read in (("tab[idx]", lambda: leaf[idx]),
+                      ("textures._rows", lambda: textures._rows(leaf, idx))):
+        def fb():
+            return torch.autograd.grad(read(), leaf, ct)
+        fb()
+        times[how] = _cuda_ms(fb, 5)
+    print(f"phase 14 reading the winners' rows (jumpy's primary K10 winners,"
+          f" {idx.shape[0]} reads of a {tab.shape[0]}-row table), "
+          f"forward+backward ms: {json.dumps(times)} (median of 5; {smi})",
+          flush=True)
+    if not times["textures._rows"] < times["tab[idx]"]:
+        raise AssertionError(f"textures._rows is not the faster: {times}")
+
+
+def staged_profile(scene, static, cfg, cam, smi):
+    """torch.profiler over one chunk of the whole frame through the staged
+    path, forward alone and forward+backward (the radiance sum over every
+    float leaf): host and device time, K10's and index_add_'s device time;
+    raises unless the profiler saw K10 run on the device in both."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.scene.data import SceneData
+
+    leaves = [le.detach().clone() for le in scene.leaves()]
+    floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
+    diff = SceneData.from_leaves(leaves)
+    ids = torch.arange(cfg.n_rays, device=scene.device)
+
+    def fwd():
+        with torch.no_grad():
+            return integrator.render_chunk(scene, static, cfg, cam, ids,
+                                           cfg.seed)
+
+    def fwd_bwd():
+        rad = integrator.render_chunk(diff, static, cfg, cam, ids, cfg.seed)
+        return torch.autograd.grad(rad.sum(), floats, allow_unused=True)
+
+    out = {}
+    for what, fn in (("forward", fwd), ("forward+backward", fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        # Kernels are the events on the device (as the profiler's own table
+        # sums them); an operator's self device time is its kernels'.
+        kernels = [e for e in ev if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+        out[what] = dict(
+            host_ms=sum(e.self_cpu_time_total for e in ev) / 1e3,
+            device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+            k10_ms=sum(e.self_device_time_total for e in kernels
+                       if "hit_spheres_kernel" in e.key) / 1e3,
+            index_add_ms=sum(e.self_device_time_total for e in ev
+                             if e.key == "aten::index_add_") / 1e3)
+    print(f"phase 14 profile of the staged path, jumpy_balls_uvdebug "
+          f"{cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} depth "
+          f"{cfg.max_depth} in one chunk (torch.profiler, self times summed;"
+          f" {smi}): {json.dumps(out)}", flush=True)
+    if not all(v["k10_ms"] > 0.0 for v in out.values()):
+        raise AssertionError(f"the profiler saw no K10 on the device: {out}")
+
+
+def hit_family(kind):
+    """(kernel module, its autograd.Function, the plain version, table
+    rows, the winner recompute of its backward (table, rays, idx, t_min) ->
+    t)."""
+    from raytracer_weekend_tpu_torch.ops import rect, sphere, triangle
+    from raytracer_weekend_tpu_torch.ops.cuda import (
+        rect_intersect, sphere_intersect, triangle_intersect)
+
+    return {
+        "spheres": (sphere_intersect, sphere_intersect.hit_spheres_kernel,
+                    sphere.hit_spheres, len(sphere_intersect.TABLE_ROWS),
+                    lambda tb, r, idx, t_min: sphere_intersect._winning_root(
+                        tb, *r, idx, t_min)),
+        "rects": (rect_intersect, rect_intersect.hit_rects_kernel,
+                  rect.hit_rects, len(rect_intersect.TABLE_ROWS),
+                  lambda tb, r, idx, t_min: rect_intersect._winning_t(
+                      tb, *r, idx)),
+        "triangles": (triangle_intersect,
+                      triangle_intersect.hit_triangles_kernel,
+                      triangle.hit_triangles,
+                      len(triangle_intersect.TABLE_ROWS),
+                      lambda tb, r, idx, t_min: triangle_intersect._winning_t(
+                          tb, *r, idx)),
+    }[kind]
+
+
+def hit_rays(kind, rays):
+    return rays if kind == "spheres" else rays[:2]
+
+
+def plain_hits(kind, tab, rays, window, t_min=1e-3):
+    """The plain brute force in windows of `window` rays -> (t, idx)."""
+    import torch
+
+    plain = hit_family(kind)[2]
+    n = rays[0].shape[0]
+    with torch.no_grad():
+        parts = [plain(tab, *(r[w] for r in hit_rays(kind, rays)), t_min)
+                 for w in lane_windows(n, window)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def check_hits(what, t_k, i_k, t_p, i_p):
+    """hit_budgets -> its stats; raises when they are exceeded."""
+    from raytracer_weekend_tpu_torch.ops.cuda import checks
+
+    stats = checks.hit_budgets(t_k, i_k, t_p, i_p)
+    if not stats.pop("ok"):
+        raise AssertionError(f"{what}: kernel vs plain outside budgets: "
+                             f"{stats}")
+    return stats
+
+
+def hit_vjp(what, kind, tab, rays, t_min, window):
+    """The kernel's autograd.Function on the card (K10-K12's winners, then
+    autograd of the winner recompute in float32) for a random cotangent on
+    t, leaf by leaf (norm_rel; the entries that are zero in the reference
+    stay within K2_ZERO of its largest), against its route on the CPU, the
+    plain forward then the same recompute, run in float64 (on the card, the
+    plain forward in windows of `window` rays): VJP_NORM_REL of the kind.
+    Held out first, at most n // HELD_OUT lanes: those whose float64
+    winner differs (near-ties), and the ill-conditioned ones, whose
+    float64 ray cotangents move by more than ILL_REL of the lane's largest
+    (plus K2_ZERO of the largest of any lane) when the rays move by one
+    float32 ulp. Raises beyond the budgets; -> stats."""
+    import torch
+
+    kern, recompute = hit_family(kind)[1], hit_family(kind)[4]
+    n, dev = rays[0].shape[0], rays[0].device
+    names = [f for f, x in zip(type(tab)._fields, tab)
+             if x.is_floating_point()] + ["o", "d", "time"][:len(
+                 hit_rays(kind, rays))]
+
+    def leaves(dtype, rs):
+        tb = type(tab)(*(f.detach().to(dtype).requires_grad_()
+                         if f.is_floating_point() else f for f in tab))
+        rs = tuple(r.detach().to(dtype).requires_grad_()
+                   for r in hit_rays(kind, rs))
+        return tb, rs, [f for f in tb if f.requires_grad] + list(rs)
+
+    def route(dtype, rs, idx, ct):
+        tb, r, wrt = leaves(dtype, rs)
+        return torch.autograd.grad(recompute(tb, r, idx, t_min), wrt,
+                                   ct.to(dtype), allow_unused=True)
+
+    def compare(got, ref, limit):
+        scale = max(float(g.abs().max()) for g in ref if g is not None)
+        rel, ok = {}, True
+        for name, a, b in zip(names, got, ref):
+            if b is None or not bool((b != 0).any()):
+                continue
+            a = torch.zeros_like(b) if a is None else a
+            zero = float(torch.where(b == 0, a.double().abs(), 0.0).max())
+            rel[name] = norm_rel(a, b)
+            ok = (ok and bool(torch.isfinite(a).all()) and rel[name] <= limit
+                  and zero <= K2_ZERO * scale)
+        return rel, ok
+
+    tb32, r32, wrt32 = leaves(torch.float32, rays)
+    t32, i32 = kern(tb32, *r32, t_min)
+    tb64, r64, _ = leaves(torch.float64, rays)
+    t64, i64 = plain_hits(kind, tb64, r64, window, t_min)
+    same = ((i32.long() == i64)
+            & (torch.isfinite(t32) == torch.isfinite(t64)))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    ct = torch.randn(n, device=dev, generator=gen)
+    ct = torch.where(same & torch.isfinite(t32), ct, 0.0)
+    # The same rays moved by one float32 ulp, each component up or down.
+    jit = [x.double() * (1.0 + 2.0 ** -23 * (2 * torch.randint(
+        0, 2, x.shape, device=dev, generator=gen) - 1)) for x in rays[:2]]
+
+    def lanes(g):
+        return torch.cat([g[i].reshape(n, -1).double()
+                          for i in range(len(names) - len(r32), len(names))],
+                         dim=1)
+
+    wit = lanes(route(torch.float64, rays, i64, ct))
+    top = wit.abs().amax(dim=1)
+    ill = ((lanes(route(torch.float64, (*jit, *rays[2:]), i64, ct))
+            - wit).abs().amax(dim=1)
+           > ILL_REL * top + K2_ZERO * float(top.max()))
+
+    def card(ct):
+        return torch.autograd.grad(t32, wrt32, ct, allow_unused=True,
+                                   retain_graph=True)
+
+    all_lanes = compare(card(ct), route(torch.float64, rays, i64, ct),
+                        float("inf"))[0]
+    ct = torch.where(ill, 0.0, ct)
+    rel, ok = compare(card(ct), route(torch.float64, rays, i64, ct),
+                      VJP_NORM_REL[kind])
+    held = int((~same | ill).sum())
+    stats = dict(rays=n, hits=int(torch.isfinite(t32).sum()),
+                 held_out=dict(near_ties=int((~same).sum()),
+                               ill_conditioned=int(ill.sum()), total=held,
+                               budget=max(4, n // HELD_OUT)),
+                 norm_rel=rel, all_lanes=all_lanes)
+    print(f"phase 14 VJP of {what} vs float64 (budget norm_rel "
+          f"{VJP_NORM_REL[kind]}): {json.dumps(stats)}", flush=True)
+    if not ok or held > max(4, n // HELD_OUT):
+        raise AssertionError(f"{what} VJP: {stats}")
+    return stats
+
+
+def bounce_rays(scene, static, cfg, cam):
+    """The frame's primary rays and its first-bounce rays (the live lanes'
+    scattered rays after one bounce of the staged path) -> two (o, d,
+    time) triples."""
+    import dataclasses
+
+    from raytracer_weekend_tpu_torch import integrator
+
+    import torch
+
+    ids = torch.arange(cfg.n_rays, device=scene.device)
+    o, d, t, rid = integrator._pixel_rays(cam, cfg, ids, cfg.seed)
+    *_, (o1, d1, _, _, alive, _) = integrator.trace_lanes(
+        scene, static, dataclasses.replace(cfg, max_depth=1), o, d, t, rid,
+        cfg.seed, return_carry=True)
+    return (o, d, t), (o1[alive].contiguous(), d1[alive].contiguous(),
+                       t[alive].contiguous())
+
+
+def staged_path(dev, smi):
+    """Phase 14: the staged path on the card. K10, K11 and K12 against
+    their plain versions on real rays (the primary and first-bounce rays of
+    jumpy_balls, cornell_box and the cow) and on 100k random rays against
+    random tables, and their autograd.Functions' VJP against float64 on the
+    real rays; the staged frame (render_chunk's route in 2^18-lane chunks)
+    of the three scenes against the fused path's segments and radiance,
+    and through use_pallas=False; render_image and 3 Adam steps of
+    InverseRenderer.fit on jumpy_balls with a uv-debug ground (outside
+    fused_supported: K10), 3 steps on jumpy_balls with an isotropic sphere
+    (K10); render_image and 3 steps on smokey_cornell_box with a checker
+    albedo (K11 and the plain medium test); K2 with d(ktab) reduced by
+    global atomics on 3,970 spheres. Each main-path run (the three staged
+    frames, the two render_image calls, the four fits) counts its launches
+    from 0 and is read just after; the kernels line's K10, K11 and K12
+    entries, which this returns, sum those counts."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.ops.cuda import checks
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    mods = {k: hit_family(k)[0] for k in ("spheres", "rects", "triangles")}
+    launches = dict.fromkeys(mods, 0)
+
+    def main_path(run):
+        """run() with every K10-K12 count reset just before and read just
+        after -> (run()'s result, the counts), added to `launches`."""
+        for m in mods.values():
+            m.LAUNCHES = 0
+        out = run()
+        counts = {k: m.LAUNCHES for k, m in mods.items()}
+        for k, c in counts.items():
+            launches[k] += c
+        return out, counts
+
+    # ---- 14a. each kernel against its plain version --------------------------
+    windows = {"jumpy_balls": PLAIN_CHUNK, "cornell_box": PLAIN_CHUNK,
+               "wavefront_cow_obj": 1 << 14}
+    fams = {"jumpy_balls": ("spheres",), "cornell_box": ("rects", "triangles"),
+            "wavefront_cow_obj": ("triangles",)}
+    entries, errs, frames = {}, {}, {}
+    for name in ("jumpy_balls", "cornell_box", "wavefront_cow_obj"):
+        scene, static, cfg, cam = load_scene(name, FULL, dev)
+        frames[name] = (scene, static, cfg, cam)
+        primary, bounce = bounce_rays(scene, static, cfg, cam)
+        for kind in fams[name]:
+            mod, kern, _, rows, _ = hit_family(kind)
+            tab = getattr(scene, kind)
+            for which, rays in (("primary", primary), ("first bounce", bounce)):
+                t_k, i_k = kern(tab, *hit_rays(kind, rays), cfg.t_min)
+                t_p, i_p = plain_hits(kind, tab, rays, windows[name],
+                                      cfg.t_min)
+                torch.cuda.synchronize()
+                stats = check_hits(f"{kind} {name} {which}", t_k, i_k, t_p,
+                                   i_p)
+                print(f"phase 14 {mod.__name__.rsplit('.', 1)[1]} vs plain "
+                      f"{name} {which} rays: {json.dumps(stats)}", flush=True)
+                if name != "jumpy_balls":     # K10's: on the uv-debug jumpy
+                    hit_vjp(f"{kind} {name} {which} rays", kind, tab, rays,
+                            cfg.t_min, windows[name])
+                if which == "primary" and TIMED[kind] == name:
+                    n, P = rays[0].shape[0], tab.valid.shape[0]
+                    k_ms = _cuda_ms(lambda: kern(tab, *hit_rays(kind, rays),
+                                                 cfg.t_min), 5)
+                    p_ms = _cuda_ms(lambda: plain_hits(kind, tab, rays,
+                                                       windows[name],
+                                                       cfg.t_min), 1)
+                    entries[kind] = bound({
+                        "name": mod.__name__.rsplit(".", 1)[1],
+                        "route": "cuda",
+                        "source": "raytracer_weekend_tpu_torch/csrc/"
+                                  "intersect.cu",
+                        "replaces": "raytracer_weekend_tpu/ops/pallas/"
+                                    + {"spheres": "sphere_intersect.py:39",
+                                       "rects": "rect_intersect.py:34",
+                                       "triangles": "triangle_intersect.py:36"
+                                       }[kind],
+                        "launches": 0,
+                        "max_abs_err": 0.0,
+                        "ms": k_ms,
+                        "plain_ms": p_ms,
+                    }, n * P * OPS_PAIR[kind],
+                        n * BYTES_RAY[kind] + 4 * rows * P)
+                    print(f"phase 14 timing {kind} {name} primary: "
+                          f"{n} rays x {P} rows, kernel {k_ms:.3f} ms, plain "
+                          f"{p_ms:.3f} ms (median; {smi})", flush=True)
+                errs[kind] = max(errs.get(kind, 0.0), stats["max_abs_err"])
+                if (name, which) == ("jumpy_balls", "primary"):
+                    row_reads(tab.c0, i_k.long(), smi)
+    for kind in ("spheres", "rects", "triangles"):
+        tab, rays = checks.random_hit_case(kind, dev, 100_000)
+        kern = hit_family(kind)[1]
+        t_k, i_k = kern(tab, *hit_rays(kind, rays), 1e-3)
+        t_p, i_p = plain_hits(kind, tab, rays, 1 << 14)
+        torch.cuda.synchronize()
+        stats = check_hits(f"{kind} random", t_k, i_k, t_p, i_p)
+        print(f"phase 14 {kind} vs plain, random table of "
+              f"{tab.valid.shape[0]} rows (moving, hollow, invalid rows; "
+              f"axis-parallel rays): {json.dumps(stats)}", flush=True)
+        errs[kind] = max(errs[kind], stats["max_abs_err"])
+
+    # ---- 14b. the staged frame end to end -------------------------------------
+    for name, budgets in (("jumpy_balls", SPHERE_BUDGETS),
+                          ("cornell_box", PLANAR_BUDGETS),
+                          ("wavefront_cow_obj", PLANAR_BUDGETS)):
+        scene, static, cfg, cam = frames[name]
+        f_rad, f_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
+                                       cfg.seed, static=static)
+        (rad, seg), counts = main_path(lambda: staged_frame(
+            scene, static, cfg, cam, STAGED_CHUNK))
+        torch.cuda.synchronize()
+        ok, stats = _budgets(rad, f_rad, seg.sum(), f_seg.sum(), cfg.n_rays,
+                             **budgets)
+        stats.update(staged_segments=int(seg.sum()),
+                     fused_segments=int(f_seg.sum()), launches=counts)
+        if not ok or min(counts[k] for k in fams[name]) < 1:
+            raise AssertionError(f"staged {name} vs fused: {stats}")
+        frame_ms = [_cuda_ms(lambda: staged_frame(scene, static, cfg, cam,
+                                                  STAGED_CHUNK), 1)
+                    for _ in range(3)]
+        # The staged path launches some 400 small torch operations a bounce
+        # and chunk; one chunk of the whole frame (render_image's default)
+        # pays that host cost once.
+        whole_ms = _cuda_ms(lambda: staged_frame(scene, static, cfg, cam,
+                                                 cfg.n_rays), 3)
+        plain_ms = _cuda_ms(lambda: plain_staged(scene, static, cfg, cam,
+                                                 windows[name]), 1)
+        med = statistics.median(frame_ms)
+        segs = int(seg.sum())
+        print(f"phase 14 staged frame {name} {cfg.width}x{cfg.height} spp "
+              f"{cfg.samples_per_pixel} depth {cfg.max_depth} "
+              f"({STAGED_CHUNK}-lane chunks) vs the fused path: "
+              f"{json.dumps(stats)}; frame {med:.3f} ms ({frame_ms}), "
+              f"{segs / (med / 1e3):.4e} segments/s; in one chunk "
+              f"{whole_ms:.3f} ms, {segs / (whole_ms / 1e3):.4e} "
+              f"segments/s; plain (use_pallas="
+              f"False, {windows[name]}-lane windows) {plain_ms:.3f} ms "
+              f"({smi})", flush=True)
+
+    # ---- 14c. a scene outside fused_supported: render_image and fit -----------
+    scene, static, cfg, cam = load_scene("jumpy_balls_uvdebug", FULL, dev)
+    if mk.fused_supported(static, cfg):
+        raise AssertionError("jumpy_balls_uvdebug is fused_supported")
+    for which, rays in zip(("primary", "first bounce"),
+                           bounce_rays(scene, static, cfg, cam)):
+        hit_vjp(f"spheres jumpy_balls_uvdebug {which} rays", "spheres",
+                scene.spheres, rays, cfg.t_min, PLAIN_CHUNK)
+    with torch.no_grad():
+        ids = torch.arange(cfg.n_rays, device=dev)
+        k_rad = integrator.render_chunk(scene, static, cfg, cam, ids,
+                                        cfg.seed)
+    mk.LAUNCHES = 0
+    (frame_ms, png), counts = main_path(lambda: time_render_image(
+        "jumpy_balls_uvdebug", scene, static, cfg, cam, k_rad))
+    if counts["spheres"] < 1 or mk.LAUNCHES:
+        raise AssertionError(f"render_image(jumpy_balls_uvdebug): launches "
+                             f"{counts}, {mk.LAUNCHES} of the megakernel")
+    print(f"phase 14 main path: render_image jumpy_balls_uvdebug {cfg.width}"
+          f"x{cfg.height} spp {cfg.samples_per_pixel} depth {cfg.max_depth} "
+          f"(staged, outside fused_supported) on {smi}: {counts['spheres']} "
+          f"K10 launches (1 warm-up and 10 frames), median frame "
+          f"{statistics.median(frame_ms):.3f} ms (min {min(frame_ms):.3f}, "
+          f"max {max(frame_ms):.3f}); image -> {png}", flush=True)
+    staged_profile(scene, static, cfg, cam, smi)
+
+    # InverseRenderer.fit moves every float leaf. With a uv-debug ground the
+    # spheres' geometry gets gradients (of the radiance along fixed paths),
+    # and Adam's first steps move each centre and radius by about the
+    # learning rate, which moves occlusion and reflection edges: the loss
+    # rises, through the plain brute force as through K10. So this fit is
+    # timed and held to finite gradients and parameters (its geometry
+    # gradients are held to float64 by hit_vjp above), and the falling loss
+    # is checked on two scenes outside the megakernel whose geometry
+    # gradients are 0: jumpy_balls with its metal sphere made isotropic
+    # (K10) and the checker-albedo smokey (K11).
+    fcfg = dataclasses.replace(cfg, **STAGED_FIT)
+    target, start = fit_inputs(scene, static, fcfg, cam)
+    from raytracer_weekend_tpu_torch.scene.data import SceneData
+    from raytracer_weekend_tpu_torch.train import InverseRenderer
+
+    leaves = [le.detach().clone() for le in start.leaves()]
+    floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss = InverseRenderer(static, fcfg, cam, target).loss(
+        SceneData.from_leaves(leaves))
+    grads = torch.autograd.grad(loss, floats, allow_unused=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(bool(torch.isfinite(g).all()) for g in grads if g is not None):
+        raise AssertionError("staged fit: non-finite gradients")
+    g_c0 = float(grads[0].abs().max())        # the sphere centres
+    if g_c0 == 0.0:
+        raise AssertionError("staged fit: no sphere-centre gradient")
+    mk.EMIT_LAUNCHES = 0
+    (hist, step_ms), counts = main_path(lambda: fit_three_steps(
+        static, fcfg, cam, target, start, falling=False))
+    if counts["spheres"] < 1 or mk.EMIT_LAUNCHES:
+        raise AssertionError(f"staged fit: launches {counts}, or the "
+                             f"megakernel launched")
+    print(f"phase 14 training path: InverseRenderer.fit jumpy_balls_uvdebug "
+          f"{fcfg.width}x{fcfg.height} spp {fcfg.samples_per_pixel} depth "
+          f"{fcfg.max_depth} (staged under autograd), 3 Adam steps from "
+          f"color1 + 0.2 on {smi}: {counts['spheres']} K10 launches; loss "
+          f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} (median after warm-up "
+          f"{statistics.median(step_ms[1:]):.3f}); every gradient finite, "
+          f"sphere centres' largest {g_c0:.3e}; peak memory of one loss + "
+          f"gradient {peak:.2f} GiB", flush=True)
+
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.scene import builder
+
+    objs, cams, bg = scenes.jumpy_balls(cfg.aspect_ratio)
+    objs[4] = dataclasses.replace(objs[4], material=builder.Isotropic(
+        (0.7, 0.6, 0.5)))                     # the metal sphere at (4, 1, 0)
+    scene, static = builder.build_scene(objs, background=bg)
+    scene, cam = scene.to(dev), cams[0].to(dev)
+    if mk.fused_supported(static, cfg):
+        raise AssertionError("an isotropic sphere is fused_supported")
+    target, start = fit_inputs(scene, static, fcfg, cam)
+    (hist, step_ms), counts = main_path(lambda: fit_three_steps(
+        static, fcfg, cam, target, start))
+    if counts["spheres"] < 1:
+        raise AssertionError("isotropic jumpy fit: no K10 launch")
+    print(f"phase 14 training path: InverseRenderer.fit jumpy_balls with an "
+          f"isotropic sphere (staged, geometry gradients 0) {fcfg.width}x"
+          f"{fcfg.height} spp {fcfg.samples_per_pixel} depth "
+          f"{fcfg.max_depth}, 3 Adam steps from color1 + 0.2 on {smi}: "
+          f"{counts['spheres']} K10 launches; loss "
+          f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} (median after warm-up "
+          f"{statistics.median(step_ms[1:]):.3f})", flush=True)
+
+    # ---- 14d. a planar scene outside fused_supported ---------------------------
+    scene, static, cfg, cam = load_scene("smokey_checker_medium", FULL, dev)
+    if mk.fused_supported(static, cfg):
+        raise AssertionError("smokey_checker_medium is fused_supported")
+
+    def timed_render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = integrator.render_image(scene, static, cfg, cam)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (img, s_ms), render_counts = main_path(timed_render)
+    if (render_counts["rects"] < 1 or not bool(torch.isfinite(img).all())
+            or not img.any()):
+        raise AssertionError(f"render_image(smokey_checker_medium): launches "
+                             f"{render_counts}, or a bad image")
+    target = img / cfg.samples_per_pixel
+    tids = scene.materials.tex[scene.volumes.mat.long()].long()
+    color1 = scene.textures.color1.clone()
+    color1[tids] += 0.2
+    start = scene._replace(textures=scene.textures._replace(color1=color1))
+    (hist, step_ms), counts = main_path(lambda: fit_three_steps(
+        static, cfg, cam, target, start))
+    if counts["rects"] < 1:
+        raise AssertionError("smokey_checker_medium fit: no K11 launch")
+    print(f"phase 14 main path: render_image smokey_checker_medium "
+          f"{cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} depth "
+          f"{cfg.max_depth} (staged: K11 and the plain medium test) on {smi}:"
+          f" {render_counts['rects']} K11 launches, one frame {s_ms:.3f} ms;"
+          f" InverseRenderer.fit 3 Adam steps from the media's albedo + 0.2:"
+          f" {counts['rects']} K11 launches, loss "
+          f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} (median after warm-up "
+          f"{statistics.median(step_ms[1:]):.3f})", flush=True)
+    print(f"phase 14 launches on the main paths (staged frames, render_image,"
+          f" fits; each counted from 0): {json.dumps(launches)}", flush=True)
+    for kind, e in entries.items():
+        e.update(launches=launches[kind], max_abs_err=errs[kind])
+    many_spheres_k2(dev, smi)
+    return [entries[k] for k in ("spheres", "rects", "triangles")]
+
+
+def many_spheres_k2(dev, smi):
+    """Phase 14e: K2 on many_spheres (3,970 spheres on jumpy_balls' checker
+    ground), whose d(ktab) does not fit one block's shared memory (global
+    atomics), with K2's budgets on the kernel's own codes, g = 2 rad. At
+    64x36x4 d6 (as the gpu test) against its plain version and the float64
+    witness, after holding out at most n // HELD_OUT lanes: those whose hit
+    points the float64 plain replay puts within rounding of a checker cell
+    edge (`checks.edge_lanes`), where each float32 version picks its own
+    cell; the count, and K2 against its plain version over all lanes, are
+    printed. At full size against its plain version over all lanes, and
+    timed."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.ops.cuda import _build, checks
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
+
+    lib = _build.load_library()
+    for size in (MANY_SMALL, FULL):
+        scene, static, cfg, cam = load_scene("many_spheres", size, dev)
+        n = cfg.n_rays
+        rad, seg, codes = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                          static=static, emit_paths=True)
+        o, d, t, rid = integrator._pixel_rays(
+            cam, cfg, torch.arange(n, device=dev), cfg.seed)
+        ktab = rb.pack_ktab(scene).detach()
+        shared = rb.shared_reductions(lib, dev, ktab.shape[1], 0)[0]
+        wins = lane_windows(n, PLAIN_CHUNK)
+
+        def k2(g):
+            return rb.replay_bwd_fused(ktab, None, scene.background, cfg, o,
+                                       d, t, rid, cfg.seed, codes, g, n)
+
+        def k2_plain(g, dtype=None):
+            return plain_backward(ktab, None, scene.background, cfg, o, d, t,
+                                  rid, cfg.seed, codes, g, wins, dtype=dtype)
+
+        g = 2.0 * rad
+        got, ref = k2(g), k2_plain(g)
+        stats = dict(d_ktab_all_lanes=norm_rel(got[0], ref[0]),
+                     spheres_reached=int((got[0].abs().sum(0) > 0).sum()))
+        if size is FULL:
+            checked = agree_all(got, ref, check=False)
+            stats["plain"] = brief(checked)
+            k_ms, p_ms = _cuda_ms(lambda: k2(g), 5), _cuda_ms(
+                lambda: k2_plain(g), 1)
+            how = (f"all lanes: {json.dumps(stats)}; replay_bwd_fused "
+                   f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, {int(seg.sum())} "
+                   f"segments (median; {smi})")
+        else:
+            edge = checks.edge_lanes(scene, static, cfg, o, d, t, rid, codes,
+                                     wins)
+            g = g * (~edge).to(g.dtype)[:, None]
+            got, ref = k2(g), k2_plain(g)
+            checked = (agree_all(got, ref, check=False)
+                       + agree_all(got, k2_plain(g, torch.float64),
+                                   check=False))
+            stats.update(held_out=int(edge.sum()),
+                         budget=max(4, n // HELD_OUT),
+                         plain=brief(checked[:len(checked) // 2]),
+                         float64=brief(checked[len(checked) // 2:]))
+            how = f"cell-edge lanes held out: {json.dumps(stats)}"
+        print(f"phase 14 K2 vs plain many_spheres ({static.n_spheres} "
+              f"spheres, d(ktab) by warp-aggregated global atomics) "
+              f"{cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} depth "
+              f"{cfg.max_depth}, {how}", flush=True)
+        if (shared or stats["spheres_reached"] < 100
+                or stats.get("held_out", 0) > max(4, n // HELD_OUT)):
+            raise AssertionError(f"many_spheres K2: shared {shared}: {stats}")
+        if not all(s_["ok"] for s_ in checked):
+            raise AssertionError(f"many_spheres K2 vs plain outside budgets: "
+                                 f"{checked}")
 
 
 if __name__ == "__main__":

@@ -25,8 +25,14 @@ class RenderConfig:
       use_log10_volume_sampling: the reference's log10 constant-medium
         distance quirk (True: -1/density * log10(U); False: the standard
         ln). Both the staged path and the fused kernel obey it.
-      use_pallas: kept for field parity with the JAX config. The port does
-        not read it: its dispatch follows the scene's device.
+      use_pallas: the hand-written kernels, as the JAX config's flag selects
+        its Pallas kernels. True: the staged path's closest hit runs the
+        kernels K10-K12 on any device (on the CPU their forward is the
+        plain version, their backward the winner's recompute); "auto":
+        those kernels on CUDA, the plain brute force on the CPU; False: the
+        plain brute force on any device, and `render_image` and
+        `InverseRenderer` take the staged path instead of the fused
+        megakernel. The fused megakernel runs on CUDA only.
     """
 
     width: int = 400

@@ -40,8 +40,11 @@
 // land on the few columns of the ground sphere. Every block therefore
 // accumulates into its own copy of d(ktab) in shared memory (KT * S * 4
 // bytes, 37 KB for jumpy_balls) with shared-memory atomics, skipping zeros,
-// and adds each nonzero entry of that copy to global memory once; the
-// wrapper raises when the copy does not fit the opt-in shared-memory limit.
+// and adds each nonzero entry of that copy to global memory once (kKShared).
+// A table whose copy does not fit the opt-in shared-memory limit (more than
+// 3,058 spheres on an H100) is reduced as the mesh's d(ptab) is below: each
+// warp groups its lanes by sphere, sums each group's values by shuffles,
+// and one lane per group adds the nonzero sums to global memory.
 // d(ptab) takes the same shared copy when both fit (kPShared: cornell_box,
 // 30 primitives, 3.8 KB, its hits piled on six wall columns). A mesh's
 // table does not fit (the cow: 5,805 primitives x 32 rows x 4 B = 743 KB
@@ -351,7 +354,27 @@ __device__ __forceinline__ void add_column(float* __restrict__ dst, int NR,
   }
 }
 
-template <bool kSph, bool kPla, bool kPShared, bool kDefer, bool kDeferNoise>
+// Adds this lane's column `cv` of d(ktab), at sphere s, to global memory as
+// add_column does for d(ptab): once per distinct sphere among the lanes of
+// the warp that arrive together. The rows that are zero by construction
+// (mtype, ttype, tscale) are skipped.
+__device__ __forceinline__ void add_sphere_column(float* __restrict__ dst,
+                                                  int S, int s,
+                                                  const float (&cv)[KT]) {
+  namespace cg = cooperative_groups;
+  const cg::coalesced_group peers =
+      cg::labeled_partition(cg::coalesced_threads(), s);
+  const bool lead = peers.thread_rank() == 0;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j == MTYPE || j == TTYPE || j == TSCALE) continue;
+    const float sum = cg::reduce(peers, cv[j], cg::plus<float>());
+    if (lead && sum != 0.f) atomicAdd(dst + (long long)j * S + s, sum);
+  }
+}
+
+template <bool kSph, bool kPla, bool kPShared, bool kDefer, bool kDeferNoise,
+          bool kKShared>
 __global__ void __launch_bounds__(kBlock)
 replay_bwd_kernel(const float* __restrict__ tab,
                   const float* __restrict__ ptab,
@@ -368,7 +391,8 @@ replay_bwd_kernel(const float* __restrict__ tab,
   extern __shared__ float smem[];
   const int S = L.n_spheres;
   const int NR = L.n_planar;
-  const int n_tab = KT * S;
+  // d(ktab) in shared memory (kKShared) or by global atomics.
+  const int n_tab = kKShared ? KT * S : 0;
   float* __restrict__ sdt = smem;          // this block's d(ktab)
   float* __restrict__ sbg = smem + n_tab;  // this block's d_background
   float* __restrict__ spt = smem + n_tab + 3;  // its d(ptab), kPShared
@@ -691,20 +715,44 @@ replay_bwd_kernel(const float* __restrict__ tab,
         ccz -= cocz;
         ctime += b.bx * ccx + b.by * ccy + b.bz * ccz;
 
-        acc(sdt, S, AX, s, ccx);
-        acc(sdt, S, AY, s, ccy);
-        acc(sdt, S, AZ, s, ccz);
-        acc(sdt, S, BX, s, time * ccx);
-        acc(sdt, S, BY, s, time * ccy);
-        acc(sdt, S, BZ, s, time * ccz);
-        acc(sdt, S, R, s, c_r);
-        acc(sdt, S, R2, s, -cct);
-        acc(sdt, S, FUZZ, s, cfuzz);
-        acc(sdt, S, IOR, s, cior);
-        const int c = b.use2 ? C2R : C1R;
-        acc(sdt, S, c + 0, s, ctexr);
-        acc(sdt, S, c + 1, s, ctexg);
-        acc(sdt, S, c + 2, s, ctexb);
+        if constexpr (kKShared) {
+          acc(sdt, S, AX, s, ccx);
+          acc(sdt, S, AY, s, ccy);
+          acc(sdt, S, AZ, s, ccz);
+          acc(sdt, S, BX, s, time * ccx);
+          acc(sdt, S, BY, s, time * ccy);
+          acc(sdt, S, BZ, s, time * ccz);
+          acc(sdt, S, R, s, c_r);
+          acc(sdt, S, R2, s, -cct);
+          acc(sdt, S, FUZZ, s, cfuzz);
+          acc(sdt, S, IOR, s, cior);
+          const int c = b.use2 ? C2R : C1R;
+          acc(sdt, S, c + 0, s, ctexr);
+          acc(sdt, S, c + 1, s, ctexg);
+          acc(sdt, S, c + 2, s, ctexb);
+        } else {
+          float kv[KT];  // this bounce's column of d(ktab)
+          kv[AX] = ccx;
+          kv[AY] = ccy;
+          kv[AZ] = ccz;
+          kv[BX] = time * ccx;
+          kv[BY] = time * ccy;
+          kv[BZ] = time * ccz;
+          kv[R] = c_r;
+          kv[R2] = -cct;
+          kv[MTYPE] = 0.f;
+          kv[FUZZ] = cfuzz;
+          kv[IOR] = cior;
+          kv[TTYPE] = 0.f;
+          kv[C1R] = b.use2 ? 0.f : ctexr;
+          kv[C1G] = b.use2 ? 0.f : ctexg;
+          kv[C1B] = b.use2 ? 0.f : ctexb;
+          kv[C2R] = b.use2 ? ctexr : 0.f;
+          kv[C2G] = b.use2 ? ctexg : 0.f;
+          kv[C2B] = b.use2 ? ctexb : 0.f;
+          kv[TSCALE] = 0.f;
+          add_sphere_column(dtab, S, s, kv);
+        }
       }
     }
     d_o[3 * i + 0] = cox;
@@ -740,10 +788,12 @@ struct Args {
   float *scratch, *dtab, *dptab, *d_o, *d_d, *d_time, *d_bg;
 };
 
-template <bool kSph, bool kPla, bool kPShared, bool kDefer, bool kDeferNoise>
+template <bool kSph, bool kPla, bool kPShared, bool kDefer, bool kDeferNoise,
+          bool kKShared>
 int launch(const Args& a, const Launch& L, long long smem,
            cudaStream_t stream) {
-  auto* kernel = replay_bwd_kernel<kSph, kPla, kPShared, kDefer, kDeferNoise>;
+  auto* kernel =
+      replay_bwd_kernel<kSph, kPla, kPShared, kDefer, kDeferNoise, kKShared>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -755,14 +805,17 @@ int launch(const Args& a, const Launch& L, long long smem,
 }
 
 // The family instantiation, dispatched on the deferred-texture flags.
-template <bool kSph, bool kPla, bool kPShared>
+template <bool kSph, bool kPla, bool kPShared, bool kKShared = true>
 int launch_tex(const Args& a, bool defer, const Launch& L, long long smem,
                cudaStream_t stream) {
   if (!defer)
-    return launch<kSph, kPla, kPShared, false, false>(a, L, smem, stream);
+    return launch<kSph, kPla, kPShared, false, false, kKShared>(a, L, smem,
+                                                                stream);
   if (a.cabc)
-    return launch<kSph, kPla, kPShared, true, true>(a, L, smem, stream);
-  return launch<kSph, kPla, kPShared, true, false>(a, L, smem, stream);
+    return launch<kSph, kPla, kPShared, true, true, kKShared>(a, L, smem,
+                                                              stream);
+  return launch<kSph, kPla, kPShared, true, false, kKShared>(a, L, smem,
+                                                             stream);
 }
 
 }  // namespace bwd
@@ -771,7 +824,8 @@ int launch_tex(const Args& a, bool defer, const Launch& L, long long smem,
 extern "C" {
 
 // Shared memory the kernel needs for S spheres and, when d(ptab) is kept in
-// shared memory, R planar primitives (else pass 0), in bytes.
+// shared memory, R planar primitives (else pass 0), in bytes; pass S = 0
+// when d(ktab) is reduced by global atomics.
 long long rtw_replay_bwd_smem_bytes(int n_spheres, int n_planar_shared) {
   return ((long long)rtw::bwd::KT * n_spheres + 3 +
           (long long)rtw::bwd::KP * n_planar_shared) * (long long)sizeof(float);
@@ -790,15 +844,17 @@ int rtw_replay_bwd_smem_limit(int* bytes) {
 // Runs the replay backward for n lanes on `stream`: sphere table `ktab`
 // (KT x n_spheres) and planar table `ptab` (KP x n_planar), either count 0
 // (and its table unused) but not both. `dtab`, `dptab` and `d_bg` must be
-// zero on entry: the kernel adds into them. With `planar_shared` each
-// block reduces d(ptab) in shared memory, else by warp-aggregated global
-// atomics. `scratch` holds max_depth * 9 * n floats. With `defer` the
+// zero on entry: the kernel adds into them. With `sphere_shared` each block
+// reduces d(ktab) in shared memory, and with `planar_shared` (which needs
+// `sphere_shared` when the scene has spheres) d(ptab) too; else each by
+// warp-aggregated global atomics. `scratch` holds max_depth * 9 * n floats. With `defer` the
 // cotangent `g` is per bounce (n x max_depth x 3) and noise and image texels
 // are 1.0 (K7); a non-null `cabc` (n x max_depth x 3) then adds to the noise
 // records' hit points. Returns the first CUDA error (0 on success); it does
 // not sync.
 int rtw_replay_bwd(const float* ktab, int n_spheres, const float* ptab,
-                   int n_planar, int planar_shared, const float* bg,
+                   int n_planar, int sphere_shared, int planar_shared,
+                   const float* bg,
                    const float* o, const float* d, const float* time,
                    const int* ray_id, const int* codes, const float* g,
                    const float* cabc, int defer, int n, int max_depth,
@@ -809,12 +865,19 @@ int rtw_replay_bwd(const float* ktab, int n_spheres, const float* ptab,
   if (n <= 0) return 0;
   if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
   if (cabc && !defer) return (int)cudaErrorInvalidValue;
+  if (n_spheres > 0 && planar_shared && !sphere_shared)
+    return (int)cudaErrorInvalidValue;
   const Launch L{n, n_spheres, n_planar, max_depth, t_min, seed};
   const Args a{ktab, ptab, bg, o, d, time, ray_id, codes, g, cabc,
                scratch, dtab, dptab, d_o, d_d, d_time, d_bg};
-  const long long smem =
-      rtw_replay_bwd_smem_bytes(n_spheres, planar_shared ? n_planar : 0);
+  const long long smem = rtw_replay_bwd_smem_bytes(
+      sphere_shared ? n_spheres : 0, planar_shared ? n_planar : 0);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (n_spheres > 0 && !sphere_shared) {
+    if (n_planar == 0)
+      return launch_tex<true, false, true, false>(a, defer, L, smem, st);
+    return launch_tex<true, true, false, false>(a, defer, L, smem, st);
+  }
   if (n_planar == 0)
     return launch_tex<true, false, true>(a, defer, L, smem, st);
   if (n_spheres == 0) {

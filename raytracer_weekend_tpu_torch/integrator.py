@@ -10,18 +10,33 @@ re-associated into the iterative form
 
 carried through a loop over bounce depth with SoA ray state. A miss adds
 `throughput * background` and stops the lane; a light or an absorbing metal
-stops it too. Each family's staged kernel gives its closest candidate per
-ray, and the families merge in the JAX order (spheres, rects, triangles)
-with a strict `<`, so on an exact tie the earlier family keeps the lane.
+stops it too. Each family gives its closest candidate per ray, and the
+families merge in the JAX order (spheres, rects, triangles, media) with a
+strict `<`, so on an exact tie the earlier family keeps the lane.
+
+The closest hit of spheres, rects and triangles follows `cfg.use_pallas`,
+as the JAX package's does (`_kernels_on`):
+  * True: the closest-hit kernels K10-K12 (`ops.cuda.sphere_intersect`,
+    `rect_intersect`, `triangle_intersect`), each a torch.autograd.Function
+    whose backward re-derives the winner's t on its gathered row; on CPU
+    tensors their forward is the plain version;
+  * "auto" (the default): those kernels on CUDA, the plain brute force
+    (`ops.sphere`, `ops.rect`, `ops.triangle`) on the CPU;
+  * False: the plain brute force on any device. A plain reference that
+    traces the staged path on a card passes it.
+Media always take `ops.volume.hit_volumes`: JAX has no kernel for them.
 
 `render_image` dispatches on the scene's device:
-  * CUDA, and `fused_supported`: the hand-written CUDA megakernel
+  * CUDA, and `fused_eligible`: the hand-written CUDA megakernel
     (`ops.cuda.megakernel.render_fused`; a whole frame at `max_depth >= 16`
     renders in depth phases with compaction between them,
-    `render_fused_deep`). A build, load or launch failure raises; nothing
-    falls back to the plain path.
-  * CPU: the plain staged path below (`render_chunk`).
-  * CUDA, scene outside the slice: `NotImplementedError`.
+    `render_fused_deep`).
+  * CUDA, any other scene (a uv-debug sphere, a medium with a checker
+    albedo, ...): the staged path (`render_chunk`) in `cfg.ray_batch`
+    chunks, with K10-K12 under "auto".
+  * CPU: the plain staged path.
+A build, load or launch failure raises; nothing falls back to the plain
+path.
 """
 
 from __future__ import annotations
@@ -48,24 +63,40 @@ _INF = math.inf
 _FAM_NONE, _FAM_SPHERE, _FAM_RECT, _FAM_TRI, _FAM_VOL = -1, 0, 1, 2, 3
 
 
+def _kernels_on(cfg: RenderConfig, device: torch.device | str) -> bool:
+    """The closest-hit kernels K10-K12 take this render (the JAX
+    `pallas_on`): `use_pallas` True, or "auto" on a CUDA device."""
+    return cfg.use_pallas is True or (
+        cfg.use_pallas == "auto" and torch.device(device).type == "cuda")
+
+
 def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
                  cfg: RenderConfig, seed, ray_id, depth):
-    """Closest hit over the families -> (t, fam, idx) per ray. A medium's
-    scatter candidate draws from (seed, ray_id, depth) and merges last."""
+    """Closest hit over the families -> (t, fam, idx int64) per ray. A
+    medium's scatter candidate draws from (seed, ray_id, depth) and merges
+    last."""
     B = o.shape[0]
     t_best = torch.full((B,), _INF, device=o.device)
     fam = torch.full((B,), _FAM_NONE, dtype=torch.int32, device=o.device)
     idx = torch.zeros((B,), dtype=torch.int64, device=o.device)
+    if _kernels_on(cfg, o.device):
+        from raytracer_weekend_tpu_torch.ops.cuda import (
+            rect_intersect, sphere_intersect, triangle_intersect)
+
+        hit_s = sphere_intersect.hit_spheres_kernel
+        hit_r = rect_intersect.hit_rects_kernel
+        hit_t = triangle_intersect.hit_triangles_kernel
+    else:
+        hit_s, hit_r = sphere_ops.hit_spheres, rect_ops.hit_rects
+        hit_t = tri_ops.hit_triangles
     hits = []
     if static.n_spheres:
-        hits.append((_FAM_SPHERE, sphere_ops.hit_spheres(
-            scene.spheres, o, d, time, cfg.t_min)))
+        hits.append((_FAM_SPHERE, hit_s(scene.spheres, o, d, time,
+                                        cfg.t_min)))
     if static.n_rects:
-        hits.append((_FAM_RECT, rect_ops.hit_rects(scene.rects, o, d,
-                                                   cfg.t_min)))
+        hits.append((_FAM_RECT, hit_r(scene.rects, o, d, cfg.t_min)))
     if static.n_triangles:
-        hits.append((_FAM_TRI, tri_ops.hit_triangles(scene.triangles, o, d,
-                                                     cfg.t_min)))
+        hits.append((_FAM_TRI, hit_t(scene.triangles, o, d, cfg.t_min)))
     if static.n_volumes:
         hits.append((_FAM_VOL, vol_ops.hit_volumes(
             scene.volumes, o, d, cfg.t_min, seed, ray_id, depth,
@@ -74,7 +105,7 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
         better = t_new < t_best
         t_best = torch.where(better, t_new, t_best)
         fam = torch.where(better, fam_id, fam)
-        idx = torch.where(better, i_new, idx)
+        idx = torch.where(better, i_new.long(), idx)   # the kernels' int32
     return t_best, fam, idx
 
 
@@ -297,10 +328,13 @@ from raytracer_weekend_tpu_torch.replay import replay_rays  # noqa: E402, F401
 
 def fused_eligible(static: SceneStatic, cfg: RenderConfig,
                    device: torch.device | str) -> bool:
-    """True when the CUDA megakernel renders this scene on `device`."""
+    """True when the CUDA megakernel renders this scene on `device`: a card,
+    `fused_supported`, and kernels not turned off (`use_pallas` False), as
+    the JAX `fused_eligible` requires `pallas_on`."""
     from raytracer_weekend_tpu_torch.ops.cuda.megakernel import fused_supported
 
-    return torch.device(device).type == "cuda" and fused_supported(static, cfg)
+    return (torch.device(device).type == "cuda"
+            and cfg.use_pallas is not False and fused_supported(static, cfg))
 
 
 def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
@@ -308,17 +342,14 @@ def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     """Full-frame render -> (H, W, 3) accumulated color SUMS over spp.
 
     Runs on the scene's device; the camera must be on it too. Divide by spp
-    and gamma-correct with `utils.image.tone_map`.
+    and gamma-correct with `utils.image.tone_map`. On a card a scene that
+    `fused_eligible` admits takes the megakernel, any other the staged path
+    (with K10-K12 unless `use_pallas` is False), in `cfg.ray_batch` chunks.
     """
     device = scene.device
     n_lanes = cfg.n_rays
     batch = cfg.ray_batch or n_lanes
     use_fused = fused_eligible(static, cfg, device)
-    if device.type == "cuda" and not use_fused:
-        raise NotImplementedError(
-            "on CUDA the port renders sphere, rect, triangle and constant-"
-            "medium scenes with Lambertian/Metal/Dielectric/DiffuseLight "
-            f"materials; this scene is outside that slice ({static})")
 
     chunks = []
     for start in range(0, n_lanes, batch):

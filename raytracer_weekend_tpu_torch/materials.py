@@ -60,10 +60,8 @@ def scatter(materials: MaterialTable, textures: tex_mod.TextureTable,
     caller (the fused render's deferred-texture records).
     """
     mat_id = mat_id.long()
-    mtype = materials.mtype[mat_id]
-    fuzz = materials.fuzz[mat_id]
-    ior = materials.ior[mat_id]
-    tex_id = materials.tex[mat_id]
+    mtype, fuzz, ior, tex_id = (tex_mod._rows(x, mat_id) for x in (
+        materials.mtype, materials.fuzz, materials.ior, materials.tex))
     tex_color = tex_mod.texture_value(
         textures, tex_id, u, v, p,
         has_noise=has_noise and not defer, has_image=has_image and not defer)

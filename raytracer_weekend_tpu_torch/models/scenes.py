@@ -1,15 +1,16 @@
-"""The catalog's scenes but the textured monument (port of `models/scenes.py`).
+"""The catalog's scenes (port of `models/scenes.py`).
 
 Each generator returns (objects, cameras, background), with the same
 geometry, materials, camera parameters and seeded numpy draws as the JAX
 package's, so both builders compile them to bit-equal tables. The
 earthmap's texels come from `assets/earthmap.npz`, the JPEG of `models/`
 decoded once with Pillow, so a machine without Pillow renders the same
-texels. The textured monument waits for its texture (ROADMAP item 13b).
+texels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -272,6 +273,23 @@ def wavefront_suspension_obj(aspect, seed=0):
     return objs, [cam], _DIM_SKY
 
 
+def textured_monument(aspect, seed=0):
+    """The monument OBJ + MTL under an area light. Its diffuse PNG is absent
+    from the repository (as from the reference's checkout), so the loader
+    substitutes a neutral gray, as the JAX package's scene does."""
+    monument = load_wavefront_obj(
+        model_path("monument_downscaled_polygon_reduced.obj"),
+        missing_texture_fallback=(0.6, 0.6, 0.6))
+    monument = [t.translate((0.0, 0.0, -19.0)) for t in monument]
+    objs = [
+        B.XYRectangle(-15.0, 15.0, -17.0, 17.0, 33.0,
+                      B.DiffuseLight((1.2, 1.0, 1.0))),
+        monument,
+    ]
+    cam = _cam((-5, -30, 25), (0, 0, 5), 40.0, aspect, up=(1, 0, 0))
+    return objs, [cam], _DIM_SKY
+
+
 def mesh_shards(aspect, seed=0):
     """Not a catalog scene: the smooth-normal mesh of the JAX package's
     tests (tests/test_megakernel.py, `mesh_scene`), 40 random triangles with
@@ -314,6 +332,53 @@ def sphere_medium(aspect, seed=0):
     return objs, [cam], (0.02, 0.02, 0.03)
 
 
+def jumpy_balls_uvdebug(aspect, seed=0):
+    """Not a catalog scene: jumpy_balls with a uv-debug ground. The fused
+    megakernel takes uv-debug textures on planar primitives only, so this
+    scene renders and fits on a card through the staged path, its closest
+    hits on kernel K10."""
+    objs, cams, bg = jumpy_balls(aspect, seed)
+    objs[0] = dataclasses.replace(objs[0],
+                                  material=B.Lambertian(B.UVDebug()))
+    return objs, cams, bg
+
+
+def smokey_checker_medium(aspect, seed=0):
+    """Not a catalog scene: smokey_cornell_box with the second medium's
+    albedo a checker. The fused megakernel takes media with solid albedos
+    only, so this scene renders on a card through the staged path: kernel
+    K11 for the walls, the plain medium test for the smoke."""
+    objs, cams, bg = smokey_cornell_box(aspect, seed)
+    objs[-1] = dataclasses.replace(objs[-1], texture=_checker())
+    return objs, cams, bg
+
+
+def many_spheres(aspect, seed=0):
+    """Not a catalog scene: 3,969 small spheres on a 63 x 63 grid over the
+    ground sphere, about 4,000 in all: more than the 3,058 whose d(ktab)
+    fits one block's shared memory in the replay backward (K2), which then
+    reduces it by global atomics. The ground is jumpy_balls' checker, the
+    small spheres' materials are drawn as jumpy_balls' (Lambertian, metal,
+    glass) in solid colors."""
+    rng = np.random.default_rng(seed)
+    objs = [B.Sphere((0, -1000, 0), 1000.0, B.Lambertian(_checker()))]
+    for a in np.linspace(-9.0, 9.0, 63):
+        for b in np.linspace(-9.0, 9.0, 63):
+            center = (float(a + 0.1 * rng.random()), 0.12,
+                      float(b + 0.1 * rng.random()))
+            choose = rng.random()
+            if choose < 0.75:
+                mat = B.Lambertian(tuple(rng.random(3) * rng.random(3)))
+            elif choose < 0.92:
+                mat = B.Metal(tuple(rng.uniform(0.5, 1.0, 3)),
+                              rng.uniform(0.0, 0.5))
+            else:
+                mat = B.Dielectric(1.5)
+            objs.append(B.Sphere(center, 0.12, mat))
+    return objs, [_cam((13, 2, 3), (0, 0, 0), 20.0, aspect)], \
+        DEFAULT_BACKGROUND
+
+
 SCENES = {
     "jumpy_balls": jumpy_balls,
     "two_spheres": two_spheres,
@@ -327,6 +392,7 @@ SCENES = {
     "simple_triangle": simple_triangle,
     "wavefront_cow_obj": wavefront_cow_obj,
     "wavefront_suspension_obj": wavefront_suspension_obj,
+    "textured_monument": textured_monument,
 }
 
 

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("megakernel.cu", "megakernel_vp.cu", "replay_bwd.cu",
-           "perlin_turb.cu")
+           "perlin_turb.cu", "intersect.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -107,9 +107,9 @@ def load_library() -> ctypes.CDLL:
                                          _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P]
         lib.rtw_render_fused.restype = _I
-        lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P,
-                                       _P, _P, _P, _P, _I, _I, _I, _F, _U,
-                                       _P, _P, _P, _P, _P, _P, _P, _P]
+        lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P, _P,
+                                       _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                       _U, _P, _P, _P, _P, _P, _P, _P, _P]
         lib.rtw_replay_bwd.restype = _I
         lib.rtw_replay_bwd_smem_bytes.argtypes = [_I, _I]
         lib.rtw_replay_bwd_smem_bytes.restype = _LL
@@ -120,6 +120,14 @@ def load_library() -> ctypes.CDLL:
         lib.rtw_turbulence_vjp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P,
                                            _P, _P]
         lib.rtw_turbulence_vjp.restype = _I
+        lib.rtw_hit_spheres.argtypes = [_P, _P, _P, _P, _I, _P, _I, _F, _P,
+                                        _P, _P]
+        lib.rtw_hit_rects.argtypes = [_P, _P, _I, _P, _I, _F, _P, _P, _P]
+        lib.rtw_hit_triangles.argtypes = [_P, _P, _P, _I, _P, _I, _F, _P, _P,
+                                          _P]
+        for fn in (lib.rtw_hit_spheres, lib.rtw_hit_rects,
+                   lib.rtw_hit_triangles):
+            fn.restype = _I
         lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
         lib.rtw_rand4.restype = _I
         lib.rtw_error_string.argtypes = [_I]
@@ -133,3 +141,36 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.rtw_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch_closest_hit(entry: str, rays, tab, t_min: float):
+    """One launch of a closest-hit kernel (K10-K12), the C function `entry`
+    -> (t (n,) f32, +inf on a miss; idx (n,) int32).
+
+    `rays` are the per-ray operands in the C entry's order, each with n rows;
+    `tab` is the (rows, P) table. Every operand must be a contiguous float32
+    tensor on one CUDA device: anything else raises, as does a failed launch.
+    """
+    import torch
+
+    device = tab.device
+    n = rays[0].shape[0]
+    for x in (*rays, tab):
+        if (x.dtype != torch.float32 or x.device != device
+                or device.type != "cuda" or not x.is_contiguous()):
+            raise ValueError(f"{entry}: every operand must be a contiguous "
+                             f"float32 CUDA tensor on one device; got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if any(x.shape[0] != n for x in rays) or n >= 2**31 or tab.shape[1] < 1:
+        raise ValueError(f"{entry}: rays of {[tuple(x.shape) for x in rays]}"
+                         f" against a table of {tuple(tab.shape)}")
+    t = torch.empty((n,), dtype=torch.float32, device=device)
+    idx = torch.empty((n,), dtype=torch.int32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*(x.data_ptr() for x in rays), n,
+                                  tab.data_ptr(), tab.shape[1], float(t_min),
+                                  t.data_ptr(), idx.data_ptr(), stream)
+    check(lib, err, f"{entry} launch")
+    return t, idx

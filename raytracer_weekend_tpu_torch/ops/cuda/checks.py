@@ -1,0 +1,151 @@
+"""Checks of the CUDA kernels against their plain versions on a card, shared
+by `chip_smoke.py` (phase 14) and `tests/test_torch_cuda.py`.
+
+  * `random_hit_case` and `hit_budgets`: the closest-hit kernels K10-K12
+    on random tables, and the budgets that hold them to the plain brute
+    force;
+  * `edge_lanes`: the lanes of a replay whose radiance the float64 plain
+    replay moves under a one-ulp move of the rays, where the replay
+    backward (K2) and its plain version may each pick their own checker
+    cell.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytracer_weekend_tpu_torch import replay
+from raytracer_weekend_tpu_torch.scene import data
+
+# K10-K12 against their plain versions: idx equal but on near-ties, where
+# |t_k - t_p| <= HIT_RTOL * max(1, |t_p|), at most n // TIE_LANES of them;
+# beyond that tolerance where both hit, or hit against miss, at most
+# n // OFF_LANES lanes (the expanded quadratic of a large sphere cancels).
+HIT_RTOL, TIE_LANES, OFF_LANES = 1e-5, 1000, 10000
+# A lane's replayed radiance "moves" when a channel changes by more than
+# EDGE_REL of the lane's largest channel; edge_lanes moves the rays
+# EDGE_DRAWS times.
+EDGE_REL, EDGE_DRAWS = 1e-4, 4
+
+
+def random_hit_case(kind: str, device, n: int):
+    """(table, (o, d, time)) on `device`: n random rays aimed into a random
+    table of `kind` (spheres: a moving one every 50, a hollow one every 40;
+    rects of all three axes; triangles), 5% of the rows invalid, the first
+    6 rays axis-parallel (rays parallel to the planes of two rect axes)."""
+    g = np.random.default_rng(14)
+    if kind == "spheres":
+        P = 500
+        c0 = g.normal(size=(P, 3)) * 4
+        c1 = c0.copy()
+        c1[::50] += (0.5, 0.2, 0.0)
+        r = g.uniform(0.2, 1.0, P)
+        r[1::40] *= -1.0
+        cols = [c0, c1, np.zeros(P), np.ones(P), r, np.zeros(P, np.int32)]
+        centers = c0
+    elif kind == "rects":
+        P = 300
+        lo = g.uniform(-5, 3, (P, 2))
+        hi = lo + g.uniform(0.5, 2, (P, 2))
+        cols = [(np.arange(P) % 3).astype(np.int32), lo[:, 0], hi[:, 0],
+                lo[:, 1], hi[:, 1], g.uniform(-5, 5, P),
+                np.zeros(P, np.int32)]
+        centers = g.uniform(-4, 4, (P, 3))
+    else:
+        P = 3000
+        v = g.normal(size=(P, 1, 3)) * 4 + g.normal(size=(P, 3, 3))
+        nrm = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+        uv = np.zeros((P, 2))
+        cols = [v[:, 0], v[:, 1], v[:, 2], nrm, nrm, nrm, uv, uv, uv,
+                np.zeros(P, np.int32)]
+        centers = v.mean(1)
+    cols = [torch.from_numpy(c if c.dtype == np.int32
+                             else c.astype(np.float32)) for c in cols]
+    cols.append(torch.from_numpy(g.random(P) > 0.05))
+    typ = {"spheres": data.Spheres, "rects": data.Rects,
+           "triangles": data.Triangles}[kind]
+    tgt = centers[g.integers(0, P, n)] + g.normal(size=(n, 3)) * 0.5
+    o = tgt + g.normal(size=(n, 3)) * 10
+    d = tgt - o
+    d[:6] = np.concatenate([np.eye(3), -np.eye(3)])
+    o[:6] = tgt[:6] - 8 * d[:6]
+    return typ(*cols).to(device), tuple(
+        torch.from_numpy(x.astype(np.float32)).to(device)
+        for x in (o, d, g.random(n)))
+
+
+def hit_budgets(t_k, i_k, t_p, i_p) -> dict:
+    """A closest-hit kernel's (t, idx) against its plain version's -> stats,
+    `ok` false when a budget above is exceeded or two misses disagree on
+    idx (both give 0)."""
+    n = t_p.shape[0]
+    fk, fp = torch.isfinite(t_k), torch.isfinite(t_p)
+    both = fk & fp
+    diff = (t_k - t_p).abs()
+    close = both & (diff <= HIT_RTOL * t_p.abs().clamp_min(1.0))
+    other = i_k.long() != i_p.long()
+    far = both & ~close
+    stats = dict(rays=n, hits=int(both.sum()),
+                 near_ties=int((close & other).sum()),
+                 tie_budget=max(4, n // TIE_LANES),
+                 t_beyond_tol=int(far.sum()),
+                 hit_vs_miss=int((fk != fp).sum()),
+                 off_budget=max(4, n // OFF_LANES),
+                 idx_differs_on_misses=int((other & ~fk & ~fp).sum()),
+                 max_abs_err=float(diff[both].max()) if bool(both.any())
+                 else 0.0)
+    if far.any():
+        j = int(torch.nonzero(far)[0, 0])
+        stats["first_beyond"] = dict(lane=j, t_kernel=float(t_k[j]),
+                                     t_plain=float(t_p[j]),
+                                     idx_kernel=int(i_k[j]),
+                                     idx_plain=int(i_p[j]))
+    stats["ok"] = (stats["near_ties"] <= stats["tie_budget"]
+                   and stats["t_beyond_tol"] + stats["hit_vs_miss"]
+                   <= stats["off_budget"]
+                   and not stats["idx_differs_on_misses"])
+    return stats
+
+
+def _replay(scene, static, cfg, o, d, t, rid, codes, windows, dtype):
+    """`replay.replay_rays` in lane windows with every float in `dtype`."""
+    leaves = [le.to(dtype) if le.is_floating_point() else le
+              for le in scene.leaves()]
+    scene = data.SceneData.from_leaves(leaves)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        with torch.no_grad():
+            return torch.cat([replay.replay_rays(
+                scene, static, cfg, o[w].to(dtype), d[w].to(dtype),
+                t[w].to(dtype), rid[w], cfg.seed, codes[w]) for w in windows])
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def edge_lanes(scene, static, cfg, o, d, t, rid, codes, windows):
+    """(n,) bool: the lanes whose radiance along `codes`, replayed by the
+    plain replay in float64, moves when the rays o and d move by one
+    float32 ulp (each component up or down at random; EDGE_DRAWS times), or
+    which the float32 plain replay gives apart from it. A hit point within
+    rounding of a checker cell edge: each float32 version picks its side
+    for itself, and a lane whose cell flips sends its cotangent to the
+    other color."""
+    ref = _replay(scene, static, cfg, o, d, t, rid, codes, windows,
+                  torch.float64)
+
+    def moved(rad):
+        top = ref.abs().amax(dim=1, keepdim=True)
+        return ((rad.double() - ref).abs() > EDGE_REL * top).any(dim=1)
+
+    out = moved(_replay(scene, static, cfg, o, d, t, rid, codes, windows,
+                        torch.float32))
+    gen = torch.Generator(device=o.device).manual_seed(13)
+    for _ in range(EDGE_DRAWS):
+        jit = [x.double() * (1.0 + 2.0 ** -23 * (2 * torch.randint(
+            0, 2, x.shape, device=x.device, generator=gen) - 1))
+            for x in (o, d)]
+        out |= moved(_replay(scene, static, cfg, *jit, t, rid, codes,
+                             windows, torch.float64))
+    return out

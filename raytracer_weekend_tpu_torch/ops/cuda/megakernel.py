@@ -43,6 +43,8 @@ thread carries a lane and reads table rows by index.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from raytracer_weekend_tpu_torch import integrator, replay
@@ -225,7 +227,8 @@ def records_reference(scene: SceneData, cfg: RenderConfig, cam: Camera,
                       lane_start: int, n_chunk: int, seed, *,
                       static: SceneStatic, emit_paths: bool = False):
     """Plain torch version of `render_fused_records` (the staged path,
-    `integrator.trace_lanes`)."""
+    `integrator.trace_lanes`, with the plain brute-force closest hit)."""
+    cfg = dataclasses.replace(cfg, use_pallas=False)
     ids = lane_start + torch.arange(n_chunk, dtype=torch.int64,
                                     device=scene.device)
     o, d, time, ray_id = integrator._pixel_rays(cam, cfg, ids, seed)
@@ -510,7 +513,9 @@ def phase_reference(scene: SceneData, cfg: RenderConfig, cam: Camera,
     """Plain torch version of one phased launch: bounces d0 .. d0 +
     max_depth - 1 of the lanes with global ids `lanes`, from their primary
     rays (`state` None) or from `state` (n, 15) -> (rad, seg, [ctb, abc,
-    dcode], state (n, 15)), `integrator.trace_lanes` with d0 and a carry."""
+    dcode], state (n, 15)), `integrator.trace_lanes` with d0 and a carry
+    and the plain brute-force closest hit."""
+    cfg = dataclasses.replace(cfg, use_pallas=False)
     if state is None:
         o, d, time, ray_id = integrator._pixel_rays(cam, cfg, lanes.long(),
                                                     seed)
@@ -553,8 +558,6 @@ def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
     spared XLA recompiles: here each phase runs on exactly the live lanes.
     On the CPU, or with `plain`, each phase is `phase_reference`.
     """
-    import dataclasses
-
     dev = scene.device
     plain = plain or dev.type == "cpu"
     D, n = cfg.max_depth, int(n_chunk)

@@ -1,0 +1,91 @@
+"""Closest axis-aligned rect per ray: kernel K11, inside a torch.autograd.Function.
+
+Counterpart of `raytracer_weekend_tpu/ops/pallas/rect_intersect.py`.
+`hit_rects_kernel(rc, o, d, t_min)` returns (t (B,) f32, +inf on a miss;
+idx (B,) int32, the lowest row among equal t, 0 on a miss):
+
+  * forward: on CUDA tensors the hand-written kernel K11
+    (`csrc/intersect.cu` `hit_rects_kernel`), which raises if an operand is
+    not float32 or the launch fails; on CPU tensors the plain version
+    `ops.rect.hit_rects`, what the kernel is held against on the card;
+  * backward: the JAX `custom_vjp`'s: misses carry no gradient, and torch
+    autograd of t = (k - o_f) / d_f on the winning rect's gathered row
+    (`_winning_t`, d_f = 0 guarded) gives the cotangents of the rect table's
+    float fields, o and d.
+
+The TPU kernel's one-hot axis matrices (MXU products picking o_f, d_f, ...)
+are layout: the kernel reads the axis id and indexes o and d by it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_weekend_tpu_torch.ops import rect as rect_ops
+from raytracer_weekend_tpu_torch.ops.cuda.sphere_intersect import _winner_vjp
+from raytracer_weekend_tpu_torch.scene.data import Rects
+from raytracer_weekend_tpu_torch.textures import _rows
+
+# Launches of K11 in this process; only the launch in `_launch` adds to it.
+LAUNCHES = 0
+
+# Rows of the kernel's rect table, in the order of `enum RRow` in
+# csrc/intersect.cu.
+TABLE_ROWS = ("axis", "k", "a0", "a1", "b0", "b1", "valid")
+
+
+def rect_table(rc: Rects) -> torch.Tensor:
+    """(len(TABLE_ROWS), R) table; the axis id and valid as floats."""
+    f = rc.k.dtype
+    return torch.stack([rc.axis.to(f), rc.k, rc.a0, rc.a1, rc.b0, rc.b1,
+                        rc.valid.to(f)]).contiguous()
+
+
+def _launch(rc: Rects, o, d, t_min: float):
+    """One launch of K11 -> (t, idx int32)."""
+    global LAUNCHES
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    out = _build.launch_closest_hit("rtw_hit_rects",
+                                    (o.contiguous(), d.contiguous()),
+                                    rect_table(rc), t_min)
+    LAUNCHES += 1
+    return out
+
+
+def _winning_t(rc: Rects, o, d, idx):
+    """t on each lane's winning rect (the JAX `_winning_t`)."""
+    axis = _rows(rc.axis, idx).long()[:, None]
+    o_f = torch.gather(o, 1, axis)[:, 0]
+    d_f = torch.gather(d, 1, axis)[:, 0]
+    return (_rows(rc.k, idx) - o_f) / torch.where(d_f == 0.0, 1.0, d_f)
+
+
+class _HitRects(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t_min, o, d, *fields):
+        rc = Rects(*fields)
+        if o.device.type == "cpu":
+            with torch.no_grad():
+                t, idx = rect_ops.hit_rects(rc, o, d, t_min)
+            idx = idx.to(torch.int32)
+        elif o.device.type == "cuda":
+            t, idx = _launch(rc, o, d, t_min)
+        else:
+            raise NotImplementedError(f"no rect intersection on {o.device}")
+        ctx.save_for_backward(t, idx, o, d, *fields)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, ct_t, _):
+        t, idx, *ins = ctx.saved_tensors
+        return (None, *_winner_vjp(ctx, ins, ct_t, t, lambda o, d, *f:
+                                   _winning_t(Rects(*f), o, d, idx.long())))
+
+
+def hit_rects_kernel(rc: Rects, o, d, t_min: float):
+    """Closest rect per ray -> (t (B,) f32, idx (B,) int32): K11 on a card,
+    the plain version on the CPU; differentiable in the rect table's float
+    fields, o and d."""
+    return _HitRects.apply(float(t_min), o, d, *rc)

@@ -14,11 +14,11 @@ records' hit points, joins each such bounce's hit point (K7):
 
   * for tensors on a CUDA device it launches the hand-written kernel in
     `csrc/replay_bwd.cu` (built at first use by `_build.py`) and raises if
-    the library does not build or load, the sphere table does not fit the
-    block's shared memory, or the launch fails. d(ptab) is reduced in the
-    block's shared memory beside d(ktab) when both fit, else by
-    warp-aggregated global atomics (a mesh: the cow's 5,805 primitives
-    need 743 KB);
+    the library does not build or load, or the launch fails. d(ktab) is
+    reduced in the block's shared memory when it fits (up to 3,058 spheres
+    on an H100), else by warp-aggregated global atomics; d(ptab) in shared
+    memory beside d(ktab) when both fit, else by the same global atomics (a
+    mesh: the cow's 5,805 primitives need 743 KB);
   * for tensors on the CPU it runs `replay_bwd_reference`: torch.autograd
     through `replay.replay_packed` (its deferred form for a per-bounce g)
     on the same codes, which is what the CUDA kernel is held against on the
@@ -139,6 +139,20 @@ def replay_bwd_reference(ktab, ptab, background, cfg: RenderConfig, o, d,
     return dk, dp, do, dd, dt, dbg
 
 
+def shared_reductions(lib, device, S: int, R: int) -> tuple[bool, bool]:
+    """(d(ktab) in shared memory, d(ptab) in shared memory) for S spheres
+    and R planar primitives on `device`: each when it fits one block's
+    opt-in shared memory, d(ptab) only beside a shared d(ktab)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    limit = ctypes.c_int(0)   # the opt-in shared memory of one block
+    with torch.cuda.device(device):
+        err = lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit))
+    _build.check(lib, err, "cudaDeviceGetAttribute")
+    sphere = lib.rtw_replay_bwd_smem_bytes(S, 0) <= limit.value
+    return sphere, sphere and lib.rtw_replay_bwd_smem_bytes(S, R) <= limit.value
+
+
 def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
                      ray_id, seed, codes, g, n_chunk: int, cabc=None):
     """Run the replay backward over n_chunk lanes.
@@ -174,18 +188,7 @@ def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
     S = 0 if ktab is None else ktab.shape[1]
     R = 0 if ptab is None else ptab.shape[1]
     D = cfg.max_depth
-    smem = lib.rtw_replay_bwd_smem_bytes(S, 0)
-    limit = ctypes.c_int(0)   # the opt-in shared memory of one block
-    with torch.cuda.device(device):
-        err = lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit))
-    _build.check(lib, err, "cudaDeviceGetAttribute")
-    if smem > limit.value:
-        raise ValueError(
-            f"the replay backward keeps d(ktab) ({KT} x {S} f32, {smem} bytes)"
-            f" in one block's shared memory; this device allows "
-            f"{limit.value} bytes, so at most "
-            f"{(limit.value - 12) // (4 * KT)} spheres")
-    planar_shared = lib.rtw_replay_bwd_smem_bytes(S, R) <= limit.value
+    sphere_shared, planar_shared = shared_reductions(lib, device, S, R)
     f32 = torch.float32
     tabs = [None if t is None else t.detach().to(f32).contiguous()
             for t in (ktab, ptab)]
@@ -220,7 +223,8 @@ def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
         stream = torch.cuda.current_stream(device).cuda_stream
         ptrs = [None if t is None else t.data_ptr() for t in tabs + dtabs]
         err = lib.rtw_replay_bwd(
-            ptrs[0], S, ptrs[1], R, int(planar_shared), bg.data_ptr(),
+            ptrs[0], S, ptrs[1], R, int(sphere_shared), int(planar_shared),
+            bg.data_ptr(),
             o.data_ptr(), d.data_ptr(), time.data_ptr(), rid.data_ptr(),
             codes.data_ptr(), g.data_ptr(),
             None if cabc is None else cabc.data_ptr(), int(defer), n, D,

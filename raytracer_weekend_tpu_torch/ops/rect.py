@@ -15,6 +15,7 @@ import math
 import torch
 
 from raytracer_weekend_tpu_torch.scene.data import Rects
+from raytracer_weekend_tpu_torch.textures import _rows
 from raytracer_weekend_tpu_torch.vecmath import ray_at
 
 _INF = math.inf
@@ -51,14 +52,16 @@ def rect_record(rc: Rects, idx: torch.Tensor, o: torch.Tensor,
     """Hit record for winning rows -> (p, outward_normal, u, v, mat).
 
     The outward normal is the + unit vector of the fixed axis; the UV is
-    the normalized in-plane position.
+    the normalized in-plane position. Rows are read by `textures._rows`.
     """
     idx = idx.long()
-    f, a, b = _axes(rc.axis[idx])
+    f, a, b = _axes(_rows(rc.axis, idx))
     p = ray_at(o, d, t)
     av = torch.gather(p, 1, a[:, None])[:, 0]
     bv = torch.gather(p, 1, b[:, None])[:, 0]
-    u = (av - rc.a0[idx]) / (rc.a1[idx] - rc.a0[idx])
-    v = (bv - rc.b0[idx]) / (rc.b1[idx] - rc.b0[idx])
+    a0, a1 = _rows(rc.a0, idx), _rows(rc.a1, idx)
+    b0, b1 = _rows(rc.b0, idx), _rows(rc.b1, idx)
+    u = (av - a0) / (a1 - a0)
+    v = (bv - b0) / (b1 - b0)
     outward = torch.nn.functional.one_hot(f, 3).to(p.dtype)
-    return p, outward, u, v, rc.mat[idx]
+    return p, outward, u, v, _rows(rc.mat, idx)

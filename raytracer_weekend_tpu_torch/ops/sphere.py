@@ -21,15 +21,25 @@ import math
 import torch
 
 from raytracer_weekend_tpu_torch.scene.data import Spheres
+from raytracer_weekend_tpu_torch.textures import _rows
 from raytracer_weekend_tpu_torch.vecmath import dot, ray_at
 
 _INF = math.inf
 _TWO_PI = 2.0 * math.pi
 
 
-def _centers_weight(sp: Spheres, time: torch.Tensor) -> torch.Tensor:
-    """Motion-blur lerp weight w[b,s]."""
-    return (time[:, None] - sp.t0[None, :]) / (sp.t1 - sp.t0)[None, :]
+def sphere_terms(sp: Spheres):
+    """Per-sphere terms of the expanded quadratic -> (dc (S,3), dt, r^2,
+    |c0|^2, c0.dc, |dc|^2 (S,)); the CUDA kernel K10 reads the same values
+    (`ops.cuda.sphere_intersect.sphere_table`)."""
+    dc = sp.c1 - sp.c0
+    return (dc, sp.t1 - sp.t0, sp.radius * sp.radius, dot(sp.c0, sp.c0),
+            dot(sp.c0, dc), dot(dc, dc))
+
+
+def ray_terms(o: torch.Tensor, d: torch.Tensor):
+    """Per-ray terms of the expanded quadratic -> (|d|^2, o.d, |o|^2)."""
+    return dot(d, d), dot(o, d), dot(o, o)
 
 
 def hit_spheres(sp: Spheres, o: torch.Tensor, d: torch.Tensor,
@@ -42,27 +52,23 @@ def hit_spheres(sp: Spheres, o: torch.Tensor, d: torch.Tensor,
     if o.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("hit_spheres needs full-f32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
-    dc = sp.c1 - sp.c0                      # (S,3)
-    w = _centers_weight(sp, time)           # (B,S)
+    dc, dt, r2, c0_sq, c0_dc, dc_sq = sphere_terms(sp)
+    w = (time[:, None] - sp.t0[None, :]) / dt[None, :]   # (B,S) lerp weight
 
     o_c0 = o @ sp.c0.T                      # (B,S)
     o_dc = o @ dc.T
     d_c0 = d @ sp.c0.T
     d_dc = d @ dc.T
 
-    a = dot(d, d)[:, None]                  # (B,1)
-    o_dot_d = dot(o, d)[:, None]
-    o_sq = dot(o, o)[:, None]
-    c0_sq = dot(sp.c0, sp.c0)[None, :]      # (1,S)
-    c0_dc = dot(sp.c0, dc)[None, :]
-    dc_sq = dot(dc, dc)[None, :]
+    a, o_dot_d, o_sq = (x[:, None] for x in ray_terms(o, d))   # (B,1)
+    c0_sq, c0_dc, dc_sq = c0_sq[None, :], c0_dc[None, :], dc_sq[None, :]
 
     d_dot_c = d_c0 + w * d_dc
     o_dot_c = o_c0 + w * o_dc
     c_sq = c0_sq + 2.0 * w * c0_dc + w * w * dc_sq
 
     half_b = o_dot_d - d_dot_c
-    c_term = o_sq - 2.0 * o_dot_c + c_sq - (sp.radius * sp.radius)[None, :]
+    c_term = o_sq - 2.0 * o_dot_c + c_sq - r2[None, :]
 
     disc = half_b * half_b - a * c_term
     has_roots = disc > 0.0
@@ -93,17 +99,16 @@ def sphere_record(sp: Spheres, idx: torch.Tensor, o: torch.Tensor,
                   d: torch.Tensor, time: torch.Tensor, t: torch.Tensor):
     """Hit record for winning rows -> (p, outward_normal, u, v, mat).
 
-    The outward normal is (p - c)/r: a negative radius flips it inward.
+    The outward normal is (p - c)/r: a negative radius flips it inward. The
+    rows are read by `textures._rows` (on a card the backward of `tab[idx]`
+    adds a frame's lanes into the few winning rows one after another).
     """
     idx = idx.long()
-    c0 = sp.c0[idx]
-    c1 = sp.c1[idx]
-    t0 = sp.t0[idx]
-    t1 = sp.t1[idx]
-    r = sp.radius[idx]
+    c0, c1 = _rows(sp.c0, idx), _rows(sp.c1, idx)
+    t0, t1, r = _rows(sp.t0, idx), _rows(sp.t1, idx), _rows(sp.radius, idx)
     w = (time - t0) / (t1 - t0)
     center = c0 + w[:, None] * (c1 - c0)
     p = ray_at(o, d, t)
     outward = (p - center) / r[:, None]
     u, v = sphere_uv(outward)
-    return p, outward, u, v, sp.mat[idx]
+    return p, outward, u, v, _rows(sp.mat, idx)

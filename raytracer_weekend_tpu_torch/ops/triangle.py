@@ -23,9 +23,20 @@ import math
 import torch
 
 from raytracer_weekend_tpu_torch.scene.data import Triangles
+from raytracer_weekend_tpu_torch.textures import _rows
 from raytracer_weekend_tpu_torch.vecmath import cross, dot, ray_at
 
 _INF = math.inf
+
+
+def triangle_terms(tr: Triangles):
+    """Per-triangle rows of the scalar-triple form -> (n, ab, ac, ac x v0,
+    ab x v0 (T,3), v0.n (T,)); the CUDA kernel K12 reads the same values
+    (`ops.cuda.triangle_intersect.triangle_table`)."""
+    ab = tr.v1 - tr.v0
+    ac = tr.v2 - tr.v0
+    n = cross(ab, ac)                       # unnormalized face normal
+    return n, ab, ac, cross(ac, tr.v0), cross(ab, tr.v0), dot(tr.v0, n)
 
 
 def hit_triangles(tr: Triangles, o: torch.Tensor, d: torch.Tensor,
@@ -38,12 +49,7 @@ def hit_triangles(tr: Triangles, o: torch.Tensor, d: torch.Tensor,
     if o.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("hit_triangles needs full-f32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
-    ab = tr.v1 - tr.v0                      # (T,3)
-    ac = tr.v2 - tr.v0
-    n = cross(ab, ac)                       # unnormalized face normal
-    ac_x_v0 = cross(ac, tr.v0)
-    ab_x_v0 = cross(ab, tr.v0)
-    v0_n = dot(tr.v0, n)                    # (T,)
+    n, ab, ac, ac_x_v0, ab_x_v0, v0_n = triangle_terms(tr)
 
     w = cross(o, d)                         # (B,3)
     det = -(d @ n.T)                        # (B,T)
@@ -73,10 +79,10 @@ def triangle_record(tr: Triangles, idx: torch.Tensor, o: torch.Tensor,
     (u, v) are recomputed for the one winning triangle per ray; the normal
     and UV are barycentric mixes of the vertex values. The normal is NOT
     normalized (a raw mix of vertex normals; face normals are raw cross
-    products), as in the JAX package.
+    products), as in the JAX package. Rows are read by `textures._rows`.
     """
     idx = idx.long()
-    v0, v1, v2 = tr.v0[idx], tr.v1[idx], tr.v2[idx]
+    v0, v1, v2 = (_rows(x, idx) for x in (tr.v0, tr.v1, tr.v2))
     ab = v1 - v0
     ac = v2 - v0
     n = cross(ab, ac)
@@ -88,7 +94,9 @@ def triangle_record(tr: Triangles, idx: torch.Tensor, o: torch.Tensor,
 
     w0 = (1.0 - u - v)[:, None]
     wu, wv = u[:, None], v[:, None]
-    normal = w0 * tr.n0[idx] + wu * tr.n1[idx] + wv * tr.n2[idx]
-    uv = w0 * tr.uv0[idx] + wu * tr.uv1[idx] + wv * tr.uv2[idx]
+    n0, n1, n2, uv0, uv1, uv2 = (_rows(x, idx) for x in (
+        tr.n0, tr.n1, tr.n2, tr.uv0, tr.uv1, tr.uv2))
+    normal = w0 * n0 + wu * n1 + wv * n2
+    uv = w0 * uv0 + wu * uv1 + wv * uv2
     p = ray_at(o, d, t)
-    return p, normal, uv[..., 0], uv[..., 1], tr.mat[idx]
+    return p, normal, uv[..., 0], uv[..., 1], _rows(tr.mat, idx)

@@ -13,10 +13,10 @@ JAX loader's:
   * `illum` modes other than ambient-diffuse (0/1) are rejected;
   * point/line records are skipped with a count.
 
-MTL diffuse maps (`map_Kd`) need the image texture, which is not ported:
-such a material raises `NotImplementedError`. `missing_texture_fallback`
-stands in only for a map file that cannot be read; a readable map still
-raises, so a textured scene never silently renders in a solid color.
+An MTL diffuse map (`map_Kd`) becomes `Lambertian(ImageTexture(path))`,
+decoded with Pillow as the JAX loader does; `missing_texture_fallback`
+stands in, with a warning, for a map that cannot be read or decoded (the
+textured monument's stripped PNG), and without it such a map raises.
 """
 
 from __future__ import annotations
@@ -34,17 +34,13 @@ def _resolve_index(idx: int, n: int) -> int:
 
 def _diffuse_map(tex_path: str, missing_texture_fallback):
     try:
-        with open(tex_path, "rb") as f:
-            f.read(1)
-    except OSError:
+        return B.ImageTexture(tex_path)
+    except Exception:
         if missing_texture_fallback is None:
             raise
         warnings.warn(f"diffuse map {tex_path!r} unreadable; substituting "
                       f"solid {missing_texture_fallback}")
         return B.SolidColor(tuple(missing_texture_fallback))
-    raise NotImplementedError(
-        f"diffuse map {tex_path!r}: image textures are not ported yet "
-        "(ROADMAP Queue 1, 'Deferred textures')")
 
 
 def load_wavefront_mtl(path: str, missing_texture_fallback=None):

@@ -12,11 +12,14 @@ counterpart of the JAX package's `optax.multi_transform` with `set_to_zero`.
     scene, history = ir.fit(scene, steps=100)
 
 The render follows the scene's device: on a CUDA device a scene that
-`megakernel.fused_supported` admits renders through
+`integrator.fused_eligible` admits renders through
 `fused_diff.render_fused_diff` (the forward kernel with winner codes, the
 replay-backward kernel, or for uv-debug and medium scenes torch autograd
-of the replay), in `cfg.ray_batch` lane chunks (the whole frame by
-default); on the CPU it runs the staged torch path under autograd.
+of the replay), and any other scene through the staged path under autograd
+(`integrator.render_chunk`, the JAX package's training route: the
+closest-hit kernels K10-K12, whose backward re-derives each winner's t); on
+the CPU the staged torch path under autograd. Either renders in
+`cfg.ray_batch` lane chunks (the whole frame by default).
 """
 
 from __future__ import annotations
@@ -53,25 +56,22 @@ class InverseRenderer:
     def _render(self, scene: SceneData) -> torch.Tensor:
         cfg, device = self.cfg, scene.device
         n = cfg.n_rays
-        if device.type == "cuda":
-            if not integrator.fused_eligible(self.static, cfg, device):
-                raise NotImplementedError(
-                    "on CUDA the port differentiates sphere, rect, "
-                    "triangle and constant-medium scenes with Lambertian/"
-                    "Metal/Dielectric/DiffuseLight materials; this scene is "
-                    f"outside that slice ({self.static})")
+        batch = cfg.ray_batch or n
+        if integrator.fused_eligible(self.static, cfg, device):
             from raytracer_weekend_tpu_torch.fused_diff import (
                 render_fused_diff)
 
-            batch = cfg.ray_batch or n
-            colors = torch.cat([
-                render_fused_diff(scene, self.static, cfg, self.cam, start,
-                                  min(batch, n - start), cfg.seed)
-                for start in range(0, n, batch)])
+            def chunk(start, size):
+                return render_fused_diff(scene, self.static, cfg, self.cam,
+                                         start, size, cfg.seed)
         else:
-            ids = torch.arange(n, dtype=torch.int64, device=device)
-            colors = integrator.render_chunk(scene, self.static, cfg,
-                                             self.cam, ids, cfg.seed)
+            def chunk(start, size):
+                ids = start + torch.arange(size, dtype=torch.int64,
+                                           device=device)
+                return integrator.render_chunk(scene, self.static, cfg,
+                                               self.cam, ids, cfg.seed)
+        colors = torch.cat([chunk(start, min(batch, n - start))
+                            for start in range(0, n, batch)])
         spp = cfg.samples_per_pixel
         sums = colors.reshape(cfg.n_pixels, spp, 3).sum(1).reshape(
             cfg.height, cfg.width, 3)

@@ -14,6 +14,7 @@ from raytracer_weekend_tpu_torch import integrator, rng, textures
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.models import scenes
 from raytracer_weekend_tpu_torch.models.scenes import generate_scene
+from raytracer_weekend_tpu_torch.ops.cuda import checks
 from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd
 from raytracer_weekend_tpu_torch.scene.builder import build_scene
@@ -88,20 +89,27 @@ def test_render_image_launches_kernel(cuda):
 
 
 def test_unsupported_scene_on_cuda_raises(cuda):
+    """The megakernel refuses a scene outside `fused_supported`;
+    render_image renders it through the staged path on K10 instead."""
+    from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
+
     cfg = RenderConfig(width=32, height=18, samples_per_pixel=4, max_depth=6)
     scene, static, cams = generate_scene("two_spheres", cfg.aspect_ratio)
     static = type(static)(**{**static.__dict__, "fused_simple": False})
     with pytest.raises(NotImplementedError):
-        integrator.render_image(scene.to(cuda), static, cfg, cams[0].to(cuda))
-    with pytest.raises(NotImplementedError):
         mk.render_fused(scene.to(cuda), cfg, cams[0].to(cuda), 0, 64, 0,
                         static=static)
+    before = mk.LAUNCHES, si.LAUNCHES
+    img = integrator.render_image(scene.to(cuda), static, cfg,
+                                  cams[0].to(cuda))
+    assert mk.LAUNCHES == before[0] and si.LAUNCHES == before[1] + 6
+    assert img.shape == (18, 32, 3) and bool(torch.isfinite(img).all())
 
 
 def scene_by_name(name, aspect):
-    """A catalog scene (built on the card), or the test scenes mesh_shards
-    and sphere_medium."""
-    if name in ("mesh_shards", "sphere_medium"):
+    """A catalog scene (built on the card), or one of the test scenes of
+    `models.scenes` (mesh_shards, sphere_medium, many_spheres, ...)."""
+    if name not in scenes.SCENES:
         objs, cams, bg = getattr(scenes, name)(aspect)
         return (*build_scene(objs, background=bg), cams)
     return generate_scene(name, aspect)
@@ -205,17 +213,22 @@ def test_inverse_renderer_on_cuda(cuda):
 
 
 def test_replay_bwd_table_over_shared_memory_raises(cuda):
-    """d(ktab) lives in one block's shared memory: a table that does not fit
-    raises instead of launching."""
+    """A d(ktab) that does not fit one block's shared memory (8,192
+    spheres) no longer raises: K2 reduces it by global atomics. Lanes that
+    all miss give the background's cotangent and an all-zero d(ktab)."""
     n, S = 8, 8192
     cfg = RenderConfig(width=4, height=2, samples_per_pixel=1, max_depth=2)
     z3 = torch.zeros((n, 3), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        replay_bwd.replay_bwd_fused(
-            torch.zeros((replay_bwd.KT, S), device=cuda), None,
-            torch.zeros(3, device=cuda), cfg, z3, z3,
-            torch.zeros(n, device=cuda), torch.arange(n, device=cuda), 0,
-            torch.zeros((n, 2), dtype=torch.int32, device=cuda), z3, n)
+    before = replay_bwd.LAUNCHES
+    dk, dp, d_o, d_d, d_t, d_bg = replay_bwd.replay_bwd_fused(
+        torch.zeros((replay_bwd.KT, S), device=cuda), None,
+        torch.zeros(3, device=cuda), cfg, z3, z3,
+        torch.zeros(n, device=cuda), torch.arange(n, device=cuda), 0,
+        torch.zeros((n, 2), dtype=torch.int32, device=cuda), z3 + 1.0, n)
+    torch.cuda.synchronize()
+    assert replay_bwd.LAUNCHES == before + 1
+    assert dk.shape == (replay_bwd.KT, S) and not dk.any() and dp is None
+    assert torch.equal(d_bg, torch.full((3,), float(n), device=cuda))
 
 
 # ---- the planar family: K3 (forward) and K4 (backward) ---------------------
@@ -423,8 +436,11 @@ def _float64_codes(scene, static, cfg, o, d, t, rid):
     """The staged path's winner codes traced in float64 from the rays."""
     from raytracer_weekend_tpu_torch.scene.data import SceneData
 
+    import dataclasses
+
     scene64 = SceneData.from_leaves([le.double() if le.is_floating_point()
                                      else le for le in scene.leaves()])
+    cfg = dataclasses.replace(cfg, use_pallas=False)   # the plain brute force
     prev = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     try:
@@ -621,3 +637,156 @@ def test_render_fused_diff_medium_launches_k5(cuda):
         before[0] + 1, before[1] + 1, before[2])
     assert bool(torch.isfinite(g_c1).all()) and float(g_c1.abs().max()) > 0
     assert not g_off.any()
+
+
+# ---- the staged path: K10, K11, K12 and K2's global d(ktab) ----------------
+
+@pytest.mark.parametrize("kind", ["spheres", "rects", "triangles"])
+def test_closest_hit_kernel_matches_plain(cuda, kind):
+    """K10, K11 and K12 against the plain brute force on random tables,
+    with phase 14's budgets; a float64 operand raises on the card."""
+    from raytracer_weekend_tpu_torch.ops import rect, sphere, triangle
+    from raytracer_weekend_tpu_torch.ops.cuda import (
+        rect_intersect, sphere_intersect, triangle_intersect)
+
+    mod, kern, plain = {
+        "spheres": (sphere_intersect, sphere_intersect.hit_spheres_kernel,
+                    sphere.hit_spheres),
+        "rects": (rect_intersect, rect_intersect.hit_rects_kernel,
+                  rect.hit_rects),
+        "triangles": (triangle_intersect,
+                      triangle_intersect.hit_triangles_kernel,
+                      triangle.hit_triangles)}[kind]
+    tab, (o, d, time) = checks.random_hit_case(kind, cuda, 1 << 16)
+    args = (o, d, time) if kind == "spheres" else (o, d)
+    before = mod.LAUNCHES
+    t_k, i_k = kern(tab, *args, 1e-3)
+    assert mod.LAUNCHES == before + 1 and i_k.dtype == torch.int32
+    t_p, i_p = plain(tab, *args, 1e-3)
+    torch.cuda.synchronize()
+    stats = checks.hit_budgets(t_k, i_k, t_p, i_p)
+    assert stats["ok"], stats
+    assert o.shape[0] // 20 < stats["hits"] < o.shape[0]
+    with pytest.raises(ValueError, match="float32"):
+        kern(tab, *(a.double() for a in args), 1e-3)
+
+
+def test_staged_render_chunk_matches_plain(cuda):
+    """The staged path on the card through K10 (use_pallas "auto") against
+    use_pallas=False, two_spheres 64x36x4 d6, with the sphere budgets of
+    tests/test_megakernel.py:66-70."""
+    import dataclasses
+
+    from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
+
+    scene, static, cfg, cam = _frame("two_spheres", cuda)
+    n = cfg.n_rays
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    before = si.LAUNCHES
+    rad, seg = integrator.trace_lanes(scene, static, cfg, o, d, t, rid,
+                                      cfg.seed)
+    assert si.LAUNCHES == before + cfg.max_depth
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    ref, ref_seg = integrator.trace_lanes(scene, static, plain, o, d, t, rid,
+                                          cfg.seed)
+    assert si.LAUNCHES == before + cfg.max_depth
+    assert abs(int(seg.sum()) - int(ref_seg.sum())) <= max(4, n // 300)
+    rel = (rad - ref).abs() / (ref.abs() + 1e-3)
+    assert int((rel > 0.05).any(dim=1).sum()) <= max(4, n // 64)
+    assert float((rad - ref).abs().mean()) < 3e-3
+
+
+def test_replay_bwd_global_ktab_matches_reference(cuda):
+    """K2 on a scene of 3,970 spheres on a checker ground, whose d(ktab)
+    does not fit one block's shared memory and is reduced by
+    warp-aggregated global atomics, against torch autograd of the replay on
+    the kernel's own codes with K2's budgets, after holding out at most 1%
+    of the lanes: those the float64 replay puts on a checker cell edge."""
+    scene, static, cfg, cam = _frame("many_spheres", cuda)
+    assert static.n_spheres > 3058
+    n = cfg.n_rays
+    rad, _, codes = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                    static=static, emit_paths=True)
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    edge = checks.edge_lanes(scene, static, cfg, o, d, t, rid, codes,
+                             [slice(0, n)])
+    assert int(edge.sum()) <= max(4, n // 100)
+    ktab = replay_bwd.pack_ktab(scene)
+    args = (ktab, None, scene.background, cfg, o, d, t, rid, cfg.seed, codes,
+            2.0 * rad * (~edge).float()[:, None])
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    assert replay_bwd.shared_reductions(_build.load_library(), cuda,
+                                        ktab.shape[1], 0) == (False, False)
+    got = replay_bwd.replay_bwd_fused(*args, n)
+    ref = replay_bwd.replay_bwd_reference(*args)
+    for g_, r_ in zip(got, ref):
+        if r_ is not None:
+            _agree(g_, r_)
+    assert int((got[0].abs().sum(0) > 0).sum()) > 100   # spheres reached
+
+
+@pytest.mark.parametrize("name", ["jumpy_balls", "wavefront_cow_obj",
+                                  "earth", "two_perlin_spheres",
+                                  "simple_light"])
+def test_replay_bwd_global_ktab_equals_shared(cuda, monkeypatch, name):
+    """The same launch with d(ktab) (and d(ptab)) forced to global atomics
+    gives the shared-memory reduction's cotangents but for the order of
+    float additions, for every family of instantiations a scene that fits
+    can reach: spheres (K2), spheres and a mesh (K4), deferred image (K7)
+    and noise (K7 with cabc) textures, spheres and rects deferred."""
+    from raytracer_weekend_tpu_torch import fused_diff
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    scene, static, cfg, cam = _frame(name, cuda)
+    n = cfg.n_rays
+    rad, _, codes, *recs = mk.render_fused(
+        scene, cfg, cam, 0, n, cfg.seed, static=static, emit_paths=True,
+        emit_deferred=mk.defers(static))
+    g, cabc = 2.0 * rad, None
+    if recs:
+        g, cabc, _ = fused_diff.combine_vjp(scene, static, recs, g, [])
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    ptab = (replay_bwd.pack_ptab(scene, static)
+            if static.n_rects + static.n_triangles else None)
+    args = (replay_bwd.pack_ktab(scene), ptab, scene.background, cfg, o, d,
+            t, rid, cfg.seed, codes, g, n)
+    lib = _build.load_library()
+    assert replay_bwd.shared_reductions(lib, cuda, static.n_spheres, 0)[0]
+    shared = replay_bwd.replay_bwd_fused(*args, cabc=cabc)
+    monkeypatch.setattr(replay_bwd, "shared_reductions",
+                        lambda *a: (False, False))
+    glob = replay_bwd.replay_bwd_fused(*args, cabc=cabc)
+    # earth's d(ktab) is 0: its only sphere's texels belong to the combine.
+    assert any(float(a.abs().max()) > 0 for a in shared if a is not None)
+    for a, b in zip(shared, glob):
+        if a is not None:
+            assert float((a - b).norm()) <= 1e-5 * float(a.norm()) + 1e-12
+
+
+def test_render_image_staged_uvdebug_launches_k10(cuda):
+    """jumpy_balls with a uv-debug ground is outside `fused_supported`:
+    render_image takes the staged path on K10 in ray_batch chunks, and
+    gives the plain staged path's image within the sphere budgets."""
+    import dataclasses
+
+    from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
+
+    scene, static, cfg, cam = _frame("jumpy_balls_uvdebug", cuda,
+                                     ray_batch=4000)
+    assert not mk.fused_supported(static, cfg)
+    before = mk.LAUNCHES, si.LAUNCHES
+    img = integrator.render_image(scene, static, cfg, cam)
+    chunks = -(-cfg.n_rays // 4000)
+    assert mk.LAUNCHES == before[0]
+    assert si.LAUNCHES == before[1] + chunks * cfg.max_depth
+    ref = integrator.render_image(scene, static,
+                                  dataclasses.replace(cfg, use_pallas=False),
+                                  cam)
+    assert si.LAUNCHES == before[1] + chunks * cfg.max_depth
+    assert img.shape == ref.shape and bool(torch.isfinite(img).all())
+    rel = (img - ref).abs() / (ref.abs() + 1e-3)
+    assert int((rel > 0.05).any(dim=-1).sum()) <= max(4, cfg.n_pixels // 64)

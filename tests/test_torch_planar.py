@@ -155,8 +155,11 @@ def test_builder_tables_bit_equal(name):
 
 
 def test_objloader_diffuse_maps(tmp_path):
-    """map_Kd needs the image texture, which is not ported: a readable map
-    raises; the fallback stands in only for a map that cannot be read."""
+    """A readable map_Kd builds Lambertian(ImageTexture), as the JAX loader
+    does; the fallback stands in, with a warning, for a map that cannot be
+    read or decoded, and without it such a map raises."""
+    from PIL import Image
+
     (tmp_path / "m.obj").write_text(
         "mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nv 1 1 0\n"
         "usemtl tex\nf 1 2 4 3\n")
@@ -168,10 +171,18 @@ def test_objloader_diffuse_maps(tmp_path):
                                             missing_texture_fallback=(.6,) * 3)
     assert len(tris) == 2 and tris[0].material is tris[1].material
     assert tris[0].material.albedo == TB.SolidColor((.6, .6, .6))
-    (tmp_path / "t.png").write_bytes(b"\x89PNG")
-    with pytest.raises(NotImplementedError, match="image textures"):
-        objloader.load_wavefront_obj(str(tmp_path / "m.obj"),
-                                     missing_texture_fallback=(.6,) * 3)
+    (tmp_path / "t.png").write_bytes(b"\x89PNG")      # not decodable
+    with pytest.warns(UserWarning, match="unreadable"):
+        tris = objloader.load_wavefront_obj(str(tmp_path / "m.obj"),
+                                            missing_texture_fallback=(.6,) * 3)
+    assert tris[0].material.albedo == TB.SolidColor((.6, .6, .6))
+    texels = np.arange(2 * 3 * 3, dtype=np.uint8).reshape(2, 3, 3) * 10
+    Image.fromarray(texels).save(tmp_path / "t.png")
+    tris = objloader.load_wavefront_obj(str(tmp_path / "m.obj"),
+                                        missing_texture_fallback=(.6,) * 3)
+    tex = tris[0].material.albedo
+    assert isinstance(tex, TB.ImageTexture)
+    np.testing.assert_array_equal(tex.data, texels.astype(np.float32) / 255.0)
 
 
 # ---- 2. staged hit kernels and hit records ---------------------------------

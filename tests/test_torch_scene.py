@@ -49,11 +49,8 @@ def test_render_config_fields_match():
                                                       j.n_rays)
 
 
-@pytest.mark.parametrize("name", ["jumpy_balls", "two_spheres",
-                                  "smokey_cornell_box", "book2_final_scene"])
-def test_builder_tables_bit_equal(name):
-    jdata, jstatic, _ = _jax_scene(name)
-    tdata, tstatic, _ = _torch_scene(name)
+def _assert_tables_equal(jdata, jstatic, tdata, tstatic):
+    """Static facts equal, every table bit-equal (Morton order included)."""
     assert dataclasses.asdict(tstatic) == dataclasses.asdict(jstatic)
     assert tdata.sphere_bvh is None and jdata.sphere_bvh is None
     for fam in ("spheres", "rects", "triangles", "volumes", "materials",
@@ -64,15 +61,44 @@ def test_builder_tables_bit_equal(name):
             want = np.asarray(getattr(jt, f))
             got = getattr(tt, f).numpy()
             assert got.dtype == want.dtype, (fam, f)
-            # Bit-equal, Morton order included.
             np.testing.assert_array_equal(got, want, err_msg=f"{fam}.{f}")
     np.testing.assert_array_equal(tdata.background.numpy(),
                                   np.asarray(jdata.background))
+
+
+@pytest.mark.parametrize("name", ["jumpy_balls", "two_spheres",
+                                  "smokey_cornell_box", "book2_final_scene",
+                                  "textured_monument"])
+def test_builder_tables_bit_equal(name):
+    jdata, jstatic, _ = _jax_scene(name)
+    tdata, tstatic, _ = _torch_scene(name)
+    _assert_tables_equal(jdata, jstatic, tdata, tstatic)
     if name == "jumpy_balls":
         assert tstatic.n_spheres == 486 and tstatic.fused_simple
     if name == "book2_final_scene":
         assert (tstatic.n_spheres, tstatic.n_rects, tstatic.n_volumes) == (
             1006, 2401, 2) and tstatic.fused_simple
+    if name == "textured_monument":   # tests/test_scenes.py:50
+        assert (tstatic.n_rects, tstatic.n_triangles) == (1, 7798)
+        assert tstatic.fused_simple
+
+
+def test_objloader_image_map_bit_equal():
+    """models/capsule.obj's map_Kd (capsule0.jpg) is readable: both loaders
+    build Lambertian(ImageTexture) on 10,200 triangles, and the two builds'
+    tables, the image atlas included, are bit-equal."""
+    from raytracer_weekend_tpu.scene import objloader as jobj
+    from raytracer_weekend_tpu_torch.scene import objloader as tobj
+
+    path = tscenes.model_path("capsule.obj")
+    jtris, ttris = jobj.load_wavefront_obj(path), tobj.load_wavefront_obj(path)
+    assert len(ttris) == len(jtris) == 10200
+    assert isinstance(ttris[0].material.albedo, TB.ImageTexture)
+    jdata, jstatic = JB.build_scene(jtris, bvh=False)
+    tdata, tstatic = TB.build_scene(ttris)
+    assert tstatic.has_image and tstatic.n_triangles == 10200
+    _assert_tables_equal(jax.tree_util.tree_map(np.asarray, jdata), jstatic,
+                         tdata, tstatic)
 
 
 def test_builder_rejects_unported_objects():
@@ -142,7 +168,11 @@ def test_port_imports_no_jax():
             "from raytracer_weekend_tpu_torch.ops.cuda import megakernel, _build\n"
             "from raytracer_weekend_tpu_torch.utils import image\n"
             "from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb\n"
+            "from raytracer_weekend_tpu_torch.ops.cuda import (\n"
+            "    sphere_intersect, rect_intersect, triangle_intersect)\n"
+            "from raytracer_weekend_tpu_torch.ops.cuda import checks\n"
             "scenes.generate_scene('two_spheres', 1.5, device='cpu')\n"
+            "scenes.generate_scene('textured_monument', 1.5, device='cpu')\n"
             "scenes.generate_scene('wavefront_cow_obj', 1.5, device='cpu')\n"
             "scenes.generate_scene('simple_light', 1.5, device='cpu')\n"
             "scenes.generate_scene('book2_final_scene', 1.5, device='cpu')\n"
