@@ -31,14 +31,17 @@ holds each against its plain torch version first. Phases, one line each
      then InverseRenderer.fit for 3 Adam steps from color1 + 0.2 with the
      launch counts reset just before: step time, forward+backward frame
      time and segments/s, and one plain forward+backward frame;
-  7. the planar forward path: K3 against its plain version with the planar
-     budgets of tests/test_megakernel.py:119-128 on cornell_box (full
-     size, plain in 2^17-lane windows), simple_triangle and mesh_shards
+  7. the planar forward path: K3's division-free prefilter on the card
+     against the exact test (a superset) and its plain twin (the same
+     bits), on an adversarial set and 2^24 random cases per t_min; K3
+     against its plain version with the planar budgets of
+     tests/test_megakernel.py:119-128 on cornell_box (full size, plain in
+     2^17-lane windows), simple_triangle, mesh_shards and the monument
      (64x36, 4 spp, depth 6) and the cow (160x90, 4 spp, depth 8, plain in
      2^12-lane windows); then render_image on cornell_box, the cow and the
      textured monument at full size with the planar launch count reset
      just before each: frame time, segments per frame and segments/s, PNGs
-     to build/;
+     to build/; and each scene's render_fused ms a launch (its K3 entry);
   8. the planar training path: K3-emit on cornell_box (bitwise K3's
      radiance and segments, codes against the plain codes), K4 against its
      plain version on the kernel's own codes on cornell_box (full size,
@@ -70,11 +73,15 @@ holds each against its plain torch version first. Phases, one line each
      (full size) and sphere_medium (64x36), and of
      :359-381 on book2 at 160x90, 4 spp, depth 8 (its plain version alone
      would take minutes at full size); render_image of smokey_cornell_box
-     and book2 at full size with the launch count reset just before;
- 12. the depth-phased render (K6b): bench.py's book2_criterion through
-     render_image, bitwise the single-pass launch, live lanes per phase,
-     deep against single-pass frame ms in turns; one phase's launch against
-     its plain version from the same state; jumpy_balls at depth 20;
+     and book2 at full size with the launch counts reset just before (K5,
+     and K3's book2 entry);
+ 12. the depth-phased render (K6b), a group of G lanes per ray: on
+     bench.py's book2_criterion and jumpy_balls at depth 20, bitwise the
+     single-pass launch with G forced to each of 1, 2, ..., 32 and chosen
+     from the live lanes, G and live lanes per phase, deep against
+     single-pass ms in turns; the criterion's main path with the launch
+     count reset just before; each phase launched again from its own
+     inputs: its ms, and against its plain version from the same state;
  13. media, training: K5-emit on smokey_cornell_box (bitwise K5's radiance
      and segments, codes against the plain version's), its
      forward+backward frame (K5-emit, then torch autograd of the replay:
@@ -105,7 +112,10 @@ holds each against its plain torch version first. Phases, one line each
 
 Then one JSON line describing each kernel (launches on the main path, max
 abs error against its plain version, ms and plain ms, the least time the
-card could take for the same work and what bounds it), and as the last line
+card could take for the same work and what bounds it), each entry's ms,
+launches and bound measured on the same launches: K3 one entry per scene
+(cornell_box, the cow, the monument, book2), K6b one per phase of the
+criterion, K10-K12 one per table and launch size; and as the last line
 {"ok": true, "device": {...}}. Any failure is an uncaught exception: the
 exit code is not 0 and the last line is not printed. Without a CUDA device,
 or without the rest of the repository beside it, the script fails.
@@ -587,11 +597,11 @@ def main() -> None:
     }, *forward_work(n, cfg.max_depth, segs, S, 0))]
     kernels += training_path(scene, static, cfg, cam, k_rad, k_seg, smi)
     k3, cornell = planar_forward(dev, smi)
-    kernels += [k3, planar_training(dev, smi, cornell)]
+    kernels += [*k3, planar_training(dev, smi, cornell)]
     k6a, k8, frames = deferred_forward(dev, smi)
     kernels += [k6a, k8, *deferred_training(dev, smi, frames)]
-    k5, smokey = volume_forward(dev, smi)
-    kernels += [k5, deep_phases(dev, smi)]
+    k5, k3_book2, smokey = volume_forward(dev, smi)
+    kernels += [k5, k3_book2, *deep_phases(dev, smi)]
     volume_training(dev, smi, smokey)
     kernels += staged_path(dev, smi)
 
@@ -771,20 +781,55 @@ def plain_forward(scene, static, cfg, cam, window, emit=False,
     return tuple(torch.cat([p[i] for p in parts]) for i in range(len(parts[0])))
 
 
+def candidate_check(dev):
+    """The kernel's division-free planar prefilter (plane_candidate in
+    csrc/megakernel.cuh) against the exact test on the card: for each t_min
+    of checks.CAND_T_MINS, its adversarial set plus 2^24 random cases; it
+    must pass every row the exact test accepts, and give its plain twin's
+    bits on every case."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import checks
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    out = []
+    for t_min in checks.CAND_T_MINS:
+        cases = [torch.from_numpy(x).to(dev) for x in
+                 checks.candidate_cases(t_min, 1 << 24, seed=11)]
+        num, den, best = cases
+        got = mk.plane_candidate_device(num, den, best, t_min)
+        exact = checks.exact_accepts(num, den, best, t_min)
+        twin = mk.plane_candidate_plain(*(x.cpu() for x in (num, den)),
+                                        t_min, best.cpu())
+        missed = int((exact & ~got).sum())
+        differ = int((got.cpu() != twin).sum())
+        out.append(dict(t_min=t_min, cases=num.numel(),
+                        exact=int(exact.sum()), passed=int(got.sum()),
+                        missed=missed, differ_from_twin=differ))
+        if missed or differ:
+            raise AssertionError(f"plane_candidate: {out[-1]}")
+    print(f"phase 7 K3's planar prefilter on the card, adversarial cases + "
+          f"2^24 random ones per t_min: a superset of the exact test, its "
+          f"plain twin's bits: {json.dumps(out)}", flush=True)
+
+
 def planar_forward(dev, smi):
-    """Phase 7: K3 against its plain version on four scenes, then the
-    forward main path on cornell_box and the cow. Returns the kernels
-    line's K3 entry and cornell_box's (scene, static, cfg, cam, rad, seg)."""
+    """Phase 7: K3 against its plain version on five scenes, then the
+    forward main path on cornell_box, the cow and the monument. Returns the
+    kernels line's K3 entries, one a scene, and cornell_box's (scene,
+    static, cfg, cam, rad, seg)."""
     import torch
 
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
+    candidate_check(dev)
     failed = []
     frames = {}
     for name, size, window in (("cornell_box", FULL, PLAIN_CHUNK),
                                ("simple_triangle", SMALL, PLAIN_CHUNK),
                                ("mesh_shards", SMALL, PLAIN_CHUNK),
-                               ("wavefront_cow_obj", COW_REDUCED, COW_CHUNK)):
+                               ("wavefront_cow_obj", COW_REDUCED, COW_CHUNK),
+                               ("textured_monument", SMALL, COW_CHUNK)):
         scene, static, cfg, cam = load_scene(name, size, dev)
         k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
                                        cfg.seed, static=static)
@@ -803,16 +848,7 @@ def planar_forward(dev, smi):
     if failed:
         raise AssertionError(f"K3 vs plain outside budgets: {failed}")
 
-    scene, static, cfg, cam, _, _, window, cstats = frames["cornell_box"]
-    k3_ms = _cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
-                                             cfg.seed, static=static), 5)
-    plain_ms = _cuda_ms(lambda: plain_forward(scene, static, cfg, cam,
-                                              window), 3)
-    print(f"phase 7 K3 timing cornell_box: render_fused frame {k3_ms:.3f} ms,"
-          f" plain version frame {plain_ms:.3f} ms (median; {smi})",
-          flush=True)
-
-    launches = 0
+    k3 = []
     for name in ("cornell_box", "wavefront_cow_obj", "textured_monument"):
         scene, static, cfg, cam = load_scene(name, FULL, dev)
         k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
@@ -823,7 +859,6 @@ def planar_forward(dev, smi):
         count = mk.PLANAR_LAUNCHES
         if count < 1:
             raise AssertionError(f"render_image({name}) did not launch K3")
-        launches += count
         med = statistics.median(frame_ms)
         segs = int(k_seg.sum())
         print(f"phase 7 main path: render_image {name} {cfg.width}x"
@@ -833,21 +868,54 @@ def planar_forward(dev, smi):
               f"{max(frame_ms):.3f}), {segs} segments/frame, "
               f"{segs / (med / 1e3):.4e} segments/s; image -> {png}",
               flush=True)
+        # The plain version at full size: cornell_box's, in windows; the
+        # cow and the monument would take minutes (their plain check above
+        # is at a reduced size, whose error the entry carries).
+        plain = None
+        if name == "cornell_box":
+            def plain():
+                return plain_forward(scene, static, cfg, cam, PLAIN_CHUNK)
+        k3.append(k3_entry(name, scene, static, cfg, cam, k_seg, count,
+                           frames[name][-1]["max_abs_err"], plain, smi))
         if name == "cornell_box":
             cornell = (scene, static, cfg, cam, k_rad, k_seg)
-    c_scene, c_static, c_cfg = cornell[:3]
+    return k3, cornell
+
+
+def k3_entry(name, scene, static, cfg, cam, k_seg, launches, err, plain,
+             smi):
+    """The kernels line's K3 entry for one scene: render_fused's ms a launch
+    at the scene's size (CUDA events, median of 5), `launches` the scene's
+    render_image count, the bound from its own segments, spheres, planar
+    rows and media; `plain` (or None) times the plain version once."""
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    ms = _cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
+                                          cfg.seed, static=static,
+                                          deep=False), 5)
+    plain_ms = None if plain is None else _cuda_ms(plain, 1)
+    R = static.n_rects + static.n_triangles
+    blocks = mk.resident_blocks(static, scene.device, phase=False)
+    print(f"phase K3 timing {name} {cfg.width}x{cfg.height} spp "
+          f"{cfg.samples_per_pixel} depth {cfg.max_depth} ({static.n_spheres}"
+          f" spheres, {R} planar rows, {static.n_volumes} media): "
+          f"render_fused {ms:.3f} ms a launch, plain "
+          f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}; "
+          f"{blocks} resident blocks of {mk.BLOCK} threads an SM with "
+          f"{mk.TILE_BYTES} B of planar tiles each (median; {smi})",
+          flush=True)
     return bound({
-        "name": "megakernel_planar_forward",
+        "name": f"megakernel_planar_forward[{name}]",
         "route": "cuda",
         "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
         "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
         "launches": launches,
-        "max_abs_err": cstats["max_abs_err"],
-        "ms": k3_ms,
+        "max_abs_err": err,
+        "ms": ms,
         "plain_ms": plain_ms,
-    }, *forward_work(c_cfg.n_rays, c_cfg.max_depth,
-                     cstats["kernel_segments"], 0,
-                     c_static.n_rects + c_static.n_triangles)), cornell
+    }, *forward_work(cfg.n_rays, cfg.max_depth, int(k_seg.sum()),
+                     static.n_spheres, R, V=static.n_volumes,
+                     defer=mk.defers(static)))
 
 
 def planar_training(dev, smi, cornell):
@@ -1546,8 +1614,9 @@ def volume_forward(dev, smi):
     of :359-381 on book2 at 160x90, 4 spp, depth 8 (its plain version in
     2^12-lane windows: at full size it alone would take minutes); then the
     forward main path, render_image of smokey_cornell_box and book2 at full
-    size with the launch count reset just before each. Returns the kernels
-    line's K5 entry and smokey's (scene, static, cfg, cam, rad, seg)."""
+    size with the launch counts reset just before each. Returns the kernels
+    line's K5 entry, K3's book2 entry and smokey's (scene, static, cfg,
+    cam, rad, seg)."""
     import torch
 
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
@@ -1595,12 +1664,13 @@ def volume_forward(dev, smi):
             scene, static, cfg, cam = load_scene(name, FULL, dev)
             k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
                                            cfg.seed, static=static)
-        mk.VOL_LAUNCHES = 0
+        mk.VOL_LAUNCHES = mk.PLANAR_LAUNCHES = 0
         frame_ms, png = time_render_image(name, scene, static, cfg, cam,
                                           k_rad)
-        count = mk.VOL_LAUNCHES
-        if count < 1:
-            raise AssertionError(f"render_image({name}) did not launch K5")
+        count, k3_count = mk.VOL_LAUNCHES, mk.PLANAR_LAUNCHES
+        if count < 1 or k3_count < 1:
+            raise AssertionError(f"render_image({name}) launched K5 {count},"
+                                 f" K3 {k3_count} times")
         launches += count
         med = statistics.median(frame_ms)
         segs = int(k_seg.sum())
@@ -1611,6 +1681,10 @@ def volume_forward(dev, smi):
               f"{max(frame_ms):.3f}), {segs} segments/frame, "
               f"{segs / (med / 1e3):.4e} segments/s; image -> {png}",
               flush=True)
+        if name == "book2_final_scene":  # K3's book2 row: its planar loop
+            k3_book2 = k3_entry(name, scene, static, cfg, cam, k_seg,
+                                k3_count, frames[name][-1]["max_abs_err"],
+                                None, smi)
     s_scene, s_static, s_cfg = smokey[:3]
     return bound({
         "name": "megakernel_volume_forward",
@@ -1624,20 +1698,21 @@ def volume_forward(dev, smi):
     }, *forward_work(s_cfg.n_rays, s_cfg.max_depth,
                      sstats["kernel_segments"], 0,
                      s_static.n_rects + s_static.n_triangles,
-                     V=s_static.n_volumes)), smokey
+                     V=s_static.n_volumes)), k3_book2, smokey
 
 
 def deep_phases(dev, smi):
-    """Phase 12: the depth-phased render (K6b). bench.py's book2_criterion
-    through render_image (the launch counts reset just before), bitwise the
-    single-pass launch on the same frame; the live lanes of each phase;
-    deep against single-pass frame ms in turns; one phase's launch against
-    its plain version from the same state (the live lanes after the first
-    phase, book2 budgets); the plain depth-phased render timed in 2^12-lane
-    windows; and jumpy_balls at depth 20 (400x225, 4 spp), bitwise the
-    same. Returns the kernels line's K6b entry."""
-    import dataclasses
-
+    """Phase 12: the depth-phased render (K6b) on bench.py's
+    book2_criterion and on jumpy_balls at depth 20 (400x225, 4 spp): each
+    bitwise the single-pass launch with the lanes per ray forced to each G
+    of mk.GROUPS and with G chosen from each phase's live lanes; deep
+    against single-pass frame ms in turns; the criterion's main path
+    (render_image when render_fused's default takes the phases, else
+    render_fused_deep, 1 warm-up and 10 frames) with the launch count reset
+    just before; then each of the criterion's phases launched again from
+    its own inputs, timed, and held against its plain version from the
+    same state (book2 budgets). Returns the kernels line's K6b entries, one
+    a phase."""
     import torch
 
     from raytracer_weekend_tpu_torch.config import RenderConfig
@@ -1649,133 +1724,149 @@ def deep_phases(dev, smi):
     objs, cams, bg = scenes.book2_final_scene(cfg.aspect_ratio, seed=1337)
     scene, static = build_scene(objs, background=bg, seed=cfg.seed)
     scene, cam = scene.to(dev), cams[0].to(dev)
-    n = cfg.n_rays
-
-    def single():
-        return mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
-                               static=static, deep=False)
-
-    def deep(live=None):
-        return mk.render_fused_deep(scene, cfg, cam, 0, n, cfg.seed,
-                                    static=static, live_counts=live)
-
-    s_rad, s_seg = single()
-    live = []
-    d_rad, d_seg = deep(live)
-    torch.cuda.synchronize()
-    bitwise = torch.equal(d_rad, s_rad) and torch.equal(d_seg, s_seg)
-    mk.PHASE_LAUNCHES = 0
-    frame_ms, png = time_render_image("book2_criterion", scene, static, cfg,
-                                      cam, s_rad)
-    k6b_launches = mk.PHASE_LAUNCHES
-    if not bitwise or k6b_launches < 1:
-        raise AssertionError(f"book2_criterion: deep bitwise {bitwise}, "
-                             f"{k6b_launches} K6b launches in render_image")
-    times = {"single": [], "deep": []}
-    for who in ("single", "deep", "deep", "single"):
-        times[who].append(_cuda_ms(single if who == "single" else deep, 5))
-    single_ms, deep_ms = (statistics.median(times[k])
-                          for k in ("single", "deep"))
-    segs = int(s_seg.sum())
-    print(f"phase 12 main path: render_image book2_criterion {cfg.width}x"
-          f"{cfg.height} spp {cfg.samples_per_pixel} depth {cfg.max_depth} "
-          f"seeds 1337 on {smi}: {k6b_launches} K6b launches, lanes bitwise "
-          f"the single pass's; live lanes after each phase {live} of {n}; "
-          f"median frame {statistics.median(frame_ms):.3f} ms, {segs} "
-          f"segments/frame; render_fused_deep {deep_ms:.3f} ms against the "
-          f"single pass {single_ms:.3f} ms (CUDA events, medians of 5 in "
-          f"turns single/deep/deep/single: {json.dumps(times)}); image -> "
-          f"{png}", flush=True)
-
-    # One phase's launch against its plain version from the same state.
-    cfg10 = dataclasses.replace(cfg, max_depth=mk.PHASE_LEN)
-    *_, st = mk._launch(scene, cfg10, cam, 0, n, cfg.seed, static,
-                        phase=True)
-    alive = st[:, 13] > 0.0
-    keep = torch.nonzero(alive).squeeze(1)
-    lanes = keep.to(torch.int32)
-    st_in = st[keep].contiguous()
-    nl = lanes.shape[0]
-
-    def phase_kernel():
-        return mk._launch(scene, cfg10, cam, 0, nl, cfg.seed, static,
-                          phase=True, state=st_in, lanes=lanes,
-                          d0=mk.PHASE_LEN)
-
-    def phase_plain():
-        outs = [mk.phase_reference(scene, cfg10, cam, lanes[w], st_in[w],
-                                   mk.PHASE_LEN, cfg.seed, static=static)
-                for w in lane_windows(nl, BOOK2_CHUNK)]
-        return [torch.cat([o[i] for o in outs]) for i in range(len(outs[0]))]
-
-    k_out, p_out = phase_kernel(), phase_plain()
-    torch.cuda.synchronize()
-    ok, stats = _budgets(k_out[-1][:, 9:12], p_out[-1][:, 9:12],
-                         k_out[1].sum(), p_out[1].sum(), nl, **BOOK2_BUDGETS)
-    alive_same = int((k_out[-1][:, 13] == p_out[-1][:, 13]).sum())
-    stats.update(alive_equal=alive_same)
-    print(f"phase 12 K6b vs plain: book2_criterion's second phase (bounces "
-          f"10-19) from the kernel's state of its {nl} live lanes, radiance "
-          f"and segments in the state: {json.dumps(stats)}", flush=True)
-    if not ok:
-        raise AssertionError(f"K6b vs plain outside budgets: {stats}")
-    k6b_err = stats["max_abs_err"]
-    phase_ms = _cuda_ms(phase_kernel, 5)
-
-    def plain_deep():
-        return [mk.render_fused_deep(scene, cfg, cam, w.start,
-                                     w.stop - w.start, cfg.seed,
-                                     static=static, plain=True)
-                for w in lane_windows(n, BOOK2_TIMING_CHUNK)]
-
-    plain_deep_ms = _cuda_ms(plain_deep, 1)
-    print(f"phase 12 timing: one phased launch (bounces 10-19, {nl} lanes) "
-          f"{phase_ms:.3f} ms; the plain depth-phased render of the frame "
-          f"in {BOOK2_TIMING_CHUNK}-lane windows {plain_deep_ms:.3f} ms "
-          f"({smi})", flush=True)
-
-    # jumpy_balls at depth 20.
     jc = RenderConfig(width=400, height=225, samples_per_pixel=4,
                       max_depth=20)
     jscene, jstatic, jcams = scenes.generate_scene("jumpy_balls",
                                                    jc.aspect_ratio,
                                                    device=dev)
-    jcam = jcams[0].to(dev)
-    j_single = mk.render_fused(jscene, jc, jcam, 0, jc.n_rays, jc.seed,
-                               static=jstatic, deep=False)
-    jlive = []
-    j_deep = mk.render_fused_deep(jscene, jc, jcam, 0, jc.n_rays, jc.seed,
-                                  static=jstatic, live_counts=jlive)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(j_deep, j_single)):
-        raise AssertionError("jumpy_balls depth 20: deep != single pass")
-    jt = {"single": [], "deep": []}
-    for who in ("single", "deep", "deep", "single"):
-        fn = (mk.render_fused_deep if who == "deep" else
-              lambda *a, **k: mk.render_fused(*a, **k, deep=False))
-        jt[who].append(_cuda_ms(lambda: fn(jscene, jc, jcam, 0, jc.n_rays,
-                                           jc.seed, static=jstatic), 5))
-    print(f"phase 12 jumpy_balls {jc.width}x{jc.height} spp "
-          f"{jc.samples_per_pixel} depth {jc.max_depth}: deep bitwise the "
-          f"single pass; live lanes after the first phase {jlive} of "
-          f"{jc.n_rays}; deep {statistics.median(jt['deep']):.3f} ms, single "
-          f"{statistics.median(jt['single']):.3f} ms ({json.dumps(jt)}; "
-          f"{smi})", flush=True)
-    # Every phase writes rad, seg and the records of its lanes; the first
-    # writes their state, each later one reads and writes it.
-    lanes_run = n + sum(live)
-    return bound({
-        "name": "megakernel_phase_io",
-        "route": "cuda",
-        "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
-        "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
-        "launches": k6b_launches,
-        "max_abs_err": k6b_err,
-        "ms": deep_ms,
-        "plain_ms": plain_deep_ms,
-    }, *forward_work(lanes_run, mk.PHASE_LEN, segs, static.n_spheres,
-                     static.n_rects + static.n_triangles, defer=True,
-                     V=static.n_volumes, phase_lanes=n + 2 * sum(live)))
+    runs = {"book2_criterion": (scene, static, cfg, cam),
+            "jumpy_balls_d20": (jscene, jstatic, jc, jcams[0].to(dev))}
+
+    timings, phase_log = {}, {}
+    for name, (sc, st, cf, cm) in runs.items():
+        def single():
+            return mk.render_fused(sc, cf, cm, 0, cf.n_rays, cf.seed,
+                                   static=st, deep=False)
+
+        def deep(group=None, live=None, phases=None):
+            return mk._render_deep(sc, cf, cm, 0, cf.n_rays, cf.seed,
+                                   static=st, group=group, live_counts=live,
+                                   phases=phases)
+
+        s_out = single()
+        live, phases = [], []
+        outs = {g: deep(g) for g in mk.GROUPS}
+        outs["auto"] = deep(None, live, phases)
+        torch.cuda.synchronize()
+        equal = {str(g): all(torch.equal(a, b) for a, b in zip(o, s_out))
+                 for g, o in outs.items()}
+        if not all(equal.values()):
+            raise AssertionError(f"{name}: the phased render is not the "
+                                 f"single pass bit for bit: {equal}")
+        times = {"single": [], "deep": []}
+        for who in ("single", "deep", "deep", "single"):
+            times[who].append(_cuda_ms(single if who == "single" else deep,
+                                       5))
+        timings[name] = {k: statistics.median(v) for k, v in times.items()}
+        phase_log[name] = phases
+        print(f"phase 12 {name} {cf.width}x{cf.height} spp "
+              f"{cf.samples_per_pixel} depth {cf.max_depth}: the phased "
+              f"render bitwise the single pass with G forced to each of "
+              f"{list(mk.GROUPS)} and with G from the live lanes "
+              f"({json.dumps(equal)}); live lanes after each phase {live} "
+              f"of {cf.n_rays}; G per phase "
+              f"{[ph['group'] for ph in phases]} (from "
+              f"{mk.resident_blocks(st, dev)} resident blocks an SM); "
+              f"render_fused_deep "
+              f"{timings[name]['deep']:.3f} ms, single pass "
+              f"{timings[name]['single']:.3f} ms (CUDA events, medians of 5"
+              f" in turns single/deep/deep/single: {json.dumps(times)}; "
+              f"{smi})", flush=True)
+
+    # The criterion's main path, counted from 0.
+    n = cfg.n_rays
+    s_rad, s_seg = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                   static=static, deep=False)
+    mk.PHASE_LAUNCHES = 0
+    frame_ms, png = time_render_image("book2_criterion", scene, static, cfg,
+                                      cam, s_rad)
+    route = "render_image"
+    if mk.PHASE_LAUNCHES == 0:  # the default is the single pass
+        route = "render_fused_deep"
+        for _ in range(11):
+            rad, _ = mk.render_fused_deep(scene, cfg, cam, 0, n, cfg.seed,
+                                          static=static)
+        torch.cuda.synchronize()
+        if not torch.equal(rad, s_rad):
+            raise AssertionError("render_fused_deep != the single pass")
+    k6b_launches = mk.PHASE_LAUNCHES
+    phases = phase_log["book2_criterion"]
+    if k6b_launches < 1 or k6b_launches % len(phases):
+        raise AssertionError(f"book2_criterion: {k6b_launches} K6b launches "
+                             f"through {route} for {len(phases)} phases")
+    segs = int(s_seg.sum())
+    print(f"phase 12 main path: book2_criterion through {route} (render_"
+          f"image's route: {'deep' if route == 'render_image' else 'single'}"
+          f" pass) on {smi}: {k6b_launches} K6b launches; render_image "
+          f"median frame {statistics.median(frame_ms):.3f} ms, {segs} "
+          f"segments/frame; image -> {png}", flush=True)
+
+    # Each phase again from its own inputs: timed, and held against its
+    # plain version from the same state.
+    entries, ms_sum = [], 0.0
+    tables = mk.build_tables(scene, static, cam)
+    for k, ph in enumerate(phases):
+        cf, nl, d0, g = ph["cfg"], ph["lanes"], ph["d0"], ph["group"]
+        st_in, ids = ph["state"], ph["ids"]
+
+        def launch():
+            return mk._launch(scene, cf, cam, 0, nl, cfg.seed, static,
+                              phase=True, state=st_in, lanes=ids, d0=d0,
+                              tables=tables, group=g)
+
+        k_out = launch()
+        ms = _cuda_ms(launch, 5)
+        ms_sum += ms
+        ids_all = (torch.arange(nl, dtype=torch.int32, device=dev)
+                   if ids is None else ids)
+        plain_out = []
+
+        def plain():
+            outs = [mk.phase_reference(
+                scene, cf, cam, ids_all[w],
+                None if st_in is None else st_in[w], d0, cfg.seed,
+                static=static) for w in lane_windows(nl, BOOK2_CHUNK)]
+            plain_out[:] = [torch.cat([o[i] for o in outs])
+                            for i in range(len(outs[0]))]
+
+        plain_ms = _cuda_ms(plain, 1)
+        p_out = plain_out
+        ok, stats = _budgets(k_out[-1][:, 9:12], p_out[-1][:, 9:12],
+                             k_out[1].sum(), p_out[1].sum(), nl,
+                             **BOOK2_BUDGETS)
+        seg0 = 0 if st_in is None else int(st_in[:, 14].double().sum())
+        phase_segs = int(k_out[1].sum()) - seg0
+        stats.update(alive_equal=int((k_out[-1][:, 13]
+                                      == p_out[-1][:, 13]).sum()),
+                     phase_segments=phase_segs)
+        print(f"phase 12 K6b phase {k + 1} of book2_criterion (bounces "
+              f"{d0}-{d0 + cf.max_depth - 1}, {nl} lanes, G {g}): "
+              f"{ms:.3f} ms a launch, plain {plain_ms:.3f} ms; kernel vs "
+              f"plain from the same state, radiance and segments in the "
+              f"state: {json.dumps(stats)} ({smi})", flush=True)
+        if not ok:
+            raise AssertionError(f"K6b phase {k + 1} vs plain outside "
+                                 f"budgets: {stats}")
+        # A phase writes its lanes' rad, seg, records and state, and a
+        # resumed one reads their state and ids as well.
+        entries.append(bound({
+            "name": f"megakernel_phase_io[book2_criterion phase {k + 1}]",
+            "route": "cuda",
+            "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
+            "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
+            "launches": k6b_launches // len(phases),
+            "max_abs_err": stats["max_abs_err"],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        }, *forward_work(nl, cf.max_depth, phase_segs, static.n_spheres,
+                         static.n_rects + static.n_triangles, defer=True,
+                         V=static.n_volumes,
+                         phase_lanes=nl if st_in is None else 2 * nl)))
+    print(f"phase 12 timing: the criterion's phases {ms_sum:.3f} ms in all "
+          f"launched alone, against the whole render_fused_deep "
+          f"{timings['book2_criterion']['deep']:.3f} ms (the host's live "
+          f"count, gathers and combine between them) ({smi})", flush=True)
+    return entries
 
 
 def volume_training(dev, smi, smokey):
@@ -1877,10 +1968,12 @@ def volume_training(dev, smi, smokey):
 OPS_PAIR = {"spheres": 40, "rects": 30, "triangles": 45}
 # Bytes per ray the kernels move (rays in, t and idx out) and per table row.
 BYTES_RAY = {"spheres": 48, "rects": 32, "triangles": 44}
-# Each kernel is timed on the primary rays of one scene.
+# The whole-frame launches (render_image and the fits) of each kernel are
+# timed on the primary rays of one scene; the staged frames' on their own.
 TIMED = {"spheres": "jumpy_balls", "rects": "cornell_box",
          "triangles": "wavefront_cow_obj"}
 STAGED_CHUNK = 1 << 18
+FULL_RAYS = 400 * 225 * 16
 # The uv-debug jumpy's fit holds the whole frame's staged autograd graph.
 STAGED_FIT = dict(width=400, height=225, samples_per_pixel=16, max_depth=8)
 MANY_SMALL = dict(width=64, height=36, samples_per_pixel=4, max_depth=6)
@@ -2166,17 +2259,23 @@ def staged_path(dev, smi):
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
     mods = {k: hit_family(k)[0] for k in ("spheres", "rects", "triangles")}
-    launches = dict.fromkeys(mods, 0)
+    # (kind, scene whose rays it was timed on, rays a launch) -> launches.
+    launches = {}
 
-    def main_path(run):
+    def main_path(run, scene_name="", chunk=FULL_RAYS):
         """run() with every K10-K12 count reset just before and read just
-        after -> (run()'s result, the counts), added to `launches`."""
+        after -> (run()'s result, the counts), added to `launches` under
+        the launch size `chunk`; the staged frames' launches also under
+        their scene, the whole-frame launches (render_image and the fits)
+        under each kernel's TIMED scene."""
         for m in mods.values():
             m.LAUNCHES = 0
         out = run()
         counts = {k: m.LAUNCHES for k, m in mods.items()}
         for k, c in counts.items():
-            launches[k] += c
+            if c:
+                key = (k, scene_name or TIMED[k], chunk)
+                launches[key] = launches.get(key, 0) + c
         return out, counts
 
     # ---- 14a. each kernel against its plain version --------------------------
@@ -2184,11 +2283,15 @@ def staged_path(dev, smi):
                "wavefront_cow_obj": 1 << 14}
     fams = {"jumpy_balls": ("spheres",), "cornell_box": ("rects", "triangles"),
             "wavefront_cow_obj": ("triangles",)}
-    entries, errs, frames = {}, {}, {}
+    errs, frames, timed = {}, {}, {}
     for name in ("jumpy_balls", "cornell_box", "wavefront_cow_obj"):
         scene, static, cfg, cam = load_scene(name, FULL, dev)
         frames[name] = (scene, static, cfg, cam)
         primary, bounce = bounce_rays(scene, static, cfg, cam)
+        for kind in ("spheres", "rects", "triangles"):
+            if getattr(static, f"n_{kind}"):
+                timed[kind, name] = (getattr(scene, kind), primary,
+                                     windows[name])
         for kind in fams[name]:
             mod, kern, _, rows, _ = hit_family(kind)
             tab = getattr(scene, kind)
@@ -2204,32 +2307,6 @@ def staged_path(dev, smi):
                 if name != "jumpy_balls":     # K10's: on the uv-debug jumpy
                     hit_vjp(f"{kind} {name} {which} rays", kind, tab, rays,
                             cfg.t_min, windows[name])
-                if which == "primary" and TIMED[kind] == name:
-                    n, P = rays[0].shape[0], tab.valid.shape[0]
-                    k_ms = _cuda_ms(lambda: kern(tab, *hit_rays(kind, rays),
-                                                 cfg.t_min), 5)
-                    p_ms = _cuda_ms(lambda: plain_hits(kind, tab, rays,
-                                                       windows[name],
-                                                       cfg.t_min), 1)
-                    entries[kind] = bound({
-                        "name": mod.__name__.rsplit(".", 1)[1],
-                        "route": "cuda",
-                        "source": "raytracer_weekend_tpu_torch/csrc/"
-                                  "intersect.cu",
-                        "replaces": "raytracer_weekend_tpu/ops/pallas/"
-                                    + {"spheres": "sphere_intersect.py:39",
-                                       "rects": "rect_intersect.py:34",
-                                       "triangles": "triangle_intersect.py:36"
-                                       }[kind],
-                        "launches": 0,
-                        "max_abs_err": 0.0,
-                        "ms": k_ms,
-                        "plain_ms": p_ms,
-                    }, n * P * OPS_PAIR[kind],
-                        n * BYTES_RAY[kind] + 4 * rows * P)
-                    print(f"phase 14 timing {kind} {name} primary: "
-                          f"{n} rays x {P} rows, kernel {k_ms:.3f} ms, plain "
-                          f"{p_ms:.3f} ms (median; {smi})", flush=True)
                 errs[kind] = max(errs.get(kind, 0.0), stats["max_abs_err"])
                 if (name, which) == ("jumpy_balls", "primary"):
                     row_reads(tab.c0, i_k.long(), smi)
@@ -2253,7 +2330,7 @@ def staged_path(dev, smi):
         f_rad, f_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
                                        cfg.seed, static=static)
         (rad, seg), counts = main_path(lambda: staged_frame(
-            scene, static, cfg, cam, STAGED_CHUNK))
+            scene, static, cfg, cam, STAGED_CHUNK), name, STAGED_CHUNK)
         torch.cuda.synchronize()
         ok, stats = _budgets(rad, f_rad, seg.sum(), f_seg.sum(), cfg.n_rays,
                              **budgets)
@@ -2411,12 +2488,44 @@ def staged_path(dev, smi):
           f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
           f"{', '.join(f'{v:.3f}' for v in step_ms)} (median after warm-up "
           f"{statistics.median(step_ms[1:]):.3f})", flush=True)
+    by_key = {" ".join(map(str, k)): v for k, v in launches.items()}
     print(f"phase 14 launches on the main paths (staged frames, render_image,"
-          f" fits; each counted from 0): {json.dumps(launches)}", flush=True)
-    for kind, e in entries.items():
-        e.update(launches=launches[kind], max_abs_err=errs[kind])
+          f" fits; each counted from 0), by kernel, table and rays a launch:"
+          f" {json.dumps(by_key)}", flush=True)
     many_spheres_k2(dev, smi)
-    return [entries[k] for k in ("spheres", "rects", "triangles")]
+    return [hit_entry(kind, name, chunk, count, *timed[kind, name],
+                      errs[kind], smi)
+            for (kind, name, chunk), count in sorted(launches.items())]
+
+
+def hit_entry(kind, name, chunk, launches, tab, rays, window, err, smi):
+    """The kernels line's entry of K10, K11 or K12 for the launches of
+    `chunk` rays against scene `name`'s table: one launch timed on the
+    first `chunk` of its primary rays (CUDA events, median of 5), the
+    plain version once, the bound at that size."""
+    mod, kern = hit_family(kind)[:2]
+    rows = hit_family(kind)[3]
+    part = tuple(r[:chunk] for r in rays)
+    n, P = part[0].shape[0], tab.valid.shape[0]
+    k_ms = _cuda_ms(lambda: kern(tab, *hit_rays(kind, part), 1e-3), 5)
+    p_ms = _cuda_ms(lambda: plain_hits(kind, tab, part, window), 1)
+    short = mod.__name__.rsplit(".", 1)[1]
+    print(f"phase 14 timing {short} {name} primary: {n} rays x {P} rows, "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (median; {smi}); "
+          f"{launches} launches of this size on the main paths", flush=True)
+    return bound({
+        "name": f"{short}[{name} {n} rays]",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/intersect.cu",
+        "replaces": "raytracer_weekend_tpu/ops/pallas/"
+                    + {"spheres": "sphere_intersect.py:39",
+                       "rects": "rect_intersect.py:34",
+                       "triangles": "triangle_intersect.py:36"}[kind],
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+    }, n * P * OPS_PAIR[kind], n * BYTES_RAY[kind] + 4 * rows * P)
 
 
 def many_spheres_k2(dev, smi):

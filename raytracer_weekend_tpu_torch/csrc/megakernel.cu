@@ -14,30 +14,51 @@ __global__ void rand4_kernel(const uint32_t* __restrict__ ids, int n,
   if (i < n) out[i] = rand4(seed, ids[i], depth, salt);
 }
 
+__global__ void candidate_kernel(const float* __restrict__ num,
+                                 const float* __restrict__ den,
+                                 const float* __restrict__ best, int n,
+                                 float t_min, int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = plane_candidate(num[i], den[i], t_min, best[i]) ? 1 : 0;
+}
+
 template <bool kVol, bool kPhase>
-void launch_modes(const float* tab, const float* ptab, const float* par,
-                  const Launch& L, const Extra& X, float* rad, int* seg,
-                  int* codes, const Records& rec, bool defer,
-                  cudaStream_t st) {
+cudaError_t launch_modes(const float* tab, const float* ptab,
+                         const float4* ptest, const float* par,
+                         const Launch& L, const Extra& X, float* rad,
+                         int* seg, int* codes, const Records& rec, bool defer,
+                         cudaStream_t st, int* occ) {
   if constexpr (!kPhase) {  // phases never emit codes
-    if (codes && defer) {
-      launch_render<true, true, kVol, kPhase>(tab, ptab, par, L, X, rad, seg,
-                                              codes, rec, st);
-      return;
-    }
-    if (codes) {
-      launch_render<true, false, kVol, kPhase>(tab, ptab, par, L, X, rad,
-                                               seg, codes, rec, st);
-      return;
-    }
+    if (codes && defer)
+      return launch_render<true, true, kVol, kPhase>(
+          tab, ptab, ptest, par, L, X, rad, seg, codes, rec, st, occ);
+    if (codes)
+      return launch_render<true, false, kVol, kPhase>(
+          tab, ptab, ptest, par, L, X, rad, seg, codes, rec, st, occ);
   }
-  if (defer) {
-    launch_render<false, true, kVol, kPhase>(tab, ptab, par, L, X, rad, seg,
-                                             nullptr, rec, st);
-  } else {
-    launch_render<false, false, kVol, kPhase>(tab, ptab, par, L, X, rad, seg,
-                                              nullptr, rec, st);
-  }
+  if (defer)
+    return launch_render<false, true, kVol, kPhase>(
+        tab, ptab, ptest, par, L, X, rad, seg, nullptr, rec, st, occ);
+  return launch_render<false, false, kVol, kPhase>(
+      tab, ptab, ptest, par, L, X, rad, seg, nullptr, rec, st, occ);
+}
+
+cudaError_t dispatch(const float* tab, const float* ptab, const float4* ptest,
+                     const float* par, const Launch& L, const Extra& X,
+                     float* rad, int* seg, int* codes, const Records& rec,
+                     bool defer, bool vol, bool phase, cudaStream_t st,
+                     int* occ) {
+  if (vol && phase)
+    return launch_modes<true, true>(tab, ptab, ptest, par, L, X, rad, seg,
+                                    codes, rec, defer, st, occ);
+  if (vol)
+    return launch_modes<true, false>(tab, ptab, ptest, par, L, X, rad, seg,
+                                     codes, rec, defer, st, occ);
+  if (phase)
+    return launch_modes<false, true>(tab, ptab, ptest, par, L, X, rad, seg,
+                                     codes, rec, defer, st, occ);
+  return launch_modes<false, false>(tab, ptab, ptest, par, L, X, rad, seg,
+                                    codes, rec, defer, st, occ);
 }
 
 }  // namespace rtw
@@ -46,27 +67,33 @@ extern "C" {
 
 // Renders lanes [lane_start, lane_start + n_chunk) on `stream`: sphere
 // table `tab` (N_ROWS x n_spheres), planar table `ptab` (N_PROWS x
-// n_planar) and volume table `vtab` (n_volumes x N_VCOLS), any count 0
-// (and its table unused) but not both surface counts. `log10` selects the
+// n_planar) with its packed test rows `ptest` (n_planar float4 (n, k), then
+// n_planar x 3 float4 (ua, ca), (ub, cb), (flag, 0, 0, 0); 16-byte
+// aligned), and volume table `vtab` (n_volumes x N_VCOLS), any count 0 (and
+// its tables unused) but not both surface counts. `log10` selects the
 // reference's log10 scatter distance. With a non-null `codes` (n_chunk x
 // max_depth int32) it also writes the winner codes. With non-null `ctb`,
 // `abc` (n_chunk x max_depth x 3 f32) and `dcode` (n_chunk x max_depth
 // int32) it defers noise and image texels and writes their records. With a
 // non-null `st_out` (n_chunk x 15 f32) it runs bounces d0 .. d0 +
-// max_depth - 1 and writes each lane's state; with `st_in` and `gid`
-// (n_chunk int32 global lane ids) as well, it starts from that state instead
-// of the primary rays (no codes in either case). Returns cudaGetLastError()
-// after the launch (0 on success); it does not sync.
+// max_depth - 1 with `group` lanes per ray (1, 2, 4, 8, 16 or 32) and
+// writes each lane's state; with `st_in` and `gid` (n_chunk int32 global
+// lane ids) as well, it starts from that state instead of the primary rays
+// (no codes in either case); without `st_out`, `group` must be 1. Returns
+// the launch's CUDA error (0 on success); it does not sync.
 int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
-                     int n_planar, const float* vtab, int n_volumes,
-                     const float* par, long long lane_start, int n_chunk,
-                     int width, int height, int spp, int max_depth, int d0,
-                     float t_min, unsigned int seed, int log10, float* rad,
-                     int* seg, int* codes, float* ctb, float* abc,
-                     int* dcode, const float* st_in, const int* gid,
-                     float* st_out, void* stream) {
+                     const float* ptest, int n_planar, const float* vtab,
+                     int n_volumes, const float* par, long long lane_start,
+                     int n_chunk, int width, int height, int spp,
+                     int max_depth, int d0, int group, float t_min,
+                     unsigned int seed, int log10, float* rad, int* seg,
+                     int* codes, float* ctb, float* abc, int* dcode,
+                     const float* st_in, const int* gid, float* st_out,
+                     void* stream) {
   if (n_chunk <= 0) return 0;
   if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
+  if (n_planar > 0 && (ptest == nullptr || ((uintptr_t)ptest & 15) != 0))
+    return (int)cudaErrorInvalidValue;
   const bool defer = ctb != nullptr;
   if (defer && (abc == nullptr || dcode == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -75,28 +102,50 @@ int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
   if (vol && vtab == nullptr) return (int)cudaErrorInvalidValue;
   if (phase && (codes != nullptr || (st_in == nullptr) != (gid == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (!phase && (st_in != nullptr || d0 != 0))
+  if (!phase && (st_in != nullptr || d0 != 0 || group != 1))
+    return (int)cudaErrorInvalidValue;
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 ||
+      (long long)n_chunk * group >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   rtw::Launch L{lane_start, n_chunk, n_spheres, n_planar, width, height,
                 spp, max_depth, t_min, seed};
   const rtw::Extra X{vtab, n_volumes,
                      log10 ? 0.43429448190325176f : 1.0f,
-                     st_in, gid, st_out, d0};
+                     st_in, gid, st_out, d0, group};
   const rtw::Records rec{ctb, abc, dcode};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vol && phase) {
-    rtw::launch_modes<true, true>(tab, ptab, par, L, X, rad, seg, codes, rec,
-                                  defer, st);
-  } else if (vol) {
-    rtw::launch_modes<true, false>(tab, ptab, par, L, X, rad, seg, codes,
-                                   rec, defer, st);
-  } else if (phase) {
-    rtw::launch_modes<false, true>(tab, ptab, par, L, X, rad, seg, codes,
-                                   rec, defer, st);
-  } else {
-    rtw::launch_modes<false, false>(tab, ptab, par, L, X, rad, seg, codes,
-                                    rec, defer, st);
-  }
+  return (int)rtw::dispatch(tab, ptab,
+                            reinterpret_cast<const float4*>(ptest), par, L,
+                            X, rad, seg, codes, rec, defer, vol, phase,
+                            (cudaStream_t)stream, nullptr);
+}
+
+// Resident blocks per SM (into *blocks) of the launch without codes that
+// the scene's families select (`defer` for a deferring scene, `phase` for
+// a phased one), at its shared memory.
+int rtw_render_occupancy(int n_spheres, int n_planar, int n_volumes,
+                         int defer, int phase, int* blocks) {
+  rtw::Launch L{};
+  L.n_spheres = n_spheres;
+  L.n_planar = n_planar;
+  rtw::Extra X{};
+  X.group = 1;
+  const rtw::Records rec{};
+  return (int)rtw::dispatch(nullptr, nullptr, nullptr, nullptr, L, X,
+                            nullptr, nullptr, nullptr, rec, defer != 0,
+                            n_volumes > 0, phase != 0, nullptr, blocks);
+}
+
+// The planar prefilter plane_candidate on n (num, den, best) triples at
+// t_min -> out (n int32, 1 = passes): a probe for its superset property,
+// not on the render path.
+int rtw_plane_candidate(const float* num, const float* den,
+                        const float* best, int n, float t_min, int* out,
+                        void* stream) {
+  if (n <= 0) return 0;
+  const int block = 256;
+  rtw::candidate_kernel<<<(n + block - 1) / block, block, 0,
+                          (cudaStream_t)stream>>>(num, den, best, n, t_min,
+                                                  out);
   return (int)cudaGetLastError();
 }
 

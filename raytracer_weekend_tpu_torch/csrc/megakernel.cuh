@@ -1,5 +1,6 @@
-// Fused forward path-tracing kernel, one thread per lane: spheres, the
-// planar family (axis-aligned rects and triangles in one table) and
+// Fused forward path-tracing kernel, a lane per thread (or per group of G
+// threads in the phased launches): spheres, the planar family
+// (axis-aligned rects and triangles in one table) and
 // constant-density media (kVol), with noise and image texels deferred to
 // the host (kDefer) and the lane state written out and read back between
 // depth phases (kPhase). The template lives here; megakernel.cu and
@@ -81,29 +82,51 @@
 // rounding on wall corners and cuboid edges. A padded or degenerate row has
 // all-zero coefficients, so t = 0/0 = NaN and it never hits.
 //
-// What bounds it on an H100: FP32 issue and divergence. Every live lane tests
-// every primitive each bounce (jumpy_balls: ~486 spheres x ~2.6 segments per
-// lane, ~25 flops per test; the cow: 5,806 planar primitives, ~12 flops per
-// test; book2: 1,006 spheres and 2,401 rects), and lanes of a warp die at
-// different depths and take different material branches. Memory traffic is
-// tiny: the tables are read by index, each read one broadcast to the warp
-// from L1, and outputs are 16 bytes per lane (plus 4 per bounce with the
-// codes, 28 with the records, 120 of state per phase).
+// What bounds it on an H100: FP32 issue and divergence, not bytes. Every
+// live lane tests every primitive each bounce (jumpy_balls: 486 spheres x
+// ~2.6 segments per lane, 29 FP32 operations per test as chip_smoke.py
+// counts them; the cow: 5,805 planar rows; book2: 1,006 spheres and 2,401
+// rects), and lanes of a warp
+// die at different depths and take different material branches. Outputs
+// are 16 bytes per lane (plus 4 per bounce with the codes, 28 with the
+// records, 120 of state per phase).
 //
-// What the design does about it: the per-primitive tests are the direct
-// forms (for a sphere, one lerp of the center, two dots, one compare on the
-// discriminant with the square root behind `disc > 0`; for a planar
-// primitive, two dots and a division, with the in-plane coordinates only
-// behind `t >= t_min && t < best`); the families share one running closest
-// t, so the planar loop starts from the sphere winner and strict `<` keeps
-// the sphere on an exact tie and the lowest index among planar ties, as
-// argmin and the family merge do in the plain version. Tables are
-// structure-of-arrays read through `const __restrict__`; the material and
-// texture rows sit at the same row numbers in both tables, so the shading
-// reads the winner's column through one pointer and one stride. A lane
-// leaves the depth loop as soon as it dies, and only the winning material's
-// branch draws its random numbers. Later work: shared-memory staging, ray
-// sorting by material, a BVH (the cow's planar loop dominates its frame).
+// What the design does about it:
+// - The sphere-only launches (K1, K1-emit, K6a on sphere scenes) run one
+//   thread per lane that leaves the loop when its path ends; the sphere
+//   test is the direct form (one lerp of the center, two dots, a compare
+//   on the discriminant, the square root behind `disc > 0`). Tables are
+//   structure-of-arrays read through `const __restrict__`.
+// - The planar loop (K3, every launch with planar rows): the block stages
+//   the packed plane rows (nx, ny, nz, k), one float4 each, in 512-row
+//   tiles of dynamic shared memory by cp.async, double-buffered, so the
+//   next tile is in flight while the block tests the current one; a test
+//   reads one 16-byte broadcast instead of four L1 loads. The division is
+//   taken only by rows that pass a division-free prefilter
+//   (plane_candidate) of num = k - n.o against den = n.d, t_min and the
+//   running best, and only its candidates read their in-plane rows
+//   (ua, ca), (ub, cb), flag from global memory. The block walks the
+//   bounces together (a dead or out-of-range lane joins the barriers and
+//   tests nothing) and stops when __syncthreads_or(alive) is 0. Bound now:
+//   FP32 issue of each row's two dots and prefilter across all live lanes,
+//   and lanes idling in a block whose other lanes live on (PERF.md §6).
+// - Phased launches (K6b) carry a ray on a group of G lanes of one warp
+//   (G from the live count, `group`): rank j tests spheres and planar rows
+//   j mod G, and the group merges by shuffles the lexicographic minimum of
+//   (t, family, index), spheres before planar rows and the lower index on
+//   an exact tie, which is what the serial strict-< loops choose; every
+//   rank then shades and scatters the same bits (keyed on seed, ray id and
+//   absolute depth) and rank 0 writes. The tail of a deep render (a few
+//   thousand long paths) then fills the card. Bound: the first phase as
+//   K3's loop; the tail by the merges and the redundant shading.
+// - The families share one running closest t, so the planar loop starts
+//   from the sphere winner and strict `<` keeps the sphere on an exact tie
+//   and the lowest index among planar ties, as argmin and the family merge
+//   do in the plain version. The material and texture rows sit at the same
+//   row numbers in both tables, so the shading reads the winner's column
+//   through one pointer and one stride; only the winning material's branch
+//   draws its random numbers.
+// Later work: ray sorting by material, a BVH, the same tiles for spheres.
 //
 // Numerics: no fast math. The ground is a radius-1000 sphere with a checker
 // of frequency 10, so sinf takes arguments in the thousands; __sinf would
@@ -200,6 +223,10 @@ enum Par {
 };
 
 constexpr int kBlock = 128;
+// Plane rows (one float4 each) per shared-memory tile; a block holds two,
+// the next one's copy in flight while it tests the current one.
+constexpr int kTile = 512;
+constexpr int kTileBytes = 2 * kTile * (int)sizeof(float4);
 
 struct Launch {
   long long lane_start;
@@ -218,6 +245,7 @@ struct Extra {
   const int* __restrict__ gid;      // (n_chunk,) global lane ids
   float* __restrict__ st_out;       // (n_chunk, N_STATE)
   int d0;                           // absolute depth of the first bounce
+  int group;  // lanes per ray of a phased launch (1, 2, 4, ..., 32), else 1
 };
 
 // min/max that return NaN when either operand is NaN (torch.minimum/
@@ -227,6 +255,64 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+// The planar test's division-free prefilter. Given 0 < t_min <= best (best
+// may be +inf), it passes every row whose IEEE num / den satisfies
+// t >= t_min && t < best, and rejects most rows that fail: a row behind the
+// ray (num / den <= 0), or nearer than t_min or beyond best by more than
+// the margin. With den > 0 (signs folded into np = num * sign(den)),
+// RN(np / dp) >= t_min needs np / dp >= t_min (1 - 2^-24), and
+// RN(np / dp) < best needs np / dp < best; each rounded product below errs
+// by at most 2^-24 relative while it stays normal, so the 2^-20 margins
+// cover two roundings, and a bound that fell below 2^-100 (inexact once
+// subnormal) or overflowed passes. den = 0, NaN (a padded all-zero row)
+// and np <= 0 fail, as the exact test does. Explicit _rn products: nvcc
+// contracts nothing here, and megakernel.py:plane_candidate_plain computes
+// the same bits on the CPU.
+constexpr float kCandLo = 1.0f - 0x1p-20f;
+constexpr float kCandHi = 1.0f + 0x1p-20f;
+constexpr float kCandTiny = 0x1p-100f;
+
+__device__ __forceinline__ bool plane_candidate(float num, float den,
+                                                float t_min, float best) {
+  const float dp = fabsf(den);
+  const float np = den < 0.f ? -num : num;
+  if (!(np > 0.f && dp > 0.f)) return false;
+  const float lo = __fmul_rn(__fmul_rn(dp, t_min), kCandLo);
+  const float hi = __fmul_rn(__fmul_rn(dp, best), kCandHi);
+  return (np >= lo || lo < kCandTiny || lo == INFINITY) &&
+         (np < hi || hi < kCandTiny);
+}
+
+// cp.async of 16 bytes, global -> shared, bypassing L1 (sm_80+).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most one committed group of this thread is in flight.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The block's dynamic shared memory: 2 x kTile plane rows.
+__device__ __forceinline__ float4* plane_tiles() {
+  extern __shared__ float4 tiles[];
+  return tiles;
+}
+
+// The block's copy of plane rows [base, base + kTile) of R into `dst`.
+__device__ __forceinline__ void stage_tile(float4* dst,
+                                           const float4* __restrict__ src,
+                                           int R, int base) {
+  const int cnt = min(kTile, R - base);
+  for (int q = threadIdx.x; q < cnt; q += kBlock)
+    cp_async16(dst + q, src + base + q);
 }
 
 // The per-lane rows of the deferred-texture records (kDefer).
@@ -255,9 +341,21 @@ __global__ void __launch_bounds__(kBlock)
 render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
               const float* __restrict__ par, Launch L, Extra X,
               float* __restrict__ rad, int* __restrict__ seg,
-              int* __restrict__ codes, Records rec) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= L.n_chunk) return;
+              int* __restrict__ codes, Records rec,
+              const float4* __restrict__ ptest) {
+  // With planar tiles or lane groups the whole block walks the bounces
+  // together: no thread returns or leaves the loop early, since it must
+  // join every barrier and shuffle.
+  constexpr bool kCoop = kPla || kPhase;
+  const int G = kPhase ? X.group : 1;    // lanes per ray, a power of two
+  const int tid = blockIdx.x * kBlock + threadIdx.x;
+  const int i = kPhase ? tid / G : tid;  // the ray (lane of the frame)
+  const int j = kPhase ? tid - i * G : 0;  // this thread's rank in its group
+  const bool lead = j == 0;              // the group's writer
+  const bool in_range = i < L.n_chunk;
+  if constexpr (!kCoop) {
+    if (!in_range) return;
+  }
   const int S = L.n_spheres;
   const int R = L.n_planar;
   const float* __restrict__ c0x = tab + C0X * S;
@@ -273,22 +371,27 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   const float* __restrict__ k2s = tab + K2 * S;
 
   const bool resume = kPhase && X.st_in != nullptr;
-  const long long lane = resume ? (long long)X.gid[i] : L.lane_start + i;
+  const long long lane = resume ? (in_range ? (long long)X.gid[i] : 0)
+                                : L.lane_start + i;
   const uint32_t rid = (uint32_t)lane;
+  // A lane out of range (kCoop) only joins the barriers: it never uses
+  // these.
   float ox, oy, oz, dx, dy, dz, time;
   float tpr = 1.f, tpg = 1.f, tpb = 1.f;  // throughput
   float rr = 0.f, rg = 0.f, rb = 0.f;     // radiance
   int nseg = 0;
-  bool alive = true;
+  bool alive = kCoop ? in_range : true;
   if (resume) {  // the state the previous phase wrote (kPhase only)
-    const float* __restrict__ st = X.st_in + (long long)i * N_STATE;
-    ox = st[S_OX]; oy = st[S_OY]; oz = st[S_OZ];
-    dx = st[S_DX]; dy = st[S_DY]; dz = st[S_DZ];
-    tpr = st[S_TPR]; tpg = st[S_TPG]; tpb = st[S_TPB];
-    rr = st[S_RR]; rg = st[S_RG]; rb = st[S_RB];
-    time = st[S_TIME];
-    alive = st[S_ALIVE] > 0.f;
-    nseg = (int)st[S_SEG];
+    if (in_range) {
+      const float* __restrict__ st = X.st_in + (long long)i * N_STATE;
+      ox = st[S_OX]; oy = st[S_OY]; oz = st[S_OZ];
+      dx = st[S_DX]; dy = st[S_DY]; dz = st[S_DZ];
+      tpr = st[S_TPR]; tpg = st[S_TPG]; tpb = st[S_TPB];
+      rr = st[S_RR]; rg = st[S_RG]; rb = st[S_RB];
+      time = st[S_TIME];
+      alive = st[S_ALIVE] > 0.f;
+      nseg = (int)st[S_SEG];
+    }
   } else {
     // ---- primary ray (integrator._pixel_rays + camera.get_rays) ---------
     const long long pix = lane / L.spp;
@@ -325,70 +428,134 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   // This lane's records: record k sits at index lane0 + k.
   const long long lane0 = (long long)i * L.max_depth;
 
-  for (int k = 0; k < L.max_depth && (!kPhase || alive); ++k) {
+  for (int k = 0; k < L.max_depth; ++k) {
+    if constexpr (kCoop) {  // the block leaves together, once all are dead
+      if (!__syncthreads_or(alive)) break;
+    }
     // The absolute depth keys the random numbers.
     const int depth = kPhase ? X.d0 + k : k;
-    ++nseg;  // this lane is alive at the start of the bounce
+    if (!kCoop || alive) ++nseg;  // alive at the start of the bounce
 
     // ---- closest sphere: strict < keeps the first minimum ----------------
-    const float a = dx * dx + dy * dy + dz * dz;
+    // Rank j of a group tests spheres s = j (mod G).
+    // |d|^2 (and |o|^2, o.d below): in the kernels without media, nvcc's
+    // choice of which product to fuse moved with unrelated edits of the
+    // kernel and flipped lanes, so there the contraction it made before is
+    // written out; the media kernels keep the compiler's.
+    const float a =
+        kVol ? dx * dx + dy * dy + dz * dz
+             : __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
     const float inv_a = 1.0f / a;
     float best = INFINITY;
     int win = -1;
     if constexpr (kSph) {
-      const float oo = ox * ox + oy * oy + oz * oz;
-      const float od = ox * dx + oy * dy + oz * dz;
-      for (int s = 0; s < S; ++s) {
-        const float w = (time - t0s[s]) * inv_dt[s];
-        const float cx = c0x[s] + w * dcx[s];
-        const float cy = c0y[s] + w * dcy[s];
-        const float cz = c0z[s] + w * dcz[s];
-        const float hb = od - (dx * cx + dy * cy + dz * cz);
-        const float cc = (oo - 2.0f * (ox * cx + oy * cy + oz * cz)) +
-                         (k0s[s] + w * (k1s[s] + w * k2s[s]));
-        const float disc = hb * hb - a * cc;
-        if (disc > 0.f) {
-          const float sq = sqrtf(disc);
-          float root = (-hb - sq) * inv_a;
-          if (!(root >= L.t_min)) root = (-hb + sq) * inv_a;  // t_min select
-          if (root >= L.t_min && root < best) {
-            best = root;
-            win = s;
+      if (!kCoop || alive) {
+        const float oo =
+            kVol ? ox * ox + oy * oy + oz * oz
+                 : __fmaf_rn(oz, oz, __fmaf_rn(oy, oy, __fmul_rn(ox, ox)));
+        const float od =
+            kVol ? ox * dx + oy * dy + oz * dz
+                 : __fmaf_rn(oz, dz, __fmaf_rn(oy, dy, __fmul_rn(ox, dx)));
+        for (int s = j; s < S; s += G) {
+          const float w = (time - t0s[s]) * inv_dt[s];
+          const float cx = c0x[s] + w * dcx[s];
+          const float cy = c0y[s] + w * dcy[s];
+          const float cz = c0z[s] + w * dcz[s];
+          const float hb = od - (dx * cx + dy * cy + dz * cz);
+          const float cc = (oo - 2.0f * (ox * cx + oy * cy + oz * cz)) +
+                           (k0s[s] + w * (k1s[s] + w * k2s[s]));
+          const float disc = hb * hb - a * cc;
+          if (disc > 0.f) {
+            const float sq = sqrtf(disc);
+            float root = (-hb - sq) * inv_a;
+            if (!(root >= L.t_min)) root = (-hb + sq) * inv_a;  // t_min
+            if (root >= L.t_min && root < best) {
+              best = root;
+              win = s;
+            }
           }
         }
       }
     }
 
     // ---- closest planar primitive, against the sphere winner's t --------
+    // The block stages the packed plane rows (n, k) tile by tile in shared
+    // memory, the next tile's copy in flight while it tests this one; rank
+    // j of a group tests rows r = j (mod G). Only a row that passes the
+    // division-free prefilter takes the division, and only a row with
+    // t >= t_min && t < best reads its in-plane rows.
     bool planar = false;     // the winner is planar primitive `win`
     float bu = 0.f, bv = 0.f;  // its in-plane / barycentric coordinates
     if constexpr (kPla) {
-      for (int r = 0; r < R; ++r) {
-        const float nx = ptab[PNX * R + r];
-        const float ny = ptab[PNY * R + r];
-        const float nz = ptab[PNZ * R + r];
-        const float t = (ptab[PK * R + r] - (nx * ox + ny * oy + nz * oz)) /
-                        (nx * dx + ny * dy + nz * dz);
-        if (t >= L.t_min && t < best) {  // NaN (a padded row) fails both
-          const float hx = ox + t * dx;
-          const float hy = oy + t * dy;
-          const float hz = oz + t * dz;
-          const float u = ptab[UAX * R + r] * hx + ptab[UAY * R + r] * hy +
-                          ptab[UAZ * R + r] * hz + ptab[CA * R + r];
-          const float v = ptab[UBX * R + r] * hx + ptab[UBY * R + r] * hy +
-                          ptab[UBZ * R + r] * hz + ptab[CB * R + r];
-          if (u >= 0.f && v >= 0.f && v <= 1.f &&
-              u + ptab[FLAG * R + r] * v <= 1.f) {
-            best = t;
-            win = r;
-            planar = true;
-            bu = u;
-            bv = v;
+      float4* __restrict__ tiles = plane_tiles();
+      const int n_tiles = (R + kTile - 1) / kTile;
+      stage_tile(tiles, ptest, R, 0);
+      cp_async_commit();
+      for (int tt = 0; tt < n_tiles; ++tt) {
+        if (tt + 1 < n_tiles)
+          stage_tile(tiles + ((tt + 1) & 1) * kTile, ptest, R,
+                     (tt + 1) * kTile);
+        cp_async_commit();
+        cp_async_wait_prev();  // tile tt has landed (this thread's copies)
+        __syncthreads();       // ... and every thread's
+        if (alive) {
+          const float4* __restrict__ buf = tiles + (tt & 1) * kTile;
+          const int base = tt * kTile;
+          const int cnt = min(kTile, R - base);
+          for (int q = j; q < cnt; q += G) {
+            const float4 pl = buf[q];  // (nx, ny, nz, k)
+            const float num = pl.w - (pl.x * ox + pl.y * oy + pl.z * oz);
+            const float den = pl.x * dx + pl.y * dy + pl.z * dz;
+            if (!plane_candidate(num, den, L.t_min, best)) continue;
+            const float t = num / den;
+            if (t >= L.t_min && t < best) {  // NaN (a padded row) fails
+              const int r = base + q;
+              const float4* __restrict__ in = ptest + R + 3 * r;
+              const float4 ua = in[0], ub = in[1];  // (ua, ca), (ub, cb)
+              const float flag = in[2].x;
+              const float hx = ox + t * dx;
+              const float hy = oy + t * dy;
+              const float hz = oz + t * dz;
+              const float u = ua.x * hx + ua.y * hy + ua.z * hz + ua.w;
+              const float v = ub.x * hx + ub.y * hy + ub.z * hz + ub.w;
+              if (u >= 0.f && v >= 0.f && v <= 1.f && u + flag * v <= 1.f) {
+                best = t;
+                win = r;
+                planar = true;
+                bu = u;
+                bv = v;
+              }
+            }
           }
         }
+        __syncthreads();  // every thread is done with buffer tt & 1
       }
     }
 
+    // ---- the group's winner: lexicographic min of (t, family, index) ------
+    // Spheres rank before planar rows and an exact tie keeps the lower
+    // index, as the serial strict-< loops choose; u and v ride along.
+    if constexpr (kPhase) {
+      int fam = win < 0 ? 2 : (planar ? 1 : 0);
+      for (int off = G >> 1; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(0xffffffffu, best, off);
+        const int of = __shfl_xor_sync(0xffffffffu, fam, off);
+        const int ow = __shfl_xor_sync(0xffffffffu, win, off);
+        const float ou = __shfl_xor_sync(0xffffffffu, bu, off);
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        if (ot < best ||
+            (ot == best && (of < fam || (of == fam && ow < win)))) {
+          best = ot;
+          fam = of;
+          win = ow;
+          bu = ou;
+          bv = ov;
+        }
+      }
+      planar = fam == 1;
+    }
+
+    if (kCoop && !alive) continue;  // a dead lane only joins the barriers
     // ---- closest medium scatter, against the surfaces' best (ops/volume) -
     int vwin = -1;
     if constexpr (kVol) {
@@ -452,28 +619,32 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
     if (win < 0 && vwin < 0) {  // miss -> background, terminate
       if (kEmit) lane_codes[k] = 0;
       if constexpr (kDefer) {
-        put_record(rec, lane0 + k, tpr * par[P_BACKGROUND + 0],
-                   tpg * par[P_BACKGROUND + 1], tpb * par[P_BACKGROUND + 2],
-                   0.f, 0.f, 0.f, 0);
+        if (lead)
+          put_record(rec, lane0 + k, tpr * par[P_BACKGROUND + 0],
+                     tpg * par[P_BACKGROUND + 1],
+                     tpb * par[P_BACKGROUND + 2], 0.f, 0.f, 0.f, 0);
       }
       rr += tpr * par[P_BACKGROUND + 0];
       rg += tpg * par[P_BACKGROUND + 1];
       rb += tpb * par[P_BACKGROUND + 2];
       alive = false;
-      break;
+      if constexpr (kCoop) continue;  // the block's barriers still need it
+      else break;
     }
 
     if constexpr (kVol) {
       if (vwin >= 0) {  // medium scatter: isotropic over the solid albedo
         if (kEmit) lane_codes[k] = 3 + 4 * vwin;
         if constexpr (kDefer) {
-          put_record(rec, lane0 + k, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
+          if (lead)
+            put_record(rec, lane0 + k, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
         }
         const float* __restrict__ vp = X.vtab + vwin * N_VCOLS;
         ox = ox + best * dx;
         oy = oy + best * dy;
         oz = oz + best * dz;
-        const float4 q = rand4(L.seed, rid, (uint32_t)depth, SALT_ISOTROPIC);
+        const float4 q =
+            rand4(L.seed, rid, (uint32_t)depth, SALT_ISOTROPIC);
         const float3 b = unit_vector(q.x, q.y);
         const float br = cbrtf(q.z);
         dx = b.x * br;
@@ -573,9 +744,10 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
         tr = tg = tb = 1.0f;
       }
       const bool emits = mtype == 3.0f;
-      put_record(rec, lane0 + k, emits ? tpr * tr : 0.f,
-                 emits ? tpg * tg : 0.f, emits ? tpb * tb : 0.f, ra, rb, rc,
-                 dcode);
+      if (lead)
+        put_record(rec, lane0 + k, emits ? tpr * tr : 0.f,
+                   emits ? tpg * tg : 0.f, emits ? tpb * tb : 0.f, ra, rb,
+                   rc, dcode);
     }
 
     // ---- scatter (materials.scatter_packed) ------------------------------
@@ -584,7 +756,8 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
       rg += tpg * tg;
       rb += tpb * tb;
       alive = false;
-      break;
+      if constexpr (kCoop) continue;  // the block's barriers still need it
+      else break;
     }
     const float len = sqrtf(a + 1e-20f);  // vecmath.normalize(d, eps=1e-20)
     const float ux = dx / len, uy = dy / len, uz = dz / len;
@@ -600,7 +773,8 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
       ndz = (uz - 2.0f * udn * nz) + fuzz * (b.z * br);
       if (!((ndx * nx + ndy * ny + ndz * nz) > 0.f)) {
         alive = false;
-        break;
+        if constexpr (kCoop) continue;
+        else break;
       }
       tpr *= tr;
       tpg *= tg;
@@ -655,6 +829,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
     dz = ndz;
   }
 
+  if (kCoop && !(in_range && lead)) return;
   rad[3 * i + 0] = rr;
   rad[3 * i + 1] = rg;
   rad[3 * i + 2] = rb;
@@ -679,59 +854,71 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   }
 }
 
+// One instantiation's launch (or, with `occ`, its resident blocks per SM
+// at the launch's shared memory). A planar tile pair above the default 48 KB
+// of dynamic shared memory needs the attribute; an error there is returned.
+template <bool kEmit, bool kSph, bool kPla, bool kDefer, bool kVol,
+          bool kPhase>
+cudaError_t run_render(const float* tab, const float* ptab,
+                       const float4* ptest, const float* par, const Launch& L,
+                       const Extra& X, float* rad, int* seg, int* codes,
+                       const Records& rec, cudaStream_t stream, int* occ) {
+  const auto kernel = render_kernel<kEmit, kSph, kPla, kDefer, kVol, kPhase>;
+  const int smem = kPla ? kTileBytes : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (occ != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel, kBlock,
+                                                         smem);
+  const long long threads = (long long)L.n_chunk * (kPhase ? X.group : 1);
+  const int grid = (int)((threads + kBlock - 1) / kBlock);
+  kernel<<<grid, kBlock, smem, stream>>>(tab, ptab, par, L, X, rad, seg,
+                                         codes, rec, ptest);
+  return cudaGetLastError();
+}
+
 // One launch of render_kernel with the geometry flags of the scene's
 // families: (kSph, !kPla), (!kSph, kPla) or both; with media (kVol) always
 // both, either loop then running over the family's count, which may be 0.
 template <bool kEmit, bool kDefer, bool kVol, bool kPhase>
-void launch_render(const float* tab, const float* ptab, const float* par,
-                   const Launch& L, const Extra& X, float* rad, int* seg,
-                   int* codes, const Records& rec, cudaStream_t stream) {
-  const int grid = (L.n_chunk + kBlock - 1) / kBlock;
+cudaError_t launch_render(const float* tab, const float* ptab,
+                          const float4* ptest, const float* par,
+                          const Launch& L, const Extra& X, float* rad,
+                          int* seg, int* codes, const Records& rec,
+                          cudaStream_t stream, int* occ) {
   if constexpr (kVol) {
-    render_kernel<kEmit, true, true, kDefer, kVol, kPhase>
-        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
-                                      rec);
-  } else if (L.n_planar == 0) {
-    render_kernel<kEmit, true, false, kDefer, kVol, kPhase>
-        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
-                                      rec);
-  } else if (L.n_spheres == 0) {
-    render_kernel<kEmit, false, true, kDefer, kVol, kPhase>
-        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
-                                      rec);
+    return run_render<kEmit, true, true, kDefer, kVol, kPhase>(
+        tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);
   } else {
-    render_kernel<kEmit, true, true, kDefer, kVol, kPhase>
-        <<<grid, kBlock, 0, stream>>>(tab, ptab, par, L, X, rad, seg, codes,
-                                      rec);
+    if (L.n_planar == 0)
+      return run_render<kEmit, true, false, kDefer, kVol, kPhase>(
+          tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);
+    if (L.n_spheres == 0)
+      return run_render<kEmit, false, true, kDefer, kVol, kPhase>(
+          tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);
+    return run_render<kEmit, true, true, kDefer, kVol, kPhase>(
+        tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);
   }
 }
 
 // The instantiations megakernel_vp.cu compiles: media, and the phased
 // launches (no codes).
+#define RTW_VP_LAUNCHER(PREFIX, E, D, V, P)                                \
+  PREFIX template cudaError_t launch_render<E, D, V, P>(                   \
+      const float*, const float*, const float4*, const float*,             \
+      const Launch&, const Extra&, float*, int*, int*, const Records&,     \
+      cudaStream_t, int*);
 #define RTW_VP_LAUNCHERS(PREFIX)                                            \
-  PREFIX template void launch_render<false, false, true, false>(            \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
-  PREFIX template void launch_render<false, true, true, false>(             \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
-  PREFIX template void launch_render<true, false, true, false>(             \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
-  PREFIX template void launch_render<true, true, true, false>(              \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
-  PREFIX template void launch_render<false, false, false, true>(            \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
-  PREFIX template void launch_render<false, true, false, true>(             \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
-  PREFIX template void launch_render<false, false, true, true>(             \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);     \
-  PREFIX template void launch_render<false, true, true, true>(              \
-      const float*, const float*, const float*, const Launch&,             \
-      const Extra&, float*, int*, int*, const Records&, cudaStream_t);
+  RTW_VP_LAUNCHER(PREFIX, false, false, true, false)                        \
+  RTW_VP_LAUNCHER(PREFIX, false, true, true, false)                         \
+  RTW_VP_LAUNCHER(PREFIX, true, false, true, false)                         \
+  RTW_VP_LAUNCHER(PREFIX, true, true, true, false)                          \
+  RTW_VP_LAUNCHER(PREFIX, false, false, false, true)                        \
+  RTW_VP_LAUNCHER(PREFIX, false, true, false, true)                         \
+  RTW_VP_LAUNCHER(PREFIX, false, false, true, true)                         \
+  RTW_VP_LAUNCHER(PREFIX, false, true, true, true)
 
 }  // namespace rtw

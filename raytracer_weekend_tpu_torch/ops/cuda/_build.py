@@ -102,11 +102,15 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.rtw_render_fused.argtypes = [_P, _I, _P, _I, _P, _I, _P, _LL,
-                                         _I, _I, _I, _I, _I, _I, _F, _U, _I,
-                                         _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                         _P]
+        lib.rtw_render_fused.argtypes = [_P, _I, _P, _P, _I, _P, _I, _P,
+                                         _LL, _I, _I, _I, _I, _I, _I, _I, _F,
+                                         _U, _I, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P]
         lib.rtw_render_fused.restype = _I
+        lib.rtw_render_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
+        lib.rtw_render_occupancy.restype = _I
+        lib.rtw_plane_candidate.argtypes = [_P, _P, _P, _I, _F, _P, _P]
+        lib.rtw_plane_candidate.restype = _I
         lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P, _P,
                                        _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                        _U, _P, _P, _P, _P, _P, _P, _P, _P]

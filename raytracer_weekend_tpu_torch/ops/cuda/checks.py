@@ -7,7 +7,10 @@ by `chip_smoke.py` (phase 14) and `tests/test_torch_cuda.py`.
   * `edge_lanes`: the lanes of a replay whose radiance the float64 plain
     replay moves under a one-ulp move of the rays, where the replay
     backward (K2) and its plain version may each pick their own checker
-    cell.
+    cell;
+  * `candidate_cases`: adversarial and random float32 inputs of the
+    forward kernel's division-free planar prefilter (`plane_candidate`),
+    and `exact_accepts`, the test it must contain.
 """
 
 from __future__ import annotations
@@ -149,3 +152,79 @@ def edge_lanes(scene, static, cfg, o, d, t, rid, codes, windows):
         out |= moved(_replay(scene, static, cfg, *jit, t, rid, codes,
                              windows, torch.float64))
     return out
+
+
+# The planar prefilter's cases: these t_min values, each with its own
+# adversarial set.
+CAND_T_MINS = (1e-3, 0.5, 7.0)
+
+
+def _ulps(x, k):
+    """x and its neighbours k float32 ulps away on each side."""
+    out = [x]
+    lo = hi = np.float32(x)
+    with np.errstate(over="ignore"):
+        for _ in range(k):
+            lo = np.nextafter(lo, np.float32(-np.inf))
+            hi = np.nextafter(hi, np.float32(np.inf))
+            out += [lo, hi]
+    return out
+
+
+def candidate_cases(t_min: float, n_random: int = 0, seed: int = 0):
+    """(num, den, best) float32 numpy arrays at `t_min`: every den of an
+    adversarial list (+-0, subnormals, FLT_MIN, FLT_MAX, +-inf, NaN, and
+    ordinary magnitudes) against bests (+inf, t_min and its neighbours,
+    ordinary and huge ones) and quotients at t_min and best, one and two
+    ulps on either side of each, zero, negative, tiny, huge, inf and NaN,
+    the numerator also moved one ulp either way and replaced by +-0, +-inf,
+    NaN and subnormals; then `n_random` cases with log-uniform magnitudes
+    and random signs."""
+    f32 = np.float32
+    tm = f32(t_min)
+    mags = [0.0, 1e-45, 1e-40, 1.1754944e-38, 1e-30, 1e-20, 1e-3, 0.7, 1.0,
+            3.0, 1e3, 1e20, 1e30, 3.4028235e38, np.inf]
+    dens = [f32(s * m) for m in mags for s in (1.0, -1.0)] + [f32(np.nan)]
+    bests = (_ulps(tm, 2) + [f32(2.0) * tm, f32(1.0), f32(1e3), f32(1e30),
+                             f32(3.4028235e38), f32(np.inf)])
+    nums, ds, bs = [], [], []
+    for best in bests:
+        ts = _ulps(tm, 2) + [f32(0.0), -tm, f32(1e-40), f32(1e30), f32(np.inf),
+                             f32(np.nan), f32(0.5) * tm]
+        if np.isfinite(best):
+            ts += _ulps(best, 2)
+        for den in dens:
+            for t in ts:
+                with np.errstate(all="ignore"):
+                    num = f32(np.float64(t) * np.float64(den))
+                for nv in _ulps(num, 1):
+                    nums.append(nv)
+                    ds.append(den)
+                    bs.append(best)
+            for nv in (0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-40,
+                       1.0, -1.0):
+                nums.append(f32(nv))
+                ds.append(den)
+                bs.append(best)
+    num, den, best = (np.array(x, dtype=f32) for x in (nums, ds, bs))
+    if n_random:
+        g = np.random.default_rng(seed)
+
+        def logu(n):
+            return (g.choice([-1.0, 1.0], n)
+                    * 10.0 ** g.uniform(-44.0, 38.0, n)).astype(f32)
+
+        rb = np.abs(logu(n_random))
+        rb = np.where(rb < tm, np.inf, rb).astype(f32)
+        num = np.concatenate([num, logu(n_random)])
+        den = np.concatenate([den, logu(n_random)])
+        best = np.concatenate([best, rb])
+    return num, den, best
+
+
+def exact_accepts(num, den, best, t_min):
+    """The planar test the prefilter must contain: t = num / den (IEEE
+    float32), t >= t_min && t < best -> bool, on tensors of any device."""
+    t = num / den
+    return (t >= torch.tensor(t_min, dtype=torch.float32, device=t.device)) \
+        & (t < best)

@@ -22,7 +22,13 @@ f32), which the backward replays (`fused_diff.py`).
 
 A whole frame at `max_depth >= 16` without codes renders in depth phases
 (`render_fused_deep`): the kernel writes each lane's state after a phase of
-bounces, the host gathers the live lanes and the next phase resumes them.
+bounces, the host gathers the live lanes and the next phase resumes them,
+each ray on a group of G threads so that a few live lanes still fill the
+card (`phase_group`). The planar loop stages packed plane rows
+(`build_planar_test`) in shared memory and divides only for rows that pass
+a division-free prefilter; `plane_candidate_plain` and
+`closest_hit_grouped` are the plain twins of those two rules, for the CPU
+tests.
 
 Scenes with noise or image textures render in deferred-texture mode: the
 kernel shades those texels as 1.0 and writes per-bounce records (ctb, abc,
@@ -88,6 +94,15 @@ STATE_SIZE = 15
 # Bounces per phase of the depth-phased render.
 PHASE_LEN = 10
 DEEP_MIN_DEPTH = 16
+# Lanes per ray a phased launch may take (`csrc/megakernel.cuh`: a group
+# of G lanes of one warp carries one ray), and the kernel's block size.
+GROUPS = (1, 2, 4, 8, 16, 32)
+BLOCK = 128
+# Dynamic shared memory of a launch with planar rows: two tiles of 512
+# float4 plane rows (`kTileBytes`).
+TILE_BYTES = 2 * 512 * 16
+# The planar prefilter's margins (`plane_candidate` in the kernel).
+CAND_LO, CAND_HI, CAND_TINY = 1.0 - 2.0**-20, 1.0 + 2.0**-20, 2.0**-100
 # Rows of the planar table, in the order of `enum PRow` in csrc/megakernel.cuh.
 # The shading rows (mtype .. tscale) sit at the sphere table's row numbers.
 PLANAR_ROWS = (
@@ -197,6 +212,23 @@ def build_planar_table(scene: SceneData, static: SceneStatic) -> torch.Tensor:
     for key in ("nx", "ny", "nz", "k"):
         cols[key] = torch.where(valid, cols[key], 0.0)
     return torch.stack([cols[r].to(torch.float32) for r in PLANAR_ROWS])
+
+
+def build_planar_test(ptab: torch.Tensor) -> torch.Tensor:
+    """The kernel's packed planar test rows from `build_planar_table`'s
+    (len(PLANAR_ROWS), R) table -> (16 R,) float32: R rows (nx, ny, nz, k)
+    for the plane test, staged through shared memory, then R rows of
+    (uax, uay, uaz, ca, ubx, uby, ubz, cb, flag, 0, 0, 0) for the in-plane
+    test, read for candidates only. Each row is a multiple of 16 bytes."""
+    def rows(*names):
+        return torch.stack([ptab[PLANAR_ROWS.index(n)] for n in names], 1)
+
+    zero = torch.zeros_like(ptab[0])
+    inside = torch.cat([rows("uax", "uay", "uaz", "ca", "ubx", "uby", "ubz",
+                             "cb", "flag"),
+                        torch.stack([zero, zero, zero], 1)], 1)
+    return torch.cat([rows("nx", "ny", "nz", "k").reshape(-1),
+                      inside.reshape(-1)]).contiguous()
 
 
 def pack_par(scene: SceneData, cam: Camera) -> torch.Tensor:
@@ -408,11 +440,12 @@ def render_fused_records(scene: SceneData, cfg: RenderConfig, cam: Camera,
 
 
 def build_tables(scene: SceneData, static: SceneStatic, cam: Camera):
-    """(sphere table or None, planar table or None, volume table or None,
-    camera parameters): what a launch reads."""
-    return (build_sphere_table(scene) if static.n_spheres else None,
-            (build_planar_table(scene, static)
-             if static.n_rects + static.n_triangles else None),
+    """(sphere table or None, planar table or None, its packed test rows or
+    None, volume table or None, camera parameters): what a launch reads."""
+    ptab = (build_planar_table(scene, static)
+            if static.n_rects + static.n_triangles else None)
+    return (build_sphere_table(scene) if static.n_spheres else None, ptab,
+            None if ptab is None else build_planar_test(ptab),
             build_vol_table(scene) if static.n_volumes else None,
             pack_par(scene, cam))
 
@@ -420,12 +453,13 @@ def build_tables(scene: SceneData, static: SceneStatic, cam: Camera):
 def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
             lane_start: int, n_chunk: int, seed, static: SceneStatic, *,
             emit_paths: bool = False, phase: bool = False, state=None,
-            lanes=None, d0: int = 0, tables=None):
+            lanes=None, d0: int = 0, tables=None, group: int = 1):
     """One launch of the CUDA kernel -> (rad, seg, [codes], [ctb, abc,
     dcode], [state]). With `phase` it runs bounces d0 .. d0 + max_depth - 1
-    and returns the lanes' state (n, 15) last; with `state` (n, 15) and
-    `lanes` (n,) int32 global lane ids it resumes those lanes. Raises off
-    CUDA, outside `fused_supported`, and if the build or launch fails."""
+    with `group` lanes per ray (a power of two up to 32) and returns the
+    lanes' state (n, 15) last; with `state` (n, 15) and `lanes` (n,) int32
+    global lane ids it resumes those lanes. Raises off CUDA, outside
+    `fused_supported`, and if the build or launch fails."""
     global LAUNCHES, EMIT_LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
     global VOL_LAUNCHES, PHASE_LAUNCHES
     device = scene.device
@@ -442,13 +476,15 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
                          f"outside [0, {cfg.n_rays})")
     if n_chunk >= 2**31:
         raise ValueError("n_chunk must fit in int32")
-    if (state is not None or d0) and not phase:
-        raise ValueError("a state in or d0 needs phase=True")
+    if (state is not None or d0 or group != 1) and not phase:
+        raise ValueError("a state in, d0 or a group needs phase=True")
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group}")
 
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
     lib = _build.load_library()
-    tab, ptab, vtab, par = tables or build_tables(scene, static, cam)
+    tab, ptab, ptest, vtab, par = tables or build_tables(scene, static, cam)
     n_spheres = 0 if tab is None else tab.shape[1]
     n_planar = 0 if ptab is None else ptab.shape[1]
     n_vol = 0 if vtab is None else vtab.shape[0]
@@ -456,6 +492,7 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
         _check(tab, torch.float32, (len(TABLE_ROWS), n_spheres), device)
     if n_planar:
         _check(ptab, torch.float32, (len(PLANAR_ROWS), n_planar), device)
+        _check(ptest, torch.float32, (16 * n_planar,), device)
     if n_vol:
         _check(vtab, torch.float32, (n_vol, len(VOL_COLS)), device)
     _check(par, torch.float32, (PAR_SIZE,), device)
@@ -483,9 +520,10 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rtw_render_fused(
-            ptr(tab), n_spheres, ptr(ptab), n_planar, ptr(vtab), n_vol,
-            par.data_ptr(), lane_start, n_chunk, cfg.width, cfg.height,
-            cfg.samples_per_pixel, D, int(d0), float(cfg.t_min),
+            ptr(tab), n_spheres, ptr(ptab), ptr(ptest), n_planar, ptr(vtab),
+            n_vol, par.data_ptr(), lane_start, n_chunk, cfg.width,
+            cfg.height, cfg.samples_per_pixel, D, int(d0), int(group),
+            float(cfg.t_min),
             int(seed) & 0xFFFFFFFF, int(cfg.use_log10_volume_sampling),
             rad.data_ptr(), seg.data_ptr(), ptr(codes), *map(ptr, recs),
             ptr(state), ptr(lanes), ptr(st_out), stream)
@@ -556,8 +594,26 @@ def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
     return_factors=True)`), so the sums are the single pass's, operation
     for operation. The JAX power-of-two bucket and its `min_bucket` only
     spared XLA recompiles: here each phase runs on exactly the live lanes.
+    Each launch runs a group of G lanes per ray (`phase_group`: the
+    smallest G for which the live lanes fill the card's resident threads),
+    so that the tail of few long paths still fills the card.
     On the CPU, or with `plain`, each phase is `phase_reference`.
     """
+    return _render_deep(scene, cfg, cam, lane_start, n_chunk, seed,
+                        static=static, phase_len=phase_len, plain=plain,
+                        live_counts=live_counts)
+
+
+def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
+                 lane_start: int, n_chunk: int, seed, *, static: SceneStatic,
+                 phase_len: int = PHASE_LEN, plain: bool = False,
+                 live_counts: list | None = None, group: int | None = None,
+                 phases: list | None = None):
+    """`render_fused_deep`, with `group` forcing every launch's lanes per
+    ray, and `phases` (a list) getting one dict per launch: its d0, lanes,
+    group, config and inputs (state and lane ids, None for the first), from
+    which the same launch can be run again."""
+
     dev = scene.device
     plain = plain or dev.type == "cpu"
     D, n = cfg.max_depth, int(n_chunk)
@@ -565,6 +621,8 @@ def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
     # The single pass's turbulence: K8 on the card, its plain twin here.
     noise_fn = _turbulence_plain if plain else _turbulence_k8
     tables = None if plain else build_tables(scene, static, cam)
+    resident = (None if plain or group is not None
+                else resident_threads(static, dev))
     rad_bank = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     seg_bank = torch.zeros((n,), dtype=torch.int32, device=dev)
     slots = torch.arange(n, device=dev)          # bank slot of each lane
@@ -577,10 +635,14 @@ def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
             out = phase_reference(scene, cfg_p, cam, lanes, state, d0, seed,
                                   static=static)
         else:
+            g = group or phase_group(lanes.shape[0], resident)
+            ids = None if state is None else lanes
+            if phases is not None:
+                phases.append(dict(d0=d0, lanes=lanes.shape[0], group=g,
+                                   cfg=cfg_p, state=state, ids=ids))
             out = _launch(scene, cfg_p, cam, lane_start, lanes.shape[0],
-                          seed, static, phase=True, state=state,
-                          lanes=None if state is None else lanes, d0=d0,
-                          tables=tables)
+                          seed, static, phase=True, state=state, lanes=ids,
+                          d0=d0, tables=tables, group=g)
         rad, seg, *recs, st = out
         if defer:
             acc = combine_deferred(scene.textures, *recs,
@@ -607,6 +669,194 @@ def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
                 acc = (acc[0][keep], acc[1][keep])
         state = st.contiguous()
     return rad_bank, seg_bank
+
+
+_RESIDENT: dict = {}
+
+
+def resident_blocks(static: SceneStatic, device: torch.device,
+                    phase: bool = True) -> int:
+    """Blocks of BLOCK threads an SM keeps resident for the scene's launch
+    without codes (phased by default) at its registers and shared memory:
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    import ctypes
+
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    device = torch.device(device)
+    key = (static.n_spheres > 0, static.n_rects + static.n_triangles > 0,
+           static.n_volumes > 0, defers(static), phase, device)
+    if key not in _RESIDENT:
+        lib = _build.load_library()
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.rtw_render_occupancy(*map(int, key[:5]),
+                                           ctypes.byref(blocks))
+        _build.check(lib, err, "rtw_render_occupancy")
+        if blocks.value < 1:
+            raise RuntimeError("the render kernel fits no block on an SM of "
+                               f"{device}")
+        _RESIDENT[key] = blocks.value
+    return _RESIDENT[key]
+
+
+def resident_threads(static: SceneStatic, device: torch.device) -> int:
+    """Threads the card keeps resident for the scene's phased launch:
+    `resident_blocks` x SMs x BLOCK."""
+    device = torch.device(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return resident_blocks(static, device) * sms * BLOCK
+
+
+def phase_group(live: int, resident: int) -> int:
+    """The smallest G of GROUPS with live * G >= resident, else the
+    largest: lanes per ray for a phase of `live` lanes."""
+    for g in GROUPS:
+        if live * g >= resident:
+            return g
+    return GROUPS[-1]
+
+
+def plane_candidate_plain(num: torch.Tensor, den: torch.Tensor,
+                          t_min: float, best: torch.Tensor) -> torch.Tensor:
+    """The kernel's division-free planar prefilter on float32 CPU tensors
+    (each product rounded to nearest, subnormals kept: the kernel's `_rn`
+    bits) -> bool. A superset of RN(num / den) >= t_min && < best for
+    0 < t_min <= best; see `plane_candidate` in csrc/megakernel.cuh."""
+    f32 = torch.float32
+    num, den, best = (torch.as_tensor(x, dtype=f32) for x in (num, den, best))
+    tm = torch.tensor(t_min, dtype=f32)
+    lo_m, hi_m, tiny = (torch.tensor(x, dtype=f32)
+                        for x in (CAND_LO, CAND_HI, CAND_TINY))
+    dp = den.abs()
+    np_ = torch.where(den < 0, -num, num)
+    lo = (dp * tm) * lo_m
+    hi = (dp * best) * hi_m
+    return ((np_ > 0) & (dp > 0)
+            & ((np_ >= lo) | (lo < tiny) | (lo == torch.inf))
+            & ((np_ < hi) | (hi < tiny)))
+
+
+def plane_candidate_device(num: torch.Tensor, den: torch.Tensor,
+                           best: torch.Tensor, t_min: float) -> torch.Tensor:
+    """The kernel's `plane_candidate` on CUDA float32 tensors -> (n,) bool.
+    A probe of its superset property; not on the render path and not
+    counted in LAUNCHES."""
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    n = num.numel()
+    for x in (num, den, best):
+        if (not x.is_cuda or x.dtype != torch.float32 or x.numel() != n
+                or not x.is_contiguous()):
+            raise ValueError("plane_candidate_device takes contiguous "
+                             "float32 CUDA tensors of one length")
+    out = torch.empty((n,), dtype=torch.int32, device=num.device)
+    lib = _build.load_library()
+    with torch.cuda.device(num.device):
+        stream = torch.cuda.current_stream(num.device).cuda_stream
+        err = lib.rtw_plane_candidate(num.data_ptr(), den.data_ptr(),
+                                      best.data_ptr(), n, float(t_min),
+                                      out.data_ptr(), stream)
+    _build.check(lib, err, "rtw_plane_candidate launch")
+    return out.bool()
+
+
+def closest_hit_grouped(tab, ptab, o, d, time, t_min: float,
+                        group: int = 1):
+    """Plain twin of the phased kernel's closest hit with `group` lanes per
+    ray, over `build_sphere_table` / `build_planar_table` tables (either
+    None) -> (t (B,) f32, +inf for none; family (B,) int64: 0 sphere, 1
+    planar, 2 none; index (B,) int64, -1 for none; u, v (B,) of a planar
+    winner, else 0).
+
+    Lane j of a group takes spheres s = j and planar rows r = j (mod
+    group): the first minimum of its sphere roots, then the first minimum
+    of its rows that pass `plane_candidate_plain` against that best, then
+    t_min <= t < best and the in-plane test. The lanes' winners merge by a
+    butterfly of lexicographic (t, family, index) minima, as the kernel's
+    shuffles do. The per-primitive forms are the kernel's (the sphere's
+    K0 grouping, the affine plane), each product rounded (no FMA)."""
+    f32, inf = torch.float32, torch.inf
+    B = o.shape[0]
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a
+    tm = torch.tensor(t_min, dtype=f32)
+    if tab is not None:
+        r = {k: tab[i] for i, k in enumerate(TABLE_ROWS)}
+        oo = (ox * ox + oy * oy + oz * oz)[:, None]
+        od = (ox * dx + oy * dy + oz * dz)[:, None]
+        w = (time[:, None] - r["t0"]) * r["inv_dt"]
+        cx = r["c0x"] + w * r["dcx"]
+        cy = r["c0y"] + w * r["dcy"]
+        cz = r["c0z"] + w * r["dcz"]
+        hb = od - (dx[:, None] * cx + dy[:, None] * cy + dz[:, None] * cz)
+        cc = ((oo - 2.0 * (ox[:, None] * cx + oy[:, None] * cy
+                           + oz[:, None] * cz))
+              + (r["k0"] + w * (r["k1"] + w * r["k2"])))
+        disc = hb * hb - a[:, None] * cc
+        sq = torch.sqrt(torch.where(disc > 0, disc, 1.0))
+        root = (-hb - sq) * inv_a[:, None]
+        root = torch.where(root >= tm, root, (-hb + sq) * inv_a[:, None])
+        t_sph = torch.where((disc > 0) & (root >= tm), root, inf)
+    if ptab is not None:
+        p = {k: ptab[i] for i, k in enumerate(PLANAR_ROWS)}
+        num = p["k"] - (p["nx"] * ox[:, None] + p["ny"] * oy[:, None]
+                        + p["nz"] * oz[:, None])
+        den = p["nx"] * dx[:, None] + p["ny"] * dy[:, None] \
+            + p["nz"] * dz[:, None]
+    lanes = []
+    for j in range(group):
+        best = torch.full((B,), inf, dtype=f32)
+        fam = torch.full((B,), 2, dtype=torch.int64)
+        idx = torch.full((B,), -1, dtype=torch.int64)
+        u = torch.zeros((B,), dtype=f32)
+        v = torch.zeros((B,), dtype=f32)
+        if tab is not None and j < tab.shape[1]:
+            m, arg = t_sph[:, j::group].min(dim=1)
+            hit = m < inf
+            best = m
+            fam = torch.where(hit, 0, fam)
+            idx = torch.where(hit, j + group * arg, idx)
+        if ptab is not None and j < ptab.shape[1]:
+            nu, de = num[:, j::group], den[:, j::group]
+            cand = plane_candidate_plain(nu, de, t_min, best[:, None])
+            t = torch.where(cand, nu / de, inf)
+            ok = cand & (t >= tm) & (t < best[:, None])
+            hx = ox[:, None] + t * dx[:, None]
+            hy = oy[:, None] + t * dy[:, None]
+            hz = oz[:, None] + t * dz[:, None]
+            sub = {k: p[k][j::group] for k in ("uax", "uay", "uaz", "ca",
+                                               "ubx", "uby", "ubz", "cb",
+                                               "flag")}
+            uu = sub["uax"] * hx + sub["uay"] * hy + sub["uaz"] * hz \
+                + sub["ca"]
+            vv = sub["ubx"] * hx + sub["uby"] * hy + sub["ubz"] * hz \
+                + sub["cb"]
+            ok = ok & (uu >= 0) & (vv >= 0) & (vv <= 1) \
+                & (uu + sub["flag"] * vv <= 1)
+            m, arg = torch.where(ok, t, inf).min(dim=1)
+            hit = m < inf   # every passing row is nearer than best
+            pick = arg[:, None]
+            best = torch.where(hit, m, best)
+            fam = torch.where(hit, 1, fam)
+            idx = torch.where(hit, j + group * arg, idx)
+            u = torch.where(hit, uu.gather(1, pick)[:, 0], u)
+            v = torch.where(hit, vv.gather(1, pick)[:, 0], v)
+        lanes.append(torch.stack([best, fam.to(f32), idx.to(f32), u, v]))
+    cur = torch.stack(lanes)                 # (group, 5, B); idx < 2^24
+    off = group >> 1
+    while off:
+        other = cur[torch.arange(group) ^ off]
+        ot, of, oi = other[:, 0], other[:, 1], other[:, 2]
+        mt, mf, mi = cur[:, 0], cur[:, 1], cur[:, 2]
+        take = (ot < mt) | ((ot == mt) & ((of < mf) | ((of == mf)
+                                                        & (oi < mi))))
+        cur = torch.where(take[:, None], other, cur)
+        off >>= 1
+    t, fam, idx, u, v = cur[0]
+    return t, fam.long(), idx.long(), u, v
 
 
 def rand4_device(ray_id: torch.Tensor, depth: int, salt: int,

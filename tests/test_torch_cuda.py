@@ -639,6 +639,63 @@ def test_render_fused_diff_medium_launches_k5(cuda):
     assert not g_off.any()
 
 
+# ---- the redesigned K3 (planar tiles, prefilter) and K6b (lane groups) ------
+
+@pytest.mark.parametrize("t_min", checks.CAND_T_MINS)
+def test_plane_candidate_kernel_contains_exact(cuda, t_min):
+    """The kernel's division-free planar prefilter passes every row the
+    exact test accepts, on the adversarial set and 2^20 random cases, and
+    gives its plain twin's bits."""
+    num, den, best = (torch.from_numpy(x).to(cuda) for x in
+                      checks.candidate_cases(t_min, 1 << 20, seed=4))
+    got = mk.plane_candidate_device(num, den, best, t_min)
+    exact = checks.exact_accepts(num, den, best, t_min)
+    assert int((exact & ~got).sum()) == 0 and int(exact.sum()) > 10_000
+    twin = mk.plane_candidate_plain(num.cpu(), den.cpu(), t_min, best.cpu())
+    assert torch.equal(got.cpu(), twin)
+
+
+def test_planar_kernel_many_tiles_matches_plain(cuda):
+    """The cow's 5,805 planar rows span twelve shared-memory tiles: K3 and
+    K3-emit against the plain version with the planar budgets."""
+    scene, static, cfg, cam = _frame("wavefront_cow_obj", cuda, width=32,
+                                     height=18, samples_per_pixel=2,
+                                     max_depth=4)
+    n = cfg.n_rays
+    got, seg = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed, static=static)
+    ref, ref_seg = mk.render_fused_reference(scene, cfg, cam, 0, n, cfg.seed,
+                                             static=static)
+    assert abs(int(seg.sum()) - int(ref_seg.sum())) <= max(4, n // 200)
+    rel = (got - ref).abs() / (ref.abs() + 1e-3)
+    assert int((rel > 0.05).any(dim=1).sum()) <= max(4, n // 100)
+    rad, seg2, codes = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
+                                       static=static, emit_paths=True)
+    assert torch.equal(rad, got) and torch.equal(seg2, seg)
+    assert bool(((codes & 3) == 2).any())
+
+
+@pytest.mark.parametrize("name", ["book2_final_scene", "jumpy_balls"])
+def test_deep_render_groups_match_single_pass(cuda, name):
+    """K6b with G lanes per ray, G forced to each of 1, 2, ..., 32 and
+    chosen from the live lanes: bitwise the single pass."""
+    scene, static, cfg, cam = _frame(name, cuda, width=40, height=22,
+                                     samples_per_pixel=4, max_depth=20)
+    n = cfg.n_rays
+    want = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed, static=static,
+                           deep=False)
+    for g in (*mk.GROUPS, None):
+        phases = []
+        got = mk._render_deep(scene, cfg, cam, 0, n, cfg.seed, static=static,
+                              group=g, phases=phases)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), g
+        assert all(ph["group"] == (g or ph["group"]) for ph in phases)
+    # A few live lanes take the most lanes per ray.
+    assert phases[-1]["group"] == mk.GROUPS[-1]
+    with pytest.raises(ValueError):
+        mk._launch(scene, cfg, cam, 0, n, cfg.seed, static, phase=True,
+                   group=3)
+
+
 # ---- the staged path: K10, K11, K12 and K2's global d(ktab) ----------------
 
 @pytest.mark.parametrize("kind", ["spheres", "rects", "triangles"])
