@@ -88,11 +88,17 @@ holds each against its plain torch version first. Phases, one line each
      no kernel of the reference covers that backward), 3 Adam steps of
      InverseRenderer.fit from the media's albedo + 0.2, and book2's
      forward+backward at 400x225, 4 spp;
- 14. the staged path: K10, K11 and K12 against their plain versions on the
-     primary and first-bounce rays of jumpy_balls, cornell_box and the cow
-     and on 100k random rays against random tables (near-ties and lanes
-     beyond tolerance counted against budgets), each timed on one scene's
-     primary rays; their autograd.Functions' VJP (a random cotangent on t)
+ 14. the staged path: K12's division-free prefilter on the card against
+     the exact test (a superset) and its plain twin (the same bits), on an
+     adversarial set and 2^24 random cases per t_min; K10's and K12's launch
+     configuration (rays a thread, block, tile) and their instantiations'
+     registers (no spills); K10, K11 and K12 against their plain versions
+     on the primary and first-bounce rays of jumpy_balls, cornell_box and
+     the cow (with the share of K12's pairs that divide) and on 100k random
+     rays against random tables (near-ties and lanes beyond tolerance
+     counted against budgets), each timed on one scene's primary rays (the
+     launch alone, the Function's call less the launch, the table's build);
+     their autograd.Functions' VJP (a random cotangent on t)
      against the same route in float64, leaf by leaf, on the real rays of
      cornell_box, the cow and jumpy_balls with a uv-debug ground; the
      staged frame of the three scenes at full size in 2^18-lane chunks
@@ -115,8 +121,9 @@ abs error against its plain version, ms and plain ms, the least time the
 card could take for the same work and what bounds it), each entry's ms,
 launches and bound measured on the same launches: K3 one entry per scene
 (cornell_box, the cow, the monument, book2), K6b one per phase of the
-criterion, K10-K12 one per table and launch size; and as the last line
-{"ok": true, "device": {...}}. Any failure is an uncaught exception: the
+criterion, K10-K12 one per table and launch size, their ms the launch
+alone and wrapper_ms the autograd.Function's call less it; and as the last
+line {"ok": true, "device": {...}}. Any failure is an uncaught exception: the
 exit code is not 0 and the last line is not printed. Without a CUDA device,
 or without the rest of the repository beside it, the script fails.
 """
@@ -264,15 +271,15 @@ def _budgets(got, ref, got_seg, ref_seg, n, seg, bad, mean):
 
 def ptxas_registers(log):
     """['name<flags>: N regs[, spills]', ...] from the build's ptxas log; the
-    template flags are the kernel's bool parameters in order."""
+    template flags are the kernel's bool and int parameters in order."""
     import re
 
     out, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
-                      r"(I(?:Lb[01]E)+E)?", ln)
+                      r"(I(?:L[bi]\d+E)+E)?", ln)
         if m:
-            flags = re.findall(r"Lb([01])E", m.group(2) or "")
+            flags = re.findall(r"L[bi](\d+)E", m.group(2) or "")
             name = m.group(1) + (f"<{','.join(flags)}>" if flags else "")
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
@@ -1966,8 +1973,19 @@ def volume_training(dev, smi, smokey):
 # FP32 operations per ray-primitive pair (the JAX CostEstimates:
 # sphere_intersect.py:149, rect_intersect.py:114, triangle_intersect.py:134).
 OPS_PAIR = {"spheres": 40, "rects": 30, "triangles": 45}
-# Bytes per ray the kernels move (rays in, t and idx out) and per table row.
+# What K10 and K12 do where their work depends on the data, counted from
+# csrc/intersect.cu (an FMA two, a division, square root or compare one):
+# K10 41 for each valid pair (disc and its test) and 8 more where disc > 0
+# (the square root, the two roots, their tests); K12 48 for each valid pair
+# (det and the three numerators 33, the division-free prefilter 15) and 12
+# more for each candidate (1 / det, u, v, t, u + v and the exact test's
+# compares). K11 does OPS_PAIR's 30 on every pair.
+OPS_SPHERE_PAIR, OPS_SPHERE_ROOTS = 41, 8
+OPS_TRI_PAIR, OPS_TRI_CAND = 48, 12
+# Bytes per ray the kernels move (rays in, t and idx out), and the floats of
+# one primitive's terms (the packed tables pad them to 16 and 20).
 BYTES_RAY = {"spheres": 48, "rects": 32, "triangles": 44}
+TERMS_ROW = {"spheres": 13, "rects": 7, "triangles": 17}
 # The whole-frame launches (render_image and the fits) of each kernel are
 # timed on the primary rays of one scene; the staged frames' on their own.
 TIMED = {"spheres": "jumpy_balls", "rects": "cornell_box",
@@ -2071,26 +2089,26 @@ def staged_profile(scene, static, cfg, cam, smi):
 
 
 def hit_family(kind):
-    """(kernel module, its autograd.Function, the plain version, table
-    rows, the winner recompute of its backward (table, rays, idx, t_min) ->
-    t)."""
+    """(kernel module, its autograd.Function, the plain version, the
+    kernel's table builder, the winner recompute of its backward (table,
+    rays, idx, t_min) -> t)."""
     from raytracer_weekend_tpu_torch.ops import rect, sphere, triangle
     from raytracer_weekend_tpu_torch.ops.cuda import (
         rect_intersect, sphere_intersect, triangle_intersect)
 
     return {
         "spheres": (sphere_intersect, sphere_intersect.hit_spheres_kernel,
-                    sphere.hit_spheres, len(sphere_intersect.TABLE_ROWS),
+                    sphere.hit_spheres, sphere_intersect.sphere_table,
                     lambda tb, r, idx, t_min: sphere_intersect._winning_root(
                         tb, *r, idx, t_min)),
         "rects": (rect_intersect, rect_intersect.hit_rects_kernel,
-                  rect.hit_rects, len(rect_intersect.TABLE_ROWS),
+                  rect.hit_rects, rect_intersect.rect_table,
                   lambda tb, r, idx, t_min: rect_intersect._winning_t(
                       tb, *r, idx)),
         "triangles": (triangle_intersect,
                       triangle_intersect.hit_triangles_kernel,
                       triangle.hit_triangles,
-                      len(triangle_intersect.TABLE_ROWS),
+                      triangle_intersect.triangle_table,
                       lambda tb, r, idx, t_min: triangle_intersect._winning_t(
                           tb, *r, idx)),
     }[kind]
@@ -2111,6 +2129,54 @@ def plain_hits(kind, tab, rays, window, t_min=1e-3):
                  for w in lane_windows(n, window)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
+
+
+def disc_positive(sp, rays, window):
+    """The valid ray-sphere pairs with disc > 0, where K10 takes the roots,
+    by the plain version's arithmetic (`ops.sphere.hit_spheres`), in
+    windows of `window` rays."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
+
+    dc, dt, r2, c0_sq, c0_dc, dc_sq = sphere_ops.sphere_terms(sp)
+    total = 0
+    with torch.no_grad():
+        for win in lane_windows(rays[0].shape[0], window):
+            o, d, time = (r[win] for r in rays)
+            w = (time[:, None] - sp.t0[None, :]) / dt[None, :]
+            a, od, oo = (x[:, None] for x in sphere_ops.ray_terms(o, d))
+            half_b = od - (d @ sp.c0.T + w * (d @ dc.T))
+            c_term = (oo - 2.0 * (o @ sp.c0.T + w * (o @ dc.T))
+                      + (c0_sq + 2.0 * w * c0_dc + w * w * dc_sq) - r2)
+            disc = half_b * half_b - a * c_term
+            total += int(((disc > 0.0) & sp.valid[None, :]).sum())
+    return total
+
+
+def hit_ops(kind, tab, rays, window):
+    """(FP32 operations of one launch of K10-K12 on these rays and table,
+    the counts they were taken from): per pair, and for K10 and K12 per
+    valid pair plus the data's share, the pairs with disc > 0 (K10) or the
+    candidates its counting launch finds (K12). K10's counts also give the
+    share of its valid pairs on a static sphere (c1 == c0)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
+
+    n, P = rays[0].shape[0], tab.valid.shape[0]
+    if kind == "rects":
+        return n * P * OPS_PAIR[kind], {"pairs": n * P}
+    valid = n * int(tab.valid.sum())
+    if kind == "spheres":
+        roots = disc_positive(tab, rays, window)
+        static = int((tab.valid & (tab.c1 == tab.c0).all(1)).sum())
+        return (valid * OPS_SPHERE_PAIR + roots * OPS_SPHERE_ROOTS,
+                {"valid pairs": valid, "disc > 0": roots,
+                 "static share of valid pairs (c1 == c0)":
+                     static / max(int(tab.valid.sum()), 1)})
+    cands = ti.count_divisions(ti.triangle_table(tab),
+                               ti.ray_operands(*rays[:2]), 1e-3)
+    return (valid * OPS_TRI_PAIR + cands * OPS_TRI_CAND,
+            {"valid pairs": valid, "candidates": cands})
 
 
 def check_hits(what, t_k, i_k, t_p, i_p):
@@ -2215,6 +2281,67 @@ def hit_vjp(what, kind, tab, rays, t_min, window):
     return stats
 
 
+def tri_candidate_check(dev):
+    """K12's division-free prefilter (tri_candidate in csrc/intersect.cu)
+    against the exact test on the card: for each t_min of
+    checks.CAND_T_MINS, checks.tri_candidate_cases' adversarial set plus
+    2^24 random cases; it must pass every case the exact test accepts, and
+    give its plain twin's bits on every case."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import checks
+    from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
+
+    out = []
+    for t_min in checks.CAND_T_MINS:
+        cases = [torch.from_numpy(x).to(dev) for x in
+                 checks.tri_candidate_cases(t_min, 1 << 24, seed=12)]
+        *nums, best = cases
+        got = ti.tri_candidate_device(*nums, best, t_min)
+        exact = checks.tri_exact_accepts(*nums, t_min, best)
+        twin = ti.tri_candidate_plain(*(x.cpu() for x in nums), t_min,
+                                      best.cpu())
+        missed = int((exact & ~got).sum())
+        differ = int((got.cpu() != twin).sum())
+        out.append(dict(t_min=t_min, cases=best.numel(),
+                        exact=int(exact.sum()), passed=int(got.sum()),
+                        missed=missed, differ_from_twin=differ))
+        if missed or differ:
+            raise AssertionError(f"tri_candidate: {out[-1]}")
+    print(f"phase 14 K12's prefilter on the card, adversarial cases + 2^24 "
+          f"random ones per t_min: a superset of the exact test, its plain "
+          f"twin's bits: {json.dumps(out)}", flush=True)
+
+
+def intersect_design(log):
+    """K10's and K12's launch configuration and the registers of their
+    instantiations (ptxas); raises if one spills."""
+    from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
+    from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
+
+    regs = [r for r in ptxas_registers(log)
+            if r.startswith(("hit_spheres_kernel", "hit_triangles_kernel"))]
+    print(f"phase 14 K10 and K12 as compiled: rays a thread, block, tile "
+          f"rows: K10 {(si.RAYS, si.BLOCK, si.TILE)}, K12 "
+          f"{(ti.RAYS, ti.BLOCK, ti.TILE)}; registers (ptxas, K12's "
+          f"<count>): {' | '.join(regs)}", flush=True)
+    if not regs or any("spills" in r for r in regs):
+        raise AssertionError(f"K10/K12 instantiations spill: {regs}")
+
+
+def divide_share(what, tab, rays, t_min):
+    """The share of ray-triangle pairs of one K12 launch that took the
+    division (the counting instantiation), printed."""
+    from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
+
+    table = ti.triangle_table(tab)
+    divides = ti.count_divisions(table, ti.ray_operands(*rays[:2]), t_min)
+    pairs = rays[0].shape[0] * int(tab.valid.sum())
+    print(f"phase 14 K12 prefilter, {what} rays: {divides} of {pairs} valid "
+          f"pairs took the division ({divides / max(pairs, 1):.4e})",
+          flush=True)
+
+
 def bounce_rays(scene, static, cfg, cam):
     """The frame's primary rays and its first-bounce rays (the live lanes'
     scattered rays after one bounce of the staged path) -> two (o, d,
@@ -2255,7 +2382,7 @@ def staged_path(dev, smi):
     import torch
 
     from raytracer_weekend_tpu_torch import integrator
-    from raytracer_weekend_tpu_torch.ops.cuda import checks
+    from raytracer_weekend_tpu_torch.ops.cuda import _build, checks
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
     mods = {k: hit_family(k)[0] for k in ("spheres", "rects", "triangles")}
@@ -2293,7 +2420,7 @@ def staged_path(dev, smi):
                 timed[kind, name] = (getattr(scene, kind), primary,
                                      windows[name])
         for kind in fams[name]:
-            mod, kern, _, rows, _ = hit_family(kind)
+            mod, kern = hit_family(kind)[:2]
             tab = getattr(scene, kind)
             for which, rays in (("primary", primary), ("first bounce", bounce)):
                 t_k, i_k = kern(tab, *hit_rays(kind, rays), cfg.t_min)
@@ -2307,9 +2434,14 @@ def staged_path(dev, smi):
                 if name != "jumpy_balls":     # K10's: on the uv-debug jumpy
                     hit_vjp(f"{kind} {name} {which} rays", kind, tab, rays,
                             cfg.t_min, windows[name])
+                if kind == "triangles":
+                    divide_share(f"{name} {which}", tab, rays, cfg.t_min)
                 errs[kind] = max(errs.get(kind, 0.0), stats["max_abs_err"])
                 if (name, which) == ("jumpy_balls", "primary"):
                     row_reads(tab.c0, i_k.long(), smi)
+    tri_candidate_check(dev)
+    intersect_design(_build.library_path().with_name(
+        _build.library_path().name + ".log").read_text())
     for kind in ("spheres", "rects", "triangles"):
         tab, rays = checks.random_hit_case(kind, dev, 100_000)
         kern = hit_family(kind)[1]
@@ -2500,19 +2632,34 @@ def staged_path(dev, smi):
 
 def hit_entry(kind, name, chunk, launches, tab, rays, window, err, smi):
     """The kernels line's entry of K10, K11 or K12 for the launches of
-    `chunk` rays against scene `name`'s table: one launch timed on the
-    first `chunk` of its primary rays (CUDA events, median of 5), the
-    plain version once, the bound at that size."""
-    mod, kern = hit_family(kind)[:2]
-    rows = hit_family(kind)[3]
-    part = tuple(r[:chunk] for r in rays)
+    `chunk` rays against scene `name`'s table, on the first `chunk` of its
+    primary rays (CUDA events, median of 5): `ms` the launch alone, on the
+    table and ray operands built beforehand; `wrapper_ms` the
+    autograd.Function's call as the staged path makes it (its table built
+    once per trace and passed in) less the launch; the plain version once;
+    the bound at that size (`hit_ops`), and beside it in the print the
+    bound of the JAX CostEstimate's count (OPS_PAIR on every pair). The
+    table's build (once per trace) is printed."""
+    mod, kern, _, build = hit_family(kind)[:4]
+    full = tuple(r[:chunk] for r in rays)
+    part = hit_rays(kind, full)
     n, P = part[0].shape[0], tab.valid.shape[0]
-    k_ms = _cuda_ms(lambda: kern(tab, *hit_rays(kind, part), 1e-3), 5)
-    p_ms = _cuda_ms(lambda: plain_hits(kind, tab, part, window), 1)
+    table = build(tab)
+    ops = mod.ray_operands(*part)
+    l_ms = _cuda_ms(lambda: mod._launch(table, ops, 1e-3), 5)
+    f_ms = _cuda_ms(lambda: kern(tab, *part, 1e-3, table=table), 5)
+    b_ms = _cuda_ms(lambda: build(tab), 5)
+    p_ms = _cuda_ms(lambda: plain_hits(kind, tab, full, window), 1)
+    ops, counts = hit_ops(kind, tab, full, window)
     short = mod.__name__.rsplit(".", 1)[1]
     print(f"phase 14 timing {short} {name} primary: {n} rays x {P} rows, "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (median; {smi}); "
-          f"{launches} launches of this size on the main paths", flush=True)
+          f"launch {l_ms:.3f} ms, Function call {f_ms:.3f} ms (wrapper "
+          f"{f_ms - l_ms:.3f}), table build {b_ms:.3f} ms once a trace, "
+          f"plain {p_ms:.3f} ms (median; {smi}); {launches} launches of "
+          f"this size on the main paths; {ops:.4e} FP32 operations "
+          f"({json.dumps(counts)}), bound {ops / FP32_PEAK * 1e3:.4f} ms, "
+          f"by the JAX CostEstimate's {OPS_PAIR[kind]} a pair "
+          f"{n * P * OPS_PAIR[kind] / FP32_PEAK * 1e3:.4f} ms", flush=True)
     return bound({
         "name": f"{short}[{name} {n} rays]",
         "route": "cuda",
@@ -2523,9 +2670,10 @@ def hit_entry(kind, name, chunk, launches, tab, rays, window, err, smi):
                        "triangles": "triangle_intersect.py:36"}[kind],
         "launches": launches,
         "max_abs_err": err,
-        "ms": k_ms,
+        "ms": l_ms,
+        "wrapper_ms": f_ms - l_ms,
         "plain_ms": p_ms,
-    }, n * P * OPS_PAIR[kind], n * BYTES_RAY[kind] + 4 * rows * P)
+    }, ops, n * BYTES_RAY[kind] + 4 * TERMS_ROW[kind] * P)
 
 
 def many_spheres_k2(dev, smi):

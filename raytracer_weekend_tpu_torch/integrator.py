@@ -19,7 +19,8 @@ as the JAX package's does (`_kernels_on`):
   * True: the closest-hit kernels K10-K12 (`ops.cuda.sphere_intersect`,
     `rect_intersect`, `triangle_intersect`), each a torch.autograd.Function
     whose backward re-derives the winner's t on its gathered row; on CPU
-    tensors their forward is the plain version;
+    tensors their forward is the plain version. A trace on a card builds
+    the kernels' tables once (`kernel_tables`) for all its bounces;
   * "auto" (the default): those kernels on CUDA, the plain brute force
     (`ops.sphere`, `ops.rect`, `ops.triangle`) on the CPU;
   * False: the plain brute force on any device. A plain reference that
@@ -42,6 +43,7 @@ path.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
@@ -70,11 +72,33 @@ def _kernels_on(cfg: RenderConfig, device: torch.device | str) -> bool:
         cfg.use_pallas == "auto" and torch.device(device).type == "cuda")
 
 
+def kernel_tables(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
+                  device: torch.device | str):
+    """The closest-hit kernels' tables of this scene's families, (spheres,
+    rects, triangles), each None where the family is absent, built from the
+    detached fields; None when K10-K12 do not launch for this render (off,
+    or the CPU, where their Functions run the plain versions on the
+    fields). A trace builds them once for all its bounces and none outlives
+    it, so a parameter updated in place (a fit's Adam step) reaches the next
+    trace."""
+    if not _kernels_on(cfg, device) or torch.device(device).type != "cuda":
+        return None
+    from raytracer_weekend_tpu_torch.ops.cuda import (
+        rect_intersect, sphere_intersect, triangle_intersect)
+
+    return (sphere_intersect.sphere_table(scene.spheres)
+            if static.n_spheres else None,
+            rect_intersect.rect_table(scene.rects)
+            if static.n_rects else None,
+            triangle_intersect.triangle_table(scene.triangles)
+            if static.n_triangles else None)
+
+
 def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
-                 cfg: RenderConfig, seed, ray_id, depth):
+                 cfg: RenderConfig, seed, ray_id, depth, tables):
     """Closest hit over the families -> (t, fam, idx int64) per ray. A
     medium's scatter candidate draws from (seed, ray_id, depth) and merges
-    last."""
+    last. `tables` are the trace's `kernel_tables`."""
     B = o.shape[0]
     t_best = torch.full((B,), _INF, device=o.device)
     fam = torch.full((B,), _FAM_NONE, dtype=torch.int32, device=o.device)
@@ -83,9 +107,10 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
         from raytracer_weekend_tpu_torch.ops.cuda import (
             rect_intersect, sphere_intersect, triangle_intersect)
 
-        hit_s = sphere_intersect.hit_spheres_kernel
-        hit_r = rect_intersect.hit_rects_kernel
-        hit_t = triangle_intersect.hit_triangles_kernel
+        tab_s, tab_r, tab_t = tables or (None, None, None)
+        hit_s = partial(sphere_intersect.hit_spheres_kernel, table=tab_s)
+        hit_r = partial(rect_intersect.hit_rects_kernel, table=tab_r)
+        hit_t = partial(triangle_intersect.hit_triangles_kernel, table=tab_t)
     else:
         hit_s, hit_r = sphere_ops.hit_spheres, rect_ops.hit_rects
         hit_t = tri_ops.hit_triangles
@@ -215,10 +240,11 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
 
         pla = replay._pack_planar(scene, static)
 
+    tables = kernel_tables(scene, static, cfg, o.device)
     for depth in range(d0, d0 + cfg.max_depth):
         segments = segments + alive.to(torch.int32)
         t, fam, idx = _closest_hit(scene, static, o, d, time, cfg, seed,
-                                   ray_id, depth)
+                                   ray_id, depth, tables)
         hit_mask = torch.isfinite(t)
 
         # Miss -> background, terminate.

@@ -128,9 +128,10 @@ def load_library() -> ctypes.CDLL:
                                         _P, _P]
         lib.rtw_hit_rects.argtypes = [_P, _P, _I, _P, _I, _F, _P, _P, _P]
         lib.rtw_hit_triangles.argtypes = [_P, _P, _P, _I, _P, _I, _F, _P, _P,
-                                          _P]
+                                          _P, _P]
+        lib.rtw_tri_candidate.argtypes = [_P, _P, _P, _P, _P, _I, _F, _P, _P]
         for fn in (lib.rtw_hit_spheres, lib.rtw_hit_rects,
-                   lib.rtw_hit_triangles):
+                   lib.rtw_hit_triangles, lib.rtw_tri_candidate):
             fn.restype = _I
         lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
         lib.rtw_rand4.restype = _I
@@ -147,13 +148,19 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def launch_closest_hit(entry: str, rays, tab, t_min: float):
+def launch_closest_hit(entry: str, rays, tab, rows: int, t_min: float,
+                       shape: tuple[int, int], tail=()):
     """One launch of a closest-hit kernel (K10-K12), the C function `entry`
     -> (t (n,) f32, +inf on a miss; idx (n,) int32).
 
     `rays` are the per-ray operands in the C entry's order, each with n rows;
-    `tab` is the (rows, P) table. Every operand must be a contiguous float32
-    tensor on one CUDA device: anything else raises, as does a failed launch.
+    `tab` is the kernel's table of `rows` primitives, of `shape` (the
+    family's layout); `tail` the tensors (or None, a null pointer) the entry
+    takes after t and idx: K12's `divides`, a zeroed (1,) int64 tensor the
+    pairs that took the division are added to. Every operand must be a
+    contiguous float32 tensor on one CUDA device, and the table of `shape`
+    on a 16-byte boundary (the kernels read float4 rows): anything else
+    raises, as does a failed launch.
     """
     import torch
 
@@ -165,16 +172,20 @@ def launch_closest_hit(entry: str, rays, tab, t_min: float):
             raise ValueError(f"{entry}: every operand must be a contiguous "
                              f"float32 CUDA tensor on one device; got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if any(x.shape[0] != n for x in rays) or n >= 2**31 or tab.shape[1] < 1:
+    if (any(x.shape[0] != n for x in rays) or n >= 2**31 or rows < 1
+            or tuple(tab.shape) != tuple(shape) or tab.data_ptr() % 16):
         raise ValueError(f"{entry}: rays of {[tuple(x.shape) for x in rays]}"
-                         f" against a table of {tuple(tab.shape)}")
+                         f" against a table of {tuple(tab.shape)} (want "
+                         f"{tuple(shape)}, 16-byte aligned)")
     t = torch.empty((n,), dtype=torch.float32, device=device)
     idx = torch.empty((n,), dtype=torch.int32, device=device)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(*(x.data_ptr() for x in rays), n,
-                                  tab.data_ptr(), tab.shape[1], float(t_min),
-                                  t.data_ptr(), idx.data_ptr(), stream)
+                                  tab.data_ptr(), rows, float(t_min),
+                                  t.data_ptr(), idx.data_ptr(),
+                                  *(None if x is None else x.data_ptr()
+                                    for x in tail), stream)
     check(lib, err, f"{entry} launch")
     return t, idx

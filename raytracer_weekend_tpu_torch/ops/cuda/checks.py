@@ -10,7 +10,9 @@ by `chip_smoke.py` (phase 14) and `tests/test_torch_cuda.py`.
     cell;
   * `candidate_cases`: adversarial and random float32 inputs of the
     forward kernel's division-free planar prefilter (`plane_candidate`),
-    and `exact_accepts`, the test it must contain.
+    and `exact_accepts`, the test it must contain;
+  * `tri_candidate_cases` and `tri_exact_accepts`: the same for K12's
+    prefilter (`tri_candidate` in csrc/intersect.cu).
 """
 
 from __future__ import annotations
@@ -228,3 +230,96 @@ def exact_accepts(num, den, best, t_min):
     t = num / den
     return (t >= torch.tensor(t_min, dtype=torch.float32, device=t.device)) \
         & (t < best)
+
+
+def tri_candidate_cases(t_min: float, n_random: int = 0, seed: int = 0):
+    """(det, u_num, v_num, t_num, best) float32 numpy arrays at `t_min`:
+    every det of an adversarial list (+-0, subnormals, FLT_MIN, FLT_MAX,
+    +-inf, NaN, ordinary magnitudes) against bests (+inf, t_min and its
+    neighbours, ordinary and huge ones), with t at t_min and at best, one
+    ulp on either side of each, 0, negative, tiny, huge, inf and NaN, and
+    (u, v) on the edges of the triangle (0, u + v = 1) and just outside, as
+    numerators RN(x det); each case also with one numerator moved one ulp
+    either way, and with u_num or v_num replaced by +-0, +-1e-45 (which
+    underflows to -0 against |det| >= 2), +-inf and NaN. Then `n_random`
+    cases: half with log-uniform magnitudes and random signs, half as
+    RN(x det) of a log-uniform det and t and (u, v) uniform on [-0.2, 1.2];
+    best +inf, or t scaled by 1 +- a few ulps, or log-uniform."""
+    f32 = np.float32
+    tm = f32(t_min)
+    mags = [0.0, 1e-45, 1e-40, 1.1754944e-38, 1e-30, 1e-20, 1e-3, 0.7, 1.0,
+            3.0, 1e3, 1e20, 1e30, 3.4028235e38, np.inf]
+    dets = [f32(s * m) for m in mags for s in (1.0, -1.0)] + [f32(np.nan)]
+    bests = _ulps(tm, 1) + [f32(2.0) * tm, f32(1.0), f32(1e30), f32(np.inf)]
+    uvs = [(0.0, 0.0), (0.0, 1.0), (1.0, 0.0), (0.25, 0.75), (0.5, 0.5),
+           (0.3, 0.7), (1.0 / 3.0, 2.0 / 3.0), (0.2, 0.3), (-0.1, 0.5),
+           (0.5, -1e-3), (0.6, 0.6), (1e-40, 0.9)]
+    specials = [0.0, -0.0, 1e-45, -1e-45, np.inf, -np.inf, np.nan]
+    rows = []
+
+    def rn(x, den):
+        with np.errstate(all="ignore"):
+            return f32(np.float64(x) * np.float64(den))
+
+    for det in dets:
+        for best in bests:
+            ts = _ulps(tm, 1) + [f32(0.0), -tm, f32(1e-40), f32(1e30),
+                                 f32(np.inf), f32(np.nan), f32(0.5) * tm]
+            if np.isfinite(best):
+                ts += _ulps(best, 1)
+            for t in ts:
+                tn = rn(t, det)
+                for u, v in uvs:
+                    un, vn = rn(u, det), rn(v, det)
+                    rows.append((det, un, vn, tn, best))
+                    for k in (1, 2, 3):
+                        base = [un, vn, tn]
+                        for x in _ulps(base[k - 1], 1)[1:]:
+                            moved = list(base)
+                            moved[k - 1] = x
+                            rows.append((det, *moved, best))
+                for x in specials:
+                    rows.append((det, f32(x), rn(0.5, det), tn, best))
+                    rows.append((det, rn(0.5, det), f32(x), tn, best))
+    det, un, vn, tn, best = (np.array(x, dtype=f32) for x in zip(*rows))
+    if n_random:
+        g = np.random.default_rng(seed)
+        h = n_random // 2
+
+        def logu(n, lo=-44.0, hi=38.0):
+            return (g.choice([-1.0, 1.0], n)
+                    * 10.0 ** g.uniform(lo, hi, n)).astype(f32)
+
+        r_det = np.concatenate([logu(h), logu(n_random - h, -30.0, 30.0)])
+        t = np.concatenate([logu(h), np.abs(logu(n_random - h, -4.0, 4.0))])
+        u = g.uniform(-0.2, 1.2, n_random - h)
+        v = g.uniform(-0.2, 1.2, n_random - h)
+        with np.errstate(all="ignore"):
+            r_tn = np.concatenate([t[:h], (t[h:].astype(np.float64)
+                                           * r_det[h:]).astype(f32)])
+            r_un = np.concatenate([logu(h), (u * r_det[h:]).astype(f32)])
+            r_vn = np.concatenate([logu(h), (v * r_det[h:]).astype(f32)])
+            pick = g.integers(0, 3, n_random)
+            near = (np.abs(t).astype(np.float64)
+                    * (1.0 + g.integers(-3, 4, n_random) * 2.0**-23))
+            r_best = np.where(pick == 0, np.inf,
+                              np.where(pick == 1, near,
+                                       np.abs(logu(n_random))))
+        r_best = np.where(r_best < tm, np.inf, r_best).astype(f32)
+        det, un, vn, tn, best = (np.concatenate([a, b]) for a, b in
+                                 ((det, r_det), (un, r_un), (vn, r_vn),
+                                  (tn, r_tn), (best, r_best)))
+    return det, un, vn, tn, best
+
+
+def tri_exact_accepts(det, u_num, v_num, t_num, t_min, best):
+    """K12's exact test, the bits of the kernel and of the plain version
+    (float32 tensors of any device): det != 0, and with inv = RN(1 / det),
+    u = u_num inv >= 0, v = v_num inv >= 0, RN(u + v) <= 1,
+    t = t_num inv >= t_min, t >= 0 and t < best -> bool."""
+    degenerate = det == 0.0
+    inv = 1.0 / torch.where(degenerate, 1.0, det)
+    u, v, t = u_num * inv, v_num * inv, t_num * inv
+    tm = torch.tensor(t_min, dtype=torch.float32, device=t.device)
+    return ((t >= tm) & (t >= 0.0) & (u >= 0.0) & (v >= 0.0)
+            & (u + v <= 1.0) & ~degenerate & (t < best))

@@ -1,12 +1,14 @@
 """Closest axis-aligned rect per ray: kernel K11, inside a torch.autograd.Function.
 
 Counterpart of `raytracer_weekend_tpu/ops/pallas/rect_intersect.py`.
-`hit_rects_kernel(rc, o, d, t_min)` returns (t (B,) f32, +inf on a miss;
-idx (B,) int32, the lowest row among equal t, 0 on a miss):
+`hit_rects_kernel(rc, o, d, t_min, table)` returns (t (B,) f32, +inf on a
+miss; idx (B,) int32, the lowest row among equal t, 0 on a miss):
 
   * forward: on CUDA tensors the hand-written kernel K11
-    (`csrc/intersect.cu` `hit_rects_kernel`), which raises if an operand is
-    not float32 or the launch fails; on CPU tensors the plain version
+    (`csrc/intersect.cu` `hit_rects_kernel`) over `rect_table(rc)`, which
+    the staged path builds once per trace and passes in; it raises if an
+    operand is not float32 or the launch fails. On CPU tensors the plain
+    version
     `ops.rect.hit_rects`, what the kernel is held against on the card;
   * backward: the JAX `custom_vjp`'s: misses carry no gradient, and torch
     autograd of t = (k - o_f) / d_f on the winning rect's gathered row
@@ -32,23 +34,30 @@ LAUNCHES = 0
 # Rows of the kernel's rect table, in the order of `enum RRow` in
 # csrc/intersect.cu.
 TABLE_ROWS = ("axis", "k", "a0", "a1", "b0", "b1", "valid")
+ENTRY = "rtw_hit_rects"
 
 
 def rect_table(rc: Rects) -> torch.Tensor:
-    """(len(TABLE_ROWS), R) table; the axis id and valid as floats."""
+    """(len(TABLE_ROWS), R) table from the detached fields; the axis id and
+    valid as floats."""
     f = rc.k.dtype
-    return torch.stack([rc.axis.to(f), rc.k, rc.a0, rc.a1, rc.b0, rc.b1,
-                        rc.valid.to(f)]).contiguous()
+    with torch.no_grad():
+        return torch.stack([rc.axis.to(f), rc.k, rc.a0, rc.a1, rc.b0, rc.b1,
+                            rc.valid.to(f)]).contiguous()
 
 
-def _launch(rc: Rects, o, d, t_min: float):
-    """One launch of K11 -> (t, idx int32)."""
+def ray_operands(o, d):
+    """The kernel's per-ray operands: o and d."""
+    return o.contiguous(), d.contiguous()
+
+
+def _launch(table, rays, t_min: float):
+    """One launch of K11 on prebuilt operands -> (t, idx int32)."""
     global LAUNCHES
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
-    out = _build.launch_closest_hit("rtw_hit_rects",
-                                    (o.contiguous(), d.contiguous()),
-                                    rect_table(rc), t_min)
+    out = _build.launch_closest_hit(ENTRY, rays, table, table.shape[1],
+                                    t_min, (len(TABLE_ROWS), table.shape[1]))
     LAUNCHES += 1
     return out
 
@@ -63,14 +72,13 @@ def _winning_t(rc: Rects, o, d, idx):
 
 class _HitRects(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t_min, o, d, *fields):
-        rc = Rects(*fields)
+    def forward(ctx, t_min, table, o, d, *fields):
         if o.device.type == "cpu":
             with torch.no_grad():
-                t, idx = rect_ops.hit_rects(rc, o, d, t_min)
+                t, idx = rect_ops.hit_rects(Rects(*fields), o, d, t_min)
             idx = idx.to(torch.int32)
         elif o.device.type == "cuda":
-            t, idx = _launch(rc, o, d, t_min)
+            t, idx = _launch(table, ray_operands(o, d), t_min)
         else:
             raise NotImplementedError(f"no rect intersection on {o.device}")
         ctx.save_for_backward(t, idx, o, d, *fields)
@@ -80,12 +88,16 @@ class _HitRects(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_t, _):
         t, idx, *ins = ctx.saved_tensors
-        return (None, *_winner_vjp(ctx, ins, ct_t, t, lambda o, d, *f:
-                                   _winning_t(Rects(*f), o, d, idx.long())))
+        return (None, None, *_winner_vjp(ctx, ins, ct_t, t, lambda o, d, *f:
+                                         _winning_t(Rects(*f), o, d,
+                                                    idx.long())))
 
 
-def hit_rects_kernel(rc: Rects, o, d, t_min: float):
-    """Closest rect per ray -> (t (B,) f32, idx (B,) int32): K11 on a card,
-    the plain version on the CPU; differentiable in the rect table's float
-    fields, o and d."""
-    return _HitRects.apply(float(t_min), o, d, *rc)
+def hit_rects_kernel(rc: Rects, o, d, t_min: float, table=None):
+    """Closest rect per ray -> (t (B,) f32, idx (B,) int32): K11 on a card
+    over `table` (`rect_table(rc)`, built here when None), the plain
+    version on the CPU; differentiable in the rect table's float fields, o
+    and d."""
+    if table is None and o.device.type == "cuda":
+        table = rect_table(rc)
+    return _HitRects.apply(float(t_min), table, o, d, *rc)

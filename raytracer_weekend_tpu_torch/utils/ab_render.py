@@ -16,10 +16,23 @@ smokey_cornell_box (media, K5) through `render_fused` (radiance and
 segments; the winner codes of `emit_paths=True` too), and bench.py's
 book2_criterion (40x22, 100 spp, depth 50, seeds 1337) and jumpy_balls at
 400x225, 4 spp, depth 20 through the single pass and the depth-phased
-render; each render is timed (CUDA events, median of 5). The first
-process of each checkout saves its outputs, and the script reports for
-each output whether the two checkouts agree bit for bit, and each time by
-checkout. It needs a CUDA device.
+render; each render is timed (CUDA events, median of 5). Then the staged
+path's closest-hit kernels: K10 on jumpy_balls, K11 and K12 on
+cornell_box and the cow, on the frame's primary rays and its first-bounce
+rays (one bounce of the checkout's staged path, so equal in the two
+checkouts where their primary hits are), and each on phase 14's random
+table (`checks.random_hit_case`, 100,000 rays): (t, idx) through the
+autograd.Function; timed (CUDA events, median of 5) at the sizes of
+PERF.md's kernel table (the first 2^18 primary rays, and all 1.44M for
+K10 on jumpy and K11 on cornell): the launch alone, on its table and ray
+operands built beforehand, and the Function's call as the checkout's
+staged path makes it, for the wrapper's time. Last, the staged path end
+to end: `render_image` of jumpy_balls with a uv-debug ground (K10, one
+chunk) and the cow's staged frame in 2^18-lane chunks (`render_chunk`,
+K10-K12), their images and timings. The first process of each checkout
+saves its outputs, and the script reports for each output whether the two
+checkouts agree bit for bit, and each time by checkout. It needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -40,6 +53,13 @@ EMIT = ("cornell_box", "wavefront_cow_obj", "textured_monument",
 CRITERION = dict(width=40, height=22, samples_per_pixel=100, max_depth=50,
                  seed=1337)
 JUMPY_DEEP = dict(width=400, height=225, samples_per_pixel=4, max_depth=20)
+# The staged closest-hit kernels: (family, scene) compared; the sizes each
+# is timed at.
+HITS = (("spheres", "jumpy_balls"), ("rects", "cornell_box"),
+        ("triangles", "cornell_box"), ("rects", "wavefront_cow_obj"),
+        ("triangles", "wavefront_cow_obj"), ("spheres", "wavefront_cow_obj"))
+HIT_SIZES = {("spheres", "jumpy_balls"): (1 << 18, 1_440_000),
+             ("rects", "cornell_box"): (1 << 18, 1_440_000)}
 
 
 def _cuda_ms(fn, reps=5):
@@ -105,11 +125,129 @@ def run_one(out_dir: pathlib.Path, save: bool) -> dict:
 
             outs[f"{name} {route}"] = fwd()
             times[f"{name} {route}"] = _cuda_ms(fwd)
+    staged_hits(dev, outs, times)
     torch.cuda.synchronize()
     if save:
         torch.save({k: [t.cpu() for t in v] for k, v in outs.items()},
                    out_dir / "outputs.pt")
     return times
+
+
+def _hit_calls(kind, tab, rays, t_min):
+    """(the launch alone, the Function's call) of the checkout's kernel for
+    `kind`, as zero-argument callables, on operands built beforehand. A
+    checkout whose wrappers build the table and the per-ray operands on
+    every launch (the first design: no `ray_operands`) is driven through
+    its own `_build.launch_closest_hit` on the operands it would build."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import (
+        _build, rect_intersect, sphere_intersect, triangle_intersect)
+
+    mod, kern, build = {
+        "spheres": (sphere_intersect, sphere_intersect.hit_spheres_kernel,
+                    sphere_intersect.sphere_table),
+        "rects": (rect_intersect, rect_intersect.hit_rects_kernel,
+                  rect_intersect.rect_table),
+        "triangles": (triangle_intersect,
+                      triangle_intersect.hit_triangles_kernel,
+                      triangle_intersect.triangle_table)}[kind]
+    table = build(tab)
+    if hasattr(mod, "ray_operands"):
+        ops = mod.ray_operands(*rays)
+        return (lambda: mod._launch(table, ops, t_min),
+                lambda: kern(tab, *rays, t_min, table=table))
+    from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
+    from raytracer_weekend_tpu_torch.vecmath import cross
+
+    o, d = rays[0].contiguous(), rays[1].contiguous()
+    ops = {"spheres": lambda: (o, d, rays[2].contiguous(), torch.stack(
+               sphere_ops.ray_terms(o, d), dim=1)),
+           "rects": lambda: (o, d),
+           "triangles": lambda: (o, d, cross(o, d))}[kind]()
+    entry = {"spheres": "rtw_hit_spheres", "rects": "rtw_hit_rects",
+             "triangles": "rtw_hit_triangles"}[kind]
+    return (lambda: _build.launch_closest_hit(entry, ops, table, t_min),
+            lambda: kern(tab, *rays, t_min))
+
+
+def staged_hits(dev, outs, times):
+    """The staged path's closest-hit kernels (see the module's docstring)
+    into `outs` and `times`."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.ops.cuda import checks
+
+    for name in dict.fromkeys(n for _, n in HITS):
+        cfg = RenderConfig(**FULL)
+        scene, static, cams = scenes.generate_scene(name, cfg.aspect_ratio,
+                                                    device=dev)
+        cam = cams[0].to(dev)
+        ids = torch.arange(cfg.n_rays, device=dev)
+        o, d, t, rid = integrator._pixel_rays(cam, cfg, ids, cfg.seed)
+        *_, (o1, d1, _, _, alive, _) = integrator.trace_lanes(
+            scene, static, dataclasses.replace(cfg, max_depth=1), o, d, t,
+            rid, cfg.seed, return_carry=True)
+        bounce = (o1[alive].contiguous(), d1[alive].contiguous(),
+                  t[alive].contiguous())
+        for kind in (k for k, n in HITS if n == name):
+            tab = getattr(scene, kind)
+            nr = 3 if kind == "spheres" else 2
+            for which, rays in (("primary", (o, d, t)), ("bounce", bounce)):
+                _, call = _hit_calls(kind, tab, rays[:nr], cfg.t_min)
+                outs[f"hit {kind} {name} {which}"] = call()
+            for size in HIT_SIZES.get((kind, name), (1 << 18,)):
+                launch, call = _hit_calls(
+                    kind, tab, tuple(r[:size] for r in (o, d, t)[:nr]),
+                    cfg.t_min)
+                times[f"launch {kind} {name} {size}"] = _cuda_ms(launch)
+                times[f"call {kind} {name} {size}"] = _cuda_ms(call)
+    for kind in ("spheres", "rects", "triangles"):
+        tab, rays = checks.random_hit_case(kind, dev, 100_000)
+        nr = 3 if kind == "spheres" else 2
+        outs[f"hit {kind} random"] = _hit_calls(kind, tab, rays[:nr],
+                                                1e-3)[1]()
+    staged_frames(dev, outs, times)
+
+
+def staged_frames(dev, outs, times):
+    """The staged path end to end (see the module's docstring)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.scene.builder import build_scene
+
+    cfg = RenderConfig(**FULL)
+    objs, cams, bg = scenes.jumpy_balls_uvdebug(cfg.aspect_ratio)
+    scene, static = build_scene(objs, background=bg)
+    scene, cam = scene.to(dev), cams[0].to(dev)
+
+    def uvdebug():
+        return integrator.render_image(scene, static, cfg, cam)
+
+    outs["render_image jumpy_balls_uvdebug"] = (uvdebug(),)
+    times["render_image jumpy_balls_uvdebug"] = _cuda_ms(uvdebug)
+    scene, static, cams = scenes.generate_scene(
+        "wavefront_cow_obj", cfg.aspect_ratio, device=dev)
+    cam = cams[0].to(dev)
+    chunk = 1 << 18
+
+    def cow():
+        with torch.no_grad():
+            return torch.cat([integrator.render_chunk(
+                scene, static, cfg, cam,
+                torch.arange(s, min(s + chunk, cfg.n_rays), device=dev),
+                cfg.seed) for s in range(0, cfg.n_rays, chunk)])
+
+    outs["staged frame wavefront_cow_obj"] = (cow(),)
+    times["staged frame wavefront_cow_obj 262144"] = _cuda_ms(cow)
 
 
 def main() -> None:

@@ -728,6 +728,87 @@ def test_closest_hit_kernel_matches_plain(cuda, kind):
         kern(tab, *(a.double() for a in args), 1e-3)
 
 
+@pytest.mark.parametrize("kind", ["spheres", "triangles"])
+def test_closest_hit_ragged_tiles_match_plain(cuda, kind):
+    """K10 and K12 bit for bit the plain brute force where the rays do not
+    fill the last block and the table fills one tile, several tiles and a
+    ragged last one; K12's counting launch finds that some pairs divide,
+    and few; a table of another layout or off a 16-byte boundary raises."""
+    from raytracer_weekend_tpu_torch.ops import sphere, triangle
+    from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
+    from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
+
+    mod = si if kind == "spheres" else ti
+    full, (o, d, time) = checks.random_hit_case(kind, cuda, (1 << 15) + 77)
+    for rows in (mod.TILE // 2, mod.TILE, 3 * mod.TILE + 5):
+        tab = full._replace(**{k: v[:rows] for k, v in full._asdict().items()})
+        if kind == "spheres":
+            table, ops = si.sphere_table(tab), si.ray_operands(o, d, time)
+            want = sphere.hit_spheres(tab, o, d, time, 1e-3)
+        else:
+            table, ops = ti.triangle_table(tab), ti.ray_operands(o, d)
+            want = triangle.hit_triangles(tab, o, d, 1e-3)
+        t, idx = mod._launch(table, ops, 1e-3)
+        assert torch.equal(t, want[0]) and torch.equal(idx.long(), want[1])
+        assert int(torch.isfinite(t).sum()) > 100, rows
+    if kind == "triangles":
+        divides = ti.count_divisions(table, ops, 1e-3)
+        pairs = o.shape[0] * int(tab.valid.sum())
+        assert 0 < divides < pairs // 10
+    with pytest.raises(ValueError, match="table"):
+        mod._launch(table[:, :-1].contiguous(), ops, 1e-3)
+    with pytest.raises(ValueError, match="table"):
+        mod._launch(table.reshape(-1)[1:1 + table.numel() - table.shape[1]]
+                    .view(-1, table.shape[1]), ops, 1e-3)
+
+
+@pytest.mark.parametrize("name", ["jumpy_balls_uvdebug", "cornell_box",
+                                  "wavefront_cow_obj"])
+def test_prebuilt_tables_on_card(cuda, name, monkeypatch):
+    """The staged path on the card, each family's table built once a trace
+    (`integrator.kernel_tables`), gives the radiance and segments of the
+    Functions building their own table at every launch, bit for bit; and a
+    vertex (or, without triangles, a sphere radius) changed in place
+    between two traces reaches the second, which equals a trace of a fresh
+    copy of the changed scene."""
+    import dataclasses
+
+    from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
+    from raytracer_weekend_tpu_torch.scene.data import SceneData
+
+    scene, static, cfg, cam = _frame(name, cuda, samples_per_pixel=2)
+    n = cfg.n_rays
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+
+    def trace(sc):
+        with torch.no_grad():
+            return integrator.trace_lanes(sc, static, cfg, o, d, t, rid,
+                                          cfg.seed)
+
+    built = []
+    real = si.sphere_table
+    with monkeypatch.context() as m:
+        m.setattr(si, "sphere_table",
+                  lambda sp: built.append(real(sp)) or built[-1])
+        first = trace(scene)
+    assert len(built) == int(static.n_spheres > 0)
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "kernel_tables", lambda *a: None)
+        ref = trace(scene)
+    assert all(torch.equal(a, b) for a, b in zip(first, ref))
+    if static.n_triangles:
+        scene.triangles.v0[:, 1] += 0.25
+    else:
+        scene.spheres.radius[1:] *= 1.5
+    second = trace(scene)
+    fresh = trace(SceneData.from_leaves([le.clone()
+                                         for le in scene.leaves()]))
+    assert all(torch.equal(a, b) for a, b in zip(second, fresh))
+    assert not torch.equal(first[0], second[0])
+
+
 def test_staged_render_chunk_matches_plain(cuda):
     """The staged path on the card through K10 (use_pallas "auto") against
     use_pallas=False, two_spheres 64x36x4 d6, with the sphere budgets of
