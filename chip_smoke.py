@@ -21,7 +21,12 @@ holds each against its plain torch version first. Phases, one line each
   4. K1 against its plain version: two_spheres 64x36 4 spp depth 6,
      and jumpy_balls at full size (plain in 2^17-lane chunks, TF32 off),
      with the flip budgets of tests/test_megakernel.py:66-70; lane-window
-     halves against the whole frame, bitwise;
+     halves, a window of 5 lanes and a second launch against the whole
+     frame, bitwise; the sphere-only kernel (K1, K1-emit, K6a: persistent
+     warps) as compiled: lane slots a thread, block, row limit, registers
+     of its instantiations (no spills) and jumpy_balls' resident blocks;
+     many_spheres (3,970 rows) with its rows in global memory bitwise the
+     rows forced into shared memory, and against its plain version;
   5. the sphere forward path: render_image on jumpy_balls, with the launch
      count reset just before; frame time (1 warm-up, 10 timed), segments
      per frame and segments/s; the tone-mapped PNG goes to build/;
@@ -121,8 +126,11 @@ abs error against its plain version, ms and plain ms, the least time the
 card could take for the same work and what bounds it), each entry's ms,
 launches and bound measured on the same launches: K3 one entry per scene
 (cornell_box, the cow, the monument, book2), K6b one per phase of the
-criterion, K10-K12 one per table and launch size, their ms the launch
-alone and wrapper_ms the autograd.Function's call less it; and as the last
+criterion, K10-K12 one per table and launch size; the ms of K1, K1-emit,
+K3, K5, K6a, K6b and K10-K12 is the launch alone, on tables built
+beforehand, and their wrapper_ms (all but K6b's) the call the main path
+makes (render_fused, render_fused_records, the autograd.Function) less
+it; and as the last
 line {"ok": true, "device": {...}}. Any failure is an uncaught exception: the
 exit code is not 0 and the last line is not printed. Without a CUDA device,
 or without the rest of the repository beside it, the script fails.
@@ -305,6 +313,64 @@ def _cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def launch_ms(scene, static, cfg, cam, emit=False):
+    """The forward kernel's launch alone over the frame: `mk._launch` on
+    the tables built beforehand (as the depth phases and the fits pass
+    them), CUDA events, median of 5."""
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    tables = mk.build_tables(scene, static, cam)
+    return _cuda_ms(lambda: mk._launch(scene, cfg, cam, 0, cfg.n_rays,
+                                       cfg.seed, static, emit_paths=emit,
+                                       tables=tables), 5)
+
+
+def sphere_design(log, dev, smi):
+    """The sphere-only kernel (K1, K1-emit, K6a) as compiled: its lane
+    slots, block and row limit, its instantiations' registers (raises on a
+    spill), and jumpy_balls' resident blocks; then many_spheres (3,970
+    rows, above the limit) with its rows read from global memory (the
+    default) and forced into shared memory, bitwise, and its figures
+    against its plain version (information: its 0.12-radius spheres ~10
+    units out flip more lanes than the budgets of jumpy_balls, through the
+    K0 grouping of the sphere test, |o|^2 - 2 o.c + K0)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    regs = [r for r in ptxas_registers(log) if r.startswith("sphere_kernel")]
+    if len(regs) != 8 or any("spills" in r for r in regs):
+        raise AssertionError(f"sphere_kernel instantiations: {regs}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    jumpy = load_scene("jumpy_balls", SMALL, dev)[1]
+    blocks = mk.resident_blocks(jumpy, dev, phase=False)
+    print(f"phase 4 the sphere-only kernel as compiled: {mk.SPHERE_RAYS} "
+          f"lane slots a thread, block {mk.SPHERE_BLOCK}, rows in shared "
+          f"memory up to {mk.SPHERE_ROW_LIMIT}; registers (ptxas, "
+          f"<emit,defer,shared>): {' | '.join(regs)}; jumpy_balls "
+          f"({jumpy.n_spheres} rows): {blocks} resident blocks an SM, "
+          f"{blocks * sms} blocks, "
+          f"{blocks * sms * mk.SPHERE_BLOCK * mk.SPHERE_RAYS} lane slots on "
+          f"{sms} SMs", flush=True)
+    scene, static, cfg, cam = load_scene("many_spheres", SMALL, dev)
+    tables = mk.build_tables(scene, static, cam)
+    outs = [mk._launch(scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static,
+                       tables=tables, resident=r) for r in (None, True)]
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    p_rad, p_seg = mk.render_fused_reference(scene, cfg, cam, 0, cfg.n_rays,
+                                             cfg.seed, static=static)
+    _, stats = _budgets(outs[0][0], p_rad, outs[0][1].sum(), p_seg.sum(),
+                        cfg.n_rays, **SPHERE_BUDGETS)
+    print(f"phase 4 many_spheres {cfg.width}x{cfg.height} spp "
+          f"{cfg.samples_per_pixel} depth {cfg.max_depth} ({static.n_spheres}"
+          f" rows): global rows bitwise the rows forced into shared memory "
+          f"({mk.resident_blocks(static, dev, phase=False)} resident blocks "
+          f"an SM with global rows): {same}; vs plain (information) "
+          f"{json.dumps(stats)}", flush=True)
+    if not (same and stats["finite"]):
+        raise AssertionError(f"many_spheres: bitwise {same}, {stats}")
 
 
 def _agree(name, got, ref, scale, check=True):
@@ -567,11 +633,21 @@ def main() -> None:
     if not (torch.equal(torch.cat([a, b]), k_rad)
             and torch.equal(torch.cat([aseg, bseg]), k_seg)):
         raise AssertionError("lane-window halves differ from the whole frame")
+    small = mk.render_fused(scene, cfg, cam, 1001, 5, cfg.seed, static=static)
+    again = kernel_frame(scene, static, cfg, cam)
+    if not (torch.equal(small[0], k_rad[1001:1006])
+            and torch.equal(small[1], k_seg[1001:1006])
+            and torch.equal(again[0], k_rad) and torch.equal(again[1], k_seg)):
+        raise AssertionError("a 5-lane window or a second launch differs")
     kernel_ms = _cuda_ms(lambda: kernel_frame(scene, static, cfg, cam), 5)
+    k1_ms = launch_ms(scene, static, cfg, cam)
     plain_ms = _cuda_ms(lambda: plain_frame(scene, static, cfg, cam), 3)
-    print(f"phase 4 chunking: halves [0,{half}) + [{half},{n}) bitwise equal "
-          f"to the whole frame; render_fused frame {kernel_ms:.3f} ms, plain "
-          f"version frame {plain_ms:.3f} ms (median; {smi})", flush=True)
+    print(f"phase 4 chunking: halves [0,{half}) + [{half},{n}), a window of "
+          f"5 lanes and a second launch bitwise equal to the whole frame; "
+          f"render_fused frame {kernel_ms:.3f} ms, the launch alone "
+          f"{k1_ms:.3f} ms, plain version frame {plain_ms:.3f} ms (median; "
+          f"{smi})", flush=True)
+    sphere_design(log, dev, smi)
 
     # ---- 5. main path ----------------------------------------------------
     mk.LAUNCHES = 0
@@ -599,7 +675,8 @@ def main() -> None:
         "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
         "launches": launches,
         "max_abs_err": jstats["max_abs_err"],
-        "ms": kernel_ms,
+        "ms": k1_ms,
+        "wrapper_ms": kernel_ms - k1_ms,
         "plain_ms": plain_ms,
     }, *forward_work(n, cfg.max_depth, segs, S, 0))]
     kernels += training_path(scene, static, cfg, cam, k_rad, k_seg, smi)
@@ -656,12 +733,14 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
                              f"on {code_lanes} lanes (budget {n // 64})")
     emit_err = float((e_rad - p_rad).abs().max())
     emit_ms = _cuda_ms(emit_frame, 5)
+    emit_launch_ms = launch_ms(scene, static, cfg, cam, emit=True)
     plain_emit_ms = _cuda_ms(plain_emit_frame, 3)
     print(f"phase 6 K1-emit: radiance and segments bitwise equal to the "
           f"launch without codes; codes differ from the plain version's on "
           f"{code_lanes} of {n} lanes (budget {n // 64}); nonzero codes = "
-          f"seg or seg - 1 on every lane; frame {emit_ms:.3f} ms, plain "
-          f"{plain_emit_ms:.3f} ms (median; {smi})", flush=True)
+          f"seg or seg - 1 on every lane; frame {emit_ms:.3f} ms, the launch "
+          f"alone {emit_launch_ms:.3f} ms, plain {plain_emit_ms:.3f} ms "
+          f"(median; {smi})", flush=True)
 
     # ---- 6b. K2 against its plain version ----------------------------------
     o, d, t, rid = integrator._pixel_rays(
@@ -727,7 +806,8 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
         "launches": emit_launches,
         "max_abs_err": emit_err,
-        "ms": emit_ms,
+        "ms": emit_launch_ms,
+        "wrapper_ms": emit_ms - emit_launch_ms,
         "plain_ms": plain_emit_ms,
     }, *forward_work(n, D, segs, S, 0, emit=True)), bound({
         "name": "replay_bwd_sphere",
@@ -891,22 +971,25 @@ def planar_forward(dev, smi):
 
 def k3_entry(name, scene, static, cfg, cam, k_seg, launches, err, plain,
              smi):
-    """The kernels line's K3 entry for one scene: render_fused's ms a launch
-    at the scene's size (CUDA events, median of 5), `launches` the scene's
-    render_image count, the bound from its own segments, spheres, planar
-    rows and media; `plain` (or None) times the plain version once."""
+    """The kernels line's K3 entry for one scene at its size: ms the launch
+    alone, wrapper_ms render_fused's call less it (CUDA events, medians of
+    5), `launches` the scene's render_image count, the bound from its own
+    segments, spheres, planar rows and media; `plain` (or None) times the
+    plain version once."""
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
-    ms = _cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
-                                          cfg.seed, static=static,
-                                          deep=False), 5)
+    call_ms = _cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0,
+                                               cfg.n_rays, cfg.seed,
+                                               static=static, deep=False), 5)
+    ms = launch_ms(scene, static, cfg, cam)
     plain_ms = None if plain is None else _cuda_ms(plain, 1)
     R = static.n_rects + static.n_triangles
     blocks = mk.resident_blocks(static, scene.device, phase=False)
     print(f"phase K3 timing {name} {cfg.width}x{cfg.height} spp "
           f"{cfg.samples_per_pixel} depth {cfg.max_depth} ({static.n_spheres}"
           f" spheres, {R} planar rows, {static.n_volumes} media): "
-          f"render_fused {ms:.3f} ms a launch, plain "
+          f"render_fused {call_ms:.3f} ms a call, the launch alone "
+          f"{ms:.3f} ms, plain "
           f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}; "
           f"{blocks} resident blocks of {mk.BLOCK} threads an SM with "
           f"{mk.TILE_BYTES} B of planar tiles each (median; {smi})",
@@ -919,6 +1002,7 @@ def k3_entry(name, scene, static, cfg, cam, k_seg, launches, err, plain,
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
+        "wrapper_ms": call_ms - ms,
         "plain_ms": plain_ms,
     }, *forward_work(cfg.n_rays, cfg.max_depth, int(k_seg.sum()),
                      static.n_spheres, R, V=static.n_volumes,
@@ -1331,14 +1415,17 @@ def deferred_forward(dev, smi):
                 and ctb_far <= max(4, n // 100)):
             raise AssertionError(f"K6a records vs plain: {stats}")
 
-    # K6a alone (no combine) on two_perlin_spheres, and its plain version.
+    # K6a (no combine) on two_perlin_spheres: the launch alone and
+    # render_fused_records' call; and its plain version.
     scene, static, cfg, cam, _, k_seg = frames["two_perlin_spheres"]
-    k6a_ms = _cuda_ms(lambda: mk.render_fused_records(
+    k6a_call_ms = _cuda_ms(lambda: mk.render_fused_records(
         scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static), 5)
+    k6a_ms = launch_ms(scene, static, cfg, cam)
     k6a_plain_ms = _cuda_ms(lambda: plain_forward(
         scene, static, cfg, cam, PLAIN_CHUNK, records=True), 1)
-    print(f"phase 9 timing two_perlin_spheres: K6a (render_fused_records) "
-          f"{k6a_ms:.3f} ms, plain {k6a_plain_ms:.3f} ms; K8 on the frame's "
+    print(f"phase 9 timing two_perlin_spheres: K6a's launch alone "
+          f"{k6a_ms:.3f} ms, render_fused_records {k6a_call_ms:.3f} ms, "
+          f"plain {k6a_plain_ms:.3f} ms; K8 on the frame's "
           f"{pts.shape[0]} records {k8_ms:.3f} ms, plain {k8_plain_ms:.3f} ms"
           f" (median; {smi})", flush=True)
     k6a = bound({
@@ -1349,6 +1436,7 @@ def deferred_forward(dev, smi):
         "launches": k6a_launches,
         "max_abs_err": k6a_err,
         "ms": k6a_ms,
+        "wrapper_ms": k6a_call_ms - k6a_ms,
         "plain_ms": k6a_plain_ms,
     }, *forward_work(cfg.n_rays, cfg.max_depth, int(k_seg.sum()),
                      scene.spheres.c0.shape[0], 0, defer=True))
@@ -1654,13 +1742,14 @@ def volume_forward(dev, smi):
 
     scene, static, cfg, cam, k_rad, k_seg, window, sstats = \
         frames["smokey_cornell_box"]
-    k5_ms = _cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
-                                             cfg.seed, static=static), 5)
+    k5_call_ms = _cuda_ms(lambda: mk.render_fused(
+        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static), 5)
+    k5_ms = launch_ms(scene, static, cfg, cam)
     plain_ms = _cuda_ms(lambda: plain_forward(scene, static, cfg, cam,
                                               window), 3)
     print(f"phase 11 K5 timing smokey_cornell_box: render_fused frame "
-          f"{k5_ms:.3f} ms, plain version frame {plain_ms:.3f} ms (median; "
-          f"{smi})", flush=True)
+          f"{k5_call_ms:.3f} ms, the launch alone {k5_ms:.3f} ms, plain "
+          f"version frame {plain_ms:.3f} ms (median; {smi})", flush=True)
     smokey = (scene, static, cfg, cam, k_rad, k_seg)
 
     launches = 0
@@ -1701,6 +1790,7 @@ def volume_forward(dev, smi):
         "launches": launches,
         "max_abs_err": sstats["max_abs_err"],
         "ms": k5_ms,
+        "wrapper_ms": k5_call_ms - k5_ms,
         "plain_ms": plain_ms,
     }, *forward_work(s_cfg.n_rays, s_cfg.max_depth,
                      sstats["kernel_segments"], 0,

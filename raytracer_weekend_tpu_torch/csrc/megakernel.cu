@@ -43,11 +43,37 @@ cudaError_t launch_modes(const float* tab, const float* ptab,
       tab, ptab, ptest, par, L, X, rad, seg, nullptr, rec, st, occ);
 }
 
+// The sphere-only single pass's operands: the packed rows (n_spheres x 3
+// float4), 1/0 to keep them in shared memory or not (-1: by
+// kSphereRowLimit), the launch's lane counter (zeroed) and the records as
+// one (n_chunk x max_depth) array of 32-byte rows, or null.
+struct SphereOps {
+  const float4* rows;
+  int resident;
+  unsigned* next;
+  float4* recs;
+};
+
 cudaError_t dispatch(const float* tab, const float* ptab, const float4* ptest,
                      const float* par, const Launch& L, const Extra& X,
                      float* rad, int* seg, int* codes, const Records& rec,
-                     bool defer, bool vol, bool phase, cudaStream_t st,
-                     int* occ) {
+                     const SphereOps& P, bool defer, bool vol, bool phase,
+                     cudaStream_t st, int* occ) {
+  if (!vol && !phase && L.n_planar == 0) {
+    if (codes && defer)
+      return launch_spheres<true, true>(tab, P.rows, par, L, P.resident, rad,
+                                        seg, codes, P.recs, P.next, st, occ);
+    if (codes)
+      return launch_spheres<true, false>(tab, P.rows, par, L, P.resident,
+                                         rad, seg, codes, P.recs, P.next, st,
+                                         occ);
+    if (defer)
+      return launch_spheres<false, true>(tab, P.rows, par, L, P.resident,
+                                         rad, seg, codes, P.recs, P.next, st,
+                                         occ);
+    return launch_spheres<false, false>(tab, P.rows, par, L, P.resident, rad,
+                                        seg, codes, P.recs, P.next, st, occ);
+  }
   if (vol && phase)
     return launch_modes<true, true>(tab, ptab, ptest, par, L, X, rad, seg,
                                     codes, rec, defer, st, occ);
@@ -79,8 +105,14 @@ extern "C" {
 // max_depth - 1 with `group` lanes per ray (1, 2, 4, 8, 16 or 32) and
 // writes each lane's state; with `st_in` and `gid` (n_chunk int32 global
 // lane ids) as well, it starts from that state instead of the primary rays
-// (no codes in either case); without `st_out`, `group` must be 1. Returns
-// the launch's CUDA error (0 on success); it does not sync.
+// (no codes in either case); without `st_out`, `group` must be 1.
+// A sphere-only single pass (no planar rows, media or `st_out`) is
+// sphere_kernel's: it reads the packed rows `srows` (n_spheres x 12 f32,
+// 16-byte aligned) and claims lanes from `next` (one zeroed uint32), and it
+// defers into `recs` (n_chunk x max_depth x 8 f32: ctb, abc.x; abc.y,
+// abc.z, dcode's bits, 0) in place of ctb, abc and dcode; `resident` 1 or 0
+// keeps the rows in shared memory or not, -1 leaves it to the row count.
+// Returns the launch's CUDA error (0 on success); it does not sync.
 int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                      const float* ptest, int n_planar, const float* vtab,
                      int n_volumes, const float* par, long long lane_start,
@@ -89,16 +121,22 @@ int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                      unsigned int seed, int log10, float* rad, int* seg,
                      int* codes, float* ctb, float* abc, int* dcode,
                      const float* st_in, const int* gid, float* st_out,
-                     void* stream) {
+                     const float* srows, int resident, unsigned int* next,
+                     float* recs, void* stream) {
   if (n_chunk <= 0) return 0;
   if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
   if (n_planar > 0 && (ptest == nullptr || ((uintptr_t)ptest & 15) != 0))
     return (int)cudaErrorInvalidValue;
-  const bool defer = ctb != nullptr;
-  if (defer && (abc == nullptr || dcode == nullptr))
-    return (int)cudaErrorInvalidValue;
   const bool vol = n_volumes > 0;
   const bool phase = st_out != nullptr;
+  const bool spheres = n_planar == 0 && !vol && !phase;
+  if (spheres && (srows == nullptr || ((uintptr_t)srows & 15) != 0 ||
+                  next == nullptr || resident < -1 || resident > 1 ||
+                  ctb != nullptr || ((uintptr_t)recs & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  const bool defer = spheres ? recs != nullptr : ctb != nullptr;
+  if (!spheres && defer && (abc == nullptr || dcode == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (vol && vtab == nullptr) return (int)cudaErrorInvalidValue;
   if (phase && (codes != nullptr || (st_in == nullptr) != (gid == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -113,15 +151,18 @@ int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                      log10 ? 0.43429448190325176f : 1.0f,
                      st_in, gid, st_out, d0, group};
   const rtw::Records rec{ctb, abc, dcode};
+  const rtw::SphereOps P{reinterpret_cast<const float4*>(srows), resident,
+                         next, reinterpret_cast<float4*>(recs)};
   return (int)rtw::dispatch(tab, ptab,
                             reinterpret_cast<const float4*>(ptest), par, L,
-                            X, rad, seg, codes, rec, defer, vol, phase,
+                            X, rad, seg, codes, rec, P, defer, vol, phase,
                             (cudaStream_t)stream, nullptr);
 }
 
 // Resident blocks per SM (into *blocks) of the launch without codes that
 // the scene's families select (`defer` for a deferring scene, `phase` for
-// a phased one), at its shared memory.
+// a phased one), at its shared memory: for a sphere-only single pass, that
+// of n_spheres packed rows when they fit kSphereRowLimit.
 int rtw_render_occupancy(int n_spheres, int n_planar, int n_volumes,
                          int defer, int phase, int* blocks) {
   rtw::Launch L{};
@@ -130,8 +171,9 @@ int rtw_render_occupancy(int n_spheres, int n_planar, int n_volumes,
   rtw::Extra X{};
   X.group = 1;
   const rtw::Records rec{};
+  const rtw::SphereOps P{nullptr, -1, nullptr, nullptr};
   return (int)rtw::dispatch(nullptr, nullptr, nullptr, nullptr, L, X,
-                            nullptr, nullptr, nullptr, rec, defer != 0,
+                            nullptr, nullptr, nullptr, rec, P, defer != 0,
                             n_volumes > 0, phase != 0, nullptr, blocks);
 }
 

@@ -92,11 +92,15 @@
 // records, 120 of state per phase).
 //
 // What the design does about it:
-// - The sphere-only launches (K1, K1-emit, K6a on sphere scenes) run one
-//   thread per lane that leaves the loop when its path ends; the sphere
-//   test is the direct form (one lerp of the center, two dots, a compare
-//   on the discriminant, the square root behind `disc > 0`). Tables are
-//   structure-of-arrays read through `const __restrict__`.
+// - The sphere-only single-pass launches (K1, K1-emit, K6a on sphere
+//   scenes) are their own kernel, sphere_kernel below: persistent warps
+//   that refill dead lanes, the packed sphere rows in shared memory, and
+//   the deferred records as one 32-byte row each (see the note above
+//   sphere_kernel). render_kernel
+//   keeps the sphere-only phased launches (K6b), whose sphere test is the
+//   direct form (one lerp of the center, two dots, a compare on the
+//   discriminant, the square root behind `disc > 0`) over the
+//   structure-of-arrays table read through `const __restrict__`.
 // - The planar loop (K3, every launch with planar rows): the block stages
 //   the packed plane rows (nx, ny, nz, k), one float4 each, in 512-row
 //   tiles of dynamic shared memory by cp.async, double-buffered, so the
@@ -126,7 +130,8 @@
 //   row numbers in both tables, so the shading reads the winner's column
 //   through one pointer and one stride; only the winning material's branch
 //   draws its random numbers.
-// Later work: ray sorting by material, a BVH, the same tiles for spheres.
+// Later work: ray sorting by material, a BVH, the same tiles for spheres
+// in the launches with planar rows or media.
 //
 // Numerics: no fast math. The ground is a radius-1000 sphere with a checker
 // of frequency 10, so sinf takes arguments in the thousands; __sinf would
@@ -343,19 +348,18 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
               float* __restrict__ rad, int* __restrict__ seg,
               int* __restrict__ codes, Records rec,
               const float4* __restrict__ ptest) {
-  // With planar tiles or lane groups the whole block walks the bounces
+  // Every launch here has planar tiles or lane groups (the sphere-only
+  // single pass is sphere_kernel's), so the whole block walks the bounces
   // together: no thread returns or leaves the loop early, since it must
   // join every barrier and shuffle.
-  constexpr bool kCoop = kPla || kPhase;
+  static_assert(kPla || kPhase,
+                "the sphere-only single pass is sphere_kernel's");
   const int G = kPhase ? X.group : 1;    // lanes per ray, a power of two
   const int tid = blockIdx.x * kBlock + threadIdx.x;
   const int i = kPhase ? tid / G : tid;  // the ray (lane of the frame)
   const int j = kPhase ? tid - i * G : 0;  // this thread's rank in its group
   const bool lead = j == 0;              // the group's writer
   const bool in_range = i < L.n_chunk;
-  if constexpr (!kCoop) {
-    if (!in_range) return;
-  }
   const int S = L.n_spheres;
   const int R = L.n_planar;
   const float* __restrict__ c0x = tab + C0X * S;
@@ -374,13 +378,12 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   const long long lane = resume ? (in_range ? (long long)X.gid[i] : 0)
                                 : L.lane_start + i;
   const uint32_t rid = (uint32_t)lane;
-  // A lane out of range (kCoop) only joins the barriers: it never uses
-  // these.
+  // A lane out of range only joins the barriers: it never uses these.
   float ox, oy, oz, dx, dy, dz, time;
   float tpr = 1.f, tpg = 1.f, tpb = 1.f;  // throughput
   float rr = 0.f, rg = 0.f, rb = 0.f;     // radiance
   int nseg = 0;
-  bool alive = kCoop ? in_range : true;
+  bool alive = in_range;
   if (resume) {  // the state the previous phase wrote (kPhase only)
     if (in_range) {
       const float* __restrict__ st = X.st_in + (long long)i * N_STATE;
@@ -429,12 +432,11 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   const long long lane0 = (long long)i * L.max_depth;
 
   for (int k = 0; k < L.max_depth; ++k) {
-    if constexpr (kCoop) {  // the block leaves together, once all are dead
-      if (!__syncthreads_or(alive)) break;
-    }
+    // The block leaves together, once all are dead.
+    if (!__syncthreads_or(alive)) break;
     // The absolute depth keys the random numbers.
     const int depth = kPhase ? X.d0 + k : k;
-    if (!kCoop || alive) ++nseg;  // alive at the start of the bounce
+    if (alive) ++nseg;  // alive at the start of the bounce
 
     // ---- closest sphere: strict < keeps the first minimum ----------------
     // Rank j of a group tests spheres s = j (mod G).
@@ -449,7 +451,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
     float best = INFINITY;
     int win = -1;
     if constexpr (kSph) {
-      if (!kCoop || alive) {
+      if (alive) {
         const float oo =
             kVol ? ox * ox + oy * oy + oz * oz
                  : __fmaf_rn(oz, oz, __fmaf_rn(oy, oy, __fmul_rn(ox, ox)));
@@ -555,7 +557,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
       planar = fam == 1;
     }
 
-    if (kCoop && !alive) continue;  // a dead lane only joins the barriers
+    if (!alive) continue;  // a dead lane only joins the barriers
     // ---- closest medium scatter, against the surfaces' best (ops/volume) -
     int vwin = -1;
     if constexpr (kVol) {
@@ -628,8 +630,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
       rg += tpg * par[P_BACKGROUND + 1];
       rb += tpb * par[P_BACKGROUND + 2];
       alive = false;
-      if constexpr (kCoop) continue;  // the block's barriers still need it
-      else break;
+      continue;  // the block's barriers still need it
     }
 
     if constexpr (kVol) {
@@ -756,8 +757,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
       rg += tpg * tg;
       rb += tpb * tb;
       alive = false;
-      if constexpr (kCoop) continue;  // the block's barriers still need it
-      else break;
+      continue;  // the block's barriers still need it
     }
     const float len = sqrtf(a + 1e-20f);  // vecmath.normalize(d, eps=1e-20)
     const float ux = dx / len, uy = dy / len, uz = dz / len;
@@ -773,8 +773,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
       ndz = (uz - 2.0f * udn * nz) + fuzz * (b.z * br);
       if (!((ndx * nx + ndy * ny + ndz * nz) > 0.f)) {
         alive = false;
-        if constexpr (kCoop) continue;
-        else break;
+        continue;
       }
       tpr *= tr;
       tpg *= tg;
@@ -829,7 +828,7 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
     dz = ndz;
   }
 
-  if (kCoop && !(in_range && lead)) return;
+  if (!(in_range && lead)) return;
   rad[3 * i + 0] = rr;
   rad[3 * i + 1] = rg;
   rad[3 * i + 2] = rb;
@@ -880,9 +879,504 @@ cudaError_t run_render(const float* tab, const float* ptab,
   return cudaGetLastError();
 }
 
+// ---- The sphere-only single-pass launches (K1, K1-emit, K6a) ----------------
+//
+// What held render_kernel back there (PERF.md §6): a thread carried one lane
+// and left the bounce loop when it died, so a warp ran until its longest
+// lane ended (jumpy_balls: half the issue slots of the sphere loop went to
+// dead lanes); every lane read each sphere's 11 terms as scalar loads; and
+// K6a wrote each record as 7 scalar stores, 96 bytes apart between a warp's
+// threads, which took most of its launch. So:
+// - Persistent warps that refill dead lanes (Aila and Laine, "Understanding
+//   the Efficiency of Ray Traversal on GPUs", HPG 2009: persistent threads
+//   with dynamic fetch). The grid is the resident blocks. A thread holds
+//   kSphereRays lane slots (one); each step, a warp claims lanes for all of
+//   its empty slots with one atomicAdd on a per-launch counter (the slots
+//   in ballot order), an empty slot casts its new lane's primary ray, and
+//   every live slot runs one bounce. A lane that ends writes its outputs
+//   and its zero tail at its own index and frees its slot. The warp stays
+//   converged (full-mask ballots) until the window has no lane left and its
+//   slots are empty.
+// - Packed sphere rows: three float4 a sphere, (c0, k0), (dc, k1), (t0,
+//   1/dt, k2, 0) (ops/cuda/megakernel.py: build_sphere_rows). Up to
+//   kSphereRowLimit rows the block stages the table once into dynamic shared
+//   memory by cp.async (one barrier at the start, none after); a larger
+//   table is read from global memory (L1/L2) with the same 16-byte loads.
+//   A row is three 16-byte broadcasts where render_kernel made 11 scalar
+//   loads; with more than one slot a thread, each read would feed them all.
+// - Records (kDefer) as one 32-byte row per lane and bounce, two 16-byte
+//   stores: (ctb, abc.x), (abc.y, abc.z, dcode bits, 0). The wrapper returns
+//   ctb, abc and dcode as views of that (n, D, 8) buffer.
+// Each lane's arithmetic and random keys (seed, lane id, depth) are
+// render_kernel's, so every output element is bitwise its: only the order
+// in which lanes run changes. The products render_kernel's sphere-only
+// instantiations fused into FMAs (read from their SASS, cuobjdump -sass)
+// are written out here with __fmaf_rn / __fmul_rn / __fadd_rn, so that
+// nvcc's contraction, which moved with unrelated edits before, cannot move
+// them: the primary ray, the sphere test, the hit record and every
+// scatter.
+// The lane slots a thread, the block and the row limit were chosen on the
+// card (PERF.md §6): with one slot a thread jumpy_balls' launch took ~30%
+// less time than with two (fewer registers, more resident warps, and a
+// step that shades one slot instead of two in turn), three and four more
+// still; blocks of 64 to 256 threads within a few percent.
+constexpr int kSphereRays = 1;          // lane slots a thread
+constexpr int kSphereBlock = 128;       // threads a block
+constexpr int kSphereRowLimit = 1024;   // packed rows kept in shared memory
+constexpr int kSphereQ = 3;             // float4 a packed row
+
+// One slot's lane: i its index in the window (-1: the slot is empty), k the
+// bounce it runs next. Its radiance is 0 until the bounce that ends it (a
+// miss or a light), so it is not carried.
+struct Lane {
+  int i, k;
+  float ox, oy, oz, dx, dy, dz, time;
+  float tpr, tpg, tpb;
+};
+
+// The lane's primary ray (integrator._pixel_rays + camera.get_rays).
+__device__ __forceinline__ void cast_primary(Lane& y, int i,
+                                             const float* __restrict__ par,
+                                             const Launch& L) {
+  const long long lane = L.lane_start + i;
+  const uint32_t rid = (uint32_t)lane;
+  const long long pix = lane / L.spp;
+  const float col = (float)(pix % L.width);
+  const float row = (float)(L.height - 1 - pix / L.width);  // bottom-up
+  const float4 uj = rand4(L.seed, rid, 0u, SALT_PIXEL_JITTER);
+  const float fs = __fadd_rn(col, uj.x) / (float)(L.width - 1);
+  const float ft = __fadd_rn(row, uj.y) / (float)(L.height - 1);
+  const float4 ul = rand4(L.seed, rid, 0u, SALT_LENS);
+  const float lr = sqrtf(ul.x);
+  const float lphi = __fmul_rn(TWO_PI_F, ul.y);
+  const float lens = par[P_LENS_RADIUS];
+  const float rdx = __fmul_rn(lens, __fmul_rn(lr, cosf(lphi)));
+  const float rdy = __fmul_rn(lens, __fmul_rn(lr, sinf(lphi)));
+  y.time = __fmaf_rn(rand4(L.seed, rid, 0u, SALT_TIME).x, par[P_DTIME],
+                     par[P_TIME0]);
+  float o[3], d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float off =
+        __fmaf_rn(par[P_U + k], rdx, __fmul_rn(par[P_V + k], rdy));
+    o[k] = __fadd_rn(par[P_ORIGIN + k], off);
+    d[k] = __fsub_rn(
+        __fsub_rn(__fmaf_rn(ft, par[P_VERTICAL + k],
+                            __fmaf_rn(fs, par[P_HORIZONTAL + k],
+                                      par[P_LOWER_LEFT + k])),
+                  par[P_ORIGIN + k]),
+        off);
+  }
+  y.i = i;
+  y.k = 0;
+  y.ox = o[0]; y.oy = o[1]; y.oz = o[2];
+  y.dx = d[0]; y.dy = d[1]; y.dz = d[2];
+  y.tpr = y.tpg = y.tpb = 1.f;
+}
+
+// |d|^2, |o|^2 and o.d of a slot's ray.
+__device__ __forceinline__ float3 ray_terms(const Lane& y) {
+  return make_float3(
+      __fmaf_rn(y.dz, y.dz, __fmaf_rn(y.dy, y.dy, __fmul_rn(y.dx, y.dx))),
+      __fmaf_rn(y.oz, y.oz, __fmaf_rn(y.oy, y.oy, __fmul_rn(y.ox, y.ox))),
+      __fmaf_rn(y.oz, y.dz, __fmaf_rn(y.oy, y.dy, __fmul_rn(y.ox, y.dx))));
+}
+
+// One packed row against one slot's ray (rt: |d|^2, |o|^2, o.d): the
+// strict-< update of (best, win).
+__device__ __forceinline__ void sphere_row(const Lane& y, float3 rt,
+                                           float inv_a, float4 q0, float4 q1,
+                                           float4 q2, float t_min, int s,
+                                           float& best, int& win) {
+  const float w = __fmul_rn(__fsub_rn(y.time, q2.x), q2.y);
+  const float cx = __fmaf_rn(w, q1.x, q0.x);
+  const float cy = __fmaf_rn(w, q1.y, q0.y);
+  const float cz = __fmaf_rn(w, q1.z, q0.z);
+  const float dc =
+      __fmaf_rn(y.dz, cz, __fmaf_rn(y.dx, cx, __fmul_rn(y.dy, cy)));
+  const float oc =
+      __fmaf_rn(y.oz, cz, __fmaf_rn(y.ox, cx, __fmul_rn(y.oy, cy)));
+  const float hb = __fsub_rn(rt.z, dc);
+  const float kq = __fmaf_rn(w, __fmaf_rn(w, q2.z, q1.w), q0.w);
+  const float cc = __fadd_rn(__fsub_rn(rt.y, __fadd_rn(oc, oc)), kq);
+  const float disc = __fmaf_rn(hb, hb, -__fmul_rn(rt.x, cc));
+  if (disc > 0.f) {
+    const float sq = sqrtf(disc);
+    float root = __fmul_rn(__fsub_rn(-hb, sq), inv_a);
+    if (!(root >= t_min)) root = __fmul_rn(__fadd_rn(-hb, sq), inv_a);
+    if (root >= t_min && root < best) {
+      best = root;
+      win = s;
+    }
+  }
+}
+
+// A unit-sphere direction's parts (rng.unit_vector_from_uniforms): r, the
+// angle phi and z; the direction is (r cos phi, r sin phi, z).
+__device__ __forceinline__ float3 unit_parts(float u1, float u2) {
+  const float z = __fmaf_rn(-2.0f, u1, 1.0f);
+  const float r = sqrtf(fmaxf(__fmaf_rn(-z, z, 1.0f), 0.0f));
+  return make_float3(r, __fmul_rn(TWO_PI_F, u2), z);
+}
+
+// The slot's lane has ended after `nseg` bounces with radiance (rr, rg,
+// rb): its outputs, the zero tail of its codes and records, and the slot
+// freed (a zero direction, so that its sphere tests never take a root).
+template <bool kEmit, bool kDefer>
+__device__ __forceinline__ void end_lane(Lane& y, int nseg, float rr,
+                                         float rg, float rb, const Launch& L,
+                                         float* __restrict__ rad,
+                                         int* __restrict__ seg,
+                                         int* __restrict__ codes,
+                                         float4* __restrict__ recs) {
+  const long long i = y.i;
+  const int D = L.max_depth;
+  rad[3 * i + 0] = rr;
+  rad[3 * i + 1] = rg;
+  rad[3 * i + 2] = rb;
+  seg[i] = nseg;
+  if constexpr (kEmit) {
+    for (int k = nseg; k < D; ++k) codes[i * D + k] = 0;
+  }
+  if constexpr (kDefer) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = nseg; k < D; ++k) {
+      recs[2 * (i * D + k) + 0] = zero;
+      recs[2 * (i * D + k) + 1] = zero;
+    }
+  }
+  y.i = -1;
+  y.dx = y.dy = y.dz = 0.f;
+}
+
+// One bounce of a live slot's lane, given its closest sphere (best, win;
+// win < 0 for none) and |d|^2 = a: the code, the record, the hit record,
+// the texture and the scatter of render_kernel's sphere-only branch.
+template <bool kEmit, bool kDefer>
+__device__ __forceinline__ void sphere_bounce(
+    Lane& y, float a, float best, int win, const float* __restrict__ tab,
+    const float* __restrict__ par, const Launch& L, float* __restrict__ rad,
+    int* __restrict__ seg, int* __restrict__ codes,
+    float4* __restrict__ recs) {
+  const int k = y.k;
+  const int S = L.n_spheres;
+  const long long at = (long long)y.i * L.max_depth + k;
+  const uint32_t rid = (uint32_t)(L.lane_start + y.i);
+  const uint32_t depth = (uint32_t)k;
+  if (win < 0) {  // miss -> background, terminate
+    const float br = par[P_BACKGROUND + 0], bg = par[P_BACKGROUND + 1],
+                bb = par[P_BACKGROUND + 2];
+    if constexpr (kEmit) codes[at] = 0;
+    if constexpr (kDefer) {
+      recs[2 * at + 0] = make_float4(__fmul_rn(y.tpr, br),
+                                     __fmul_rn(y.tpg, bg),
+                                     __fmul_rn(y.tpb, bb), 0.f);
+      recs[2 * at + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    end_lane<kEmit, kDefer>(y, k + 1, __fmaf_rn(y.tpr, br, 0.f),
+                            __fmaf_rn(y.tpg, bg, 0.f),
+                            __fmaf_rn(y.tpb, bb, 0.f), L, rad, seg, codes,
+                            recs);
+    return;
+  }
+  if constexpr (kEmit) codes[at] = 1 + 4 * win;
+
+  // ---- hit record (ops.sphere.sphere_record) ------------------------------
+  const float* __restrict__ col = tab + win;  // the winner's column, stride S
+  const float px = __fmaf_rn(best, y.dx, y.ox);
+  const float py = __fmaf_rn(best, y.dy, y.oy);
+  const float pz = __fmaf_rn(best, y.dz, y.oz);
+  const float w = __fsub_rn(y.time, col[T0 * S]) / col[DT * S];
+  const float r = col[RADIUS * S];
+  float nx = __fsub_rn(px, __fmaf_rn(w, col[DCX * S], col[C0X * S])) / r;
+  float ny = __fsub_rn(py, __fmaf_rn(w, col[DCY * S], col[C0Y * S])) / r;
+  float nz = __fsub_rn(pz, __fmaf_rn(w, col[DCZ * S], col[C0Z * S])) / r;
+  const bool front =
+      __fmaf_rn(y.dz, nz, __fmaf_rn(y.dx, nx, __fmul_rn(y.dy, ny))) < 0.f;
+  if (!front) {
+    nx = -nx;
+    ny = -ny;
+    nz = -nz;
+  }
+
+  // ---- texture: solid / checker --------------------------------------------
+  float tr = col[C1R * S], tg = col[C1G * S], tb = col[C1B * S];
+  const float ttype = col[TTYPE * S];
+  if (ttype == 1.0f) {
+    const float sc = col[TSCALE * S];
+    const float sines =
+        __fmul_rn(__fmul_rn(sinf(__fmul_rn(sc, px)), sinf(__fmul_rn(sc, py))),
+                  sinf(__fmul_rn(sc, pz)));
+    if (sines < 0.f) {
+      tr = col[C2R * S];
+      tg = col[C2G * S];
+      tb = col[C2B * S];
+    }
+  }
+  const float mtype = col[MTYPE * S];
+  if constexpr (kDefer) {
+    // A noise or image texel is shaded as 1.0 and recorded for the host.
+    float ra = 0.f, rb = 0.f, rc = 0.f;
+    int dcode = 0;
+    if (ttype == 2.0f || ttype == 3.0f) {
+      dcode = (int)col[TEXID * S] + 1;
+      if (ttype == 2.0f) {  // noise: the hit point
+        ra = px;
+        rb = py;
+        rc = pz;
+      } else {  // image: the pre-flip outward normal
+        ra = front ? nx : -nx;
+        rb = front ? ny : -ny;
+        rc = front ? nz : -nz;
+      }
+      tr = tg = tb = 1.0f;
+    }
+    const bool emits = mtype == 3.0f;
+    recs[2 * at + 0] =
+        make_float4(emits ? __fmul_rn(y.tpr, tr) : 0.f,
+                    emits ? __fmul_rn(y.tpg, tg) : 0.f,
+                    emits ? __fmul_rn(y.tpb, tb) : 0.f, ra);
+    recs[2 * at + 1] = make_float4(rb, rc, __int_as_float(dcode), 0.f);
+  }
+
+  // ---- scatter (materials.scatter_packed) ----------------------------------
+  if (mtype == 3.0f) {  // diffuse light: emit tp * tex and stop
+    end_lane<kEmit, kDefer>(y, k + 1, __fmaf_rn(y.tpr, tr, 0.f),
+                            __fmaf_rn(y.tpg, tg, 0.f),
+                            __fmaf_rn(y.tpb, tb, 0.f), L, rad, seg, codes,
+                            recs);
+    return;
+  }
+  const float len = sqrtf(__fadd_rn(a, 1e-20f));  // normalize(d, eps=1e-20)
+  const float ux = y.dx / len, uy = y.dy / len, uz = y.dz / len;
+  const float udn = __fmaf_rn(uz, nz, __fmaf_rn(ux, nx, __fmul_rn(uy, ny)));
+  float ndx, ndy, ndz;
+  if (mtype == 1.0f) {  // metal: fuzzed mirror, absorbs when dot <= 0
+    const float4 um = rand4(L.seed, rid, depth, SALT_METAL);
+    const float3 b = unit_parts(um.x, um.y);  // (r, phi, z)
+    const float br = cbrtf(um.z);
+    const float fuzz = col[FUZZ * S];
+    const float u2 = __fadd_rn(udn, udn);
+    ndx = __fmaf_rn(fuzz, __fmul_rn(__fmul_rn(b.x, cosf(b.y)), br),
+                    __fmaf_rn(-u2, nx, ux));
+    ndy = __fmaf_rn(fuzz, __fmul_rn(__fmul_rn(b.x, sinf(b.y)), br),
+                    __fmaf_rn(-u2, ny, uy));
+    ndz = __fmaf_rn(fuzz, __fmul_rn(b.z, br), __fmaf_rn(-u2, nz, uz));
+    if (!(__fmaf_rn(nz, ndz, __fmaf_rn(nx, ndx, __fmul_rn(ny, ndy))) > 0.f)) {
+      end_lane<kEmit, kDefer>(y, k + 1, 0.f, 0.f, 0.f, L, rad, seg, codes,
+                              recs);
+      return;
+    }
+    y.tpr = __fmul_rn(y.tpr, tr);
+    y.tpg = __fmul_rn(y.tpg, tg);
+    y.tpb = __fmul_rn(y.tpb, tb);
+  } else if (mtype == 2.0f) {  // dielectric: Schlick against the draw ud
+    const float ud = rand4(L.seed, rid, depth, SALT_DIELECTRIC).x;
+    const float ior = col[IOR * S];
+    const float ratio = front ? 1.0f / ior : ior;
+    const float cos_t = fminf(-udn, 1.0f);
+    const float sin_t = sqrtf(fmaxf(__fmaf_rn(-cos_t, cos_t, 1.0f), 1e-12f));
+    float r0 = __fsub_rn(1.0f, ratio) / __fadd_rn(1.0f, ratio);
+    r0 = __fmul_rn(r0, r0);
+    const float omc = __fsub_rn(1.0f, cos_t);
+    const float omc2 = __fmul_rn(omc, omc);
+    const float refl = __fmaf_rn(__fsub_rn(1.0f, r0),
+                                 __fmul_rn(omc, __fmul_rn(omc2, omc2)), r0);
+    if (__fmul_rn(ratio, sin_t) > 1.0f || refl > ud) {
+      const float u2 = __fadd_rn(udn, udn);
+      ndx = __fmaf_rn(-u2, nx, ux);
+      ndy = __fmaf_rn(-u2, ny, uy);
+      ndz = __fmaf_rn(-u2, nz, uz);
+    } else {  // refract (vecmath.refract)
+      const float rpx = __fmul_rn(ratio, __fmaf_rn(cos_t, nx, ux));
+      const float rpy = __fmul_rn(ratio, __fmaf_rn(cos_t, ny, uy));
+      const float rpz = __fmul_rn(ratio, __fmaf_rn(cos_t, nz, uz));
+      const float rp2 =
+          __fmaf_rn(rpz, rpz, __fmaf_rn(rpx, rpx, __fmul_rn(rpy, rpy)));
+      const float sq = sqrtf(fmaxf(fabsf(__fsub_rn(1.0f, rp2)), 1e-12f));
+      ndx = __fmaf_rn(-sq, nx, rpx);
+      ndy = __fmaf_rn(-sq, ny, rpy);
+      ndz = __fmaf_rn(-sq, nz, rpz);
+    }
+  } else {  // lambertian: normal + unit vector, degenerate -> normal
+    const float4 ulm = rand4(L.seed, rid, depth, SALT_LAMBERTIAN);
+    const float3 v = unit_parts(ulm.x, ulm.y);  // (r, phi, z)
+    ndx = __fmaf_rn(v.x, cosf(v.y), nx);
+    ndy = __fmaf_rn(v.x, sinf(v.y), ny);
+    ndz = __fadd_rn(nz, v.z);
+    if (fabsf(ndx) < 1e-8f && fabsf(ndy) < 1e-8f && fabsf(ndz) < 1e-8f) {
+      ndx = nx;
+      ndy = ny;
+      ndz = nz;
+    }
+    y.tpr = __fmul_rn(y.tpr, tr);
+    y.tpg = __fmul_rn(y.tpg, tg);
+    y.tpb = __fmul_rn(y.tpb, tb);
+  }
+  // The scattered ray keeps the parent's shutter time.
+  y.ox = px;
+  y.oy = py;
+  y.oz = pz;
+  y.dx = ndx;
+  y.dy = ndy;
+  y.dz = ndz;
+  y.k = k + 1;
+  if (y.k == L.max_depth)
+    end_lane<kEmit, kDefer>(y, L.max_depth, 0.f, 0.f, 0.f, L, rad, seg,
+                            codes, recs);
+}
+
+// __launch_bounds__'s second argument (1) changes no limit, but without it
+// ptxas chose fewer registers for two instantiations and spilled 4-8 bytes.
+template <bool kEmit, bool kDefer, bool kShared>
+__global__ void __launch_bounds__(kSphereBlock, 1)
+sphere_kernel(const float* __restrict__ tab, const float4* __restrict__ rows,
+              const float* __restrict__ par, Launch L,
+              float* __restrict__ rad, int* __restrict__ seg,
+              int* __restrict__ codes, float4* __restrict__ recs,
+              unsigned* __restrict__ next) {
+  constexpr int R = kSphereRays;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int S = L.n_spheres;
+  const float4* __restrict__ srow = rows;
+  if constexpr (kShared) {  // the whole table, once, for the block's life
+    extern __shared__ float4 sphere_rows[];
+    for (int q = threadIdx.x; q < kSphereQ * S; q += blockDim.x)
+      cp_async16(sphere_rows + q, rows + q);
+    cp_async_commit();
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    srow = sphere_rows;
+  }
+  const unsigned me = threadIdx.x & 31u;
+  const unsigned below = (1u << me) - 1u;  // the warp's lanes before this one
+  Lane y[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    y[r] = Lane{-1, 0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  }
+  bool more = true;  // the window may hold unclaimed lanes (warp-uniform)
+  for (;;) {
+    if (more) {  // claim lanes for the warp's empty slots: one atomic
+      unsigned m[R];
+      unsigned total = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        m[r] = __ballot_sync(kAll, y[r].i < 0);
+        total += __popc(m[r]);
+      }
+      if (total) {
+        unsigned base = 0;
+        if (me == 0) base = atomicAdd(next, total);
+        base = __shfl_sync(kAll, base, 0);
+        unsigned slot = base;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const unsigned id = slot + __popc(m[r] & below);
+          if (y[r].i < 0 && id < (unsigned)L.n_chunk) {
+            cast_primary(y[r], (int)id, par, L);
+            if (L.max_depth < 1)  // no bounce: rad 0, seg 0
+              end_lane<kEmit, kDefer>(y[r], 0, 0.f, 0.f, 0.f, L, rad, seg,
+                                      codes, recs);
+          }
+          slot += __popc(m[r]);
+        }
+        if (slot >= (unsigned)L.n_chunk) more = false;
+      }
+    }
+    bool live = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) live |= y[r].i >= 0;
+    if (!__any_sync(kAll, live)) break;
+
+    // ---- closest sphere of every slot: each row read serves them all ------
+    float3 rt[R];
+    float inv_a[R], best[R];
+    int win[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      rt[r] = ray_terms(y[r]);
+      inv_a[r] = 1.0f / rt[r].x;
+      best[r] = INFINITY;
+      win[r] = -1;
+    }
+    for (int s = 0; s < S; ++s) {
+      const float4 q0 = srow[kSphereQ * s + 0];
+      const float4 q1 = srow[kSphereQ * s + 1];
+      const float4 q2 = srow[kSphereQ * s + 2];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        sphere_row(y[r], rt[r], inv_a[r], q0, q1, q2, L.t_min, s, best[r],
+                   win[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (y[r].i >= 0)
+        sphere_bounce<kEmit, kDefer>(y[r], rt[r].x, best[r], win[r], tab, par,
+                                     L, rad, seg, codes, recs);
+    }
+  }
+}
+
+// One sphere-only single-pass launch on the resident blocks (or, with
+// `occ`, the resident blocks per SM), the packed rows in shared memory
+// when kShared. Shared memory above the default 48 KB needs the attribute;
+// an error there is returned.
+template <bool kEmit, bool kDefer, bool kShared>
+cudaError_t run_spheres(const float* tab, const float4* rows,
+                        const float* par, const Launch& L, float* rad,
+                        int* seg, int* codes, float4* recs, unsigned* next,
+                        cudaStream_t stream, int* occ) {
+  const auto kernel = sphere_kernel<kEmit, kDefer, kShared>;
+  const int smem = kShared ? kSphereQ * (int)sizeof(float4) * L.n_spheres : 0;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kSphereBlock, smem);
+  if (err != cudaSuccess) return err;
+  if (occ != nullptr) {
+    *occ = blocks;
+    return cudaSuccess;
+  }
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  constexpr long long kPerBlock = (long long)kSphereBlock * kSphereRays;
+  const long long want = ((long long)L.n_chunk + kPerBlock - 1) / kPerBlock;
+  const long long resident = (long long)blocks * sms;
+  const int grid = (int)(want < resident ? want : resident);
+  kernel<<<grid, kSphereBlock, smem, stream>>>(tab, rows, par, L, rad, seg,
+                                               codes, recs, next);
+  return cudaGetLastError();
+}
+
+// The sphere-only single-pass launch: the rows in shared memory when
+// `resident` is 1, or (-1) when the table has at most kSphereRowLimit rows.
+template <bool kEmit, bool kDefer>
+cudaError_t launch_spheres(const float* tab, const float4* rows,
+                           const float* par, const Launch& L, int resident,
+                           float* rad, int* seg, int* codes, float4* recs,
+                           unsigned* next, cudaStream_t stream, int* occ) {
+  if (resident == 1 || (resident < 0 && L.n_spheres <= kSphereRowLimit))
+    return run_spheres<kEmit, kDefer, true>(tab, rows, par, L, rad, seg,
+                                            codes, recs, next, stream, occ);
+  return run_spheres<kEmit, kDefer, false>(tab, rows, par, L, rad, seg, codes,
+                                           recs, next, stream, occ);
+}
+
 // One launch of render_kernel with the geometry flags of the scene's
 // families: (kSph, !kPla), (!kSph, kPla) or both; with media (kVol) always
 // both, either loop then running over the family's count, which may be 0.
+// The sphere-only single pass is launch_spheres', so (kSph, !kPla) is only
+// instantiated phased.
 template <bool kEmit, bool kDefer, bool kVol, bool kPhase>
 cudaError_t launch_render(const float* tab, const float* ptab,
                           const float4* ptest, const float* par,
@@ -893,9 +1387,13 @@ cudaError_t launch_render(const float* tab, const float* ptab,
     return run_render<kEmit, true, true, kDefer, kVol, kPhase>(
         tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);
   } else {
-    if (L.n_planar == 0)
-      return run_render<kEmit, true, false, kDefer, kVol, kPhase>(
-          tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);
+    if (L.n_planar == 0) {
+      if constexpr (kPhase)
+        return run_render<kEmit, true, false, kDefer, kVol, kPhase>(
+            tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);
+      else
+        return cudaErrorInvalidValue;  // launch_spheres' launches
+    }
     if (L.n_spheres == 0)
       return run_render<kEmit, false, true, kDefer, kVol, kPhase>(
           tab, ptab, ptest, par, L, X, rad, seg, codes, rec, stream, occ);

@@ -41,6 +41,14 @@ own texel. The turbulence of noise texels runs on kernel K8
 (`perlin_turb.py`). With `emit_deferred=True` the records are returned too
 (the backward's residuals).
 
+The single pass of a sphere-only scene (K1, K1-emit, K6a there) is the
+kernel's `sphere_kernel`: persistent warps claim lanes from a per-launch
+counter and refill a slot as soon as its lane dies, each thread carrying
+SPHERE_RAYS lane slots (one) against the packed sphere rows
+(`build_sphere_rows`) in shared memory; its records are views of one
+32-byte row a record. `claim_order` is the plain twin of its work order,
+for the CPU tests.
+
 None of the JAX kernel's TPU layout is carried over (K-split bf16 tables,
 one-hot MXU gathers, sublane planes, chunk lists and their AABB culling,
 `p_stream`, peeled primaries, block tiling, power-of-two phase buckets): a
@@ -66,7 +74,9 @@ from raytracer_weekend_tpu_torch.textures import TextureTable
 # codes, those whose scene has planar primitives (the planar branch, with or
 # without codes), those in deferred-texture mode (K6a, with or without
 # codes), those whose scene has media (K5) and those with phase I/O (K6b).
-# Only the launch in `_launch` adds to them.
+# Only the launch in `_launch` adds to them. The sphere-only single pass
+# (no planar rows, media or phases: K1, K1-emit, K6a on sphere scenes) is
+# csrc/megakernel.cuh's `sphere_kernel`; the others are `render_kernel`.
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
 PLANAR_LAUNCHES = 0
@@ -82,6 +92,16 @@ TABLE_ROWS = (
     "k0", "k1", "k2",
 )
 PAR_SIZE = 24
+# The sphere-only single pass's packed rows (`build_sphere_rows`): three
+# float4 a sphere, (c0, k0), (dc, k1), (t0, inv_dt, k2, 0); and its
+# compile-time lane slots a thread, block and rows kept in shared memory
+# (`kSphereRays`, `kSphereBlock`, `kSphereRowLimit` in csrc/megakernel.cuh).
+SPHERE_ROW_COLS = ("c0x", "c0y", "c0z", "k0", "dcx", "dcy", "dcz", "k1",
+                   "t0", "inv_dt", "k2", None)
+SPHERE_RAYS, SPHERE_BLOCK, SPHERE_ROW_LIMIT = 1, 128, 1024
+# Its deferred records: one 32-byte row per lane and bounce, ctb (3), abc
+# (3), dcode's int32 bits, 0 (`RECORD_COLS` floats).
+RECORD_COLS = 8
 # Columns of a row of the volume table (`enum VCol`): the JAX
 # `_build_vol_par` layout, then a valid flag.
 VOL_COLS = (
@@ -167,6 +187,15 @@ def build_sphere_table(scene: SceneData) -> torch.Tensor:
         "k0": k0, "k1": 2.0 * (c0d * dcd).sum(-1), "k2": (dcd * dcd).sum(-1),
     }
     return torch.stack([cols[r].to(torch.float32) for r in TABLE_ROWS])
+
+
+def build_sphere_rows(tab: torch.Tensor) -> torch.Tensor:
+    """The sphere-only kernel's packed rows from `build_sphere_table`'s
+    (len(TABLE_ROWS), S) table -> (S, 12) float32, contiguous: the table's
+    values of SPHERE_ROW_COLS, 0 in the last column."""
+    cols = [torch.zeros_like(tab[0]) if c is None else tab[TABLE_ROWS.index(c)]
+            for c in SPHERE_ROW_COLS]
+    return torch.stack(cols, dim=1).contiguous()
 
 
 def build_vol_table(scene: SceneData) -> torch.Tensor:
@@ -441,24 +470,32 @@ def render_fused_records(scene: SceneData, cfg: RenderConfig, cam: Camera,
 
 def build_tables(scene: SceneData, static: SceneStatic, cam: Camera):
     """(sphere table or None, planar table or None, its packed test rows or
-    None, volume table or None, camera parameters): what a launch reads."""
+    None, volume table or None, camera parameters, the sphere table's packed
+    rows or None): what a launch reads (the packed rows: a sphere-only
+    single pass, `sphere_kernel`)."""
     ptab = (build_planar_table(scene, static)
             if static.n_rects + static.n_triangles else None)
-    return (build_sphere_table(scene) if static.n_spheres else None, ptab,
-            None if ptab is None else build_planar_test(ptab),
+    tab = build_sphere_table(scene) if static.n_spheres else None
+    return (tab, ptab, None if ptab is None else build_planar_test(ptab),
             build_vol_table(scene) if static.n_volumes else None,
-            pack_par(scene, cam))
+            pack_par(scene, cam),
+            None if tab is None else build_sphere_rows(tab))
 
 
 def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
             lane_start: int, n_chunk: int, seed, static: SceneStatic, *,
             emit_paths: bool = False, phase: bool = False, state=None,
-            lanes=None, d0: int = 0, tables=None, group: int = 1):
+            lanes=None, d0: int = 0, tables=None, group: int = 1,
+            resident: bool | None = None):
     """One launch of the CUDA kernel -> (rad, seg, [codes], [ctb, abc,
     dcode], [state]). With `phase` it runs bounces d0 .. d0 + max_depth - 1
     with `group` lanes per ray (a power of two up to 32) and returns the
     lanes' state (n, 15) last; with `state` (n, 15) and `lanes` (n,) int32
-    global lane ids it resumes those lanes. Raises off CUDA, outside
+    global lane ids it resumes those lanes. A sphere-only single pass (no
+    planar rows, media or phase) keeps its packed rows in shared memory up to
+    SPHERE_ROW_LIMIT rows; `resident` True or False forces either path (a
+    test hook: the two give the same bits), and its records are views of
+    one (n, D, RECORD_COLS) buffer. Raises off CUDA, outside
     `fused_supported`, and if the build or launch fails."""
     global LAUNCHES, EMIT_LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
     global VOL_LAUNCHES, PHASE_LAUNCHES
@@ -484,7 +521,8 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
     lib = _build.load_library()
-    tab, ptab, ptest, vtab, par = tables or build_tables(scene, static, cam)
+    tab, ptab, ptest, vtab, par, srows = (tables
+                                          or build_tables(scene, static, cam))
     n_spheres = 0 if tab is None else tab.shape[1]
     n_planar = 0 if ptab is None else ptab.shape[1]
     n_vol = 0 if vtab is None else vtab.shape[0]
@@ -496,6 +534,12 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     if n_vol:
         _check(vtab, torch.float32, (n_vol, len(VOL_COLS)), device)
     _check(par, torch.float32, (PAR_SIZE,), device)
+    spheres = not (n_planar or n_vol or phase)
+    if resident is not None and not spheres:
+        raise ValueError("resident applies to the sphere-only single pass")
+    if spheres:
+        _check(srows, torch.float32, (n_spheres, len(SPHERE_ROW_COLS)),
+               device)
     if state is not None:
         _check(state, torch.float32, (n_chunk, STATE_SIZE), device)
         _check(lanes, torch.int32, (n_chunk,), device)
@@ -504,8 +548,13 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     D = cfg.max_depth
     codes = (torch.empty((n_chunk, D), dtype=torch.int32, device=device)
              if emit_paths else None)
-    recs = [None] * 3
-    if defers(static):
+    recs, rec_rows = [None] * 3, None
+    if defers(static) and spheres:
+        rec_rows = torch.empty((n_chunk, D, RECORD_COLS), dtype=torch.float32,
+                               device=device)
+        recs = [rec_rows[..., 0:3], rec_rows[..., 3:6],
+                rec_rows.view(torch.int32)[..., 6]]
+    elif defers(static):
         recs = [torch.empty((n_chunk, D, 3), dtype=torch.float32,
                             device=device),
                 torch.empty((n_chunk, D, 3), dtype=torch.float32,
@@ -518,6 +567,9 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(device):
+        # The sphere-only kernel's lane counter, zeroed on this stream.
+        nxt = (torch.zeros((1,), dtype=torch.int32, device=device)
+               if spheres else None)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rtw_render_fused(
             ptr(tab), n_spheres, ptr(ptab), ptr(ptest), n_planar, ptr(vtab),
@@ -525,8 +577,12 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
             cfg.height, cfg.samples_per_pixel, D, int(d0), int(group),
             float(cfg.t_min),
             int(seed) & 0xFFFFFFFF, int(cfg.use_log10_volume_sampling),
-            rad.data_ptr(), seg.data_ptr(), ptr(codes), *map(ptr, recs),
-            ptr(state), ptr(lanes), ptr(st_out), stream)
+            rad.data_ptr(), seg.data_ptr(), ptr(codes),
+            *((None,) * 3 if spheres else map(ptr, recs)),
+            ptr(state), ptr(lanes), ptr(st_out),
+            ptr(srows if spheres else None),
+            -1 if resident is None else int(bool(resident)), ptr(nxt),
+            ptr(rec_rows), stream)
     _build.check(lib, err, "rtw_render_fused launch")
     if n_planar:
         PLANAR_LAUNCHES += 1
@@ -676,16 +732,20 @@ _RESIDENT: dict = {}
 
 def resident_blocks(static: SceneStatic, device: torch.device,
                     phase: bool = True) -> int:
-    """Blocks of BLOCK threads an SM keeps resident for the scene's launch
-    without codes (phased by default) at its registers and shared memory:
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    """Blocks an SM keeps resident for the scene's launch without codes
+    (phased by default) at its registers and shared memory:
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor. Blocks of BLOCK threads,
+    or of SPHERE_BLOCK for a sphere-only single pass (spheres, no planar
+    rows or media, not phased: `sphere_kernel`, which launches that many
+    blocks on each SM; its rows' shared memory counts from the real
+    n_spheres)."""
     import ctypes
 
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
     device = torch.device(device)
-    key = (static.n_spheres > 0, static.n_rects + static.n_triangles > 0,
-           static.n_volumes > 0, defers(static), phase, device)
+    key = (static.n_spheres, static.n_rects + static.n_triangles,
+           static.n_volumes, defers(static), phase, device)
     if key not in _RESIDENT:
         lib = _build.load_library()
         blocks = ctypes.c_int(0)
@@ -715,6 +775,60 @@ def phase_group(live: int, resident: int) -> int:
         if live * g >= resident:
             return g
     return GROUPS[-1]
+
+
+def claim_order(segments, warps: int, rays: int = SPHERE_RAYS,
+                seed: int = 0):
+    """Plain twin of `sphere_kernel`'s work order over a window whose lane
+    i runs segments[i] bounces -> (order (n,) int64: the lanes in the order
+    they were claimed; owner (n, 3) int64: the warp, thread and slot that
+    ran each lane).
+
+    `warps` warps of 32 threads, `rays` lane slots a thread, take turns in
+    a random order each round (`seed`), as resident warps interleave on the
+    card. A warp's turn: while the window may hold lanes, it claims one for
+    each empty slot from a shared counter (one atomicAdd for the warp; the
+    slots in ballot order, slot-major, then by thread), a claim past the
+    window leaving the slot empty; then each live slot runs one bounce, and
+    a lane whose last bounce that was frees its slot. A warp leaves when the
+    window is spent and its slots are empty."""
+    segs = [int(x) for x in segments]
+    n = len(segs)
+    gen = torch.Generator().manual_seed(seed)
+    lane = [[[-1] * rays for _ in range(32)] for _ in range(warps)]
+    left = [[[0] * rays for _ in range(32)] for _ in range(warps)]
+    more = [True] * warps
+    active = list(range(warps))
+    order, owner = [], [None] * n
+    nxt = 0
+    while active:
+        for w in [active[i] for i in torch.randperm(len(active),
+                                                    generator=gen)]:
+            if more[w]:
+                empty = [[t for t in range(32) if lane[w][t][r] < 0]
+                         for r in range(rays)]
+                total = sum(map(len, empty))
+                if total:
+                    slot, nxt = nxt, nxt + total
+                    for r in range(rays):
+                        for rank, t in enumerate(empty[r]):
+                            i = slot + rank
+                            if i < n:
+                                lane[w][t][r], left[w][t][r] = i, segs[i]
+                                order.append(i)
+                                owner[i] = (w, t, r)
+                        slot += len(empty[r])
+                    more[w] = slot < n
+            for t in range(32):
+                for r in range(rays):
+                    if lane[w][t][r] >= 0:
+                        left[w][t][r] -= 1
+                        if left[w][t][r] <= 0:
+                            lane[w][t][r] = -1
+            if not more[w] and all(x < 0 for th in lane[w] for x in th):
+                active.remove(w)
+    return (torch.tensor(order, dtype=torch.int64),
+            torch.tensor(owner, dtype=torch.int64).reshape(n, 3))
 
 
 def plane_candidate_plain(num: torch.Tensor, den: torch.Tensor,

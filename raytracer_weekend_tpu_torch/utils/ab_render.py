@@ -13,10 +13,16 @@ checkout and of this one. Each process renders, at 400x225, 16 spp, depth 8, ren
 cornell_box, wavefront_cow_obj, textured_monument and book2_final_scene
 (the planar loop, K3), jumpy_balls (spheres only, K1) and
 smokey_cornell_box (media, K5) through `render_fused` (radiance and
-segments; the winner codes of `emit_paths=True` too), and bench.py's
+segments; the winner codes of `emit_paths=True` too, K1-emit on
+jumpy_balls), two_perlin_spheres and earth through `render_fused_records`
+(K6a: radiance, segments and the records ctb, abc, dcode), and
+many_spheres at 400x225, 4 spp, depth 8 (3,970 spheres: the sphere-only
+kernel's table read from global memory); each is timed (CUDA events,
+median of 5) as the call and as the launch alone (`_launch` on the tables
+built beforehand). Then bench.py's
 book2_criterion (40x22, 100 spp, depth 50, seeds 1337) and jumpy_balls at
 400x225, 4 spp, depth 20 through the single pass and the depth-phased
-render; each render is timed (CUDA events, median of 5). Then the staged
+render, each timed. Then the staged
 path's closest-hit kernels: K10 on jumpy_balls, K11 and K12 on
 cornell_box and the cow, on the frame's primary rays and its first-bounce
 rays (one bounce of the checkout's staged path, so equal in the two
@@ -47,9 +53,13 @@ import sys
 
 FULL = dict(width=400, height=225, samples_per_pixel=16, max_depth=8)
 SCENES = ("cornell_box", "wavefront_cow_obj", "textured_monument",
-          "book2_final_scene", "jumpy_balls", "smokey_cornell_box")
+          "book2_final_scene", "jumpy_balls", "smokey_cornell_box",
+          "two_perlin_spheres", "earth", "many_spheres")
 EMIT = ("cornell_box", "wavefront_cow_obj", "textured_monument",
-        "book2_final_scene")
+        "book2_final_scene", "jumpy_balls")
+# Through render_fused_records (K6a's own outputs); many_spheres at 4 spp.
+RECORDS = ("two_perlin_spheres", "earth")
+SIZE = {"many_spheres": dict(FULL, samples_per_pixel=4)}
 CRITERION = dict(width=40, height=22, samples_per_pixel=100, max_depth=50,
                  seed=1337)
 JUMPY_DEEP = dict(width=400, height=225, samples_per_pixel=4, max_depth=20)
@@ -92,20 +102,37 @@ def run_one(out_dir: pathlib.Path, save: bool) -> dict:
     dev = torch.device("cuda", 0)
     times, outs = {}, {}
     for name in SCENES:
-        cfg = RenderConfig(**FULL)
-        scene, static, cams = scenes.generate_scene(name, cfg.aspect_ratio,
-                                                    device=dev)
+        cfg = RenderConfig(**SIZE.get(name, FULL))
+        if name in scenes.SCENES:
+            scene, static, cams = scenes.generate_scene(
+                name, cfg.aspect_ratio, device=dev)
+        else:
+            objs, cams, bg = getattr(scenes, name)(cfg.aspect_ratio)
+            scene, static = build_scene(objs, background=bg)
+            scene = scene.to(dev)
         cam = cams[0].to(dev)
+        tables = mk.build_tables(scene, static, cam)
 
         def fwd(emit=False):
+            if name in RECORDS:
+                return mk.render_fused_records(scene, cfg, cam, 0, cfg.n_rays,
+                                               cfg.seed, static=static,
+                                               emit_paths=emit)
             return mk.render_fused(scene, cfg, cam, 0, cfg.n_rays, cfg.seed,
                                    static=static, emit_paths=emit,
                                    deep=False)
 
+        def launch(emit=False):
+            return mk._launch(scene, cfg, cam, 0, cfg.n_rays, cfg.seed,
+                              static, emit_paths=emit, tables=tables)
+
         outs[name] = fwd()
+        times[name] = _cuda_ms(fwd)
+        times[f"launch {name}"] = _cuda_ms(launch)
         if name in EMIT:
             outs[f"{name} codes"] = fwd(True)
-        times[name] = _cuda_ms(fwd)
+            times[f"{name} codes"] = _cuda_ms(lambda: fwd(True))
+            times[f"launch {name} codes"] = _cuda_ms(lambda: launch(True))
     for name, size in (("book2_criterion", CRITERION),
                        ("jumpy_balls_d20", JUMPY_DEEP)):
         cfg = RenderConfig(**size)

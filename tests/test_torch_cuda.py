@@ -696,6 +696,67 @@ def test_deep_render_groups_match_single_pass(cuda, name):
                    group=3)
 
 
+# ---- the redesigned sphere-only single pass (persistent warps) ---------------
+
+@pytest.mark.parametrize("name, emit", [("jumpy_balls", False),
+                                        ("jumpy_balls", True),
+                                        ("two_perlin_spheres", False)])
+def test_sphere_launch_windows_bitwise(cuda, name, emit):
+    """K1, K1-emit and K6a (persistent warps claiming lanes from a
+    per-launch counter): a window larger than the card's resident lane
+    slots, its halves at n // 2 + 37, a window of 5 lanes and the same
+    launch again on one stream give the same lanes bit for bit; the
+    records come back as views of one 32-byte row a record."""
+    scene, static, cfg, cam = _frame(name, cuda, width=400, height=225,
+                                     samples_per_pixel=4, max_depth=6)
+    n = cfg.n_rays
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    slots = (mk.resident_blocks(static, cuda, phase=False) * sms
+             * mk.SPHERE_BLOCK * mk.SPHERE_RAYS)
+    assert static.n_rects + static.n_triangles + static.n_volumes == 0
+    assert n > slots
+
+    def run(start, count):
+        return mk.render_fused_records(scene, cfg, cam, start, count,
+                                       cfg.seed, static=static,
+                                       emit_paths=emit)
+
+    whole = run(0, n)
+    h = n // 2 + 37
+    for a, b, w in zip(run(0, h), run(h, n - h), whole):
+        assert torch.equal(torch.cat([a, b]), w)
+    for a, w in zip(run(1001, 5), whole):
+        assert torch.equal(a, w[1001:1006])
+    for a, w in zip(run(0, n), whole):
+        assert torch.equal(a, w)
+    if mk.defers(static):
+        ctb, abc, dcode = whole[-3:]
+        assert ctb.shape == abc.shape == (n, cfg.max_depth, 3)
+        assert dcode.shape == (n, cfg.max_depth) and dcode.dtype == torch.int32
+        assert ctb.stride() == abc.stride() == (8 * cfg.max_depth, 8, 1)
+        assert int((dcode != 0).sum()) > n // 2
+
+
+@pytest.mark.parametrize("name", ["many_spheres", "jumpy_balls"])
+def test_sphere_launch_table_paths(cuda, name):
+    """The packed rows resident in shared memory and read from global
+    memory give the same lanes bit for bit: many_spheres' 3,970 rows (above
+    SPHERE_ROW_LIMIT: global by default, 190 KB forced resident) and
+    jumpy_balls' 486 (resident by default)."""
+    scene, static, cfg, cam = _frame(name, cuda)
+    n = cfg.n_rays
+    tables = mk.build_tables(scene, static, cam)
+    outs = [mk._launch(scene, cfg, cam, 0, n, cfg.seed, static,
+                       emit_paths=True, tables=tables, resident=r)
+            for r in (None, True, False)]
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0], outs[2]):
+        assert torch.equal(a, b)
+    assert (static.n_spheres > mk.SPHERE_ROW_LIMIT) == (name == "many_spheres")
+    assert bool(torch.isfinite(outs[0][0]).all())
+
+
 # ---- the staged path: K10, K11, K12 and K2's global d(ktab) ----------------
 
 @pytest.mark.parametrize("kind", ["spheres", "rects", "triangles"])
