@@ -67,7 +67,7 @@ holds each against its plain torch version first. Phases, one line each
      version's on 64x36 frames; frame time and segments/s;
  10. deferred textures, backward: K9 against its plain version on
      two_perlin_spheres' records (norm_rel 1e-4, every dead point's d_p
-     exactly 0), K7 against its plain version and the plain version in
+     exactly 0; their live share printed), K7 against its plain version and the plain version in
      float64 (the witness) on each scene's own codes, with the combine's
      real cotangents and with random ones (K2's budgets, on the lanes left
      after HELD_OUT below), each scene's forward+backward frame
@@ -126,11 +126,12 @@ abs error against its plain version, ms and plain ms, the least time the
 card could take for the same work and what bounds it), each entry's ms,
 launches and bound measured on the same launches: K3 one entry per scene
 (cornell_box, the cow, the monument, book2), K6b one per phase of the
-criterion, K10-K12 one per table and launch size; the ms of K1, K1-emit,
-K3, K5, K6a, K6b and K10-K12 is the launch alone, on tables built
-beforehand, and their wrapper_ms (all but K6b's) the call the main path
-makes (render_fused, render_fused_records, the autograd.Function) less
-it; and as the last
+criterion, K10-K12 one per table and launch size; every entry's ms is the
+launch alone, on tables and operands built beforehand, and its wrapper_ms
+the call the main path makes (render_fused, render_fused_records,
+replay_bwd_fused, turbulence, turbulence_vjp, the autograd.Function) less
+it (K6b's: render_fused_deep less its phases' launches, an equal share a
+phase); and as the last
 line {"ok": true, "device": {...}}. Any failure is an uncaught exception: the
 exit code is not 0 and the last line is not printed. Without a CUDA device,
 or without the rest of the repository beside it, the script fails.
@@ -218,6 +219,10 @@ OPS_BWD_BOUNCE = 250     # replay_bwd_kernel: recompute and chain one bounce
 # octave (24 per corner with its 3 shared-memory adds, 26 shared, d_p 21).
 OPS_TURB_OCTAVE = 98
 OPS_TURB_VJP_OCTAVE = 361
+# Every entry of the kernels line.
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms"}
 
 
 def bound(entry, ops, nbytes):
@@ -691,6 +696,10 @@ def main() -> None:
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    missing = [(k["name"], sorted(KERNEL_KEYS - k.keys())) for k in kernels
+               if KERNEL_KEYS - k.keys()]
+    if missing:
+        raise AssertionError(f"kernels line entries without {missing}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -764,11 +773,14 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
     torch.cuda.synchronize()
     k2_stats = agree_all(got, ref)
     k2_err = max(s["max_abs_err"] for s in k2_stats)
-    k2_ms = _cuda_ms(k2, 5)
+    k2_ops = rb.operands(ktab, None, bg, cfg, o, d, t, rid, seed, codes, g,
+                         n)
+    k2_ms = _cuda_ms(lambda: rb._launch(k2_ops), 5)
+    k2_call_ms = _cuda_ms(k2, 5)
     k2_plain_ms = _cuda_ms(k2_plain, 3)
-    print(f"phase 6 K2: {json.dumps(k2_stats)}; replay_bwd_fused frame "
-          f"{k2_ms:.3f} ms, plain version {k2_plain_ms:.3f} ms (median; "
-          f"{smi})", flush=True)
+    print(f"phase 6 K2: {json.dumps(k2_stats)}; the launch alone "
+          f"{k2_ms:.3f} ms, replay_bwd_fused {k2_call_ms:.3f} ms, plain "
+          f"version {k2_plain_ms:.3f} ms (median; {smi})", flush=True)
 
     # ---- 6c. the training path ---------------------------------------------
     target, start = fit_inputs(scene, static, cfg, cam)
@@ -817,6 +829,7 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         "launches": k2_launches,
         "max_abs_err": k2_err,
         "ms": k2_ms,
+        "wrapper_ms": k2_call_ms - k2_ms,
         "plain_ms": k2_plain_ms,
     }, *backward_work(n, D, segs, S, 0))]
 
@@ -1049,7 +1062,7 @@ def planar_training(dev, smi, cornell):
     limit = ctypes.c_int(0)
     _build.check(lib, lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit)),
                  "cudaDeviceGetAttribute")
-    k4_ms = k4_plain_ms = k4_work = None
+    k4_ms = k4_call_ms = k4_plain_ms = k4_work = None
     k4_err = 0.0
     for name, size, frame in (("cornell_box", FULL, cornell),
                               ("wavefront_cow_obj", COW_REDUCED, None)):
@@ -1085,11 +1098,15 @@ def planar_training(dev, smi, cornell):
         k4_err = max(k4_err, max(s_["max_abs_err"] for s_ in stats))
         timing = ""
         if name == "cornell_box":
-            k4_ms = _cuda_ms(k4, 5)
+            k4_ops = rb.operands(ktab, ptab, sc.background, cf, o, d, t, rid,
+                                 cf.seed, cds, g, nl)
+            k4_ms = _cuda_ms(lambda: rb._launch(k4_ops), 5)
+            k4_call_ms = _cuda_ms(k4, 5)
             k4_plain_ms = _cuda_ms(k4_plain, 3)
             k4_work = backward_work(nl, cf.max_depth, int(k_seg.sum()), S, R)
-            timing = (f"; replay_bwd_fused frame {k4_ms:.3f} ms, plain "
-                      f"version {k4_plain_ms:.3f} ms (median; {smi})")
+            timing = (f"; the launch alone {k4_ms:.3f} ms, "
+                      f"replay_bwd_fused {k4_call_ms:.3f} ms, plain version "
+                      f"{k4_plain_ms:.3f} ms (median; {smi})")
         print(f"phase 8 K4 vs plain {name} {cf.width}x{cf.height} spp "
               f"{cf.samples_per_pixel} depth {cf.max_depth}, {S} spheres + "
               f"{R} planar, d(ptab) reduced "
@@ -1155,6 +1172,7 @@ def planar_training(dev, smi, cornell):
         "launches": k4_launches,
         "max_abs_err": k4_err,
         "ms": k4_ms,
+        "wrapper_ms": k4_call_ms - k4_ms,
         "plain_ms": k4_plain_ms,
     }, *k4_work)
 
@@ -1317,7 +1335,9 @@ def deferred_forward(dev, smi):
           f"{TURB_ABS})", flush=True)
     if not (rand_err <= TURB_ABS and real_err <= TURB_ABS and dead_zero):
         raise AssertionError("K8 vs plain outside budgets")
-    k8_ms = _cuda_ms(lambda: pt.turbulence(grad, perm, pts, 7, live), 5)
+    k8_ops = pt.turbulence_operands(grad, perm, pts, live)
+    k8_ms = _cuda_ms(lambda: pt._launch_turbulence(k8_ops), 5)
+    k8_call_ms = _cuda_ms(lambda: pt.turbulence(grad, perm, pts, 7, live), 5)
     k8_plain_ms = _cuda_ms(lambda: turb_plain(grad, perm, pts, live), 1)
     k8_err = max(rand_err, real_err)
     # Bytes: a live point reads p; every point reads its mask byte and writes
@@ -1426,8 +1446,9 @@ def deferred_forward(dev, smi):
     print(f"phase 9 timing two_perlin_spheres: K6a's launch alone "
           f"{k6a_ms:.3f} ms, render_fused_records {k6a_call_ms:.3f} ms, "
           f"plain {k6a_plain_ms:.3f} ms; K8 on the frame's "
-          f"{pts.shape[0]} records {k8_ms:.3f} ms, plain {k8_plain_ms:.3f} ms"
-          f" (median; {smi})", flush=True)
+          f"{pts.shape[0]} records: the launch alone {k8_ms:.3f} ms, "
+          f"turbulence {k8_call_ms:.3f} ms, plain {k8_plain_ms:.3f} ms "
+          f"(median; {smi})", flush=True)
     k6a = bound({
         "name": "megakernel_deferred_records",
         "route": "cuda",
@@ -1448,6 +1469,7 @@ def deferred_forward(dev, smi):
         "launches": k8_launches,
         "max_abs_err": k8_err,
         "ms": k8_ms,
+        "wrapper_ms": k8_call_ms - k8_ms,
         "plain_ms": k8_plain_ms,
     }, *k8_work)
     return k6a, k8, frames
@@ -1483,17 +1505,23 @@ def deferred_training(dev, smi, frames):
                     dead_dp_zero=bool((dp[~live] == 0).all()),
                     d_grad_norm_rel=float((dg - rg).norm() / rg.norm()),
                     d_p_norm_rel=float((dp - rp).norm() / rp.norm()))
-    print(f"phase 10 K9 vs plain, two_perlin_spheres' records: "
+    print(f"phase 10 K9 vs plain, two_perlin_spheres' records "
+          f"({k9_stats['live'] / k9_stats['points']:.4f} of them live): "
           f"{json.dumps(k9_stats)} (budget {TURB_NORM_REL})", flush=True)
     if not (k9_stats["dead_dp_zero"]
             and k9_stats["d_grad_norm_rel"] <= TURB_NORM_REL
             and k9_stats["d_p_norm_rel"] <= TURB_NORM_REL):
         raise AssertionError(f"K9 vs plain: {k9_stats}")
     k9_err = float(max((dg - rg).abs().max(), (dp - rp).abs().max()))
-    k9_ms = _cuda_ms(lambda: pt.turbulence_vjp(grad, perm, pts, ct, 7, live),
-                     5)
+    k9_ops = pt.vjp_operands(grad, perm, pts, ct, live)
+    k9_ms = _cuda_ms(lambda: pt._launch_vjp(k9_ops), 5)
+    k9_call_ms = _cuda_ms(
+        lambda: pt.turbulence_vjp(grad, perm, pts, ct, 7, live), 5)
     k9_plain_ms = _cuda_ms(lambda: turb_vjp_plain(grad, perm, pts, ct, live),
                            1)
+    print(f"phase 10 timing K9 on two_perlin_spheres' records: the launch "
+          f"alone {k9_ms:.3f} ms, turbulence_vjp {k9_call_ms:.3f} ms, plain "
+          f"{k9_plain_ms:.3f} ms (median; {smi})", flush=True)
     # Bytes: a live point reads p and ct; every point reads its mask byte and
     # writes d_p; the tables are read and d_grad (3 KB) written once.
     k9_work = (k9_stats["live"] * 7 * OPS_TURB_VJP_OCTAVE,
@@ -1525,7 +1553,8 @@ def deferred_training(dev, smi, frames):
           f"{json.dumps(rows_ms)}", flush=True)
 
     # ---- 10b. K7 against its plain version and the float64 witness -------------
-    k7_err, k7_ms, k7_plain_ms, k7_work = 0.0, None, None, None
+    k7_err, k7_ms, k7_call_ms, k7_plain_ms, k7_work = 0.0, None, None, None, \
+        None
     for name in DEFERRED:
         scene, static, cfg, cam, k_rad, k_seg = frames[name]
         n, seed = cfg.n_rays, cfg.seed
@@ -1605,13 +1634,16 @@ def deferred_training(dev, smi, frames):
                 raise AssertionError(f"K7 vs plain outside budgets: {stats}")
             k7_err = max(k7_err, max(s_["max_abs_err"] for s_ in plain))
         if name == "two_perlin_spheres":
-            k7_ms = _cuda_ms(lambda: k7(g_k, cabc), 5)
+            k7_ops = rb.operands(ktab, ptab, scene.background, cfg, o, d, t,
+                                 rid, seed, codes, g_k, n, cabc=cabc)
+            k7_ms = _cuda_ms(lambda: rb._launch(k7_ops), 5)
+            k7_call_ms = _cuda_ms(lambda: k7(g_k, cabc), 5)
             k7_plain_ms = _cuda_ms(lambda: k7_plain(g_k, cabc), 1)
             k7_work = backward_work(n, cfg.max_depth, int(k_seg.sum()),
                                     ktab.shape[1], 0, defer=True, noise=True)
-            print(f"phase 10 timing two_perlin_spheres: replay_bwd_fused (K7)"
-                  f" {k7_ms:.3f} ms, plain {k7_plain_ms:.3f} ms (median; "
-                  f"{smi})", flush=True)
+            print(f"phase 10 timing two_perlin_spheres: K7's launch alone "
+                  f"{k7_ms:.3f} ms, replay_bwd_fused {k7_call_ms:.3f} ms, "
+                  f"plain {k7_plain_ms:.3f} ms (median; {smi})", flush=True)
 
     # ---- 10c. forward+backward frames -----------------------------------------
     k7_launches = k9_launches = 0
@@ -1670,6 +1702,7 @@ def deferred_training(dev, smi, frames):
         "launches": k7_launches,
         "max_abs_err": k7_err,
         "ms": k7_ms,
+        "wrapper_ms": k7_call_ms - k7_ms,
         "plain_ms": k7_plain_ms,
     }, *k7_work)
     k9 = bound({
@@ -1680,6 +1713,7 @@ def deferred_training(dev, smi, frames):
         "launches": k9_launches,
         "max_abs_err": k9_err,
         "ms": k9_ms,
+        "wrapper_ms": k9_call_ms - k9_ms,
         "plain_ms": k9_plain_ms,
     }, *k9_work)
     return k7, k9
@@ -1959,10 +1993,15 @@ def deep_phases(dev, smi):
                          static.n_rects + static.n_triangles, defer=True,
                          V=static.n_volumes,
                          phase_lanes=nl if st_in is None else 2 * nl)))
+    deep_ms = timings['book2_criterion']['deep']
     print(f"phase 12 timing: the criterion's phases {ms_sum:.3f} ms in all "
           f"launched alone, against the whole render_fused_deep "
-          f"{timings['book2_criterion']['deep']:.3f} ms (the host's live "
-          f"count, gathers and combine between them) ({smi})", flush=True)
+          f"{deep_ms:.3f} ms (the host's live count, gathers and combine "
+          f"between them) ({smi})", flush=True)
+    # The phases' wrapper: render_fused_deep's work around its launches,
+    # an equal share a phase.
+    for e in entries:
+        e["wrapper_ms"] = (deep_ms - ms_sum) / len(entries)
     return entries
 
 

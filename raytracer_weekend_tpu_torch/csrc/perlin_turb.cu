@@ -1,5 +1,5 @@
-// Perlin turbulence (K8) and its vector-Jacobian product (K9), one thread per
-// point.
+// Perlin turbulence (K8, one thread per point) and its vector-Jacobian
+// product (K9, persistent warps over the live points).
 //
 // Replaces: raytracer_weekend_tpu/ops/pallas/perlin_turb.py:_kernel and
 // _kernel_row (K8, reached through turbulence_pallas -> pl.pallas_call) and
@@ -29,13 +29,28 @@
 // What bounds it on an H100: per live point and octave, 3 floors, 6
 // permutation and 8 gradient lookups and 98 FP32 operations, an FMA counted
 // as two (K9: 361, the octave recomputed and chained back, and 24
-// shared-memory atomics); a live point reads 12 bytes (16 with ct), every
+// shared-memory adds); a live point reads 12 bytes (16 with ct), every
 // point reads a mask byte and writes 4 (12 for d_p), so with most points
 // dead (a frame's records) the bytes bound it. The lookups read the two
 // tables (6 KB) from shared memory, loaded once per block, so each lookup
-// is one shared-memory load, not a one-hot product as on the TPU. K9 sums
-// d_grad per block in shared memory with shared-memory atomics and adds
-// each nonzero entry to global memory once per block.
+// is one shared-memory load, not a one-hot product as on the TPU.
+//
+// K9's design. A frame's records are mostly dead (two_perlin_spheres at
+// 400x225x16: 1.13M of 11.52M points live), so one thread per point left
+// about nine lanes in ten idle through the seven octaves. Here resident
+// blocks (occupancy x SMs) loop: each warp claims kVjpWindow points at a
+// time from a counter, writes d_p = 0 for the dead ones and packs the live
+// ones by ballot into full batches of 32, so every lane that computes
+// carries a live point. A float add to shared memory is a compare-and-swap
+// loop on an H100 (LDS, FADD, ATOMS.CAST.SPIN), and a warp's points, taken
+// in index order, share lattice cells (4 cells for 32 points at octave 0,
+// 21 at octave 6, on that frame), so its lanes added into the same
+// addresses together and the loop spun: on an H100 80GB HBM3 at 700 W, one
+// shared copy of d_grad cost 1.7 of 1.8 ms on the compacted live points.
+// Each block keeps kVjpCopies copies of d_grad and lane l adds into copy
+// l % kVjpCopies; the copies are summed and added to global memory once
+// per resident block, not once per 256 points. Each point's arithmetic is
+// the one-thread-a-point kernel's, in its order: d_p is bitwise the same.
 //
 // Numerics: no fast math: floorf, IEEE arithmetic, in the plain version's
 // order.
@@ -48,7 +63,18 @@ namespace perlin {
 
 constexpr int kBlock = 256;
 constexpr int kPC = 256;  // table size
-
+constexpr int kVjpBlock = 256;   // K9: threads a block
+constexpr int kVjpWindow = 128;  // K9: points a warp claims at once
+// K9 sums d_grad in kVjpCopies copies per block, lane l of each warp into
+// copy l % kVjpCopies, so that lanes of one warp whose points share a
+// lattice cell add into different addresses; the copies' stride is odd, so
+// one entry of each copy lies in its own bank.
+constexpr int kVjpCopies = 16;
+constexpr int kVjpStride = 3 * kPC + 1;
+// K9's dynamic shared memory: the two tables, the warps' queues of live
+// points and the d_grad copies.
+constexpr int kVjpSmem =
+    (2 * 3 * kPC + (kVjpBlock / 32) * 64 + kVjpCopies * kVjpStride) * 4;
 struct Octave {
   float f[3];   // cell-local fraction
   float u[3];   // Hermite-smoothed fraction
@@ -146,77 +172,143 @@ turb_kernel(const float* __restrict__ p, const uint8_t* __restrict__ live,
                           depth));
 }
 
-__global__ void __launch_bounds__(kBlock)
+// One live point's VJP (K9): d_p returned, d_grad added to the block's
+// shared copy `sdg`, in the order of the first design (one thread per point
+// over the whole array), so that d_p is bitwise that design's.
+__device__ __forceinline__ void vjp_point(const float* __restrict__ sg,
+                                          const int* __restrict__ sp,
+                                          float* sdg, float x, float y,
+                                          float z, float c, int depth,
+                                          float& dpx, float& dpy,
+                                          float& dpz) {
+  dpx = dpy = dpz = 0.f;
+  const float accum = accum_of(sg, sp, x, y, z, depth);
+  const float sgn = accum > 0.f ? 1.0f : (accum < 0.f ? -1.0f : 0.f);
+  const float g_out = sgn * c;
+  if (g_out == 0.f) return;
+  float xs = x, ys = y, zs = z, w = 1.0f, sc = 1.0f;
+  for (int k = 0; k < depth; ++k) {
+    Octave o;
+    octave_terms(sp, xs, ys, zs, o);
+    float dn_ux = 0.f, dn_uy = 0.f, dn_uz = 0.f;
+    const float go = w * g_out;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int c3 = 0; c3 < 2; ++c3) {
+          const int h = o.h[a * 4 + b * 2 + c3];
+          const float* g = sg + 3 * h;
+          const float bx = a ? o.u[0] : 1.0f - o.u[0];
+          const float by = b ? o.u[1] : 1.0f - o.u[1];
+          const float bz = c3 ? o.u[2] : 1.0f - o.u[2];
+          const float blend = bx * by * bz;
+          const float wx = o.u[0] - (float)a;
+          const float wy = o.u[1] - (float)b;
+          const float wz = o.u[2] - (float)c3;
+          const float dot = g[0] * wx + g[1] * wy + g[2] * wz;
+          dn_ux += (a ? 1.0f : -1.0f) * by * bz * dot + blend * g[0];
+          dn_uy += (b ? 1.0f : -1.0f) * bx * bz * dot + blend * g[1];
+          dn_uz += (c3 ? 1.0f : -1.0f) * bx * by * dot + blend * g[2];
+          const float cb = go * blend;
+          atomicAdd(sdg + 3 * h + 0, cb * wx);
+          atomicAdd(sdg + 3 * h + 1, cb * wy);
+          atomicAdd(sdg + 3 * h + 2, cb * wz);
+        }
+    dpx += go * dn_ux * 6.0f * o.f[0] * (1.0f - o.f[0]) * sc;
+    dpy += go * dn_uy * 6.0f * o.f[1] * (1.0f - o.f[1]) * sc;
+    dpz += go * dn_uz * 6.0f * o.f[2] * (1.0f - o.f[2]) * sc;
+    xs *= 2.0f;
+    ys *= 2.0f;
+    zs *= 2.0f;
+    w *= 0.5f;
+    sc *= 2.0f;
+  }
+}
+
+// K9 on the resident blocks. Each warp claims windows of kVjpWindow points
+// from `next` (one atomicAdd by its first lane), scans a window 32 points
+// at a time, writes d_p = 0 for the dead ones, and packs the live ones by
+// ballot into its queue in shared memory; whenever the queue holds 32, each
+// lane takes one and runs its VJP, so every lane that computes carries a
+// live point. The queue's last partial batch runs when the points are
+// spent. d_grad is summed in the block's kVjpCopies copies and added to
+// global memory once per resident block.
+__global__ void __launch_bounds__(kVjpBlock)
 turb_vjp_kernel(const float* __restrict__ p, const float* __restrict__ ct,
                 const uint8_t* __restrict__ live,
                 const float* __restrict__ grad, const int* __restrict__ perm,
                 int n, int depth, float* __restrict__ d_p,
-                float* __restrict__ d_grad) {
-  __shared__ float sg[3 * kPC];
-  __shared__ int sp[3 * kPC];
-  __shared__ float sdg[3 * kPC];  // this block's d_grad
-  load_tables(grad, perm, sg, sp);
-  for (int j = threadIdx.x; j < 3 * kPC; j += kBlock) sdg[j] = 0.f;
+                float* __restrict__ d_grad, unsigned* __restrict__ next) {
+  extern __shared__ float vjp_smem[];
+  float* __restrict__ sg = vjp_smem;
+  int* __restrict__ sp = (int*)(vjp_smem + 3 * kPC);
+  int* __restrict__ queues = sp + 3 * kPC;  // 64 live points a warp
+  float* __restrict__ copies = (float*)(queues + (kVjpBlock / 32) * 64);
+  for (int j = threadIdx.x; j < 3 * kPC; j += kVjpBlock) {
+    sg[j] = grad[j];
+    sp[j] = perm[j];
+  }
+  for (int j = threadIdx.x; j < kVjpCopies * kVjpStride; j += kVjpBlock)
+    copies[j] = 0.f;
   __syncthreads();
 
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < n) {
-    float dpx = 0.f, dpy = 0.f, dpz = 0.f;
-    if (!live || live[i]) {
-      const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
-      const float accum = accum_of(sg, sp, x, y, z, depth);
-      const float sgn = accum > 0.f ? 1.0f : (accum < 0.f ? -1.0f : 0.f);
-      const float g_out = sgn * ct[i];
-      if (g_out != 0.f) {
-        float xs = x, ys = y, zs = z, w = 1.0f, sc = 1.0f;
-        for (int k = 0; k < depth; ++k) {
-          Octave o;
-          octave_terms(sp, xs, ys, zs, o);
-          float dn_ux = 0.f, dn_uy = 0.f, dn_uz = 0.f;
-          const float go = w * g_out;
-#pragma unroll
-          for (int a = 0; a < 2; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b)
-#pragma unroll
-              for (int c = 0; c < 2; ++c) {
-                const int h = o.h[a * 4 + b * 2 + c];
-                const float* g = sg + 3 * h;
-                const float bx = a ? o.u[0] : 1.0f - o.u[0];
-                const float by = b ? o.u[1] : 1.0f - o.u[1];
-                const float bz = c ? o.u[2] : 1.0f - o.u[2];
-                const float blend = bx * by * bz;
-                const float wx = o.u[0] - (float)a;
-                const float wy = o.u[1] - (float)b;
-                const float wz = o.u[2] - (float)c;
-                const float dot = g[0] * wx + g[1] * wy + g[2] * wz;
-                dn_ux += (a ? 1.0f : -1.0f) * by * bz * dot + blend * g[0];
-                dn_uy += (b ? 1.0f : -1.0f) * bx * bz * dot + blend * g[1];
-                dn_uz += (c ? 1.0f : -1.0f) * bx * by * dot + blend * g[2];
-                const float cb = go * blend;
-                atomicAdd(sdg + 3 * h + 0, cb * wx);
-                atomicAdd(sdg + 3 * h + 1, cb * wy);
-                atomicAdd(sdg + 3 * h + 2, cb * wz);
-              }
-          dpx += go * dn_ux * 6.0f * o.f[0] * (1.0f - o.f[0]) * sc;
-          dpy += go * dn_uy * 6.0f * o.f[1] * (1.0f - o.f[1]) * sc;
-          dpz += go * dn_uz * 6.0f * o.f[2] * (1.0f - o.f[2]) * sc;
-          xs *= 2.0f;
-          ys *= 2.0f;
-          zs *= 2.0f;
-          w *= 0.5f;
-          sc *= 2.0f;
-        }
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int* __restrict__ q = queues + (threadIdx.x >> 5) * 64;
+  float* __restrict__ sdg = copies + (lane % kVjpCopies) * kVjpStride;
+  int queued = 0;  // live points in the queue (warp-uniform)
+  for (;;) {
+    unsigned base = 0;
+    if (lane == 0) base = atomicAdd(next, (unsigned)kVjpWindow);
+    base = __shfl_sync(kAll, base, 0);
+    if (base >= (unsigned)n) break;
+    const int end = min((int)base + kVjpWindow, n);
+    for (int j0 = (int)base; j0 < end; j0 += 32) {
+      const int j = j0 + lane;
+      const bool in = j < end;
+      const bool lv = in && (!live || live[j]);
+      if (in && !lv) {
+        d_p[3 * j + 0] = 0.f;
+        d_p[3 * j + 1] = 0.f;
+        d_p[3 * j + 2] = 0.f;
+      }
+      const unsigned m = __ballot_sync(kAll, lv);
+      if (lv) q[queued + __popc(m & below)] = j;
+      queued += __popc(m);
+      __syncwarp();
+      if (queued >= 32) {
+        const int i = q[lane];
+        float dx, dy, dz;
+        vjp_point(sg, sp, sdg, p[3 * i], p[3 * i + 1], p[3 * i + 2], ct[i],
+                  depth, dx, dy, dz);
+        d_p[3 * i + 0] = dx;
+        d_p[3 * i + 1] = dy;
+        d_p[3 * i + 2] = dz;
+        queued -= 32;
+        const int carry = lane < queued ? q[32 + lane] : 0;
+        __syncwarp();
+        if (lane < queued) q[lane] = carry;
+        __syncwarp();
       }
     }
-    d_p[3 * i + 0] = dpx;
-    d_p[3 * i + 1] = dpy;
-    d_p[3 * i + 2] = dpz;
+  }
+  if (lane < queued) {
+    const int i = q[lane];
+    float dx, dy, dz;
+    vjp_point(sg, sp, sdg, p[3 * i], p[3 * i + 1], p[3 * i + 2], ct[i],
+              depth, dx, dy, dz);
+    d_p[3 * i + 0] = dx;
+    d_p[3 * i + 1] = dy;
+    d_p[3 * i + 2] = dz;
   }
 
   __syncthreads();
-  for (int j = threadIdx.x; j < 3 * kPC; j += kBlock) {
-    const float v = sdg[j];
+  for (int j = threadIdx.x; j < 3 * kPC; j += kVjpBlock) {
+    float v = 0.f;
+    for (int c = 0; c < kVjpCopies; ++c) v += copies[c * kVjpStride + j];
     if (v != 0.f) atomicAdd(d_grad + j, v);
   }
 }
@@ -238,17 +330,55 @@ int rtw_turbulence(const float* p, const unsigned char* live,
   return (int)cudaGetLastError();
 }
 
+// Resident blocks of K9 on the current device: its occupancy times the
+// SMs, queried once per device (with the opt-in to its shared memory).
+static int vjp_grid(int* grid) {
+  using namespace rtw::perlin;
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *grid = cached[dev];
+    return 0;
+  }
+  int blocks = 0, sms = 0;
+  err = cudaFuncSetAttribute(turb_vjp_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kVjpSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, turb_vjp_kernel, kVjpBlock, kVjpSmem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = blocks * sms;
+  if (dev < kMaxDevices) cached[dev] = *grid;
+  return 0;
+}
+
 // d_p (n x 3) and d_grad (256 x 3) of turb with cotangent ct (n,) on
 // `stream`; `d_grad` must be zero on entry (the kernel adds into it).
+// `next` is one unsigned of device memory, the warps' claim counter: the
+// launch zeroes it first on `stream`.
 int rtw_turbulence_vjp(const float* p, const float* ct,
                        const unsigned char* live, const float* grad,
                        const int* perm, int n, int depth, float* d_p,
-                       float* d_grad, void* stream) {
+                       float* d_grad, unsigned* next, void* stream) {
   using namespace rtw::perlin;
   if (n <= 0) return 0;
-  turb_vjp_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                    (cudaStream_t)stream>>>(p, ct, live, grad, perm, n, depth,
-                                            d_p, d_grad);
+  int grid = 0;
+  int err = vjp_grid(&grid);
+  if (err != 0) return err;
+  const long long want = ((long long)n + kVjpWindow - 1) / kVjpWindow;
+  if (want < grid) grid = (int)want;
+  const cudaStream_t st = (cudaStream_t)stream;
+  err = (int)cudaMemsetAsync(next, 0, sizeof(unsigned), st);
+  if (err != 0) return err;
+  turb_vjp_kernel<<<grid, kVjpBlock, kVjpSmem, st>>>(
+      p, ct, live, grad, perm, n, depth, d_p, d_grad, next);
   return (int)cudaGetLastError();
 }
 

@@ -35,24 +35,42 @@
 // sphere kernel as it was before the planar branch (108 registers: even a
 // loop whose bound is 0 there, left outside `if constexpr`, cost 4 more).
 //
-// What bounds it on an H100: the table cotangent reduction. About 3.7M live
-// bounces per jumpy_balls frame each add up to 19 values, and most of them
-// land on the few columns of the ground sphere. Every block therefore
-// accumulates into its own copy of d(ktab) in shared memory (KT * S * 4
-// bytes, 37 KB for jumpy_balls) with shared-memory atomics, skipping zeros,
-// and adds each nonzero entry of that copy to global memory once (kKShared).
-// A table whose copy does not fit the opt-in shared-memory limit (more than
-// 3,058 spheres on an H100) is reduced as the mesh's d(ptab) is below: each
-// warp groups its lanes by sphere, sums each group's values by shuffles,
-// and one lane per group adds the nonzero sums to global memory.
-// d(ptab) takes the same shared copy when both fit (kPShared: cornell_box,
-// 30 primitives, 3.8 KB, its hits piled on six wall columns). A mesh's
-// table does not fit (the cow: 5,805 primitives x 32 rows x 4 B = 743 KB
-// against 227 KB), so there each warp groups its lanes by planar row
+// What bounds it on an H100: the table cotangent reduction and the lanes'
+// unequal lengths. About 3.7M live bounces per jumpy_balls frame each add
+// up to 19 values, and most of them land on the few columns of the ground
+// sphere. Every block therefore accumulates into copies of d(ktab) in
+// shared memory (KT * S * 4 bytes each, 37 KB for jumpy_balls), skipping
+// zeros, and adds each nonzero entry of the copies' sum to global memory
+// once (kKShared). A float add to shared memory is a compare-and-swap loop
+// on an H100 (ATOMS.CAST.SPIN), and lanes of one warp that add into one
+// address together make it spin: on two_perlin_spheres (2 spheres) the
+// shared d(ktab) adds cost 0.37 ms and the background's 0.32 ms of a 1.0 ms
+// launch (H100 80GB HBM3, 700 W). So lane l of each warp adds into copy
+// l % copies of the tables, as many copies as fit kCopyBudget up to one a
+// lane (32 for two_perlin_spheres, 2 for cornell_box, 1 for jumpy_balls),
+// and into its own of kBgCopies copies of d_background. A table whose copy
+// does not fit the opt-in shared-memory limit (more than 3,053 spheres on
+// an H100) is reduced as the mesh's d(ptab) is below: each warp groups its
+// lanes by sphere, sums each group's values by shuffles, and one lane per
+// group adds the nonzero sums to global memory. d(ptab) takes the same
+// shared copies when both fit (kPShared: cornell_box, 30 primitives, 3.8
+// KB, its hits piled on six wall columns). A mesh's table does not fit
+// (the cow: 5,805 primitives x 32 rows x 4 B = 743 KB against 227 KB), so
+// there each warp groups its lanes by planar row
 // (cooperative_groups::labeled_partition, i.e. __match_any_sync), sums each
 // group's 32 values by shuffles, and one lane per group adds the nonzero
 // sums to global memory. The per-lane math is a few hundred FP32 operations
 // per bounce; the scratch is 36 bytes per bounce written once and read once.
+//
+// A lane sweeps 1 to max_depth bounces (two_perlin_spheres: 2.56M over
+// 1.44M lanes), and a warp as long as its longest lane, and a block holds
+// its registers until its longest warp ends. So three small kernels first
+// order the lanes by their live bounces, most first and stable by index
+// (count per bin and order block, scan, scatter), and thread t of the
+// replay sweeps lane order[t]: a warp's lanes, and a block's warps, run
+// about as many bounces each. A lane's outputs go to its own index, and
+// its scratch to column t. The order moves no lane's arithmetic: d_o, d_d
+// and d_time are bitwise those of lanes swept in index order.
 //
 // Deferred textures (kDefer, kDeferNoise): for a scene whose noise and image
 // texels the forward deferred (csrc/megakernel.cuh, kDefer), those texels
@@ -117,11 +135,31 @@ enum PRow {
 
 constexpr int kBlock = 256;
 constexpr int kState = 9;  // o(3), d(3), tp(3) per bounce
+constexpr int kWarps = kBlock / 32;
+// The sweep order: lanes by their live bounces, most first. A lane's count
+// (its leading codes that name a primitive of the tables) is clamped to
+// kBins - 1; an order block of the three order kernels ranks kOrderLanes
+// lanes, kOrderPerThread a thread.
+constexpr int kBins = 32;
+constexpr int kOrderPerThread = 4;
+constexpr int kOrderLanes = kBlock * kOrderPerThread;
+// Each lane of a warp adds into its own copy of d_background (kBgCopies),
+// and into copy (lane % copies) of the block's shared tables, as many
+// copies as fit kCopyBudget bytes up to kMaxCopies, so that fewer lanes of
+// one warp add into one address together (none with 32 copies). Small
+// tables take the most copies: their few columns draw every lane's adds;
+// a larger table's adds spread over more columns, and more copies of it
+// shrink the L1 cache for little gain (cornell_box's 3.8 KB table: 8
+// copies 0.38 ms a launch, 2 copies 0.36, on an H100 80GB HBM3).
+constexpr int kBgCopies = 32;
+constexpr int kMaxCopies = 32;
+constexpr long long kCopyBudget = 8 * 1024;
 
 struct Launch {
   int n, n_spheres, n_planar, max_depth;
   float t_min;
   uint32_t seed;
+  int copies;  // copies of the shared tables, a power of two
 };
 
 // The forward values of one live bounce that hit sphere `s` or planar
@@ -335,6 +373,110 @@ __device__ __forceinline__ void acc(float* __restrict__ sdt, int S, int row,
   if (v != 0.f) atomicAdd(sdt + row * S + s, v);
 }
 
+// The sweep-order bin of lane i among nb bins: nb - 1 less its live
+// bounces, the leading codes that name a sphere or a planar primitive of
+// the tables, clamped to nb - 1 (most bounces, bin 0).
+__device__ __forceinline__ int order_bin(const int* __restrict__ codes,
+                                         const Launch& L, int nb, int i) {
+  const int* __restrict__ c = codes + (long long)i * L.max_depth;
+  int hits = 0;
+  bool run = true;  // every code so far a hit; the loads go out together
+#pragma unroll 8
+  for (int k = 0; k < nb - 1; ++k) {
+    const int code = c[k];
+    run = run && (code_sphere(code, L.n_spheres) >= 0 ||
+                  code_planar(code, L.n_planar) >= 0);
+    hits += run ? 1 : 0;
+  }
+  return nb - 1 - hits;
+}
+
+// Order kernel 1: each lane's bin into bins[lane], and each order block's
+// lanes per bin into hist[bin * gridDim.x + block].
+__global__ void __launch_bounds__(kBlock)
+order_count_kernel(const int* __restrict__ codes, Launch L, int nb,
+                   uint8_t* __restrict__ bins, int* __restrict__ hist) {
+  __shared__ int count[kBins];
+  if (threadIdx.x < kBins) count[threadIdx.x] = 0;
+  __syncthreads();
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  for (int r = 0; r < kOrderPerThread; ++r) {
+    const long long i =
+        (long long)blockIdx.x * kOrderLanes + r * kBlock + threadIdx.x;
+    const int bin = i < L.n ? order_bin(codes, L, nb, (int)i) : -1;
+    if (bin >= 0) bins[i] = (uint8_t)bin;
+    const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    if (bin >= 0 && (peers & below) == 0)
+      atomicAdd(count + bin, __popc(peers));
+  }
+  __syncthreads();
+  if (threadIdx.x < nb)
+    hist[(long long)threadIdx.x * gridDim.x + blockIdx.x] = count[threadIdx.x];
+}
+
+// Order kernel 2, one block of 1,024 threads: hist[0, m) scanned in place
+// (exclusive): each (bin, order block)'s first position in the order.
+__global__ void __launch_bounds__(1024)
+order_scan_kernel(int* __restrict__ hist, int m) {
+  __shared__ int part[1024];
+  const int per = (m + 1023) / 1024;
+  const int b = threadIdx.x * per;
+  const int e = min(b + per, m);
+  int own = 0;
+  for (int j = b; j < e; ++j) own += hist[j];
+  part[threadIdx.x] = own;
+  __syncthreads();
+  for (int d = 1; d < 1024; d <<= 1) {
+    const int v = threadIdx.x >= d ? part[threadIdx.x - d] : 0;
+    __syncthreads();
+    part[threadIdx.x] += v;
+    __syncthreads();
+  }
+  int run = part[threadIdx.x] - own;
+  for (int j = b; j < e; ++j) {
+    const int h = hist[j];
+    hist[j] = run;
+    run += h;
+  }
+}
+
+// Order kernel 3: each lane's index at its position, stable within a bin
+// (by lane index): order[pos] = lane.
+__global__ void __launch_bounds__(kBlock)
+order_scatter_kernel(const uint8_t* __restrict__ bins, Launch L, int nb,
+                     const int* __restrict__ hist, int* __restrict__ order) {
+  __shared__ int base[kBins];             // the next position of each bin
+  __shared__ int count[kWarps * kBins];   // this round's lanes, per warp
+  if (threadIdx.x < nb)
+    base[threadIdx.x] =
+        hist[(long long)threadIdx.x * gridDim.x + blockIdx.x];
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  for (int r = 0; r < kOrderPerThread; ++r) {
+    const long long i =
+        (long long)blockIdx.x * kOrderLanes + r * kBlock + threadIdx.x;
+    const int bin = i < L.n ? (int)bins[i] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    for (int j = threadIdx.x; j < kWarps * kBins; j += kBlock) count[j] = 0;
+    __syncthreads();
+    if (bin >= 0 && (peers & below) == 0)
+      count[warp * kBins + bin] = __popc(peers);
+    __syncthreads();
+    if (bin >= 0) {
+      int pos = base[bin] + __popc(peers & below);
+      for (int w = 0; w < warp; ++w) pos += count[w * kBins + bin];
+      order[pos] = (int)i;
+    }
+    __syncthreads();
+    if (threadIdx.x < nb) {
+      int t = 0;
+      for (int w = 0; w < kWarps; ++w) t += count[w * kBins + threadIdx.x];
+      base[threadIdx.x] += t;
+    }
+    __syncthreads();
+  }
+}
+
 // Adds this lane's column `cv` of d(ptab), at planar row r, to global
 // memory once per distinct row among the lanes of the warp that arrive
 // together: they are grouped by r, each group's values are summed by
@@ -384,6 +526,7 @@ replay_bwd_kernel(const float* __restrict__ tab,
                   const int* __restrict__ ray_ids,
                   const int* __restrict__ codes, const float* __restrict__ g,
                   const float* __restrict__ cabc,
+                  const int* __restrict__ order,
                   Launch L, float* __restrict__ st,
                   float* __restrict__ dtab, float* __restrict__ dptab,
                   float* __restrict__ d_o, float* __restrict__ d_d,
@@ -391,17 +534,26 @@ replay_bwd_kernel(const float* __restrict__ tab,
   extern __shared__ float smem[];
   const int S = L.n_spheres;
   const int NR = L.n_planar;
-  // d(ktab) in shared memory (kKShared) or by global atomics.
+  // The block's copies of d_background, then of its tables: d(ktab) in
+  // shared memory (kKShared) or by global atomics, then d(ptab) (kPShared).
+  // A copy's stride is odd, so one entry of each copy lies in its own bank.
   const int n_tab = kKShared ? KT * S : 0;
-  float* __restrict__ sdt = smem;          // this block's d(ktab)
-  float* __restrict__ sbg = smem + n_tab;  // this block's d_background
-  float* __restrict__ spt = smem + n_tab + 3;  // its d(ptab), kPShared
   const int n_ptab = (kPla && kPShared) ? KP * NR : 0;
-  for (int j = threadIdx.x; j < n_tab + 3 + n_ptab; j += kBlock) smem[j] = 0.f;
+  const int stride = (n_tab + n_ptab) | 1;
+  const int n_smem = 3 * kBgCopies + (n_tab + n_ptab ? L.copies * stride : 0);
+  for (int j = threadIdx.x; j < n_smem; j += kBlock) smem[j] = 0.f;
   __syncthreads();
+  const int lane = threadIdx.x & 31;
+  float* __restrict__ sbg = smem + 3 * lane;  // this lane's d_background
+  float* __restrict__ sdt =                  // its d(ktab)
+      smem + 3 * kBgCopies + (lane & (L.copies - 1)) * stride;
+  float* __restrict__ spt = sdt + n_tab;     // its d(ptab), kPShared
 
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < L.n) {
+  // The lane this thread sweeps (its place in the sweep order); its
+  // forward values go to the scratch's column `slot`.
+  const int slot = blockIdx.x * kBlock + threadIdx.x;
+  const int i = slot < L.n ? order[slot] : -1;
+  if (i >= 0) {
     const long long n = L.n;
     const int D = L.max_depth;
     const int* __restrict__ lane_codes = codes + (long long)i * D;
@@ -422,7 +574,7 @@ replay_bwd_kernel(const float* __restrict__ tab,
     float tpr = 1.f, tpg = 1.f, tpb = 1.f;
     int trips = 0;
     for (int k = 0; k < D; ++k) {
-      float* __restrict__ sk = st + (long long)k * kState * n + i;
+      float* __restrict__ sk = st + (long long)k * kState * n + slot;
       sk[0 * n] = ox;
       sk[1 * n] = oy;
       sk[2 * n] = oz;
@@ -465,7 +617,7 @@ replay_bwd_kernel(const float* __restrict__ tab,
     float ctr = 0.f, ctg = 0.f, ctb = 0.f;
     float ctime = 0.f;
     for (int k = trips - 1; k >= 0; --k) {
-      const float* __restrict__ sk = st + (long long)k * kState * n + i;
+      const float* __restrict__ sk = st + (long long)k * kState * n + slot;
       ox = sk[0 * n];
       oy = sk[1 * n];
       oz = sk[2 * n];
@@ -764,19 +916,18 @@ replay_bwd_kernel(const float* __restrict__ tab,
     d_time[i] = ctime;
   }
 
-  // ---- one global add per nonzero entry of this block's copies -----------
+  // ---- one global add per nonzero entry, the copies summed ---------------
   __syncthreads();
-  for (int j = threadIdx.x; j < n_tab; j += kBlock) {
-    const float v = sdt[j];
-    if (v != 0.f) atomicAdd(dtab + j, v);
+  const float* __restrict__ tabs = smem + 3 * kBgCopies;
+  for (int j = threadIdx.x; j < n_tab + n_ptab; j += kBlock) {
+    float v = 0.f;
+    for (int c = 0; c < L.copies; ++c) v += tabs[c * stride + j];
+    if (v != 0.f) atomicAdd(j < n_tab ? dtab + j : dptab + (j - n_tab), v);
   }
-  if (threadIdx.x < 3 && sbg[threadIdx.x] != 0.f)
-    atomicAdd(d_bg + threadIdx.x, sbg[threadIdx.x]);
-  if constexpr (kPla && kPShared) {
-    for (int j = threadIdx.x; j < n_ptab; j += kBlock) {
-      const float v = spt[j];
-      if (v != 0.f) atomicAdd(dptab + j, v);
-    }
+  if (threadIdx.x < 3) {
+    float v = 0.f;
+    for (int c = 0; c < kBgCopies; ++c) v += smem[3 * c + threadIdx.x];
+    if (v != 0.f) atomicAdd(d_bg + threadIdx.x, v);
   }
 }
 
@@ -785,6 +936,7 @@ struct Args {
   const float *ktab, *ptab, *bg, *o, *d, *time;
   const int *ray_id, *codes;
   const float *g, *cabc;
+  const int* order;
   float *scratch, *dtab, *dptab, *d_o, *d_d, *d_time, *d_bg;
 };
 
@@ -794,13 +946,26 @@ int launch(const Args& a, const Launch& L, long long smem,
            cudaStream_t stream) {
   auto* kernel =
       replay_bwd_kernel<kSph, kPla, kPShared, kDefer, kDeferNoise, kKShared>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  // Shared memory above the default 48 KB needs the attribute, set once per
+  // device to the largest size launched there so far.
+  constexpr int kMaxDevices = 64;
+  static long long opted[kMaxDevices] = {};
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices || smem > opted[dev]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < kMaxDevices) opted[dev] = smem;
+    }
+  }
   const int grid = (L.n + kBlock - 1) / kBlock;
   kernel<<<grid, kBlock, (size_t)smem, stream>>>(
       a.ktab, a.ptab, a.bg, a.o, a.d, a.time, a.ray_id, a.codes, a.g, a.cabc,
-      L, a.scratch, a.dtab, a.dptab, a.d_o, a.d_d, a.d_time, a.d_bg);
+      a.order, L, a.scratch, a.dtab, a.dptab, a.d_o, a.d_d, a.d_time,
+      a.d_bg);
   return (int)cudaGetLastError();
 }
 
@@ -821,14 +986,41 @@ int launch_tex(const Args& a, bool defer, const Launch& L, long long smem,
 }  // namespace bwd
 }  // namespace rtw
 
+namespace {
+
+// Shared memory of `copies` copies of tables of n_tab floats, with the
+// background's copies, in bytes.
+long long smem_bytes(long long n_tab, int copies) {
+  using namespace rtw::bwd;
+  return (3LL * kBgCopies + (n_tab > 0 ? copies * (n_tab | 1) : 0)) *
+         (long long)sizeof(float);
+}
+
+// Bins of the sweep order for codes of max_depth bounces.
+int order_bins(int max_depth) {
+  using namespace rtw::bwd;
+  return (max_depth < kBins - 1 ? max_depth : kBins - 1) + 1;
+}
+
+}  // namespace
+
 extern "C" {
 
 // Shared memory the kernel needs for S spheres and, when d(ptab) is kept in
-// shared memory, R planar primitives (else pass 0), in bytes; pass S = 0
-// when d(ktab) is reduced by global atomics.
+// shared memory, R planar primitives (else pass 0), in bytes, with one copy
+// of the tables; pass S = 0 when d(ktab) is reduced by global atomics.
 long long rtw_replay_bwd_smem_bytes(int n_spheres, int n_planar_shared) {
-  return ((long long)rtw::bwd::KT * n_spheres + 3 +
-          (long long)rtw::bwd::KP * n_planar_shared) * (long long)sizeof(float);
+  return smem_bytes((long long)rtw::bwd::KT * n_spheres +
+                        (long long)rtw::bwd::KP * n_planar_shared, 1);
+}
+
+// Ints of the sweep order's workspace for n lanes of max_depth bounces: the
+// order (n), each order block's first position per bin, and each lane's bin
+// (a byte).
+long long rtw_replay_bwd_order_ints(int n, int max_depth) {
+  using namespace rtw::bwd;
+  const long long blocks = ((long long)n + kOrderLanes - 1) / kOrderLanes;
+  return (long long)n + order_bins(max_depth) * blocks + ((long long)n + 3) / 4;
 }
 
 // The largest dynamic shared memory a block may opt in to on the current
@@ -847,32 +1039,52 @@ int rtw_replay_bwd_smem_limit(int* bytes) {
 // zero on entry: the kernel adds into them. With `sphere_shared` each block
 // reduces d(ktab) in shared memory, and with `planar_shared` (which needs
 // `sphere_shared` when the scene has spheres) d(ptab) too; else each by
-// warp-aggregated global atomics. `scratch` holds max_depth * 9 * n floats. With `defer` the
-// cotangent `g` is per bounce (n x max_depth x 3) and noise and image texels
-// are 1.0 (K7); a non-null `cabc` (n x max_depth x 3) then adds to the noise
-// records' hit points. Returns the first CUDA error (0 on success); it does
-// not sync.
+// warp-aggregated global atomics. `scratch` holds max_depth * 9 * n floats
+// and `order` rtw_replay_bwd_order_ints(n, max_depth) ints. With `defer`
+// the cotangent `g` is per bounce (n x max_depth x 3) and noise and image
+// texels are 1.0 (K7); a non-null `cabc` (n x max_depth x 3) then adds to
+// the noise records' hit points. Four launches: the three order kernels,
+// then the replay backward. Returns the first CUDA error (0 on success); it
+// does not sync.
 int rtw_replay_bwd(const float* ktab, int n_spheres, const float* ptab,
                    int n_planar, int sphere_shared, int planar_shared,
                    const float* bg,
                    const float* o, const float* d, const float* time,
                    const int* ray_id, const int* codes, const float* g,
                    const float* cabc, int defer, int n, int max_depth,
-                   float t_min, unsigned int seed, float* scratch,
-                   float* dtab, float* dptab, float* d_o, float* d_d,
-                   float* d_time, float* d_bg, void* stream) {
+                   float t_min, unsigned int seed, int* order,
+                   float* scratch, float* dtab, float* dptab, float* d_o,
+                   float* d_d, float* d_time, float* d_bg, void* stream) {
   using namespace rtw::bwd;
   if (n <= 0) return 0;
   if (n_spheres <= 0 && n_planar <= 0) return (int)cudaErrorInvalidValue;
   if (cabc && !defer) return (int)cudaErrorInvalidValue;
   if (n_spheres > 0 && planar_shared && !sphere_shared)
     return (int)cudaErrorInvalidValue;
-  const Launch L{n, n_spheres, n_planar, max_depth, t_min, seed};
-  const Args a{ktab, ptab, bg, o, d, time, ray_id, codes, g, cabc,
-               scratch, dtab, dptab, d_o, d_d, d_time, d_bg};
-  const long long smem = rtw_replay_bwd_smem_bytes(
-      sphere_shared ? n_spheres : 0, planar_shared ? n_planar : 0);
+  // As many copies of the shared tables as fit kCopyBudget, up to one per
+  // lane of a warp.
+  const long long n_tab = (sphere_shared ? (long long)KT * n_spheres : 0) +
+                          (planar_shared ? (long long)KP * n_planar : 0);
+  int copies = 1;
+  while (copies < kMaxCopies && smem_bytes(n_tab, 2 * copies) <= kCopyBudget)
+    copies *= 2;
+  const long long smem = smem_bytes(n_tab, copies);
+  const Launch L{n, n_spheres, n_planar, max_depth, t_min, seed, copies};
   const cudaStream_t st = (cudaStream_t)stream;
+
+  // The sweep order: count, scan, scatter.
+  const int nb = order_bins(max_depth);
+  const int blocks = (int)(((long long)n + kOrderLanes - 1) / kOrderLanes);
+  int* hist = order + n;
+  uint8_t* bins = (uint8_t*)(hist + (long long)nb * blocks);
+  order_count_kernel<<<blocks, kBlock, 0, st>>>(codes, L, nb, bins, hist);
+  order_scan_kernel<<<1, 1024, 0, st>>>(hist, nb * blocks);
+  order_scatter_kernel<<<blocks, kBlock, 0, st>>>(bins, L, nb, hist, order);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Args a{ktab, ptab, bg, o, d, time, ray_id, codes, g, cabc,
+               order, scratch, dtab, dptab, d_o, d_d, d_time, d_bg};
+
   if (n_spheres > 0 && !sphere_shared) {
     if (n_planar == 0)
       return launch_tex<true, false, true, false>(a, defer, L, smem, st);

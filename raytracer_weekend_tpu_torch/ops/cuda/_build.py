@@ -113,8 +113,11 @@ def load_library() -> ctypes.CDLL:
         lib.rtw_plane_candidate.restype = _I
         lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P, _P,
                                        _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                       _U, _P, _P, _P, _P, _P, _P, _P, _P]
+                                       _U, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P]
         lib.rtw_replay_bwd.restype = _I
+        lib.rtw_replay_bwd_order_ints.argtypes = [_I, _I]
+        lib.rtw_replay_bwd_order_ints.restype = _LL
         lib.rtw_replay_bwd_smem_bytes.argtypes = [_I, _I]
         lib.rtw_replay_bwd_smem_bytes.restype = _LL
         lib.rtw_replay_bwd_smem_limit.argtypes = [_P]
@@ -122,7 +125,7 @@ def load_library() -> ctypes.CDLL:
         lib.rtw_turbulence.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
         lib.rtw_turbulence.restype = _I
         lib.rtw_turbulence_vjp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P,
-                                           _P, _P]
+                                           _P, _P, _P]
         lib.rtw_turbulence_vjp.restype = _I
         lib.rtw_hit_spheres.argtypes = [_P, _P, _P, _P, _I, _P, _I, _F, _P,
                                         _P, _P]

@@ -8,9 +8,11 @@ points p (..., 3) f32, the Perlin tables grad (256, 3) f32 and perm
     points: kernel K8 (`csrc/perlin_turb.cu`) for CUDA tensors, the plain
     `perlin.turbulence` for CPU tensors;
   * `turbulence_vjp` returns (d_grad (256, 3), d_p (..., 3)) for a
-    cotangent ct (...,): kernel K9 for CUDA tensors, torch autograd of the
-    plain version for CPU tensors. Dead points get d_p 0 and add nothing to
-    d_grad, whatever their cotangent;
+    cotangent ct (...,): kernel K9 for CUDA tensors (persistent warps that
+    pack the live points into full batches; `vjp_claim_order` and
+    `turbulence_vjp_twin` are the plain twins of its work order), torch
+    autograd of the plain version for CPU tensors. Dead points get d_p 0
+    and add nothing to d_grad, whatever their cotangent;
   * `turbulence_diff` pairs the two as a `torch.autograd.Function`:
     gradients reach grad and p (perm holds integers).
 
@@ -32,6 +34,11 @@ from raytracer_weekend_tpu_torch.ops.cuda.megakernel import _check
 TURB_LAUNCHES = 0
 TURB_VJP_LAUNCHES = 0
 
+# K9's work order, csrc/perlin_turb.cu's kVjpBlock and kVjpWindow: threads
+# a block, and points a warp claims at once.
+VJP_BLOCK = 256
+VJP_WINDOW = 128
+
 
 def turbulence_reference(grad, perm, p, depth: int = 7, live=None):
     """Plain version of K8: `perlin.turbulence`, 0 at dead points."""
@@ -47,6 +54,10 @@ def turbulence_vjp_reference(grad, perm, p, ct, depth: int = 7, live=None):
         t = turbulence_reference(g, perm, q, depth, live)
         d_grad, d_p = torch.autograd.grad(t, (g, q), grad_outputs=ct)
     return d_grad, d_p
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _args(grad, perm, p, live):
@@ -66,6 +77,30 @@ def _args(grad, perm, p, live):
     return n, pf, g, pm, lv
 
 
+def turbulence_operands(grad, perm, p, live=None):
+    """K8's operands, checked, and its output buffer: the argument of
+    `_launch_turbulence` (build it once to time the launch alone)."""
+    n, pf, g, pm, lv = _args(grad, perm, p, live)
+    out = torch.empty((n,), dtype=torch.float32, device=p.device)
+    return dict(n=n, p=pf, live=lv, grad=g, perm=pm, out=out)
+
+
+def _launch_turbulence(ops, depth: int = 7):
+    """One launch of K8 on `turbulence_operands`; returns ops["out"]."""
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    device = ops["p"].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.rtw_turbulence(
+            ops["p"].data_ptr(), _ptr(ops["live"]), ops["grad"].data_ptr(),
+            ops["perm"].data_ptr(), ops["n"], int(depth),
+            ops["out"].data_ptr(), stream)
+    _build.check(lib, err, "rtw_turbulence launch")
+    return ops["out"]
+
+
 def turbulence(grad, perm, p, depth: int = 7, live=None):
     """|sum_{k<depth} 0.5^k noise(2^k p)| at p (..., 3) -> (...,) f32, 0
     where `live` is False. K8 on a card, the plain version on the CPU."""
@@ -74,20 +109,40 @@ def turbulence(grad, perm, p, depth: int = 7, live=None):
         return turbulence_reference(grad, perm, p, depth, live)
     if p.device.type != "cuda":
         raise NotImplementedError(f"no turbulence on {p.device}")
+    out = _launch_turbulence(turbulence_operands(grad, perm, p, live), depth)
+    TURB_LAUNCHES += 1
+    return out.reshape(p.shape[:-1])
+
+
+def vjp_operands(grad, perm, p, ct, live=None):
+    """K9's operands, checked, its outputs (d_p, and d_grad zeroed) and its
+    claim counter: the argument of `_launch_vjp` (build it once to time the
+    launch alone; each launch adds into d_grad)."""
+    n, pf, g, pm, lv = _args(grad, perm, p, live)
+    c = ct.detach().reshape(n).to(torch.float32).contiguous()
+    _check(c, torch.float32, (n,), p.device)
+    return dict(n=n, p=pf, ct=c, live=lv, grad=g, perm=pm,
+                d_p=torch.empty((n, 3), dtype=torch.float32, device=p.device),
+                d_grad=torch.zeros((perlin.POINT_COUNT, 3),
+                                   dtype=torch.float32, device=p.device),
+                next=torch.empty((1,), dtype=torch.int32, device=p.device))
+
+
+def _launch_vjp(ops, depth: int = 7):
+    """One launch of K9 on `vjp_operands` -> (d_grad, d_p) of ops."""
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
     lib = _build.load_library()
-    n, pf, g, pm, lv = _args(grad, perm, p, live)
-    out = torch.empty((n,), dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.rtw_turbulence(pf.data_ptr(),
-                                 None if lv is None else lv.data_ptr(),
-                                 g.data_ptr(), pm.data_ptr(), n, int(depth),
-                                 out.data_ptr(), stream)
-    _build.check(lib, err, "rtw_turbulence launch")
-    TURB_LAUNCHES += 1
-    return out.reshape(p.shape[:-1])
+    device = ops["p"].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.rtw_turbulence_vjp(
+            ops["p"].data_ptr(), ops["ct"].data_ptr(), _ptr(ops["live"]),
+            ops["grad"].data_ptr(), ops["perm"].data_ptr(), ops["n"],
+            int(depth), ops["d_p"].data_ptr(), ops["d_grad"].data_ptr(),
+            ops["next"].data_ptr(), stream)
+    _build.check(lib, err, "rtw_turbulence_vjp launch")
+    return ops["d_grad"], ops["d_p"]
 
 
 def turbulence_vjp(grad, perm, p, ct, depth: int = 7, live=None):
@@ -98,24 +153,74 @@ def turbulence_vjp(grad, perm, p, ct, depth: int = 7, live=None):
         return turbulence_vjp_reference(grad, perm, p, ct, depth, live)
     if p.device.type != "cuda":
         raise NotImplementedError(f"no turbulence VJP on {p.device}")
-    from raytracer_weekend_tpu_torch.ops.cuda import _build
-
-    lib = _build.load_library()
-    n, pf, g, pm, lv = _args(grad, perm, p, live)
-    c = ct.detach().reshape(n).to(torch.float32).contiguous()
-    _check(c, torch.float32, (n,), p.device)
-    d_p = torch.empty((n, 3), dtype=torch.float32, device=p.device)
-    d_grad = torch.zeros((perlin.POINT_COUNT, 3), dtype=torch.float32,
-                         device=p.device)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.rtw_turbulence_vjp(
-            pf.data_ptr(), c.data_ptr(), None if lv is None else lv.data_ptr(),
-            g.data_ptr(), pm.data_ptr(), n, int(depth), d_p.data_ptr(),
-            d_grad.data_ptr(), stream)
-    _build.check(lib, err, "rtw_turbulence_vjp launch")
+    d_grad, d_p = _launch_vjp(vjp_operands(grad, perm, p, ct, live), depth)
     TURB_VJP_LAUNCHES += 1
     return d_grad.to(grad.dtype), d_p.reshape(p.shape)
+
+
+def vjp_claim_order(live, warps: int, window: int = VJP_WINDOW,
+                    seed: int = 0):
+    """Plain twin of K9's work order over the points whose mask is `live`
+    (n,) bool -> (batches, dead).
+
+    `warps` warps take turns in a random order each round (`seed`), as
+    resident warps interleave on the card. A turn claims the next `window`
+    points from a shared counter and scans them 32 at a time: dead points
+    are written 0 at once, live ones join the warp's queue in index order,
+    and whenever the queue holds 32 the warp runs them as one batch, a
+    point a lane. A warp whose claim passes the end runs what its queue
+    holds and leaves. `batches` lists (warp, points (<= 32,) int64) in the
+    order they ran; `dead` (n_dead,) int64 the dead points in the order
+    they were written."""
+    flags = live.reshape(-1).tolist()
+    n = len(flags)
+    gen = torch.Generator().manual_seed(seed)
+    queue = [[] for _ in range(warps)]
+    active = list(range(warps))
+    batches, dead, nxt = [], [], 0
+    while active:
+        for w in [active[i] for i in torch.randperm(len(active),
+                                                    generator=gen)]:
+            base, nxt = nxt, nxt + window
+            if base >= n:
+                if queue[w]:
+                    batches.append((w, torch.tensor(queue[w])))
+                active.remove(w)
+                continue
+            for j in range(base, min(base + window, n)):
+                (queue[w] if flags[j] else dead).append(j)
+                if (j - base) % 32 == 31 and len(queue[w]) >= 32:
+                    batches.append((w, torch.tensor(queue[w][:32])))
+                    del queue[w][:32]
+            if len(queue[w]) >= 32:     # the window's last, partial chunk
+                batches.append((w, torch.tensor(queue[w][:32])))
+                del queue[w][:32]
+    return batches, torch.tensor(dead, dtype=torch.int64)
+
+
+def turbulence_vjp_twin(grad, perm, p, ct, depth: int = 7, live=None,
+                        warps: int = 4, seed: int = 0):
+    """K9's plain twin in its work order (`vjp_claim_order`): the plain VJP
+    of each batch of live points, d_p written at their indices and 0 at the
+    dead points, d_grad summed batch by batch -> (d_grad, d_p) as
+    `turbulence_vjp`. Each batch runs at its points' own places in the
+    array (the others masked dead): torch's vectorized CPU kernels round a
+    point's operations by its place in a tensor, up to an ulp apart."""
+    n = p.numel() // 3
+    pf, c = p.reshape(n, 3), ct.reshape(n)
+    lv = (torch.ones(n, dtype=torch.bool) if live is None
+          else live.reshape(n))
+    batches, dead = vjp_claim_order(lv, warps, seed=seed)
+    d_p = torch.full((n, 3), float("nan"), dtype=pf.dtype)
+    d_p[dead] = 0.0
+    d_grad = torch.zeros_like(grad)
+    for _, idx in batches:
+        mine = torch.zeros(n, dtype=torch.bool)
+        mine[idx] = True
+        dg, dp = turbulence_vjp_reference(grad, perm, pf, c, depth, mine)
+        d_p[idx] = dp[idx]
+        d_grad = d_grad + dg
+    return d_grad, d_p.reshape(p.shape)
 
 
 class _TurbDiff(torch.autograd.Function):

@@ -12,13 +12,15 @@ ctb, which the autograd of the deferred combine gives (`fused_diff.py`);
 those texels are 1.0 here, and `cabc` (n, D, 3), the cotangent of the noise
 records' hit points, joins each such bounce's hit point (K7):
 
-  * for tensors on a CUDA device it launches the hand-written kernel in
-    `csrc/replay_bwd.cu` (built at first use by `_build.py`) and raises if
-    the library does not build or load, or the launch fails. d(ktab) is
-    reduced in the block's shared memory when it fits (up to 3,058 spheres
-    on an H100), else by warp-aggregated global atomics; d(ptab) in shared
-    memory beside d(ktab) when both fit, else by the same global atomics (a
-    mesh: the cow's 5,805 primitives need 743 KB);
+  * for tensors on a CUDA device it launches the hand-written kernels in
+    `csrc/replay_bwd.cu` (built at first use by `_build.py`): three small
+    ones that order the lanes by their live bounces (`sweep_order` is their
+    plain twin), then the replay backward over the lanes in that order; it
+    raises if the library does not build or load, or a launch fails.
+    d(ktab) is reduced in the block's shared memory when it fits (up to
+    3,053 spheres on an H100), else by warp-aggregated global atomics;
+    d(ptab) in shared memory beside d(ktab) when both fit, else by the same
+    global atomics (a mesh: the cow's 5,805 primitives need 743 KB);
   * for tensors on the CPU it runs `replay_bwd_reference`: torch.autograd
     through `replay.replay_packed` (its deferred form for a per-bounce g)
     on the same codes, which is what the CUDA kernel is held against on the
@@ -34,6 +36,7 @@ not carried over.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -68,6 +71,8 @@ KP = len(KP_ROWS)
 # Where each row sits among the packed planar row's columns.
 _KP_COLS = tuple(replay.PLANAR_COLS.index(r) for r in KP_ROWS)
 _STATE = 9   # floats of scratch per lane and bounce: o, d, throughput
+# Bins of the kernel's sweep order, csrc/replay_bwd.cu's kBins.
+ORDER_BINS = 32
 
 
 def pack_ktab(scene: SceneData) -> torch.Tensor:
@@ -139,51 +144,55 @@ def replay_bwd_reference(ktab, ptab, background, cfg: RenderConfig, o, d,
     return dk, dp, do, dd, dt, dbg
 
 
+def sweep_order(codes, n_spheres: int, n_planar: int,
+                bins: int = ORDER_BINS):
+    """Plain twin of the kernel's sweep order -> (n,) int64: the lanes in
+    order of their live bounces, most first, and by index within a count
+    (a stable order). A lane's count is its leading codes that name a
+    sphere below n_spheres or a planar primitive below n_planar, clamped to
+    min(max_depth, bins - 1). The kernel's thread t sweeps lane order[t]
+    and writes its outputs at the lane's own index."""
+    fam, idx = codes & 3, codes >> 2
+    hit = (codes > 0) & (((fam == 1) & (idx < n_spheres))
+                         | ((fam == 2) & (idx < n_planar)))
+    hits = torch.cumprod(hit.to(torch.int64), dim=1).sum(1)
+    hits = hits.clamp_max(min(codes.shape[1], bins - 1))
+    return torch.sort(-hits, stable=True).indices
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(lib, device_index: int) -> int:
+    """The opt-in shared memory of one block on the card, queried once."""
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    limit = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit))
+    _build.check(lib, err, "cudaDeviceGetAttribute")
+    return limit.value
+
+
 def shared_reductions(lib, device, S: int, R: int) -> tuple[bool, bool]:
     """(d(ktab) in shared memory, d(ptab) in shared memory) for S spheres
     and R planar primitives on `device`: each when it fits one block's
     opt-in shared memory, d(ptab) only beside a shared d(ktab)."""
+    limit = _smem_limit(lib, torch.device(device).index or 0)
+    sphere = lib.rtw_replay_bwd_smem_bytes(S, 0) <= limit
+    return sphere, sphere and lib.rtw_replay_bwd_smem_bytes(S, R) <= limit
+
+
+def operands(ktab, ptab, background, cfg: RenderConfig, o, d, time, ray_id,
+             seed, codes, g, n_chunk: int, cabc=None) -> dict:
+    """The kernel's operands for `replay_bwd_fused`'s arguments, checked,
+    with its outputs (the table and background cotangents zeroed) and its
+    scratch: the argument of `_launch`. Build them once to time the launch
+    alone; each launch adds into the cotangents of the tables and the
+    background."""
     from raytracer_weekend_tpu_torch.ops.cuda import _build
 
-    limit = ctypes.c_int(0)   # the opt-in shared memory of one block
-    with torch.cuda.device(device):
-        err = lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit))
-    _build.check(lib, err, "cudaDeviceGetAttribute")
-    sphere = lib.rtw_replay_bwd_smem_bytes(S, 0) <= limit.value
-    return sphere, sphere and lib.rtw_replay_bwd_smem_bytes(S, R) <= limit.value
-
-
-def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
-                     ray_id, seed, codes, g, n_chunk: int, cabc=None):
-    """Run the replay backward over n_chunk lanes.
-
-    ktab (KT, S) f32 from `pack_ktab` and ptab (KP, R) from `pack_ptab`,
-    each None when the scene has no such primitive; background (3,); o, d
-    (n, 3) and time (n,) the primary rays; ray_id (n,) the lanes' RNG ids;
-    codes (n, max_depth) int32 winner codes; g the radiance cotangent, (n,
-    3), or (n, max_depth, 3) per bounce for a scene whose noise and image
-    texels were deferred (K7: those texels are 1.0), with cabc (n,
-    max_depth, 3) or None the cotangent of the noise records' hit points.
-    Returns (dktab (KT,S) or None, dptab (KP,R) or None, d_o (n,3), d_d
-    (n,3), d_time (n,), d_bg (3,)). The CPU runs the plain version; CUDA
-    runs the kernel.
-    """
-    global LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
-    if ktab is None and ptab is None:
-        raise ValueError("replay_bwd_fused needs a sphere or a planar table")
     defer = g.dim() == 3
-    if cabc is not None and not defer:
-        raise ValueError("cabc needs a per-bounce cotangent g (n, D, 3)")
     device = background.device
     n = int(n_chunk)
-    if device.type == "cpu":
-        return replay_bwd_reference(ktab, ptab, background, cfg, o, d, time,
-                                    ray_id, seed, codes, g, cabc)
-    if device.type != "cuda":
-        raise NotImplementedError(f"no replay backward on {device}")
-
-    from raytracer_weekend_tpu_torch.ops.cuda import _build
-
     lib = _build.load_library()
     S = 0 if ktab is None else ktab.shape[1]
     R = 0 if ptab is None else ptab.shape[1]
@@ -212,30 +221,81 @@ def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
         _check(t, f32, shape, device)
     _check(rid, torch.int32, (n,), device)
     _check(codes, torch.int32, (n, D), device)
+    return dict(
+        tabs=tabs, S=S, R=R, sphere_shared=sphere_shared,
+        planar_shared=planar_shared, bg=bg, o=o, d=d, time=time, rid=rid,
+        codes=codes, g=g, cabc=cabc, defer=defer, n=n, D=D,
+        t_min=float(cfg.t_min), seed=int(seed) & 0xFFFFFFFF,
+        order=torch.empty((lib.rtw_replay_bwd_order_ints(n, D),),
+                          dtype=torch.int32, device=device),
+        scratch=torch.empty((D, _STATE, n), dtype=f32, device=device),
+        dtabs=[None if t is None else torch.zeros_like(t) for t in tabs],
+        d_bg=torch.zeros((3,), dtype=f32, device=device),
+        d_o=torch.empty((n, 3), dtype=f32, device=device),
+        d_d=torch.empty((n, 3), dtype=f32, device=device),
+        d_time=torch.empty((n,), dtype=f32, device=device))
 
-    dtabs = [None if t is None else torch.zeros_like(t) for t in tabs]
-    d_bg = torch.zeros((3,), dtype=f32, device=device)
-    d_o = torch.empty((n, 3), dtype=f32, device=device)
-    d_d = torch.empty((n, 3), dtype=f32, device=device)
-    d_time = torch.empty((n,), dtype=f32, device=device)
-    scratch = torch.empty((D, _STATE, n), dtype=f32, device=device)
+
+def _launch(ops: dict):
+    """One launch of the kernel on `operands` -> (dktab or None, dptab or
+    None, d_o, d_d, d_time, d_bg) of ops."""
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    device = ops["bg"].device
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        ptrs = [None if t is None else t.data_ptr() for t in tabs + dtabs]
         err = lib.rtw_replay_bwd(
-            ptrs[0], S, ptrs[1], R, int(sphere_shared), int(planar_shared),
-            bg.data_ptr(),
-            o.data_ptr(), d.data_ptr(), time.data_ptr(), rid.data_ptr(),
-            codes.data_ptr(), g.data_ptr(),
-            None if cabc is None else cabc.data_ptr(), int(defer), n, D,
-            float(cfg.t_min),
-            int(seed) & 0xFFFFFFFF, scratch.data_ptr(), ptrs[2], ptrs[3],
-            d_o.data_ptr(), d_d.data_ptr(), d_time.data_ptr(),
-            d_bg.data_ptr(), stream)
+            ptr(ops["tabs"][0]), ops["S"], ptr(ops["tabs"][1]), ops["R"],
+            int(ops["sphere_shared"]), int(ops["planar_shared"]),
+            ops["bg"].data_ptr(), ops["o"].data_ptr(), ops["d"].data_ptr(),
+            ops["time"].data_ptr(), ops["rid"].data_ptr(),
+            ops["codes"].data_ptr(), ops["g"].data_ptr(), ptr(ops["cabc"]),
+            int(ops["defer"]), ops["n"], ops["D"], ops["t_min"], ops["seed"],
+            ops["order"].data_ptr(), ops["scratch"].data_ptr(), ptr(ops["dtabs"][0]),
+            ptr(ops["dtabs"][1]), ops["d_o"].data_ptr(), ops["d_d"].data_ptr(),
+            ops["d_time"].data_ptr(), ops["d_bg"].data_ptr(), stream)
     _build.check(lib, err, "rtw_replay_bwd launch")
+    return (*ops["dtabs"], ops["d_o"], ops["d_d"], ops["d_time"],
+            ops["d_bg"])
+
+
+def replay_bwd_fused(ktab, ptab, background, cfg: RenderConfig, o, d, time,
+                     ray_id, seed, codes, g, n_chunk: int, cabc=None):
+    """Run the replay backward over n_chunk lanes.
+
+    ktab (KT, S) f32 from `pack_ktab` and ptab (KP, R) from `pack_ptab`,
+    each None when the scene has no such primitive; background (3,); o, d
+    (n, 3) and time (n,) the primary rays; ray_id (n,) the lanes' RNG ids;
+    codes (n, max_depth) int32 winner codes; g the radiance cotangent, (n,
+    3), or (n, max_depth, 3) per bounce for a scene whose noise and image
+    texels were deferred (K7: those texels are 1.0), with cabc (n,
+    max_depth, 3) or None the cotangent of the noise records' hit points.
+    Returns (dktab (KT,S) or None, dptab (KP,R) or None, d_o (n,3), d_d
+    (n,3), d_time (n,), d_bg (3,)). The CPU runs the plain version; CUDA
+    runs the kernel.
+    """
+    global LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
+    if ktab is None and ptab is None:
+        raise ValueError("replay_bwd_fused needs a sphere or a planar table")
+    defer = g.dim() == 3
+    if cabc is not None and not defer:
+        raise ValueError("cabc needs a per-bounce cotangent g (n, D, 3)")
+    device = background.device
+    if device.type == "cpu":
+        return replay_bwd_reference(ktab, ptab, background, cfg, o, d, time,
+                                    ray_id, seed, codes, g, cabc)
+    if device.type != "cuda":
+        raise NotImplementedError(f"no replay backward on {device}")
+    out = _launch(operands(ktab, ptab, background, cfg, o, d, time, ray_id,
+                           seed, codes, g, n_chunk, cabc))
     LAUNCHES += 1
-    if R:
+    if ptab is not None:
         PLANAR_LAUNCHES += 1
     if defer:
         DEFER_LAUNCHES += 1
-    return dtabs[0], dtabs[1], d_o, d_d, d_time, d_bg
+    return out

@@ -1,8 +1,9 @@
-"""Two checkouts of the port on one card: the fused forward kernel's outputs
-compared bit for bit, and its times in turns.
+"""Two checkouts of the port on one card: the kernels' outputs compared
+(bit for bit, or within budgets where float atomics sum them), and their
+times in turns.
 
     python raytracer_weekend_tpu_torch/utils/ab_render.py --other DIR \
-        [--out build/ab_render.json]
+        [--only forward|backward] [--out build/ab_render.json]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with `git archive` into a git-ignored directory).
@@ -35,10 +36,28 @@ operands built beforehand, and the Function's call as the checkout's
 staged path makes it, for the wrapper's time. Last, the staged path end
 to end: `render_image` of jumpy_balls with a uv-debug ground (K10, one
 chunk) and the cow's staged frame in 2^18-lane chunks (`render_chunk`,
-K10-K12), their images and timings. The first process of each checkout
-saves its outputs, and the script reports for each output whether the two
-checkouts agree bit for bit, and each time by checkout. It needs a CUDA
-device.
+K10-K12), their images and timings.
+
+The backward kernels (all of the above is the forward part; `--only`
+runs one part): K9 on two_perlin_spheres' records at 400x225x16 d8 (the
+combine's points and live mask, a random cotangent), K7 on
+two_perlin_spheres, earth and simple_light with the combine's real
+cotangents of g = 2 rad, K2 on jumpy_balls and K4 on cornell_box with g =
+2 rad, each on the checkout's own forward codes (the forward kernels are
+bitwise alike across the checkouts this compares): d_p and d_o, d_d,
+d_time compared bit for bit, d_grad within TURB_NORM_REL and the table
+and background cotangents within TAB_NORM_REL of the other checkout's;
+each timed as the launch alone on operands built beforehand and as the
+call (`turbulence_vjp`, `replay_bwd_fused`); a checkout without launch-
+alone entry points is driven through its own library on the operands its
+call builds. Then the forward+backward frames of two_perlin_spheres, earth
+and simple_light (`render_fused_diff` and the gradient of the radiance sum
+w.r.t. every float leaf) and 3 Adam steps of `InverseRenderer.fit` on
+earth's image atlas (step ms by the host clock).
+
+The first process of each checkout saves its outputs, and the script
+reports for each output whether the two checkouts agree, and each time by
+checkout. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -70,6 +89,15 @@ HITS = (("spheres", "jumpy_balls"), ("rects", "cornell_box"),
         ("triangles", "wavefront_cow_obj"), ("spheres", "wavefront_cow_obj"))
 HIT_SIZES = {("spheres", "jumpy_balls"): (1 << 18, 1_440_000),
              ("rects", "cornell_box"): (1 << 18, 1_440_000)}
+# The backward kernels: (kernel, scene) on full frames. Outputs whose key
+# ends in " summed" are float-atomic sums, compared within a budget: K9's
+# d_grad (chip_smoke.py's TURB_NORM_REL), the replay backward's table and
+# background cotangents (its K2 budget).
+BACKWARD = (("K7", "two_perlin_spheres"), ("K7", "earth"),
+            ("K7", "simple_light"), ("K2", "jumpy_balls"),
+            ("K4", "cornell_box"))
+FWD_BWD = ("two_perlin_spheres", "earth", "simple_light")
+TURB_NORM_REL, TAB_NORM_REL = 1e-4, 1e-3
 
 
 def _cuda_ms(fn, reps=5):
@@ -87,20 +115,35 @@ def _cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def run_one(out_dir: pathlib.Path, save: bool) -> dict:
-    """Render and time everything with the package on sys.path; save the
-    outputs under out_dir when `save`. -> {render: ms}."""
+def run_one(out_dir: pathlib.Path, save: bool, only: str | None) -> dict:
+    """Render and time everything (or `only` the forward or the backward
+    part) with the package on sys.path; save the outputs under out_dir
+    when `save`. -> {render: ms}."""
     import torch
-
-    from raytracer_weekend_tpu_torch.config import RenderConfig
-    from raytracer_weekend_tpu_torch.models import scenes
-    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
-    from raytracer_weekend_tpu_torch.scene.builder import build_scene
 
     if not torch.cuda.is_available():
         raise RuntimeError("ab_render needs a CUDA device")
     dev = torch.device("cuda", 0)
     times, outs = {}, {}
+    if only != "backward":
+        forward_kernels(dev, outs, times)
+    if only != "forward":
+        backward_kernels(dev, outs, times)
+    torch.cuda.synchronize()
+    if save:
+        torch.save({k: [t.cpu() for t in v] for k, v in outs.items()},
+                   out_dir / "outputs.pt")
+    return times
+
+
+def forward_kernels(dev, outs, times):
+    """The forward kernels and the staged path (see the module's
+    docstring) into `outs` and `times`."""
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.scene.builder import build_scene
+
     for name in SCENES:
         cfg = RenderConfig(**SIZE.get(name, FULL))
         if name in scenes.SCENES:
@@ -153,11 +196,6 @@ def run_one(out_dir: pathlib.Path, save: bool) -> dict:
             outs[f"{name} {route}"] = fwd()
             times[f"{name} {route}"] = _cuda_ms(fwd)
     staged_hits(dev, outs, times)
-    torch.cuda.synchronize()
-    if save:
-        torch.save({k: [t.cpu() for t in v] for k, v in outs.items()},
-                   out_dir / "outputs.pt")
-    return times
 
 
 def _hit_calls(kind, tab, rays, t_min):
@@ -277,10 +315,209 @@ def staged_frames(dev, outs, times):
     times["staged frame wavefront_cow_obj 262144"] = _cuda_ms(cow)
 
 
+def backward_kernels(dev, outs, times):
+    """K9, K7, K2 and K4, the forward+backward frames and earth's fit step
+    (see the module's docstring) into `outs` and `times`."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import fused_diff, integrator, textures
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
+
+    cfg = RenderConfig(**FULL)
+
+    def load(name):
+        scene, static, cams = scenes.generate_scene(name, cfg.aspect_ratio,
+                                                    device=dev)
+        return scene, static, cams[0].to(dev)
+
+    scene, static, cam = load("two_perlin_spheres")
+    _, _, _, abc, dcode = mk.render_fused_records(
+        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static)
+    tid = (dcode.abs() - 1).clamp_min(0).long()
+    live = (dcode != 0) & (scene.textures.ttype[tid] == textures.NOISE)
+    pts, live = abc.reshape(-1, 3), live.reshape(-1)
+    ct = torch.randn(pts.shape[0], device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(10))
+    launch, call = _turb_vjp_calls(scene.textures.perlin_grad,
+                                   scene.textures.perlin_perm, pts, ct, live)
+    d_grad, d_p = call()
+    outs["K9 two_perlin_spheres d_p"] = (d_p,)
+    outs["K9 two_perlin_spheres summed"] = (d_grad,)
+    times["launch K9 two_perlin_spheres"] = _cuda_ms(launch)
+    times["call K9 two_perlin_spheres"] = _cuda_ms(call)
+
+    n = cfg.n_rays
+    for kern, name in BACKWARD:
+        scene, static, cam = load(name)
+        defer = mk.defers(static)
+        rad, _, codes, *recs = mk.render_fused(
+            scene, cfg, cam, 0, n, cfg.seed, static=static, emit_paths=True,
+            emit_deferred=defer)
+        g, cabc = 2.0 * rad, None
+        if defer:
+            g, cabc, _ = fused_diff.combine_vjp(scene, static, recs, g, [])
+        o, d, t, rid = integrator._pixel_rays(
+            cam, cfg, torch.arange(n, device=dev), cfg.seed)
+        ktab = rb.pack_ktab(scene).detach() if static.n_spheres else None
+        ptab = (rb.pack_ptab(scene, static).detach()
+                if static.n_rects + static.n_triangles else None)
+        launch, call = _replay_calls((ktab, ptab, scene.background, cfg, o,
+                                      d, t, rid, cfg.seed, codes, g, n), cabc)
+        out = call()
+        outs[f"{kern} {name} per-lane"] = out[2:5]
+        outs[f"{kern} {name} summed"] = tuple(
+            x for x in (out[0], out[1], out[5]) if x is not None)
+        times[f"launch {kern} {name}"] = _cuda_ms(launch)
+        times[f"call {kern} {name}"] = _cuda_ms(call)
+
+    for name in FWD_BWD:
+        times[f"fwd+bwd {name}"] = _cuda_ms(_fwd_bwd(*load(name), cfg))
+    scene, static, cam = load("earth")
+    times["fit step earth"] = _fit_step_ms(scene, static, cfg, cam)
+
+
+def _turb_vjp_calls(grad, perm, p, ct, live):
+    """(the launch alone, the call) of the checkout's K9, as zero-argument
+    callables on operands built beforehand; a checkout without
+    `vjp_operands` is driven through its own library."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+
+    def call():
+        return pt.turbulence_vjp(grad, perm, p, ct, 7, live)
+
+    if hasattr(pt, "vjp_operands"):
+        ops = pt.vjp_operands(grad, perm, p, ct, live)
+        return (lambda: pt._launch_vjp(ops)), call
+    lib = _build.load_library()
+    n, pf, g, pm, lv = pt._args(grad, perm, p, live)
+    c = ct.reshape(n).to(torch.float32).contiguous()
+    d_p = torch.empty((n, 3), device=p.device)
+    d_grad = torch.zeros((g.shape[0], 3), device=p.device)
+
+    def launch():
+        _build.check(lib, lib.rtw_turbulence_vjp(
+            pf.data_ptr(), c.data_ptr(), lv.data_ptr(), g.data_ptr(),
+            pm.data_ptr(), n, 7, d_p.data_ptr(), d_grad.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "K9 launch")
+    return launch, call
+
+
+def _replay_calls(args, cabc):
+    """(the launch alone, the call) of the checkout's replay backward on
+    `replay_bwd_fused`'s positional `args`; a checkout without `operands`
+    is driven through its own library on the operands its call builds."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import _build
+    from raytracer_weekend_tpu_torch.ops.cuda import replay_bwd as rb
+
+    def call():
+        return rb.replay_bwd_fused(*args, cabc=cabc)
+
+    if hasattr(rb, "operands"):
+        ops = rb.operands(*args, cabc=cabc)
+        return (lambda: rb._launch(ops)), call
+    ktab, ptab, bg, cfg, o, d, t, rid, seed, codes, g, n = args
+    lib = _build.load_library()
+    dev = bg.device
+    S = 0 if ktab is None else ktab.shape[1]
+    R = 0 if ptab is None else ptab.shape[1]
+    shared = rb.shared_reductions(lib, dev, S, R)
+    tabs = [None if x is None else x.detach().float().contiguous()
+            for x in (ktab, ptab)]
+    bg = bg.detach().float().contiguous()
+    rid = rid.to(torch.int64) & 0xFFFFFFFF
+    rid = torch.where(rid >= 2**31, rid - 2**32, rid).to(torch.int32)
+    g = g.detach().float().contiguous()
+    cabc = None if cabc is None else cabc.detach().float().contiguous()
+    dtabs = [None if x is None else torch.zeros_like(x) for x in tabs]
+    outs = [torch.empty((n, 3), device=dev), torch.empty((n, 3), device=dev),
+            torch.empty((n,), device=dev), torch.zeros((3,), device=dev)]
+    scratch = torch.empty((cfg.max_depth, 9, n), device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    def launch():
+        _build.check(lib, lib.rtw_replay_bwd(
+            ptr(tabs[0]), S, ptr(tabs[1]), R, int(shared[0]),
+            int(shared[1]), bg.data_ptr(), o.data_ptr(), d.data_ptr(),
+            t.data_ptr(), rid.data_ptr(), codes.data_ptr(), g.data_ptr(),
+            ptr(cabc), int(g.dim() == 3), n, cfg.max_depth, float(cfg.t_min),
+            int(seed) & 0xFFFFFFFF, scratch.data_ptr(), ptr(dtabs[0]),
+            ptr(dtabs[1]), *(x.data_ptr() for x in outs),
+            torch.cuda.current_stream().cuda_stream), "replay backward")
+    return launch, call
+
+
+def _fwd_bwd(scene, static, cam, cfg):
+    """bench.py's forward+backward frame as a callable: the gradient of the
+    radiance sum w.r.t. every float leaf through render_fused_diff."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.fused_diff import render_fused_diff
+    from raytracer_weekend_tpu_torch.scene.data import SceneData
+
+    leaves = [le.detach().clone() for le in scene.leaves()]
+    floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
+    diff_scene = SceneData.from_leaves(leaves)
+
+    def fwd_bwd():
+        rad = render_fused_diff(diff_scene, static, cfg, cam, 0, cfg.n_rays,
+                                cfg.seed)
+        return torch.autograd.grad(rad.sum(), floats)
+    return fwd_bwd
+
+
+def _fit_step_ms(scene, static, cfg, cam, steps=6):
+    """InverseRenderer.fit on the image atlas from 0.8 of it: the median
+    step after the first (module loading), host clock between synchronized
+    callbacks."""
+    import time
+
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.train import InverseRenderer
+
+    target = integrator.render_image(scene, static, cfg, cam) / \
+        cfg.samples_per_pixel
+    start = scene._replace(textures=scene.textures._replace(
+        images=scene.textures.images * 0.8))
+    stamps = []
+
+    def on_step(i, loss, sc):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    InverseRenderer(static, cfg, cam, target).fit(start, steps=steps,
+                                                  callback=on_step)
+    return statistics.median((b - a) * 1e3 for a, b in
+                             zip(stamps[1:], stamps[2:]))
+
+
+def _norm_rel(got, ref):
+    """|got - ref| / |ref| in float64; max |got| where ref is all zero."""
+    ref = ref.double()
+    if not bool(ref.any()):
+        return float(got.double().abs().max()) if got.numel() else 0.0
+    return float((got.double() - ref).norm() / ref.norm())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
+    ap.add_argument("--only", choices=("forward", "backward"),
+                    help="run one part (default: both)")
     ap.add_argument("--out", default="build/ab_render.json")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--save", action="store_true", help=argparse.SUPPRESS)
@@ -288,7 +525,7 @@ def main() -> None:
     if args.child:  # one checkout's process
         out_dir = pathlib.Path(args.child)
         out_dir.mkdir(parents=True, exist_ok=True)
-        times = run_one(out_dir, args.save)
+        times = run_one(out_dir, args.save, args.only)
         (out_dir / f"times{'-saved' if args.save else ''}.json").write_text(
             json.dumps(times))
         return
@@ -306,26 +543,34 @@ def main() -> None:
         child = work / who
         subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
                         "--other", str(other), "--child", str(child)]
-                       + (["--save"] if save else []),
+                       + (["--save"] if save else [])
+                       + ([f"--only={args.only}"] if args.only else []),
                        cwd=root, env=env, check=True)
         name = "times-saved.json" if save else "times.json"
         runs.setdefault(who, []).append(json.loads((child / name).read_text()))
     a = torch.load(work / "other" / "outputs.pt")
     b = torch.load(work / "this" / "outputs.pt")
     equal = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
-             for k in a}
+             for k in a if not k.endswith(" summed")}
+    summed = {k: [_norm_rel(y, x) for x, y in zip(a[k], b[k])]
+              for k in a if k.endswith(" summed")}
+    budget = {k: TURB_NORM_REL if k.startswith("K9") else TAB_NORM_REL
+              for k in summed}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     report = dict(card=smi, other=str(other), bitwise_equal=equal,
+                  summed_norm_rel=summed, summed_budget=budget,
                   ms={who: {k: [r[k] for r in rs] for k in rs[0]}
                       for who, rs in runs.items()})
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(json.dumps(report))
-    if not all(equal.values()):
+    over = [k for k, v in summed.items() if max(v) > budget[k]]
+    if not all(equal.values()) or over:
         raise SystemExit(f"outputs differ: "
-                         f"{[k for k, v in equal.items() if not v]}")
+                         f"{[k for k, v in equal.items() if not v]}; "
+                         f"beyond their budgets: {over}")
 
 
 if __name__ == "__main__":

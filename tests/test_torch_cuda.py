@@ -376,6 +376,106 @@ def test_turbulence_vjp_kernel_matches_plain(cuda):
         assert float((a - b).norm() / b.norm()) <= 1e-4
 
 
+@pytest.mark.parametrize("n, share", [
+    (5, 1.0),                          # fewer points than a warp
+    (3 * 256 + 17, 0.02),              # ragged windows, mostly dead
+    (200_003, 0.02),                   # many windows, mostly dead
+    (100_000, 0.0),                    # all dead
+])
+def test_turbulence_vjp_kernel_sparse_and_ragged(cuda, n, share):
+    """K9's persistent warps on masks that are mostly dead and on point
+    counts that are no multiple of its block or window: each dead point's
+    d_p exactly 0, each live point's within norm_rel 1e-4 of the plain
+    version (as d_grad), and the launch alone on operands built beforehand
+    gives the call's d_p bit for bit."""
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+
+    scene, _, _ = generate_scene("two_perlin_spheres", 1.5)
+    g, pm = scene.textures.perlin_grad, scene.textures.perlin_perm
+    rng = np.random.default_rng(n)
+    p = torch.from_numpy((rng.normal(size=(n, 3)) * 7).astype(np.float32))
+    live = torch.from_numpy(rng.random(n) < share)
+    p, live = p.to(cuda), live.to(cuda)
+    ct = torch.randn(n, device=cuda)
+    before = pt.TURB_VJP_LAUNCHES
+    dg, dp = pt.turbulence_vjp(g, pm, p, ct, 7, live)
+    assert pt.TURB_VJP_LAUNCHES == before + 1
+    rg, rp = pt.turbulence_vjp_reference(g, pm, p, ct, 7, live)
+    assert bool((dp[~live] == 0).all()) and bool(torch.isfinite(dp).all())
+    for a, b in ((dg, rg), (dp, rp)):
+        if bool(live.any()):
+            assert float((a - b).norm() / b.norm()) <= 1e-4
+        else:
+            assert not a.any()
+    ops = pt.vjp_operands(g, pm, p, ct, live)
+    assert torch.equal(pt._launch_vjp(ops)[1], dp)
+    assert torch.equal(pt._launch_vjp(ops)[1], dp)    # the counter re-zeroed
+    assert pt.TURB_VJP_LAUNCHES == before + 1
+
+
+def test_deferred_replay_bwd_lane_order(cuda):
+    """K7 on two_perlin_spheres at 64x36x4 d6 with the combine's real
+    cotangents: the same lanes handed over in another order (the plain twin
+    of its sweep order, and that reversed) give every lane's d_o, d_d and
+    d_time bit for bit at the lane's own index, and the table and
+    background cotangents within 1e-5 of each other; against its plain
+    version with K2's budgets, the lanes held out as in
+    test_deferred_replay_bwd_kernel_matches_reference."""
+    from raytracer_weekend_tpu_torch import fused_diff
+
+    scene, static, cfg, cam = _frame("two_perlin_spheres", cuda)
+    n = cfg.n_rays
+    rad, _, codes, *recs = mk.render_fused(
+        scene, cfg, cam, 0, n, cfg.seed, static=static, emit_paths=True,
+        emit_deferred=True)
+    g, cabc, _ = fused_diff.combine_vjp(scene, static, recs, 2.0 * rad, [])
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    ktab = replay_bwd.pack_ktab(scene)
+
+    def k7(perm, g_=g, c_=cabc):
+        return replay_bwd.replay_bwd_fused(
+            ktab, None, scene.background, cfg, o[perm], d[perm], t[perm],
+            rid[perm], cfg.seed, codes[perm], g_[perm], n, cabc=c_[perm])
+
+    ident = torch.arange(n, device=cuda)
+    ref = k7(ident)
+    sweep = replay_bwd.sweep_order(codes, static.n_spheres, 0)
+    for perm in (sweep, sweep.flip(0)):
+        got = k7(perm)
+        for k in (2, 3, 4):
+            back = torch.empty_like(got[k])
+            back[perm] = got[k]
+            assert torch.equal(back, ref[k])
+        for k in (0, 5):
+            assert float((got[k] - ref[k]).norm()) <= \
+                1e-5 * float(ref[k].norm())
+    assert float(ref[2].abs().max()) > 0     # noise records reach the rays
+
+    def plain(g_, c_, dtype=torch.float32, rays=(o, d)):
+        def cast(x):
+            return None if x is None else x.to(dtype)
+        return replay_bwd.replay_bwd_reference(
+            cast(ktab), None, cast(scene.background), cfg, *map(cast, rays),
+            cast(t), rid, cfg.seed, codes, cast(g_), cast(c_))
+
+    wit = plain(g, cabc, torch.float64)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    jit = tuple(x.double() * (1.0 + 2.0 ** -23 * (2 * torch.randint(
+        0, 2, x.shape, device=cuda, generator=gen) - 1)) for x in (o, d))
+    held = ((codes != _float64_codes(scene, static, cfg, o, d, t, rid)).any(1)
+            | _ill(plain(g, cabc), wit)
+            | _ill(plain(g, cabc, torch.float64, jit), wit))
+    assert int(held.sum()) <= max(4, n // 100)
+    keep = (~held).to(g.dtype)[:, None, None]
+    got = k7(ident, g * keep, cabc * keep)
+    for r in (plain(g * keep, cabc * keep),
+              plain(g * keep, cabc * keep, torch.float64)):
+        for g_, r_ in zip(got, r):
+            if r_ is not None:
+                _agree(g_.double(), r_.double())
+
+
 @pytest.mark.parametrize("name", DEFERRED)
 def test_deferred_kernel_matches_plain(cuda, name):
     """K6a: the records and the combined radiance against the plain version
