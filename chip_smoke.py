@@ -41,10 +41,12 @@ holds each against its plain torch version first. Phases, one line each
      bits), on an adversarial set and 2^24 random cases per t_min; K3
      against its plain version with the planar budgets of
      tests/test_megakernel.py:119-128 on cornell_box (full size, plain in
-     2^17-lane windows), simple_triangle, mesh_shards and the monument
+     2^17-lane windows), simple_triangle, mesh_shards, the suspension
+     (17,190 triangles, plain in 2^11-lane windows) and the monument
      (64x36, 4 spp, depth 6) and the cow (160x90, 4 spp, depth 8, plain in
-     2^12-lane windows); then render_image on cornell_box, the cow and the
-     textured monument at full size with the planar launch count reset
+     2^12-lane windows); then render_image on cornell_box, the cow, the
+     suspension and the textured monument at full size with the planar
+     launch count reset
      just before each: frame time, segments per frame and segments/s, PNGs
      to build/; and each scene's render_fused ms a launch (its K3 entry);
   8. the planar training path: K3-emit on cornell_box (bitwise K3's
@@ -77,9 +79,11 @@ holds each against its plain torch version first. Phases, one line each
      the budgets of tests/test_megakernel.py:214-258 on smokey_cornell_box
      (full size) and sphere_medium (64x36), and of
      :359-381 on book2 at 160x90, 4 spp, depth 8 (its plain version alone
-     would take minutes at full size); render_image of smokey_cornell_box
-     and book2 at full size with the launch counts reset just before (K5,
-     and K3's book2 entry);
+     would take minutes at full size); the media kernel (persistent warps,
+     tables from global memory) as compiled: block, registers of its
+     instantiations (no spills), each scene's resident blocks;
+     render_image of smokey_cornell_box and book2 at full size with the
+     launch counts reset just before (K5, and K3's book2 entry);
  12. the depth-phased render (K6b), a group of G lanes per ray: on
      bench.py's book2_criterion and jumpy_balls at depth 20, bitwise the
      single-pass launch with G forced to each of 1, 2, ..., 32 and chosen
@@ -689,7 +693,7 @@ def main() -> None:
     kernels += [*k3, planar_training(dev, smi, cornell)]
     k6a, k8, frames = deferred_forward(dev, smi)
     kernels += [k6a, k8, *deferred_training(dev, smi, frames)]
-    k5, k3_book2, smokey = volume_forward(dev, smi)
+    k5, k3_book2, smokey = volume_forward(dev, smi, log)
     kernels += [k5, k3_book2, *deep_phases(dev, smi)]
     volume_training(dev, smi, smokey)
     kernels += staged_path(dev, smi)
@@ -840,8 +844,10 @@ FULL = dict(width=400, height=225, samples_per_pixel=16, max_depth=8)
 COW_REDUCED = dict(width=160, height=90, samples_per_pixel=4, max_depth=8)
 SMALL = dict(width=64, height=36, samples_per_pixel=4, max_depth=6)
 # The cow's plain version tests every lane against all 5,805 planar
-# primitives at once: (B, T) planes of 2^12 lanes stay near 100 MB each.
+# primitives at once: (B, T) planes of 2^12 lanes stay near 100 MB each;
+# the suspension's 17,190 triangles take 2^11-lane windows for the same.
 COW_CHUNK = 1 << 12
+SUSPENSION_CHUNK = 1 << 11
 
 
 def load_scene(name, size, dev):
@@ -914,8 +920,9 @@ def candidate_check(dev):
 
 
 def planar_forward(dev, smi):
-    """Phase 7: K3 against its plain version on five scenes, then the
-    forward main path on cornell_box, the cow and the monument. Returns the
+    """Phase 7: K3 against its plain version on six scenes, then the
+    forward main path on cornell_box, the cow, the suspension and the
+    monument. Returns the
     kernels line's K3 entries, one a scene, and cornell_box's (scene,
     static, cfg, cam, rad, seg)."""
     import torch
@@ -929,6 +936,8 @@ def planar_forward(dev, smi):
                                ("simple_triangle", SMALL, PLAIN_CHUNK),
                                ("mesh_shards", SMALL, PLAIN_CHUNK),
                                ("wavefront_cow_obj", COW_REDUCED, COW_CHUNK),
+                               ("wavefront_suspension_obj", SMALL,
+                                SUSPENSION_CHUNK),
                                ("textured_monument", SMALL, COW_CHUNK)):
         scene, static, cfg, cam = load_scene(name, size, dev)
         k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
@@ -949,7 +958,8 @@ def planar_forward(dev, smi):
         raise AssertionError(f"K3 vs plain outside budgets: {failed}")
 
     k3 = []
-    for name in ("cornell_box", "wavefront_cow_obj", "textured_monument"):
+    for name in ("cornell_box", "wavefront_cow_obj",
+                 "wavefront_suspension_obj", "textured_monument"):
         scene, static, cfg, cam = load_scene(name, FULL, dev)
         k_rad, k_seg = mk.render_fused(scene, cfg, cam, 0, cfg.n_rays,
                                        cfg.seed, static=static)
@@ -969,8 +979,9 @@ def planar_forward(dev, smi):
               f"{segs / (med / 1e3):.4e} segments/s; image -> {png}",
               flush=True)
         # The plain version at full size: cornell_box's, in windows; the
-        # cow and the monument would take minutes (their plain check above
-        # is at a reduced size, whose error the entry carries).
+        # cow, the suspension and the monument would take minutes (their
+        # plain check above is at a reduced size, whose error the entry
+        # carries).
         plain = None
         if name == "cornell_box":
             def plain():
@@ -998,14 +1009,17 @@ def k3_entry(name, scene, static, cfg, cam, k_seg, launches, err, plain,
     plain_ms = None if plain is None else _cuda_ms(plain, 1)
     R = static.n_rects + static.n_triangles
     blocks = mk.resident_blocks(static, scene.device, phase=False)
+    kernel = (f"render_kernel, {mk.BLOCK} threads and {mk.TILE_BYTES} B of "
+              f"planar tiles a block"
+              if mk.fused_kernel(R, static.n_volumes, False) == "render_kernel"
+              else f"media_kernel, {mk.MEDIA_BLOCK} threads a block")
     print(f"phase K3 timing {name} {cfg.width}x{cfg.height} spp "
           f"{cfg.samples_per_pixel} depth {cfg.max_depth} ({static.n_spheres}"
           f" spheres, {R} planar rows, {static.n_volumes} media): "
           f"render_fused {call_ms:.3f} ms a call, the launch alone "
           f"{ms:.3f} ms, plain "
           f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}; "
-          f"{blocks} resident blocks of {mk.BLOCK} threads an SM with "
-          f"{mk.TILE_BYTES} B of planar tiles each (median; {smi})",
+          f"{blocks} resident blocks an SM of {kernel} (median; {smi})",
           flush=True)
     return bound({
         "name": f"megakernel_planar_forward[{name}]",
@@ -1736,16 +1750,18 @@ BOOK2_TIMING_CHUNK = 1 << 14
 BOOK2_DIFF = dict(width=400, height=225, samples_per_pixel=4, max_depth=8)
 
 
-def volume_forward(dev, smi):
+def volume_forward(dev, smi, log):
     """Phase 11: K5 against its plain version with the budgets of
     tests/test_megakernel.py:214-258 on smokey_cornell_box (full size, plain
     in 2^17-lane windows) and sphere_medium (64x36, 4 spp, depth 6), and
     of :359-381 on book2 at 160x90, 4 spp, depth 8 (its plain version in
-    2^12-lane windows: at full size it alone would take minutes); then the
-    forward main path, render_image of smokey_cornell_box and book2 at full
-    size with the launch counts reset just before each. Returns the kernels
-    line's K5 entry, K3's book2 entry and smokey's (scene, static, cfg,
-    cam, rad, seg)."""
+    2^12-lane windows: at full size it alone would take minutes); the media
+    kernel as compiled (block, registers of its instantiations: raises on a
+    spill) and each scene's resident blocks; then the forward main path,
+    render_image of smokey_cornell_box and book2 at full size with the
+    launch counts reset just before each. Returns the kernels line's K5
+    entry, K3's book2 entry and smokey's (scene, static, cfg, cam, rad,
+    seg)."""
     import torch
 
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
@@ -1773,6 +1789,7 @@ def volume_forward(dev, smi):
         frames[name] = (scene, static, cfg, cam, k_rad, k_seg, window, stats)
     if failed:
         raise AssertionError(f"K5 vs plain outside budgets: {failed}")
+    media_design(log, dev, frames)
 
     scene, static, cfg, cam, k_rad, k_seg, window, sstats = \
         frames["smokey_cornell_box"]
@@ -1830,6 +1847,29 @@ def volume_forward(dev, smi):
                      sstats["kernel_segments"], 0,
                      s_static.n_rects + s_static.n_triangles,
                      V=s_static.n_volumes)), k3_book2, smokey
+
+
+def media_design(log, dev, frames):
+    """The media kernel as compiled (see volume_forward)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    regs = [r for r in ptxas_registers(log) if r.startswith("media_kernel")]
+    if len(regs) != 4 or any("spills" in r for r in regs):
+        raise AssertionError(f"media_kernel instantiations: {regs}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"phase 11 the media kernel as compiled: block {mk.MEDIA_BLOCK}, "
+          f"one lane slot a thread, tables from global memory; registers "
+          f"(ptxas, <emit,defer>): {' | '.join(regs)}", flush=True)
+    for name, (scene, static, cfg, *_rest) in frames.items():
+        print(f"phase 11 {name} {cfg.width}x{cfg.height} spp "
+              f"{cfg.samples_per_pixel} depth {cfg.max_depth} "
+              f"({static.n_spheres} spheres, "
+              f"{static.n_rects + static.n_triangles} planar rows, "
+              f"{static.n_volumes} media): "
+              f"{mk.resident_blocks(static, dev, phase=False)} resident "
+              f"blocks an SM on {sms} SMs", flush=True)
 
 
 def deep_phases(dev, smi):

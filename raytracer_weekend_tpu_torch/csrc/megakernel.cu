@@ -1,11 +1,13 @@
 // The fused forward kernel's C entry and its instantiations without media
-// or phases; the kernel itself is csrc/megakernel.cuh, the media and phased
-// instantiations are in megakernel_vp.cu (compiled by a second nvcc).
+// or phases; the kernels themselves are csrc/megakernel.cuh, the phased
+// instantiations are in megakernel_vp.cu and the single pass with media in
+// megakernel_media.cu (each compiled by an nvcc of its own).
 #include "megakernel.cuh"
 
 namespace rtw {
 
 RTW_VP_LAUNCHERS(extern)
+RTW_MEDIA_LAUNCHERS(extern)
 
 __global__ void rand4_kernel(const uint32_t* __restrict__ ids, int n,
                              uint32_t depth, uint32_t salt, uint32_t seed,
@@ -43,10 +45,11 @@ cudaError_t launch_modes(const float* tab, const float* ptab,
       tab, ptab, ptest, par, L, X, rad, seg, nullptr, rec, st, occ);
 }
 
-// The sphere-only single pass's operands: the packed rows (n_spheres x 3
-// float4), 1/0 to keep them in shared memory or not (-1: by
-// kSphereRowLimit), the launch's lane counter (zeroed) and the records as
-// one (n_chunk x max_depth) array of 32-byte rows, or null.
+// The persistent single passes' operands (sphere_kernel, media_kernel):
+// the packed sphere rows (n_spheres x 3 float4), for sphere_kernel 1/0 to
+// keep them in shared memory or not (-1: by kSphereRowLimit), the launch's
+// lane counter (zeroed) and, for sphere_kernel, the records as one
+// (n_chunk x max_depth) array of 32-byte rows, or null.
 struct SphereOps {
   const float4* rows;
   int resident;
@@ -74,12 +77,23 @@ cudaError_t dispatch(const float* tab, const float* ptab, const float4* ptest,
     return launch_spheres<false, false>(tab, P.rows, par, L, P.resident, rad,
                                         seg, codes, P.recs, P.next, st, occ);
   }
-  if (vol && phase)
+  if (vol && !phase) {
+    const MediaTables T{X.vtab, P.rows, ptest};
+    if (codes && defer)
+      return launch_media<true, true>(tab, ptab, T, par, L, X, rad, seg,
+                                      codes, rec, P.next, st, occ);
+    if (codes)
+      return launch_media<true, false>(tab, ptab, T, par, L, X, rad, seg,
+                                       codes, rec, P.next, st, occ);
+    if (defer)
+      return launch_media<false, true>(tab, ptab, T, par, L, X, rad, seg,
+                                       codes, rec, P.next, st, occ);
+    return launch_media<false, false>(tab, ptab, T, par, L, X, rad, seg,
+                                      codes, rec, P.next, st, occ);
+  }
+  if (vol)
     return launch_modes<true, true>(tab, ptab, ptest, par, L, X, rad, seg,
                                     codes, rec, defer, st, occ);
-  if (vol)
-    return launch_modes<true, false>(tab, ptab, ptest, par, L, X, rad, seg,
-                                     codes, rec, defer, st, occ);
   if (phase)
     return launch_modes<false, true>(tab, ptab, ptest, par, L, X, rad, seg,
                                      codes, rec, defer, st, occ);
@@ -112,6 +126,10 @@ extern "C" {
 // defers into `recs` (n_chunk x max_depth x 8 f32: ctb, abc.x; abc.y,
 // abc.z, dcode's bits, 0) in place of ctb, abc and dcode; `resident` 1 or 0
 // keeps the rows in shared memory or not, -1 leaves it to the row count.
+// A single pass with media (no `st_out`) is media_kernel's: it reads
+// `srows` too (when n_spheres > 0), claims lanes from `next` and defers
+// into ctb, abc and dcode; `resident` is -1 there and in every other
+// launch.
 // Returns the launch's CUDA error (0 on success); it does not sync.
 int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                      const float* ptest, int n_planar, const float* vtab,
@@ -134,6 +152,12 @@ int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                   next == nullptr || resident < -1 || resident > 1 ||
                   ctb != nullptr || ((uintptr_t)recs & 15) != 0))
     return (int)cudaErrorInvalidValue;
+  const bool media = vol && !phase;
+  if (media && (next == nullptr || recs != nullptr ||
+                (n_spheres > 0 && (srows == nullptr ||
+                                   ((uintptr_t)srows & 15) != 0))))
+    return (int)cudaErrorInvalidValue;
+  if (!spheres && resident != -1) return (int)cudaErrorInvalidValue;
   const bool defer = spheres ? recs != nullptr : ctb != nullptr;
   if (!spheres && defer && (abc == nullptr || dcode == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -162,13 +186,15 @@ int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
 // Resident blocks per SM (into *blocks) of the launch without codes that
 // the scene's families select (`defer` for a deferring scene, `phase` for
 // a phased one), at its shared memory: for a sphere-only single pass, that
-// of n_spheres packed rows when they fit kSphereRowLimit.
+// of n_spheres packed rows when they fit kSphereRowLimit; for a media
+// single pass, media_kernel's (no shared memory).
 int rtw_render_occupancy(int n_spheres, int n_planar, int n_volumes,
                          int defer, int phase, int* blocks) {
   rtw::Launch L{};
   L.n_spheres = n_spheres;
   L.n_planar = n_planar;
   rtw::Extra X{};
+  X.n_volumes = n_volumes;
   X.group = 1;
   const rtw::Records rec{};
   const rtw::SphereOps P{nullptr, -1, nullptr, nullptr};

@@ -3,8 +3,9 @@
 // (axis-aligned rects and triangles in one table) and
 // constant-density media (kVol), with noise and image texels deferred to
 // the host (kDefer) and the lane state written out and read back between
-// depth phases (kPhase). The template lives here; megakernel.cu and
-// megakernel_vp.cu instantiate it, so that two nvcc processes compile it.
+// depth phases (kPhase). The templates live here; megakernel.cu,
+// megakernel_vp.cu and megakernel_media.cu instantiate them, so that three
+// nvcc processes compile them.
 //
 // Replaces: raytracer_weekend_tpu/ops/pallas/megakernel.py:_kernel, its
 // sphere branch (has_sph: K1, and K1-emit with emit_paths=True), its planar
@@ -101,6 +102,11 @@
 //   direct form (one lerp of the center, two dots, a compare on the
 //   discriminant, the square root behind `disc > 0`) over the
 //   structure-of-arrays table read through `const __restrict__`.
+// - The single-pass media launches (K5, K5-emit, K6a on media scenes) are
+//   their own kernel too, media_kernel below, on sphere_kernel's scheme:
+//   persistent warps that refill dead lanes, the volume, sphere and planar
+//   tables read from global memory through L1 and L2 (see the note above
+//   media_kernel). render_kernel keeps media for the phased launches only.
 // - The planar loop (K3, every launch with planar rows): the block stages
 //   the packed plane rows (nx, ny, nz, k), one float4 each, in 512-row
 //   tiles of dynamic shared memory by cp.async, double-buffered, so the
@@ -140,7 +146,8 @@
 //
 // Build (the wrapper does this at first use, see ops/cuda/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o librtw.so megakernel.cu megakernel_vp.cu
+//        -Xcompiler -fPIC -o librtw.so megakernel.cu megakernel_vp.cu \
+//        megakernel_media.cu
 #pragma once
 
 #include <cuda_runtime.h>
@@ -354,6 +361,8 @@ render_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
   // join every barrier and shuffle.
   static_assert(kPla || kPhase,
                 "the sphere-only single pass is sphere_kernel's");
+  static_assert(!kVol || kPhase,
+                "the single pass with media is media_kernel's");
   const int G = kPhase ? X.group : 1;    // lanes per ray, a power of two
   const int tid = blockIdx.x * kBlock + threadIdx.x;
   const int i = kPhase ? tid / G : tid;  // the ray (lane of the frame)
@@ -1372,11 +1381,515 @@ cudaError_t launch_spheres(const float* tab, const float4* rows,
                                            recs, next, stream, occ);
 }
 
+// ---- The media single-pass launches (K5, K5-emit, K6a with media) -----------
+//
+// What held render_kernel back there (PERF.md §6, the parts compiled out one
+// by one): the block walked the bounces together (__syncthreads_or), so all
+// 128 lanes of a block stayed until its longest lane ended, and in a closed
+// room with a light lanes end at every depth; each bounce staged the planar
+// rows in cp.async tiles behind two barriers, for six rows in smokey's
+// case; and each live lane read the medium's ~20 scalars from global
+// memory. So, as sphere_kernel does for sphere scenes:
+// - Persistent warps on the resident blocks claim lanes from a per-launch
+//   counter with one warp-aggregated atomicAdd and refill dead slots (a
+//   thread holds one lane slot). A lane that ends writes its outputs and
+//   its zero tail at its own index.
+// - The volume table, the packed sphere rows (build_sphere_rows) and the
+//   packed planar rows (build_planar_test: the (n, k) test rows, then the
+//   in-plane rows) are read from global memory; L1 and L2 hold them, and
+//   no barrier is taken. Measured on an H100 80GB HBM3 at 700 W (PERF.md
+//   §6), staging them in shared memory for the block's life was no faster
+//   on smokey's 560 B (0.326 against 0.320 ms a launch) and slower on
+//   book2's 202 KB (178 ms, one block an SM, against 59), and
+//   render_kernel's tile walk took 0.347 and 102 ms.
+// What bounds it now (PERF.md §6): the per-segment arithmetic (each
+// medium's frame change, slab reciprocals, PCG4D draw and logf; the planar
+// rows; the shading) and the lanes of a warp taking different branches
+// (medium or surface, each medium hit or missed), not the walk or the
+// tables: the probe's parts together were worth ~10% on smokey.
+// Each lane's arithmetic and random keys are render_kernel's kVol
+// instantiations', with every add and multiply those fused into an FMA
+// (read from their SASS, nvdisasm with line information) written out with
+// __fmaf_rn / __fmul_rn / __fadd_rn, so that every output is bitwise theirs
+// and nvcc's contraction cannot move: the primary ray, the sphere and
+// shading code as sphere_kernel has them (except |d|^2 = fma(dz, dz,
+// fma(dx, dx, dy dy)), its dy dy shared with the medium's |d'|^2), and in
+// the planar and volume tests each three-term dot as fma(a2, b2, fma(a0,
+// b0, a1 b1)), the Y-rotation's four sums of products each with one
+// product fused, and the discriminants as fma(h, h, -(a c)).
+constexpr int kMediaBlock = 128;  // threads a block, one lane slot each
+
+// What one media launch reads: the volume table (V x N_VCOLS floats), the
+// packed sphere rows (S x 3 float4) and the packed planar rows (R plane
+// rows (n, k), then R x 3 in-plane rows).
+struct MediaTables {
+  const float* __restrict__ vt;
+  const float4* __restrict__ srows;
+  const float4* __restrict__ ptest;
+};
+
+// The slot's lane has ended after `nseg` bounces with radiance (rr, rg,
+// rb): its outputs and the zero tail of its codes and records; the slot is
+// freed.
+template <bool kEmit, bool kDefer>
+__device__ __forceinline__ void media_end(Lane& y, int nseg, float rr,
+                                          float rg, float rb, const Launch& L,
+                                          float* __restrict__ rad,
+                                          int* __restrict__ seg,
+                                          int* __restrict__ codes,
+                                          const Records& rec) {
+  const long long i = y.i;
+  const int D = L.max_depth;
+  rad[3 * i + 0] = rr;
+  rad[3 * i + 1] = rg;
+  rad[3 * i + 2] = rb;
+  seg[i] = nseg;
+  if constexpr (kEmit) {
+    for (int k = nseg; k < D; ++k) codes[i * D + k] = 0;
+  }
+  if constexpr (kDefer) {
+    for (int k = nseg; k < D; ++k)
+      put_record(rec, i * D + k, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
+  }
+  y.i = -1;
+}
+
+// One bounce of a live slot's lane: the closest sphere, planar primitive
+// and medium scatter, then the miss, the isotropic scatter or the surface's
+// hit record, texture, record and scatter (render_kernel's kVol branch).
+template <bool kEmit, bool kDefer>
+__device__ __forceinline__ void media_bounce(
+    Lane& y, const MediaTables& T, const float* __restrict__ tab,
+    const float* __restrict__ ptab, const float* __restrict__ par,
+    const Launch& L, const Extra& X, float* __restrict__ rad,
+    int* __restrict__ seg, int* __restrict__ codes, const Records& rec) {
+  const int k = y.k;
+  const int S = L.n_spheres;
+  const int R = L.n_planar;
+  const long long at = (long long)y.i * L.max_depth + k;
+  const uint32_t rid = (uint32_t)(L.lane_start + y.i);
+  const uint32_t depth = (uint32_t)k;
+  const float dy2 = __fmul_rn(y.dy, y.dy);
+  const float a = __fmaf_rn(y.dz, y.dz, __fmaf_rn(y.dx, y.dx, dy2));
+
+  // ---- closest sphere: strict < keeps the first minimum ------------------
+  float best = INFINITY;
+  int win = -1;
+  if (S > 0) {
+    const float inv_a = 1.0f / a;
+    const float3 rt = make_float3(
+        a, __fmaf_rn(y.oz, y.oz, __fmaf_rn(y.oy, y.oy, __fmul_rn(y.ox, y.ox))),
+        __fmaf_rn(y.dz, y.oz, __fmaf_rn(y.dy, y.oy, __fmul_rn(y.dx, y.ox))));
+    for (int s = 0; s < S; ++s)
+      sphere_row(y, rt, inv_a, T.srows[kSphereQ * s + 0],
+                 T.srows[kSphereQ * s + 1], T.srows[kSphereQ * s + 2],
+                 L.t_min, s, best, win);
+  }
+
+  // ---- closest planar primitive, against the sphere winner's t ----------
+  bool planar = false;       // the winner is planar primitive `win`
+  float bu = 0.f, bv = 0.f;  // its in-plane / barycentric coordinates
+  for (int r = 0; r < R; ++r) {
+    const float4 pl = T.ptest[r];  // (nx, ny, nz, k)
+    const float num = __fsub_rn(
+        pl.w, __fmaf_rn(pl.z, y.oz,
+                        __fmaf_rn(pl.x, y.ox, __fmul_rn(pl.y, y.oy))));
+    const float den = __fmaf_rn(pl.z, y.dz,
+                                __fmaf_rn(pl.x, y.dx, __fmul_rn(pl.y, y.dy)));
+    if (!plane_candidate(num, den, L.t_min, best)) continue;
+    const float t = num / den;
+    if (t >= L.t_min && t < best) {  // NaN (a padded row) fails
+      const float4* __restrict__ in = T.ptest + R + 3 * r;
+      const float4 ua = in[0], ub = in[1];  // (ua, ca), (ub, cb)
+      const float flag = in[2].x;
+      const float hx = __fmaf_rn(t, y.dx, y.ox);
+      const float hy = __fmaf_rn(t, y.dy, y.oy);
+      const float hz = __fmaf_rn(t, y.dz, y.oz);
+      const float u = __fadd_rn(
+          __fmaf_rn(ua.z, hz, __fmaf_rn(ua.x, hx, __fmul_rn(ua.y, hy))),
+          ua.w);
+      const float v = __fadd_rn(
+          __fmaf_rn(ub.z, hz, __fmaf_rn(ub.x, hx, __fmul_rn(ub.y, hy))),
+          ub.w);
+      if (u >= 0.f && v >= 0.f && v <= 1.f && __fmaf_rn(flag, v, u) <= 1.f) {
+        best = t;
+        win = r;
+        planar = true;
+        bu = u;
+        bv = v;
+      }
+    }
+  }
+
+  // ---- closest medium scatter, against the surfaces' best (ops/volume) ---
+  int vwin = -1;
+  const float ray_len = sqrtf(a);
+  const float ivy = 1.0f / y.dy;
+  for (int v = 0; v < X.n_volumes; ++v) {
+    const float* __restrict__ vp = T.vt + v * N_VCOLS;
+    if (vp[V_VALID] == 0.f) continue;
+    const float cth = vp[V_COS], sth = vp[V_SIN];
+    const float otx = __fsub_rn(y.ox, vp[V_OFFX]);
+    const float oty = __fsub_rn(y.oy, vp[V_OFFY]);
+    const float otz = __fsub_rn(y.oz, vp[V_OFFZ]);
+    const float oox = __fmaf_rn(cth, otx, -__fmul_rn(sth, otz));
+    const float ooz = __fmaf_rn(sth, otx, __fmul_rn(cth, otz));
+    const float odx = __fmaf_rn(cth, y.dx, -__fmul_rn(sth, y.dz));
+    const float odz = __fmaf_rn(cth, y.dz, __fmul_rn(sth, y.dx));
+    float enter, exitt;
+    bool ok;
+    if (vp[V_ISBOX] != 0.f) {  // slab test
+      const float ivx = 1.0f / odx, ivz = 1.0f / odz;
+      const float tx0 = __fmul_rn(__fsub_rn(vp[V_B0X], oox), ivx);
+      const float tx1 = __fmul_rn(__fsub_rn(vp[V_B1X], oox), ivx);
+      const float ty0 = __fmul_rn(__fsub_rn(vp[V_B0Y], oty), ivy);
+      const float ty1 = __fmul_rn(__fsub_rn(vp[V_B1Y], oty), ivy);
+      const float tz0 = __fmul_rn(__fsub_rn(vp[V_B0Z], ooz), ivz);
+      const float tz1 = __fmul_rn(__fsub_rn(vp[V_B1Z], ooz), ivz);
+      enter = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
+                      nan_min(tz0, tz1));
+      exitt = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
+                      nan_max(tz0, tz1));
+      ok = enter < exitt;
+    } else {  // the sphere's roots
+      const float ocx = __fsub_rn(oox, vp[V_CX]);
+      const float ocy = __fsub_rn(oty, vp[V_CY]);
+      const float ocz = __fsub_rn(ooz, vp[V_CZ]);
+      const float ao = __fmaf_rn(odz, odz, __fmaf_rn(odx, odx, dy2));
+      const float hb =
+          __fmaf_rn(ocz, odz, __fmaf_rn(ocx, odx, __fmul_rn(y.dy, ocy)));
+      const float ct = __fsub_rn(
+          __fmaf_rn(ocz, ocz, __fmaf_rn(ocx, ocx, __fmul_rn(ocy, ocy))),
+          vp[V_R2]);
+      const float disc = __fmaf_rn(hb, hb, -__fmul_rn(ao, ct));
+      ok = disc > 0.f;
+      const float sq = sqrtf(ok ? disc : 1.0f);
+      const float iao = 1.0f / ao;
+      enter = __fmul_rn(__fsub_rn(-hb, sq), iao);
+      exitt = __fmul_rn(__fadd_rn(-hb, sq), iao);
+    }
+    const float t1c = nan_max(enter, L.t_min);
+    if (!(ok && t1c < exitt)) continue;
+    const float tin = fmaxf(t1c, 0.f);
+    const float dist_in = __fmul_rn(__fsub_rn(exitt, tin), ray_len);
+    float u = rand4(L.seed, rid, depth, SALT_VOLUME + v).x;
+    u = fminf(fmaxf(u, 1e-12f), 1.0f);
+    const float hd = __fmul_rn(vp[V_NID], __fmul_rn(logf(u), X.log_scale));
+    if (!(hd <= dist_in)) continue;
+    const float tv = __fadd_rn(tin, hd / ray_len);
+    if (tv < best) {
+      best = tv;
+      vwin = v;
+    }
+  }
+
+  if (win < 0 && vwin < 0) {  // miss -> background, terminate
+    const float br = par[P_BACKGROUND + 0], bg = par[P_BACKGROUND + 1],
+                bb = par[P_BACKGROUND + 2];
+    if constexpr (kEmit) codes[at] = 0;
+    if constexpr (kDefer)
+      put_record(rec, at, __fmul_rn(y.tpr, br), __fmul_rn(y.tpg, bg),
+                 __fmul_rn(y.tpb, bb), 0.f, 0.f, 0.f, 0);
+    media_end<kEmit, kDefer>(y, k + 1, __fmaf_rn(y.tpr, br, 0.f),
+                             __fmaf_rn(y.tpg, bg, 0.f),
+                             __fmaf_rn(y.tpb, bb, 0.f), L, rad, seg, codes,
+                             rec);
+    return;
+  }
+
+  // The scatter point: a medium's scatter or the surface's hit point.
+  const bool medium = vwin >= 0;
+  const float px = __fmaf_rn(best, y.dx, y.ox);
+  const float py = __fmaf_rn(best, y.dy, y.oy);
+  const float pz = __fmaf_rn(best, y.dz, y.oz);
+  float nx = 0.f, ny = 0.f, nz = 0.f, tr = 1.f, tg = 1.f, tb = 1.f;
+  float ux = 0.f, uy = 0.f, uz = 0.f, udn = 0.f;
+  float mtype = 0.f;  // the surface's material
+  bool front = true;
+  const float* __restrict__ col = nullptr;
+  int st = 0;
+  if (medium) {  // medium scatter: isotropic over the solid albedo
+    if constexpr (kEmit) codes[at] = 3 + 4 * vwin;
+    if constexpr (kDefer)
+      put_record(rec, at, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
+  } else {
+    if constexpr (kEmit) codes[at] = planar ? 2 + 4 * win : 1 + 4 * win;
+
+    // ---- hit record (ops.sphere.sphere_record / the planar affine) -------
+    // The winner's column, and the row stride of its table.
+    col = planar ? ptab + win : tab + win;
+    st = planar ? R : S;
+    if (planar) {  // raw barycentric shading normal
+      nx = __fmaf_rn(bv, col[NSVX * st], __fmaf_rn(bu, col[NSUX * st],
+                                                   col[NS0X * st]));
+      ny = __fmaf_rn(bv, col[NSVY * st], __fmaf_rn(bu, col[NSUY * st],
+                                                   col[NS0Y * st]));
+      nz = __fmaf_rn(bv, col[NSVZ * st], __fmaf_rn(bu, col[NSUZ * st],
+                                                   col[NS0Z * st]));
+    } else {
+      const float w = __fsub_rn(y.time, col[T0 * S]) / col[DT * S];
+      const float r = col[RADIUS * S];
+      nx = __fsub_rn(px, __fmaf_rn(w, col[DCX * S], col[C0X * S])) / r;
+      ny = __fsub_rn(py, __fmaf_rn(w, col[DCY * S], col[C0Y * S])) / r;
+      nz = __fsub_rn(pz, __fmaf_rn(w, col[DCZ * S], col[C0Z * S])) / r;
+    }
+    front =
+        __fmaf_rn(y.dz, nz, __fmaf_rn(y.dx, nx, __fmul_rn(y.dy, ny))) < 0.f;
+    if (!front) {
+      nx = -nx;
+      ny = -ny;
+      nz = -nz;
+    }
+
+    // ---- texture: solid / checker / uv-debug -----------------------------
+    tr = col[C1R * st];
+    tg = col[C1G * st];
+    tb = col[C1B * st];
+    const float ttype = col[TTYPE * st];
+    if (ttype == 1.0f) {
+      const float sc = col[TSCALE * st];
+      const float sines = __fmul_rn(
+          __fmul_rn(sinf(__fmul_rn(sc, px)), sinf(__fmul_rn(sc, py))),
+          sinf(__fmul_rn(sc, pz)));
+      if (sines < 0.f) {
+        tr = col[C2R * st];
+        tg = col[C2G * st];
+        tb = col[C2B * st];
+      }
+    }
+    // (u, v, 0); the builder admits uv-debug on planar primitives only.
+    if (planar && ttype == 4.0f) {
+      tr = __fmaf_rn(bv, col[TUV * st], __fmaf_rn(bu, col[TUU * st],
+                                                  col[TU0 * st]));
+      tg = __fmaf_rn(bv, col[TVV * st], __fmaf_rn(bu, col[TVU * st],
+                                                  col[TV0 * st]));
+      tb = 0.f;
+    }
+    mtype = col[MTYPE * st];
+    if constexpr (kDefer) {
+      // A noise or image texel is shaded as 1.0 and recorded for the host.
+      float ra = 0.f, rb = 0.f, rc = 0.f;
+      int dcode = 0;
+      if (ttype == 2.0f || ttype == 3.0f) {
+        const int texid =
+            (int)col[(planar ? (int)P_TEXID : (int)TEXID) * st];
+        dcode = planar ? -(texid + 1) : texid + 1;
+        if (ttype == 2.0f) {  // noise: the hit point
+          ra = px;
+          rb = py;
+          rc = pz;
+        } else if (planar) {  // planar image: its in-plane (u, v)
+          ra = bu;
+          rb = bv;
+        } else {  // sphere image: the pre-flip outward normal
+          ra = front ? nx : -nx;
+          rb = front ? ny : -ny;
+          rc = front ? nz : -nz;
+        }
+        tr = tg = tb = 1.0f;
+      }
+      const bool emits = mtype == 3.0f;
+      put_record(rec, at, emits ? __fmul_rn(y.tpr, tr) : 0.f,
+                 emits ? __fmul_rn(y.tpg, tg) : 0.f,
+                 emits ? __fmul_rn(y.tpb, tb) : 0.f, ra, rb, rc, dcode);
+    }
+    if (mtype == 3.0f) {  // diffuse light: emit tp * tex and stop
+      media_end<kEmit, kDefer>(y, k + 1, __fmaf_rn(y.tpr, tr, 0.f),
+                               __fmaf_rn(y.tpg, tg, 0.f),
+                               __fmaf_rn(y.tpb, tb, 0.f), L, rad, seg, codes,
+                               rec);
+      return;
+    }
+    const float len = sqrtf(__fadd_rn(a, 1e-20f));  // normalize(d, 1e-20)
+    ux = y.dx / len;
+    uy = y.dy / len;
+    uz = y.dz / len;
+    udn = __fmaf_rn(uz, nz, __fmaf_rn(ux, nx, __fmul_rn(uy, ny)));
+  }
+
+  // ---- scatter (materials.scatter_packed, the isotropic phase function) --
+  // One draw, one unit vector and one cube root serve whichever scatter
+  // the lane takes, so a warp whose lanes scatter off media and surfaces
+  // runs that code once; each lane's keys and arithmetic are its own
+  // branch's.
+  const bool dielectric = !medium && mtype == 2.0f;
+  const uint32_t salt =
+      medium ? SALT_ISOTROPIC
+             : (mtype == 1.0f ? SALT_METAL
+                              : (dielectric ? SALT_DIELECTRIC
+                                            : SALT_LAMBERTIAN));
+  const float4 q = rand4(L.seed, rid, depth, salt);
+  float3 b = make_float3(0.f, 0.f, 0.f);  // (r, phi, z)
+  float cph = 0.f, sph = 0.f, br = 0.f;
+  if (!dielectric) {
+    b = unit_parts(q.x, q.y);
+    cph = cosf(b.y);
+    sph = sinf(b.y);
+  }
+  if (medium || mtype == 1.0f) br = cbrtf(q.z);
+  float ndx, ndy, ndz;
+  if (medium) {
+    const float* __restrict__ vp = T.vt + vwin * N_VCOLS;
+    ndx = __fmul_rn(__fmul_rn(b.x, cph), br);
+    ndy = __fmul_rn(__fmul_rn(b.x, sph), br);
+    ndz = __fmul_rn(b.z, br);
+    y.tpr = __fmul_rn(y.tpr, vp[V_CR]);
+    y.tpg = __fmul_rn(y.tpg, vp[V_CG]);
+    y.tpb = __fmul_rn(y.tpb, vp[V_CB]);
+  } else if (mtype == 1.0f) {  // metal: fuzzed mirror, absorbs when dot <= 0
+    const float fuzz = col[FUZZ * st];
+    const float u2 = __fadd_rn(udn, udn);
+    ndx = __fmaf_rn(fuzz, __fmul_rn(__fmul_rn(b.x, cph), br),
+                    __fmaf_rn(-u2, nx, ux));
+    ndy = __fmaf_rn(fuzz, __fmul_rn(__fmul_rn(b.x, sph), br),
+                    __fmaf_rn(-u2, ny, uy));
+    ndz = __fmaf_rn(fuzz, __fmul_rn(b.z, br), __fmaf_rn(-u2, nz, uz));
+    if (!(__fmaf_rn(nz, ndz, __fmaf_rn(nx, ndx, __fmul_rn(ny, ndy))) > 0.f)) {
+      media_end<kEmit, kDefer>(y, k + 1, 0.f, 0.f, 0.f, L, rad, seg, codes,
+                               rec);
+      return;
+    }
+    y.tpr = __fmul_rn(y.tpr, tr);
+    y.tpg = __fmul_rn(y.tpg, tg);
+    y.tpb = __fmul_rn(y.tpb, tb);
+  } else if (dielectric) {  // Schlick against the draw q.x
+    const float ior = col[IOR * st];
+    const float ratio = front ? 1.0f / ior : ior;
+    const float cos_t = fminf(-udn, 1.0f);
+    const float sin_t = sqrtf(fmaxf(__fmaf_rn(-cos_t, cos_t, 1.0f), 1e-12f));
+    float r0 = __fsub_rn(1.0f, ratio) / __fadd_rn(1.0f, ratio);
+    r0 = __fmul_rn(r0, r0);
+    const float omc = __fsub_rn(1.0f, cos_t);
+    const float omc2 = __fmul_rn(omc, omc);
+    const float refl = __fmaf_rn(__fsub_rn(1.0f, r0),
+                                 __fmul_rn(omc, __fmul_rn(omc2, omc2)), r0);
+    if (__fmul_rn(ratio, sin_t) > 1.0f || refl > q.x) {
+      const float u2 = __fadd_rn(udn, udn);
+      ndx = __fmaf_rn(-u2, nx, ux);
+      ndy = __fmaf_rn(-u2, ny, uy);
+      ndz = __fmaf_rn(-u2, nz, uz);
+    } else {  // refract (vecmath.refract)
+      const float rpx = __fmul_rn(ratio, __fmaf_rn(cos_t, nx, ux));
+      const float rpy = __fmul_rn(ratio, __fmaf_rn(cos_t, ny, uy));
+      const float rpz = __fmul_rn(ratio, __fmaf_rn(cos_t, nz, uz));
+      const float rp2 =
+          __fmaf_rn(rpz, rpz, __fmaf_rn(rpx, rpx, __fmul_rn(rpy, rpy)));
+      const float sq = sqrtf(fmaxf(fabsf(__fsub_rn(1.0f, rp2)), 1e-12f));
+      ndx = __fmaf_rn(-sq, nx, rpx);
+      ndy = __fmaf_rn(-sq, ny, rpy);
+      ndz = __fmaf_rn(-sq, nz, rpz);
+    }
+  } else {  // lambertian: normal + unit vector, degenerate -> normal
+    ndx = __fmaf_rn(b.x, cph, nx);
+    ndy = __fmaf_rn(b.x, sph, ny);
+    ndz = __fadd_rn(nz, b.z);
+    if (fabsf(ndx) < 1e-8f && fabsf(ndy) < 1e-8f && fabsf(ndz) < 1e-8f) {
+      ndx = nx;
+      ndy = ny;
+      ndz = nz;
+    }
+    y.tpr = __fmul_rn(y.tpr, tr);
+    y.tpg = __fmul_rn(y.tpg, tg);
+    y.tpb = __fmul_rn(y.tpb, tb);
+  }
+  // The scattered ray keeps the parent's shutter time.
+  y.ox = px;
+  y.oy = py;
+  y.oz = pz;
+  y.dx = ndx;
+  y.dy = ndy;
+  y.dz = ndz;
+  y.k = k + 1;
+  if (y.k == L.max_depth)
+    media_end<kEmit, kDefer>(y, L.max_depth, 0.f, 0.f, 0.f, L, rad, seg,
+                             codes, rec);
+}
+
+template <bool kEmit, bool kDefer>
+__global__ void __launch_bounds__(kMediaBlock, 1)
+media_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
+             MediaTables T, const float* __restrict__ par, Launch L,
+             Extra X, float* __restrict__ rad, int* __restrict__ seg,
+             int* __restrict__ codes, Records rec,
+             unsigned* __restrict__ next) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const unsigned below = (1u << (threadIdx.x & 31u)) - 1u;
+  Lane y{-1, 0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool more = true;  // the window may hold unclaimed lanes (warp-uniform)
+  for (;;) {
+    if (more) {  // claim lanes for the warp's empty slots: one atomic
+      const unsigned m = __ballot_sync(kAll, y.i < 0);
+      if (m) {
+        unsigned base = 0;
+        if ((threadIdx.x & 31u) == 0) base = atomicAdd(next, __popc(m));
+        base = __shfl_sync(kAll, base, 0);
+        const unsigned id = base + __popc(m & below);
+        if (y.i < 0 && id < (unsigned)L.n_chunk) {
+          cast_primary(y, (int)id, par, L);
+          if (L.max_depth < 1)  // no bounce: rad 0, seg 0
+            media_end<kEmit, kDefer>(y, 0, 0.f, 0.f, 0.f, L, rad, seg, codes,
+                                     rec);
+        }
+        if (base + __popc(m) >= (unsigned)L.n_chunk) more = false;
+      }
+    }
+    if (!__any_sync(kAll, y.i >= 0)) break;
+    if (y.i >= 0)
+      media_bounce<kEmit, kDefer>(y, T, tab, ptab, par, L, X, rad, seg, codes,
+                                  rec);
+  }
+}
+
+// One media launch on the resident blocks (or, with `occ`, the resident
+// blocks per SM).
+template <bool kEmit, bool kDefer>
+cudaError_t launch_media(const float* tab, const float* ptab,
+                         const MediaTables& T, const float* par,
+                         const Launch& L, const Extra& X, float* rad,
+                         int* seg, int* codes, const Records& rec,
+                         unsigned* next, cudaStream_t stream, int* occ) {
+  const auto kernel = media_kernel<kEmit, kDefer>;
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kMediaBlock, 0);
+  if (err != cudaSuccess) return err;
+  if (occ != nullptr) {
+    *occ = blocks;
+    return cudaSuccess;
+  }
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long want = ((long long)L.n_chunk + kMediaBlock - 1) /
+                         kMediaBlock;
+  const long long resident = (long long)blocks * sms;
+  const int grid = (int)(want < resident ? want : resident);
+  kernel<<<grid, kMediaBlock, 0, stream>>>(tab, ptab, T, par, L, X, rad, seg,
+                                           codes, rec, next);
+  return cudaGetLastError();
+}
+
+// The instantiations megakernel_media.cu compiles.
+#define RTW_MEDIA_LAUNCHER(PREFIX, E, D)                                    \
+  PREFIX template cudaError_t launch_media<E, D>(                           \
+      const float*, const float*, const MediaTables&, const float*,         \
+      const Launch&, const Extra&, float*, int*, int*, const Records&,      \
+      unsigned*, cudaStream_t, int*);
+#define RTW_MEDIA_LAUNCHERS(PREFIX)                                         \
+  RTW_MEDIA_LAUNCHER(PREFIX, false, false)                                  \
+  RTW_MEDIA_LAUNCHER(PREFIX, false, true)                                   \
+  RTW_MEDIA_LAUNCHER(PREFIX, true, false)                                   \
+  RTW_MEDIA_LAUNCHER(PREFIX, true, true)
+
 // One launch of render_kernel with the geometry flags of the scene's
 // families: (kSph, !kPla), (!kSph, kPla) or both; with media (kVol) always
 // both, either loop then running over the family's count, which may be 0.
-// The sphere-only single pass is launch_spheres', so (kSph, !kPla) is only
-// instantiated phased.
+// The sphere-only single pass is launch_spheres' and the single pass with
+// media launch_media's, so (kSph, !kPla) and kVol are only instantiated
+// phased.
 template <bool kEmit, bool kDefer, bool kVol, bool kPhase>
 cudaError_t launch_render(const float* tab, const float* ptab,
                           const float4* ptest, const float* par,
@@ -1402,18 +1915,14 @@ cudaError_t launch_render(const float* tab, const float* ptab,
   }
 }
 
-// The instantiations megakernel_vp.cu compiles: media, and the phased
-// launches (no codes).
+// The instantiations megakernel_vp.cu compiles: the phased launches (no
+// codes), with media and without.
 #define RTW_VP_LAUNCHER(PREFIX, E, D, V, P)                                \
   PREFIX template cudaError_t launch_render<E, D, V, P>(                   \
       const float*, const float*, const float4*, const float*,             \
       const Launch&, const Extra&, float*, int*, int*, const Records&,     \
       cudaStream_t, int*);
 #define RTW_VP_LAUNCHERS(PREFIX)                                            \
-  RTW_VP_LAUNCHER(PREFIX, false, false, true, false)                        \
-  RTW_VP_LAUNCHER(PREFIX, false, true, true, false)                         \
-  RTW_VP_LAUNCHER(PREFIX, true, false, true, false)                         \
-  RTW_VP_LAUNCHER(PREFIX, true, true, true, false)                          \
   RTW_VP_LAUNCHER(PREFIX, false, false, false, true)                        \
   RTW_VP_LAUNCHER(PREFIX, false, true, false, true)                         \
   RTW_VP_LAUNCHER(PREFIX, false, false, true, true)                         \

@@ -1,6 +1,6 @@
-// The fused forward kernel's instantiations with media (K5) and with phase
-// I/O (K6b), compiled apart from megakernel.cu so that the two build in
-// parallel; the kernel is csrc/megakernel.cuh.
+// render_kernel's phased instantiations (K6b, with media and without),
+// compiled apart from megakernel.cu and megakernel_media.cu so that the
+// three build in parallel; the kernel is csrc/megakernel.cuh.
 #include "megakernel.cuh"
 
 namespace rtw {

@@ -1,5 +1,5 @@
-// Perlin turbulence (K8, one thread per point) and its vector-Jacobian
-// product (K9, persistent warps over the live points).
+// Perlin turbulence (K8) and its vector-Jacobian product (K9), both on
+// persistent warps over the live points.
 //
 // Replaces: raytracer_weekend_tpu/ops/pallas/perlin_turb.py:_kernel and
 // _kernel_row (K8, reached through turbulence_pallas -> pl.pallas_call) and
@@ -35,13 +35,16 @@
 // tables (6 KB) from shared memory, loaded once per block, so each lookup
 // is one shared-memory load, not a one-hot product as on the TPU.
 //
-// K9's design. A frame's records are mostly dead (two_perlin_spheres at
-// 400x225x16: 1.13M of 11.52M points live), so one thread per point left
-// about nine lanes in ten idle through the seven octaves. Here resident
-// blocks (occupancy x SMs) loop: each warp claims kVjpWindow points at a
-// time from a counter, writes d_p = 0 for the dead ones and packs the live
-// ones by ballot into full batches of 32, so every lane that computes
-// carries a live point. A float add to shared memory is a compare-and-swap
+// The design of both. A frame's records are mostly dead
+// (two_perlin_spheres at 400x225x16: 1.13M of 11.52M points live), so one
+// thread per point left about nine lanes in ten idle through the seven
+// octaves. Here resident blocks (occupancy x SMs) loop (for_live_points):
+// each warp claims a window of points at a time from a counter, writes 0
+// for the dead ones (coalesced, 32 at a time) and packs the live ones by
+// ballot into full batches of 32, so every lane that computes carries a
+// live point; the tables are loaded once per resident block. K8's dead
+// points cost a mask byte and a 4-byte store, its live ones 12 bytes and
+// 7 octaves of arithmetic. For K9: a float add to shared memory is a compare-and-swap
 // loop on an H100 (LDS, FADD, ATOMS.CAST.SPIN), and a warp's points, taken
 // in index order, share lattice cells (4 cells for 32 points at octave 0,
 // 21 at octave 6, on that frame), so its lanes added into the same
@@ -50,7 +53,8 @@
 // Each block keeps kVjpCopies copies of d_grad and lane l adds into copy
 // l % kVjpCopies; the copies are summed and added to global memory once
 // per resident block, not once per 256 points. Each point's arithmetic is
-// the one-thread-a-point kernel's, in its order: d_p is bitwise the same.
+// the one-thread-a-point kernels', in their order: turb and d_p are bitwise
+// the same.
 //
 // Numerics: no fast math: floorf, IEEE arithmetic, in the plain version's
 // order.
@@ -61,8 +65,9 @@
 namespace rtw {
 namespace perlin {
 
-constexpr int kBlock = 256;
 constexpr int kPC = 256;  // table size
+constexpr int kTurbBlock = 256;   // K8: threads a block
+constexpr int kTurbWindow = 128;  // K8: points a warp claims at once
 constexpr int kVjpBlock = 256;   // K9: threads a block
 constexpr int kVjpWindow = 128;  // K9: points a warp claims at once
 // K9 sums d_grad in kVjpCopies copies per block, lane l of each warp into
@@ -132,10 +137,52 @@ __device__ __forceinline__ float noise_of(const float* __restrict__ sg,
 __device__ __forceinline__ void load_tables(const float* __restrict__ grad,
                                             const int* __restrict__ perm,
                                             float* sg, int* sp) {
-  for (int j = threadIdx.x; j < 3 * kPC; j += kBlock) {
+  for (int j = threadIdx.x; j < 3 * kPC; j += blockDim.x) {
     sg[j] = grad[j];
     sp[j] = perm[j];
   }
+}
+
+// The persistent warps' loop of K8 and K9: the warp claims kWindow points
+// at a time from `next` (one atomicAdd by its first lane), scans the window
+// 32 points at a time, calls dead(j) for each dead point and packs the
+// live ones by ballot into its queue `q` (64 ints of shared memory);
+// whenever the queue holds 32, each lane calls run(i) on one of them. The
+// queue's last partial batch runs when the points are spent.
+template <int kWindow, class Dead, class Run>
+__device__ __forceinline__ void for_live_points(
+    const uint8_t* __restrict__ live, int n, unsigned* __restrict__ next,
+    int* __restrict__ q, Dead dead, Run run) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int queued = 0;  // live points in the queue (warp-uniform)
+  for (;;) {
+    unsigned base = 0;
+    if (lane == 0) base = atomicAdd(next, (unsigned)kWindow);
+    base = __shfl_sync(kAll, base, 0);
+    if (base >= (unsigned)n) break;
+    const int end = min((int)base + kWindow, n);
+    for (int j0 = (int)base; j0 < end; j0 += 32) {
+      const int j = j0 + lane;
+      const bool in = j < end;
+      const bool lv = in && (!live || live[j]);
+      if (in && !lv) dead(j);
+      const unsigned m = __ballot_sync(kAll, lv);
+      if (lv) q[queued + __popc(m & below)] = j;
+      queued += __popc(m);
+      __syncwarp();
+      if (queued >= 32) {
+        run(q[lane]);
+        queued -= 32;
+        const int carry = lane < queued ? q[32 + lane] : 0;
+        __syncwarp();
+        if (lane < queued) q[lane] = carry;
+        __syncwarp();
+      }
+    }
+  }
+  if (lane < queued) run(q[lane]);
 }
 
 __device__ __forceinline__ float accum_of(const float* __restrict__ sg,
@@ -154,22 +201,24 @@ __device__ __forceinline__ float accum_of(const float* __restrict__ sg,
   return accum;
 }
 
-__global__ void __launch_bounds__(kBlock)
+// K8 on the resident blocks: turb of each live point, 0 for each dead one.
+__global__ void __launch_bounds__(kTurbBlock)
 turb_kernel(const float* __restrict__ p, const uint8_t* __restrict__ live,
             const float* __restrict__ grad, const int* __restrict__ perm,
-            int n, int depth, float* __restrict__ out) {
+            int n, int depth, float* __restrict__ out,
+            unsigned* __restrict__ next) {
   __shared__ float sg[3 * kPC];
   __shared__ int sp[3 * kPC];
+  __shared__ int queues[(kTurbBlock / 32) * 64];  // 64 live points a warp
   load_tables(grad, perm, sg, sp);
   __syncthreads();
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  if (live && !live[i]) {
-    out[i] = 0.f;
-    return;
-  }
-  out[i] = fabsf(accum_of(sg, sp, p[3 * i], p[3 * i + 1], p[3 * i + 2],
-                          depth));
+  for_live_points<kTurbWindow>(
+      live, n, next, queues + (threadIdx.x >> 5) * 64,
+      [&](int j) { out[j] = 0.f; },
+      [&](int i) {
+        out[i] = fabsf(accum_of(sg, sp, p[3 * i], p[3 * i + 1],
+                                p[3 * i + 2], depth));
+      });
 }
 
 // One live point's VJP (K9): d_p returned, d_grad added to the block's
@@ -227,14 +276,9 @@ __device__ __forceinline__ void vjp_point(const float* __restrict__ sg,
   }
 }
 
-// K9 on the resident blocks. Each warp claims windows of kVjpWindow points
-// from `next` (one atomicAdd by its first lane), scans a window 32 points
-// at a time, writes d_p = 0 for the dead ones, and packs the live ones by
-// ballot into its queue in shared memory; whenever the queue holds 32, each
-// lane takes one and runs its VJP, so every lane that computes carries a
-// live point. The queue's last partial batch runs when the points are
-// spent. d_grad is summed in the block's kVjpCopies copies and added to
-// global memory once per resident block.
+// K9 on the resident blocks (for_live_points): d_p = 0 for each dead
+// point, each live point's VJP. d_grad is summed in the block's
+// kVjpCopies copies and added to global memory once per resident block.
 __global__ void __launch_bounds__(kVjpBlock)
 turb_vjp_kernel(const float* __restrict__ p, const float* __restrict__ ct,
                 const uint8_t* __restrict__ live,
@@ -246,64 +290,28 @@ turb_vjp_kernel(const float* __restrict__ p, const float* __restrict__ ct,
   int* __restrict__ sp = (int*)(vjp_smem + 3 * kPC);
   int* __restrict__ queues = sp + 3 * kPC;  // 64 live points a warp
   float* __restrict__ copies = (float*)(queues + (kVjpBlock / 32) * 64);
-  for (int j = threadIdx.x; j < 3 * kPC; j += kVjpBlock) {
-    sg[j] = grad[j];
-    sp[j] = perm[j];
-  }
+  load_tables(grad, perm, sg, sp);
   for (int j = threadIdx.x; j < kVjpCopies * kVjpStride; j += kVjpBlock)
     copies[j] = 0.f;
   __syncthreads();
 
-  constexpr unsigned kAll = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int* __restrict__ q = queues + (threadIdx.x >> 5) * 64;
-  float* __restrict__ sdg = copies + (lane % kVjpCopies) * kVjpStride;
-  int queued = 0;  // live points in the queue (warp-uniform)
-  for (;;) {
-    unsigned base = 0;
-    if (lane == 0) base = atomicAdd(next, (unsigned)kVjpWindow);
-    base = __shfl_sync(kAll, base, 0);
-    if (base >= (unsigned)n) break;
-    const int end = min((int)base + kVjpWindow, n);
-    for (int j0 = (int)base; j0 < end; j0 += 32) {
-      const int j = j0 + lane;
-      const bool in = j < end;
-      const bool lv = in && (!live || live[j]);
-      if (in && !lv) {
+  float* __restrict__ sdg =
+      copies + ((threadIdx.x & 31) % kVjpCopies) * kVjpStride;
+  for_live_points<kVjpWindow>(
+      live, n, next, queues + (threadIdx.x >> 5) * 64,
+      [&](int j) {
         d_p[3 * j + 0] = 0.f;
         d_p[3 * j + 1] = 0.f;
         d_p[3 * j + 2] = 0.f;
-      }
-      const unsigned m = __ballot_sync(kAll, lv);
-      if (lv) q[queued + __popc(m & below)] = j;
-      queued += __popc(m);
-      __syncwarp();
-      if (queued >= 32) {
-        const int i = q[lane];
+      },
+      [&](int i) {
         float dx, dy, dz;
         vjp_point(sg, sp, sdg, p[3 * i], p[3 * i + 1], p[3 * i + 2], ct[i],
                   depth, dx, dy, dz);
         d_p[3 * i + 0] = dx;
         d_p[3 * i + 1] = dy;
         d_p[3 * i + 2] = dz;
-        queued -= 32;
-        const int carry = lane < queued ? q[32 + lane] : 0;
-        __syncwarp();
-        if (lane < queued) q[lane] = carry;
-        __syncwarp();
-      }
-    }
-  }
-  if (lane < queued) {
-    const int i = q[lane];
-    float dx, dy, dz;
-    vjp_point(sg, sp, sdg, p[3 * i], p[3 * i + 1], p[3 * i + 2], ct[i],
-              depth, dx, dy, dz);
-    d_p[3 * i + 0] = dx;
-    d_p[3 * i + 1] = dy;
-    d_p[3 * i + 2] = dz;
-  }
+      });
 
   __syncthreads();
   for (int j = threadIdx.x; j < 3 * kPC; j += kVjpBlock) {
@@ -313,29 +321,14 @@ turb_vjp_kernel(const float* __restrict__ p, const float* __restrict__ ct,
   }
 }
 
-}  // namespace perlin
-}  // namespace rtw
-
-extern "C" {
-
-// turb (n,) of points p (n x 3) on `stream`; `live` (n bytes, 0 = dead) may
-// be null (every point live). Returns cudaGetLastError() after the launch.
-int rtw_turbulence(const float* p, const unsigned char* live,
-                   const float* grad, const int* perm, int n, int depth,
-                   float* out, void* stream) {
-  using namespace rtw::perlin;
-  if (n <= 0) return 0;
-  turb_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(
-      p, live, grad, perm, n, depth, out);
-  return (int)cudaGetLastError();
-}
-
-// Resident blocks of K9 on the current device: its occupancy times the
-// SMs, queried once per device (with the opt-in to its shared memory).
-static int vjp_grid(int* grid) {
-  using namespace rtw::perlin;
+// Resident blocks of `kernel` at `block` threads and `smem` bytes of
+// dynamic shared memory on the current device: its occupancy times the
+// SMs, queried once per device into `cached` (with the opt-in to its shared
+// memory above 48 KB).
+template <class Kernel>
+inline int resident_grid(Kernel kernel, int block, int smem, int* cached,
+                         int* grid) {
   constexpr int kMaxDevices = 64;
-  static int cached[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -344,12 +337,12 @@ static int vjp_grid(int* grid) {
     return 0;
   }
   int blocks = 0, sms = 0;
-  err = cudaFuncSetAttribute(turb_vjp_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kVjpSmem);
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, turb_vjp_kernel, kVjpBlock, kVjpSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        block, smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
@@ -357,6 +350,34 @@ static int vjp_grid(int* grid) {
   *grid = blocks * sms;
   if (dev < kMaxDevices) cached[dev] = *grid;
   return 0;
+}
+
+}  // namespace perlin
+}  // namespace rtw
+
+extern "C" {
+
+// turb (n,) of points p (n x 3) on `stream`; `live` (n bytes, 0 = dead) may
+// be null (every point live). `next` is one unsigned of device memory, the
+// warps' claim counter: the launch zeroes it first on `stream`. Returns
+// cudaGetLastError() after the launch.
+int rtw_turbulence(const float* p, const unsigned char* live,
+                   const float* grad, const int* perm, int n, int depth,
+                   float* out, unsigned* next, void* stream) {
+  using namespace rtw::perlin;
+  static int cached[64] = {};
+  if (n <= 0) return 0;
+  int grid = 0;
+  int err = resident_grid(turb_kernel, kTurbBlock, 0, cached, &grid);
+  if (err != 0) return err;
+  const long long want = ((long long)n + kTurbWindow - 1) / kTurbWindow;
+  if (want < grid) grid = (int)want;
+  const cudaStream_t st = (cudaStream_t)stream;
+  err = (int)cudaMemsetAsync(next, 0, sizeof(unsigned), st);
+  if (err != 0) return err;
+  turb_kernel<<<grid, kTurbBlock, 0, st>>>(p, live, grad, perm, n, depth,
+                                           out, next);
+  return (int)cudaGetLastError();
 }
 
 // d_p (n x 3) and d_grad (256 x 3) of turb with cotangent ct (n,) on
@@ -368,9 +389,11 @@ int rtw_turbulence_vjp(const float* p, const float* ct,
                        const int* perm, int n, int depth, float* d_p,
                        float* d_grad, unsigned* next, void* stream) {
   using namespace rtw::perlin;
+  static int cached[64] = {};
   if (n <= 0) return 0;
   int grid = 0;
-  int err = vjp_grid(&grid);
+  int err = resident_grid(turb_vjp_kernel, kVjpBlock, kVjpSmem, cached,
+                          &grid);
   if (err != 0) return err;
   const long long want = ((long long)n + kVjpWindow - 1) / kVjpWindow;
   if (want < grid) grid = (int)want;

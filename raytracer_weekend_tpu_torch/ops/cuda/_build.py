@@ -25,8 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("megakernel.cu", "megakernel_vp.cu", "replay_bwd.cu",
-           "perlin_turb.cu", "intersect.cu")
+SOURCES = ("megakernel.cu", "megakernel_vp.cu", "megakernel_media.cu",
+           "replay_bwd.cu", "perlin_turb.cu", "intersect.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -122,7 +122,8 @@ def load_library() -> ctypes.CDLL:
         lib.rtw_replay_bwd_smem_bytes.restype = _LL
         lib.rtw_replay_bwd_smem_limit.argtypes = [_P]
         lib.rtw_replay_bwd_smem_limit.restype = _I
-        lib.rtw_turbulence.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P]
+        lib.rtw_turbulence.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P,
+                                       _P]
         lib.rtw_turbulence.restype = _I
         lib.rtw_turbulence_vjp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P,
                                            _P, _P, _P]

@@ -46,8 +46,12 @@ kernel's `sphere_kernel`: persistent warps claim lanes from a per-launch
 counter and refill a slot as soon as its lane dies, each thread carrying
 SPHERE_RAYS lane slots (one) against the packed sphere rows
 (`build_sphere_rows`) in shared memory; its records are views of one
-32-byte row a record. `claim_order` is the plain twin of its work order,
-for the CPU tests.
+32-byte row a record. The single pass of a scene with media (K5, K5-emit,
+and K6a's records there) is the kernel's `media_kernel`: the same
+persistent warps, one lane slot a thread, over the volume table, the
+packed sphere rows and the packed planar rows read from global memory.
+`fused_kernel` names the kernel a launch takes; `claim_order` is the plain
+twin of both persistent kernels' work order, for the CPU tests.
 
 None of the JAX kernel's TPU layout is carried over (K-split bf16 tables,
 one-hot MXU gathers, sublane planes, chunk lists and their AABB culling,
@@ -102,6 +106,9 @@ SPHERE_RAYS, SPHERE_BLOCK, SPHERE_ROW_LIMIT = 1, 128, 1024
 # Its deferred records: one 32-byte row per lane and bounce, ctb (3), abc
 # (3), dcode's int32 bits, 0 (`RECORD_COLS` floats).
 RECORD_COLS = 8
+# The media single pass (`media_kernel`): threads a block, one lane slot
+# each (`kMediaBlock` in csrc/megakernel.cuh).
+MEDIA_BLOCK = 128
 # Columns of a row of the volume table (`enum VCol`): the JAX
 # `_build_vol_par` layout, then a valid flag.
 VOL_COLS = (
@@ -153,6 +160,19 @@ def fused_supported(static: SceneStatic, cfg: RenderConfig) -> bool:
 def defers(static: SceneStatic) -> bool:
     """The fused render of this scene defers noise and image texels."""
     return bool(static.has_noise or static.has_image)
+
+
+def fused_kernel(n_planar: int, n_volumes: int, phase: bool) -> str:
+    """The kernel of csrc/megakernel.cuh that a fused launch takes
+    (`dispatch` in csrc/megakernel.cu): "sphere_kernel" for a single pass
+    over spheres alone, "media_kernel" for a single pass with media, else
+    "render_kernel" (a single pass with planar rows and no media, and every
+    phased launch)."""
+    if phase:
+        return "render_kernel"
+    if n_volumes:
+        return "media_kernel"
+    return "render_kernel" if n_planar else "sphere_kernel"
 
 
 def build_sphere_table(scene: SceneData) -> torch.Tensor:
@@ -495,7 +515,8 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     planar rows, media or phase) keeps its packed rows in shared memory up to
     SPHERE_ROW_LIMIT rows; `resident` True or False forces either path (a
     test hook: the two give the same bits), and its records are views of
-    one (n, D, RECORD_COLS) buffer. Raises off CUDA, outside
+    one (n, D, RECORD_COLS) buffer. A single pass with media is
+    `media_kernel`'s (`fused_kernel`). Raises off CUDA, outside
     `fused_supported`, and if the build or launch fails."""
     global LAUNCHES, EMIT_LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
     global VOL_LAUNCHES, PHASE_LAUNCHES
@@ -534,10 +555,11 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     if n_vol:
         _check(vtab, torch.float32, (n_vol, len(VOL_COLS)), device)
     _check(par, torch.float32, (PAR_SIZE,), device)
-    spheres = not (n_planar or n_vol or phase)
+    kernel = fused_kernel(n_planar, n_vol, phase)
+    spheres, media = kernel == "sphere_kernel", kernel == "media_kernel"
     if resident is not None and not spheres:
         raise ValueError("resident applies to the sphere-only single pass")
-    if spheres:
+    if (spheres or media) and n_spheres:
         _check(srows, torch.float32, (n_spheres, len(SPHERE_ROW_COLS)),
                device)
     if state is not None:
@@ -567,9 +589,9 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(device):
-        # The sphere-only kernel's lane counter, zeroed on this stream.
+        # The persistent kernels' lane counter, zeroed on this stream.
         nxt = (torch.zeros((1,), dtype=torch.int32, device=device)
-               if spheres else None)
+               if spheres or media else None)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rtw_render_fused(
             ptr(tab), n_spheres, ptr(ptab), ptr(ptest), n_planar, ptr(vtab),
@@ -580,7 +602,7 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
             rad.data_ptr(), seg.data_ptr(), ptr(codes),
             *((None,) * 3 if spheres else map(ptr, recs)),
             ptr(state), ptr(lanes), ptr(st_out),
-            ptr(srows if spheres else None),
+            ptr(srows if spheres or (media and n_spheres) else None),
             -1 if resident is None else int(bool(resident)), ptr(nxt),
             ptr(rec_rows), stream)
     _build.check(lib, err, "rtw_render_fused launch")
@@ -738,7 +760,8 @@ def resident_blocks(static: SceneStatic, device: torch.device,
     or of SPHERE_BLOCK for a sphere-only single pass (spheres, no planar
     rows or media, not phased: `sphere_kernel`, which launches that many
     blocks on each SM; its rows' shared memory counts from the real
-    n_spheres)."""
+    n_spheres), or of MEDIA_BLOCK for a single pass with media
+    (`media_kernel`, no shared memory)."""
     import ctypes
 
     from raytracer_weekend_tpu_torch.ops.cuda import _build
@@ -779,8 +802,9 @@ def phase_group(live: int, resident: int) -> int:
 
 def claim_order(segments, warps: int, rays: int = SPHERE_RAYS,
                 seed: int = 0):
-    """Plain twin of `sphere_kernel`'s work order over a window whose lane
-    i runs segments[i] bounces -> (order (n,) int64: the lanes in the order
+    """Plain twin of the work order of `sphere_kernel` and (with rays=1,
+    its one lane slot a thread) `media_kernel` over a window whose lane i
+    runs segments[i] bounces -> (order (n,) int64: the lanes in the order
     they were claimed; owner (n, 3) int64: the warp, thread and slot that
     ran each lane).
 

@@ -8,13 +8,17 @@ points p (..., 3) f32, the Perlin tables grad (256, 3) f32 and perm
     points: kernel K8 (`csrc/perlin_turb.cu`) for CUDA tensors, the plain
     `perlin.turbulence` for CPU tensors;
   * `turbulence_vjp` returns (d_grad (256, 3), d_p (..., 3)) for a
-    cotangent ct (...,): kernel K9 for CUDA tensors (persistent warps that
-    pack the live points into full batches; `vjp_claim_order` and
-    `turbulence_vjp_twin` are the plain twins of its work order), torch
-    autograd of the plain version for CPU tensors. Dead points get d_p 0
-    and add nothing to d_grad, whatever their cotangent;
+    cotangent ct (...,): kernel K9 for CUDA tensors, torch autograd of the
+    plain version for CPU tensors. Dead points get d_p 0 and add nothing
+    to d_grad, whatever their cotangent;
   * `turbulence_diff` pairs the two as a `torch.autograd.Function`:
     gradients reach grad and p (perm holds integers).
+
+Both kernels run persistent warps that claim windows of points, write 0
+for the dead ones and pack the live ones by ballot into full batches of
+32; `live_claim_order` is the plain twin of that work order, and
+`turbulence_twin` and `turbulence_vjp_twin` run the plain versions batch
+by batch in it.
 
 A build, load or launch failure raises; nothing falls back to the plain
 version on a card. The TPU kernel's (8, L) point planes, 16 x 16 nibble
@@ -34,8 +38,11 @@ from raytracer_weekend_tpu_torch.ops.cuda.megakernel import _check
 TURB_LAUNCHES = 0
 TURB_VJP_LAUNCHES = 0
 
-# K9's work order, csrc/perlin_turb.cu's kVjpBlock and kVjpWindow: threads
-# a block, and points a warp claims at once.
+# The work order of K8 and K9, csrc/perlin_turb.cu's kTurbBlock,
+# kTurbWindow, kVjpBlock and kVjpWindow: threads a block, and points a warp
+# claims at once.
+TURB_BLOCK = 256
+TURB_WINDOW = 128
 VJP_BLOCK = 256
 VJP_WINDOW = 128
 
@@ -78,11 +85,13 @@ def _args(grad, perm, p, live):
 
 
 def turbulence_operands(grad, perm, p, live=None):
-    """K8's operands, checked, and its output buffer: the argument of
-    `_launch_turbulence` (build it once to time the launch alone)."""
+    """K8's operands, checked, its output buffer and its claim counter:
+    the argument of `_launch_turbulence` (build it once to time the launch
+    alone)."""
     n, pf, g, pm, lv = _args(grad, perm, p, live)
     out = torch.empty((n,), dtype=torch.float32, device=p.device)
-    return dict(n=n, p=pf, live=lv, grad=g, perm=pm, out=out)
+    return dict(n=n, p=pf, live=lv, grad=g, perm=pm, out=out,
+                next=torch.empty((1,), dtype=torch.int32, device=p.device))
 
 
 def _launch_turbulence(ops, depth: int = 7):
@@ -96,7 +105,7 @@ def _launch_turbulence(ops, depth: int = 7):
         err = lib.rtw_turbulence(
             ops["p"].data_ptr(), _ptr(ops["live"]), ops["grad"].data_ptr(),
             ops["perm"].data_ptr(), ops["n"], int(depth),
-            ops["out"].data_ptr(), stream)
+            ops["out"].data_ptr(), ops["next"].data_ptr(), stream)
     _build.check(lib, err, "rtw_turbulence launch")
     return ops["out"]
 
@@ -158,10 +167,11 @@ def turbulence_vjp(grad, perm, p, ct, depth: int = 7, live=None):
     return d_grad.to(grad.dtype), d_p.reshape(p.shape)
 
 
-def vjp_claim_order(live, warps: int, window: int = VJP_WINDOW,
-                    seed: int = 0):
-    """Plain twin of K9's work order over the points whose mask is `live`
-    (n,) bool -> (batches, dead).
+def live_claim_order(live, warps: int, window: int = VJP_WINDOW,
+                     seed: int = 0):
+    """Plain twin of the work order of K8 and K9 (`for_live_points` in
+    csrc/perlin_turb.cu) over the points whose mask is `live` (n,) bool ->
+    (batches, dead).
 
     `warps` warps take turns in a random order each round (`seed`), as
     resident warps interleave on the card. A turn claims the next `window`
@@ -200,7 +210,7 @@ def vjp_claim_order(live, warps: int, window: int = VJP_WINDOW,
 
 def turbulence_vjp_twin(grad, perm, p, ct, depth: int = 7, live=None,
                         warps: int = 4, seed: int = 0):
-    """K9's plain twin in its work order (`vjp_claim_order`): the plain VJP
+    """K9's plain twin in its work order (`live_claim_order`): the plain VJP
     of each batch of live points, d_p written at their indices and 0 at the
     dead points, d_grad summed batch by batch -> (d_grad, d_p) as
     `turbulence_vjp`. Each batch runs at its points' own places in the
@@ -210,7 +220,7 @@ def turbulence_vjp_twin(grad, perm, p, ct, depth: int = 7, live=None,
     pf, c = p.reshape(n, 3), ct.reshape(n)
     lv = (torch.ones(n, dtype=torch.bool) if live is None
           else live.reshape(n))
-    batches, dead = vjp_claim_order(lv, warps, seed=seed)
+    batches, dead = live_claim_order(lv, warps, seed=seed)
     d_p = torch.full((n, 3), float("nan"), dtype=pf.dtype)
     d_p[dead] = 0.0
     d_grad = torch.zeros_like(grad)
@@ -221,6 +231,27 @@ def turbulence_vjp_twin(grad, perm, p, ct, depth: int = 7, live=None,
         d_p[idx] = dp[idx]
         d_grad = d_grad + dg
     return d_grad, d_p.reshape(p.shape)
+
+
+def turbulence_twin(grad, perm, p, depth: int = 7, live=None,
+                    warps: int = 4, window: int = TURB_WINDOW, seed: int = 0):
+    """K8's plain twin in its work order (`live_claim_order`): the plain
+    turbulence of each batch of live points written at their indices, 0 at
+    the dead points -> (...,) as `turbulence`. Each batch runs at its
+    points' own places in the array (the others masked dead), as
+    `turbulence_vjp_twin` does."""
+    n = p.numel() // 3
+    pf = p.reshape(n, 3)
+    lv = (torch.ones(n, dtype=torch.bool) if live is None
+          else live.reshape(n))
+    batches, dead = live_claim_order(lv, warps, window, seed=seed)
+    out = torch.full((n,), float("nan"), dtype=pf.dtype)
+    out[dead] = 0.0
+    for _, idx in batches:
+        mine = torch.zeros(n, dtype=torch.bool)
+        mine[idx] = True
+        out[idx] = turbulence_reference(grad, perm, pf, depth, mine)[idx]
+    return out.reshape(p.shape[:-1])
 
 
 class _TurbDiff(torch.autograd.Function):

@@ -13,14 +13,18 @@ other; each builds and saves into the git-ignored build/ of its
 checkout and of this one. Each process renders, at 400x225, 16 spp, depth 8, render seed 0,
 cornell_box, wavefront_cow_obj, textured_monument and book2_final_scene
 (the planar loop, K3), jumpy_balls (spheres only, K1) and
-smokey_cornell_box (media, K5) through `render_fused` (radiance and
-segments; the winner codes of `emit_paths=True` too, K1-emit on
-jumpy_balls), two_perlin_spheres and earth through `render_fused_records`
+smokey_cornell_box and sphere_medium (media, K5) through `render_fused`
+(radiance and segments; the winner codes of `emit_paths=True` too, K1-emit
+on jumpy_balls, K5-emit on the media scenes), two_perlin_spheres and earth
+through `render_fused_records`
 (K6a: radiance, segments and the records ctb, abc, dcode), and
 many_spheres at 400x225, 4 spp, depth 8 (3,970 spheres: the sphere-only
 kernel's table read from global memory); each is timed (CUDA events,
 median of 5) as the call and as the launch alone (`_launch` on the tables
-built beforehand). Then bench.py's
+built beforehand). Then K8 on two_perlin_spheres' records (the
+combine's points and live mask at that size): `turbulence`'s output, and
+its launch alone on operands built beforehand and its call timed. Then
+bench.py's
 book2_criterion (40x22, 100 spp, depth 50, seeds 1337) and jumpy_balls at
 400x225, 4 spp, depth 20 through the single pass and the depth-phased
 render, each timed. Then the staged
@@ -55,6 +59,17 @@ and simple_light (`render_fused_diff` and the gradient of the radiance sum
 w.r.t. every float leaf) and 3 Adam steps of `InverseRenderer.fit` on
 earth's image atlas (step ms by the host clock).
 
+`--only k6a` times K6a alone (two_perlin_spheres' records at 400x225x16
+d8, the launch alone on tables built beforehand, median of 21) at three
+points of one process: first, after the media scenes' launches
+(smokey_cornell_box and sphere_medium, K5) and after K8 on the same
+records; each by CUDA events around the launch as above ("events") and
+with the card kept busy while the host enqueues it (`torch.cuda._sleep`
+ahead of the start event: "device", the host's time left out). Its runs
+are other, this, this with the other checkout's kernel library, then the
+three again in reverse (the library run skips K8, whose C signature the
+two checkouts may not share).
+
 The first process of each checkout saves its outputs, and the script
 reports for each output whether the two checkouts agree, and each time by
 checkout. It needs a CUDA device.
@@ -73,9 +88,10 @@ import sys
 FULL = dict(width=400, height=225, samples_per_pixel=16, max_depth=8)
 SCENES = ("cornell_box", "wavefront_cow_obj", "textured_monument",
           "book2_final_scene", "jumpy_balls", "smokey_cornell_box",
-          "two_perlin_spheres", "earth", "many_spheres")
+          "sphere_medium", "two_perlin_spheres", "earth", "many_spheres")
 EMIT = ("cornell_box", "wavefront_cow_obj", "textured_monument",
-        "book2_final_scene", "jumpy_balls")
+        "book2_final_scene", "jumpy_balls", "smokey_cornell_box",
+        "sphere_medium")
 # Through render_fused_records (K6a's own outputs); many_spheres at 4 spp.
 RECORDS = ("two_perlin_spheres", "earth")
 SIZE = {"many_spheres": dict(FULL, samples_per_pixel=4)}
@@ -115,25 +131,67 @@ def _cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def run_one(out_dir: pathlib.Path, save: bool, only: str | None) -> dict:
-    """Render and time everything (or `only` the forward or the backward
-    part) with the package on sys.path; save the outputs under out_dir
-    when `save`. -> {render: ms}."""
+def _device_ms(fn, reps=21):
+    """Median ms of `fn`'s device work: the start event is queued behind a
+    ~3 ms spin of the card, so the host's enqueueing overlaps it."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def run_one(out_dir: pathlib.Path, save: bool, only: str | None,
+            lib: str | None = None) -> dict:
+    """Render and time everything (or `only` the forward, the backward or
+    the k6a part) with the package on sys.path, its kernels from `lib`
+    when given (the k6a part only); save the outputs under out_dir when
+    `save`. -> {render: ms}."""
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("ab_render needs a CUDA device")
     dev = torch.device("cuda", 0)
     times, outs = {}, {}
-    if only != "backward":
+    if lib:
+        from raytracer_weekend_tpu_torch.ops.cuda import _build
+
+        _build.build = lambda: pathlib.Path(lib)
+    if only == "k6a":
+        k6a_order(dev, outs, times, k8=lib is None)
+    if only in (None, "forward"):
         forward_kernels(dev, outs, times)
-    if only != "forward":
+    if only in (None, "backward"):
         backward_kernels(dev, outs, times)
     torch.cuda.synchronize()
     if save:
         torch.save({k: [t.cpu() for t in v] for k, v in outs.items()},
                    out_dir / "outputs.pt")
     return times
+
+
+def _scene(name, cfg, dev):
+    """(scene, static, camera) of a catalog scene or of another scene
+    function of `models.scenes` (sphere_medium), on `dev`."""
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.scene.builder import build_scene
+
+    if name in scenes.SCENES:
+        scene, static, cams = scenes.generate_scene(name, cfg.aspect_ratio,
+                                                    device=dev)
+    else:
+        objs, cams, bg = getattr(scenes, name)(cfg.aspect_ratio)
+        scene, static = build_scene(objs, background=bg)
+        scene = scene.to(dev)
+    return scene, static, cams[0].to(dev)
 
 
 def forward_kernels(dev, outs, times):
@@ -146,14 +204,7 @@ def forward_kernels(dev, outs, times):
 
     for name in SCENES:
         cfg = RenderConfig(**SIZE.get(name, FULL))
-        if name in scenes.SCENES:
-            scene, static, cams = scenes.generate_scene(
-                name, cfg.aspect_ratio, device=dev)
-        else:
-            objs, cams, bg = getattr(scenes, name)(cfg.aspect_ratio)
-            scene, static = build_scene(objs, background=bg)
-            scene = scene.to(dev)
-        cam = cams[0].to(dev)
+        scene, static, cam = _scene(name, cfg, dev)
         tables = mk.build_tables(scene, static, cam)
 
         def fwd(emit=False):
@@ -176,6 +227,7 @@ def forward_kernels(dev, outs, times):
             outs[f"{name} codes"] = fwd(True)
             times[f"{name} codes"] = _cuda_ms(lambda: fwd(True))
             times[f"launch {name} codes"] = _cuda_ms(lambda: launch(True))
+    turbulence_records(dev, outs, times)
     for name, size in (("book2_criterion", CRITERION),
                        ("jumpy_balls_d20", JUMPY_DEEP)):
         cfg = RenderConfig(**size)
@@ -196,6 +248,76 @@ def forward_kernels(dev, outs, times):
             outs[f"{name} {route}"] = fwd()
             times[f"{name} {route}"] = _cuda_ms(fwd)
     staged_hits(dev, outs, times)
+
+
+def k6a_order(dev, outs, times, k8=True):
+    """K6a on two_perlin_spheres first, after the media scenes' launches
+    and (with `k8`) after K8 (see the module's docstring)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    def frame(name):
+        cfg = RenderConfig(**FULL)
+        scene, static, cam = _scene(name, cfg, dev)
+        tables = mk.build_tables(scene, static, cam)
+        return lambda: mk._launch(scene, cfg, cam, 0, cfg.n_rays, cfg.seed,
+                                  static, tables=tables)
+
+    k6a = frame("two_perlin_spheres")
+    outs["two_perlin_spheres k6a"] = k6a()
+
+    def timed(when):
+        times[f"events K6a {when}"] = _cuda_ms(k6a, 21)
+        times[f"device K6a {when}"] = _device_ms(k6a)
+
+    timed("first")
+    for name in ("smokey_cornell_box", "sphere_medium"):
+        media = frame(name)
+        for _ in range(10):
+            media()
+    torch.cuda.synchronize()
+    timed("after media")
+    if k8:
+        turbulence_records(dev, outs, times)
+        timed("after K8")
+
+
+def noise_records(dev):
+    """two_perlin_spheres' records at FULL: (grad, perm, points (B*D, 3),
+    live (B*D,)), the combine's turbulence operands."""
+    from raytracer_weekend_tpu_torch import textures
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    cfg = RenderConfig(**FULL)
+    scene, static, cams = scenes.generate_scene(
+        "two_perlin_spheres", cfg.aspect_ratio, device=dev)
+    _, _, _, abc, dcode = mk.render_fused_records(
+        scene, cfg, cams[0].to(dev), 0, cfg.n_rays, cfg.seed, static=static)
+    tid = (dcode.abs() - 1).clamp_min(0).long()
+    live = (dcode != 0) & (scene.textures.ttype[tid] == textures.NOISE)
+    return (scene.textures.perlin_grad, scene.textures.perlin_perm,
+            abc.reshape(-1, 3), live.reshape(-1))
+
+
+def turbulence_records(dev, outs, times):
+    """K8 on two_perlin_spheres' records: its output, the launch alone and
+    the call."""
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+
+    grad, perm, pts, live = noise_records(dev)
+
+    def call():
+        return pt.turbulence(grad, perm, pts, 7, live)
+
+    ops = pt.turbulence_operands(grad, perm, pts, live)
+    outs["K8 two_perlin_spheres"] = (call(),)
+    times["launch K8 two_perlin_spheres"] = _cuda_ms(
+        lambda: pt._launch_turbulence(ops))
+    times["call K8 two_perlin_spheres"] = _cuda_ms(call)
 
 
 def _hit_calls(kind, tab, rays, t_min):
@@ -320,7 +442,7 @@ def backward_kernels(dev, outs, times):
     (see the module's docstring) into `outs` and `times`."""
     import torch
 
-    from raytracer_weekend_tpu_torch import fused_diff, integrator, textures
+    from raytracer_weekend_tpu_torch import fused_diff, integrator
     from raytracer_weekend_tpu_torch.config import RenderConfig
     from raytracer_weekend_tpu_torch.models import scenes
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
@@ -333,16 +455,10 @@ def backward_kernels(dev, outs, times):
                                                     device=dev)
         return scene, static, cams[0].to(dev)
 
-    scene, static, cam = load("two_perlin_spheres")
-    _, _, _, abc, dcode = mk.render_fused_records(
-        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static)
-    tid = (dcode.abs() - 1).clamp_min(0).long()
-    live = (dcode != 0) & (scene.textures.ttype[tid] == textures.NOISE)
-    pts, live = abc.reshape(-1, 3), live.reshape(-1)
+    grad, perm, pts, live = noise_records(dev)
     ct = torch.randn(pts.shape[0], device=dev,
                      generator=torch.Generator(device=dev).manual_seed(10))
-    launch, call = _turb_vjp_calls(scene.textures.perlin_grad,
-                                   scene.textures.perlin_perm, pts, ct, live)
+    launch, call = _turb_vjp_calls(grad, perm, pts, ct, live)
     d_grad, d_p = call()
     outs["K9 two_perlin_spheres d_p"] = (d_p,)
     outs["K9 two_perlin_spheres summed"] = (d_grad,)
@@ -516,16 +632,17 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
-    ap.add_argument("--only", choices=("forward", "backward"),
-                    help="run one part (default: both)")
+    ap.add_argument("--only", choices=("forward", "backward", "k6a"),
+                    help="run one part (default: forward and backward)")
     ap.add_argument("--out", default="build/ab_render.json")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--save", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--lib", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:  # one checkout's process
         out_dir = pathlib.Path(args.child)
         out_dir.mkdir(parents=True, exist_ok=True)
-        times = run_one(out_dir, args.save, args.only)
+        times = run_one(out_dir, args.save, args.only, args.lib)
         (out_dir / f"times{'-saved' if args.save else ''}.json").write_text(
             json.dumps(times))
         return
@@ -537,14 +654,25 @@ def main() -> None:
     out = pathlib.Path(args.out).resolve()
     work = this / "build" / "ab_render"   # git-ignored; outputs are large
     runs = {}
-    for who, root, save in (("other", other, True), ("this", this, True),
-                            ("this", this, False), ("other", other, False)):
+    order = [("other", other, True), ("this", this, True),
+             ("this", this, False), ("other", other, False)]
+    lib = None
+    if args.only == "k6a":  # and this checkout on the other's library
+        lib = subprocess.run(
+            [sys.executable, "-c", "from raytracer_weekend_tpu_torch.ops."
+             "cuda import _build; print(_build.build())"], cwd=other,
+            env=dict(os.environ, PYTHONPATH=str(other)), check=True,
+            capture_output=True, text=True).stdout.strip().splitlines()[-1]
+        mixed = ("this, other's library", this, False)
+        order = [*order[:2], mixed, mixed, *order[2:]]
+    for who, root, save in order:
         env = dict(os.environ, PYTHONPATH=str(root))
-        child = work / who
+        child = work / who.replace(", ", "-").replace("'", "").replace(" ", "_")
         subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
                         "--other", str(other), "--child", str(child)]
                        + (["--save"] if save else [])
-                       + ([f"--only={args.only}"] if args.only else []),
+                       + ([f"--only={args.only}"] if args.only else [])
+                       + ([f"--lib={lib}"] if who.endswith("library") else []),
                        cwd=root, env=env, check=True)
         name = "times-saved.json" if save else "times.json"
         runs.setdefault(who, []).append(json.loads((child / name).read_text()))

@@ -1,9 +1,16 @@
-"""The backward kernels' work orders (K9 in csrc/perlin_turb.cu, K7 with K2
-and K4 in csrc/replay_bwd.cu) through their plain twins (the card runs the
-kernels themselves: `chip_smoke.py` phases 6, 8 and 10,
-`tests/test_torch_cuda.py`, `utils/ab_render.py --only backward`).
+"""The turbulence kernels' and the backward kernels' work orders (K8 and K9
+in csrc/perlin_turb.cu, K7 with K2 and K4 in csrc/replay_bwd.cu) through
+their plain twins (the card runs the kernels themselves: `chip_smoke.py`
+phases 6, 8, 9 and 10, `tests/test_torch_cuda.py`, `utils/ab_render.py`).
 
-  * K9's work order (`perlin_turb.vjp_claim_order`: warps claim windows of
+  * K8's work order is K9's (`for_live_points`, with K8's own block and
+    window): over the same sweep of point counts, warps and windows it
+    runs each live point exactly once and writes each dead one once; the
+    plain turbulence run batch by batch in that order (`turbulence_twin`)
+    is the plain turbulence in point order bit for bit on
+    two_perlin_spheres' records, and the JAX Pallas turbulence in interpret
+    mode within tests/test_torch_textures.py's 1e-5.
+  * K9's work order (`perlin_turb.live_claim_order`: warps claim windows of
     points from a shared counter and pack the live ones by ballot into
     batches of 32) runs each live point of a mask with two_perlin_spheres'
     live share exactly once and writes 0 for each dead one, over ragged
@@ -33,7 +40,8 @@ from raytracer_weekend_tpu import integrator as JI
 from raytracer_weekend_tpu.config import RenderConfig as JConfig
 from raytracer_weekend_tpu.models import scenes as JS
 from raytracer_weekend_tpu.ops.pallas import replay_bwd as JRB
-from raytracer_weekend_tpu.ops.pallas.perlin_turb import turbulence_vjp_pallas
+from raytracer_weekend_tpu.ops.pallas.perlin_turb import (
+    turbulence_pallas, turbulence_vjp_pallas)
 from raytracer_weekend_tpu_torch import integrator as TI
 from raytracer_weekend_tpu_torch import textures
 from raytracer_weekend_tpu_torch.config import RenderConfig as TConfig
@@ -63,17 +71,22 @@ def two_perlin():
     return (js, jst, jc, jcams[0]), (ts, tst, tc, tcams[0]), fwd
 
 
-@pytest.mark.parametrize("n, warps, window", [
-    (5, 3, pt.VJP_WINDOW),         # fewer points than a warp
-    (1037, 4, pt.VJP_WINDOW),      # not a multiple of the block or window
-    (20_000, 40, pt.VJP_WINDOW),   # more warps than windows in a round
-    (4096 + 17, 6, 64),            # a smaller window, a ragged end
-])
-def test_k9_work_order_runs_each_point_once(n, warps, window):
+ORDER_SWEEP = [
+    (5, 3),         # fewer points than a warp
+    (1037, 4),      # not a multiple of the block or window
+    (20_000, 40),   # more warps than windows in a round
+]
+
+
+def _check_claim_order(n, warps, window):
+    """live_claim_order over a random mask of two_perlin's live share runs
+    each live point once, in full batches of 32 but for each warp's last,
+    each batch and each warp's batches in index order, and each dead point
+    once."""
     rng = np.random.default_rng(n)
     live = torch.from_numpy(rng.random(n) < LIVE_SHARE)
     live[: min(n, 3)] = True
-    batches, dead = pt.vjp_claim_order(live, warps, window, seed=n)
+    batches, dead = pt.live_claim_order(live, warps, window, seed=n)
     ran = torch.cat([idx for _, idx in batches]) if batches else \
         torch.zeros(0, dtype=torch.int64)
     assert torch.equal(ran.sort().values, live.nonzero().flatten())
@@ -87,6 +100,46 @@ def test_k9_work_order_runs_each_point_once(n, warps, window):
     for w in set(last):
         mine = torch.cat([idx for v, idx in batches if v == w])
         assert torch.equal(mine, mine.sort().values)
+
+
+@pytest.mark.parametrize("n, warps, window",
+                         [(n, w, pt.VJP_WINDOW) for n, w in ORDER_SWEEP]
+                         + [(4096 + 17, 6, 64)])  # a smaller window
+def test_k9_work_order_runs_each_point_once(n, warps, window):
+    _check_claim_order(n, warps, window)
+
+
+@pytest.mark.parametrize("n, warps, window",
+                         [(n, w, pt.TURB_WINDOW) for n, w in ORDER_SWEEP]
+                         + [(4096 + 17, 6, 32), (777, 2, 256)])
+def test_k8_work_order_runs_each_point_once(n, warps, window):
+    _check_claim_order(n, warps, window)
+
+
+def _noise_records(fwd, ts):
+    """two_perlin's record points and their live mask (noise texels)."""
+    _, _, _, _, abc, dcode = fwd
+    tid = (dcode.abs() - 1).clamp_min(0).long()
+    live = ((dcode != 0) & (ts.textures.ttype[tid] == textures.NOISE))
+    return abc.reshape(-1, 3), live.reshape(-1)
+
+
+def test_k8_twin_matches_plain_and_jax(two_perlin):
+    _, (ts, _, _, _), fwd = two_perlin
+    p, live = _noise_records(fwd, ts)
+    assert 0.02 < float(live.float().mean()) < 0.9
+    grad, perm = ts.textures.perlin_grad, ts.textures.perlin_perm
+    got = pt.turbulence_twin(grad, perm, p, 7, live, warps=5, seed=2)
+    want = pt.turbulence_reference(grad, perm, p, 7, live)
+    assert torch.equal(got, want)
+    assert bool((got[~live] == 0).all()) and float(got[live].std()) > 0.05
+    # The JAX kernel leaves dead points of a live tile to its caller.
+    jt = np.asarray(turbulence_pallas(
+        jnp.asarray(grad.numpy()), jnp.asarray(perm.numpy()),
+        jnp.asarray(p.numpy()), 7, interpret=True,
+        live=jnp.asarray(live.numpy())))
+    lv = live.numpy()
+    np.testing.assert_allclose(got.numpy()[lv], jt[lv], atol=1e-5, rtol=0)
 
 
 def test_k9_twin_matches_plain_and_jax(two_perlin):
@@ -175,8 +228,9 @@ def test_k7_sweep_order_matches_plain_and_jax(two_perlin):
 
 
 @pytest.mark.parametrize("src, names, module", [
-    ("perlin_turb.cu", {"kVjpBlock": "VJP_BLOCK", "kVjpWindow": "VJP_WINDOW"},
-     pt),
+    ("perlin_turb.cu", {"kVjpBlock": "VJP_BLOCK", "kVjpWindow": "VJP_WINDOW",
+                        "kTurbBlock": "TURB_BLOCK",
+                        "kTurbWindow": "TURB_WINDOW"}, pt),
     ("replay_bwd.cu", {"kBins": "ORDER_BINS"}, rb),
 ])
 def test_mirrored_constants_are_the_kernels(src, names, module):
@@ -186,4 +240,6 @@ def test_mirrored_constants_are_the_kernels(src, names, module):
         assert m, cname
         assert int(m.group(1)) == getattr(module, pname), cname
     if src == "perlin_turb.cu":   # a window is whole chunks of 32 points
-        assert pt.VJP_WINDOW % 32 == 0 and pt.VJP_BLOCK % 32 == 0
+        for c in (pt.VJP_WINDOW, pt.VJP_BLOCK, pt.TURB_WINDOW,
+                  pt.TURB_BLOCK):
+            assert c % 32 == 0

@@ -376,12 +376,43 @@ def test_turbulence_vjp_kernel_matches_plain(cuda):
         assert float((a - b).norm() / b.norm()) <= 1e-4
 
 
-@pytest.mark.parametrize("n, share", [
+SPARSE_RAGGED = [
     (5, 1.0),                          # fewer points than a warp
     (3 * 256 + 17, 0.02),              # ragged windows, mostly dead
     (200_003, 0.02),                   # many windows, mostly dead
     (100_000, 0.0),                    # all dead
-])
+]
+
+
+@pytest.mark.parametrize("n, share", SPARSE_RAGGED + [(70_001, 1.0)])
+def test_turbulence_kernel_sparse_and_ragged(cuda, n, share):
+    """K8's persistent warps (K9's claims and ballot packing) on masks that
+    are mostly dead, all live, and on point counts that are no multiple of
+    its block or window: each dead point exactly 0, each live one within
+    1e-5 of the plain version, and the launch alone on operands built
+    beforehand gives the call's values bit for bit, twice (the counter is
+    zeroed by each launch)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb as pt
+
+    scene, _, _ = generate_scene("two_perlin_spheres", 1.5)
+    g, pm = scene.textures.perlin_grad, scene.textures.perlin_perm
+    rng = np.random.default_rng(n)
+    p = torch.from_numpy((rng.normal(size=(n, 3)) * 7).astype(np.float32))
+    live = torch.from_numpy(rng.random(n) < share)
+    p, live = p.to(cuda), live.to(cuda)
+    before = pt.TURB_LAUNCHES
+    got = pt.turbulence(g, pm, p, 7, live)
+    assert pt.TURB_LAUNCHES == before + 1
+    ref = pt.turbulence_reference(g, pm, p, 7, live)
+    assert bool((got[~live] == 0).all()) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5
+    ops = pt.turbulence_operands(g, pm, p, live)
+    assert torch.equal(pt._launch_turbulence(ops), got)
+    assert torch.equal(pt._launch_turbulence(ops), got)
+    assert pt.TURB_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("n, share", SPARSE_RAGGED)
 def test_turbulence_vjp_kernel_sparse_and_ragged(cuda, n, share):
     """K9's persistent warps on masks that are mostly dead and on point
     counts that are no multiple of its block or window: each dead point's
@@ -691,6 +722,47 @@ def test_volume_kernel_matches_plain(cuda, name, log10):
     vol = codes[(codes & 3) == 3] >> 2
     assert set(vol.unique().tolist()) == set(range(static.n_volumes))
     assert int((codes != rcodes).any(1).sum()) <= max(4, n // 100)
+
+
+@pytest.mark.parametrize("name, emit", [("smokey_cornell_box", False),
+                                        ("smokey_cornell_box", True),
+                                        ("sphere_medium", True),
+                                        ("book2_final_scene", True)])
+def test_media_launch_windows_bitwise(cuda, name, emit):
+    """K5 and K5-emit (and K6a's records on book2) on media_kernel: a
+    window larger than the card's resident lane slots, its halves and a
+    window of 5 lanes give the same lanes bit for bit (codes and records
+    included), one VOL_LAUNCHES count a launch."""
+    size = (dict(width=160, height=90) if name == "book2_final_scene"
+            else dict(width=400, height=225))
+    scene, static, cfg, cam = _frame(name, cuda, samples_per_pixel=4,
+                                     max_depth=6, **size)
+    n = cfg.n_rays
+    R = static.n_rects + static.n_triangles
+    assert mk.fused_kernel(R, static.n_volumes, phase=False) == \
+        "media_kernel"
+    tables = mk.build_tables(scene, static, cam)
+
+    def run(start=0, count=n):
+        return mk._launch(scene, cfg, cam, start, count, cfg.seed, static,
+                          emit_paths=emit, tables=tables)
+
+    before = mk.VOL_LAUNCHES
+    whole = run()
+    assert mk.VOL_LAUNCHES == before + 1
+    if name != "book2_final_scene":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert n > mk.resident_blocks(static, cuda, phase=False) * sms * \
+            mk.MEDIA_BLOCK
+    h = n // 2 + 37
+    for a, b, w in zip(run(start=0, count=h), run(start=h, count=n - h),
+                       whole):
+        assert torch.equal(torch.cat([a, b]), w)
+    for a, w in zip(run(start=1001, count=5), whole):
+        assert torch.equal(a, w[1001:1006])
+    assert bool(torch.isfinite(whole[0]).all())
+    if emit:
+        assert bool(((whole[2] & 3) == 3).any())
 
 
 @pytest.mark.parametrize("name, depth", [("book2_final_scene", 20),

@@ -68,7 +68,8 @@ def _assert_tables_equal(jdata, jstatic, tdata, tstatic):
 
 @pytest.mark.parametrize("name", ["jumpy_balls", "two_spheres",
                                   "smokey_cornell_box", "book2_final_scene",
-                                  "textured_monument"])
+                                  "textured_monument",
+                                  "wavefront_suspension_obj"])
 def test_builder_tables_bit_equal(name):
     jdata, jstatic, _ = _jax_scene(name)
     tdata, tstatic, _ = _torch_scene(name)
@@ -81,6 +82,8 @@ def test_builder_tables_bit_equal(name):
     if name == "textured_monument":   # tests/test_scenes.py:50
         assert (tstatic.n_rects, tstatic.n_triangles) == (1, 7798)
         assert tstatic.fused_simple
+    if name == "wavefront_suspension_obj":  # vertex normals, no tree
+        assert tstatic.n_triangles == 17190 and tstatic.fused_simple
 
 
 def test_objloader_image_map_bit_equal():
