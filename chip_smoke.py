@@ -99,7 +99,9 @@ holds each against its plain torch version first. Phases, one line each
      forward+backward at 400x225, 4 spp;
  14. the staged path: K12's division-free prefilter on the card against
      the exact test (a superset) and its plain twin (the same bits), on an
-     adversarial set and 2^24 random cases per t_min; K10's and K12's launch
+     adversarial set and 2^24 random cases per t_min; K11 on 1,000 random
+     rects (several tiles) bit for bit its plain version and its twin, at
+     t_min 1e-3, 7, 0 and -0.5; K10's, K11's and K12's launch
      configuration (rays a thread, block, tile) and their instantiations'
      registers (no spills); K10, K11 and K12 against their plain versions
      on the primary and first-bounce rays of jumpy_balls, cornell_box and
@@ -131,14 +133,18 @@ card could take for the same work and what bounds it), each entry's ms,
 launches and bound measured on the same launches: K3 one entry per scene
 (cornell_box, the cow, the monument, book2), K6b one per phase of the
 criterion, K10-K12 one per table and launch size; every entry's ms is the
-launch alone, on tables and operands built beforehand, and its wrapper_ms
-the call the main path makes (render_fused, render_fused_records,
-replay_bwd_fused, turbulence, turbulence_vjp, the autograd.Function) less
-it (K6b's: render_fused_deep less its phases' launches, an equal share a
-phase); and as the last
-line {"ok": true, "device": {...}}. Any failure is an uncaught exception: the
-exit code is not 0 and the last line is not printed. Without a CUDA device,
-or without the rest of the repository beside it, the script fails.
+launch alone on the device, on tables and operands built beforehand, its
+start event queued behind a spin of the card so that the host's enqueue is
+left out (`utils/timing.py` `device_ms`), its event_ms the same launch by
+CUDA events around the host's call, and its wrapper_ms the call the main path makes
+(render_fused, render_fused_records, replay_bwd_fused, turbulence,
+turbulence_vjp, the autograd.Function) less event_ms (K6b's:
+render_fused_deep less its phases' launches, an equal share a phase); the
+script fails if an entry lacks a key or has no positive ms and event_ms;
+and as the last line {"ok": true, "device": {...}}. Any failure is an
+uncaught exception: the exit code is not 0 and the last line is not
+printed. Without a CUDA device, or without the rest of the repository
+beside it, the script fails.
 """
 
 from __future__ import annotations
@@ -150,6 +156,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+from raytracer_weekend_tpu_torch.utils.timing import cuda_ms, device_ms
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # Sanity line from the reference's records: traced segments of this frame
@@ -225,8 +233,8 @@ OPS_TURB_OCTAVE = 98
 OPS_TURB_VJP_OCTAVE = 361
 # Every entry of the kernels line.
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
-               "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-               "bound_by", "library_ms"}
+               "max_abs_err", "ms", "event_ms", "wrapper_ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms"}
 
 
 def bound(entry, ops, nbytes):
@@ -308,32 +316,27 @@ def ptxas_registers(log):
     return out
 
 
-def _cuda_ms(fn, reps):
-    """Median milliseconds of `fn()` over `reps` runs, by CUDA events."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+def launch_times(fn, reps=5):
+    """A launch alone -> (device ms, events ms), medians of `reps`: the
+    kernels line's `ms` (`timing.device_ms`: the start event queued
+    behind a spin of the card, so the host's enqueue of `fn` overlaps the
+    spin and is left out) and `event_ms` (`timing.cuda_ms`, which also
+    holds the host's enqueue: allocations, a counter's zeroing, the ctypes
+    call). An entry's `wrapper_ms` is its call less `event_ms`, both by
+    events."""
+    return device_ms(fn, reps), cuda_ms(fn, reps)
 
 
 def launch_ms(scene, static, cfg, cam, emit=False):
     """The forward kernel's launch alone over the frame: `mk._launch` on
     the tables built beforehand (as the depth phases and the fits pass
-    them), CUDA events, median of 5."""
+    them) -> `launch_times`."""
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
     tables = mk.build_tables(scene, static, cam)
-    return _cuda_ms(lambda: mk._launch(scene, cfg, cam, 0, cfg.n_rays,
-                                       cfg.seed, static, emit_paths=emit,
-                                       tables=tables), 5)
+    return launch_times(lambda: mk._launch(scene, cfg, cam, 0, cfg.n_rays,
+                                           cfg.seed, static, emit_paths=emit,
+                                           tables=tables))
 
 
 def sphere_design(log, dev, smi):
@@ -503,7 +506,7 @@ def fwd_bwd_ms(scene, static, cfg, cam):
     if bad:
         raise AssertionError(f"non-finite forward+backward gradients: float "
                              f"leaves {bad} of {len(grads)}")
-    return _cuda_ms(fwd_bwd, 5), grads
+    return cuda_ms(fwd_bwd, 5), grads
 
 
 def time_render_image(name, scene, static, cfg, cam, k_rad):
@@ -648,14 +651,14 @@ def main() -> None:
             and torch.equal(small[1], k_seg[1001:1006])
             and torch.equal(again[0], k_rad) and torch.equal(again[1], k_seg)):
         raise AssertionError("a 5-lane window or a second launch differs")
-    kernel_ms = _cuda_ms(lambda: kernel_frame(scene, static, cfg, cam), 5)
-    k1_ms = launch_ms(scene, static, cfg, cam)
-    plain_ms = _cuda_ms(lambda: plain_frame(scene, static, cfg, cam), 3)
+    kernel_ms = cuda_ms(lambda: kernel_frame(scene, static, cfg, cam), 5)
+    k1_ms, k1_ev = launch_ms(scene, static, cfg, cam)
+    plain_ms = cuda_ms(lambda: plain_frame(scene, static, cfg, cam), 3)
     print(f"phase 4 chunking: halves [0,{half}) + [{half},{n}), a window of "
           f"5 lanes and a second launch bitwise equal to the whole frame; "
           f"render_fused frame {kernel_ms:.3f} ms, the launch alone "
-          f"{k1_ms:.3f} ms, plain version frame {plain_ms:.3f} ms (median; "
-          f"{smi})", flush=True)
+          f"{k1_ms:.3f} ms on the device ({k1_ev:.3f} by events), plain "
+          f"version frame {plain_ms:.3f} ms (median; {smi})", flush=True)
     sphere_design(log, dev, smi)
 
     # ---- 5. main path ----------------------------------------------------
@@ -685,7 +688,8 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": jstats["max_abs_err"],
         "ms": k1_ms,
-        "wrapper_ms": kernel_ms - k1_ms,
+        "event_ms": k1_ev,
+        "wrapper_ms": kernel_ms - k1_ev,
         "plain_ms": plain_ms,
     }, *forward_work(n, cfg.max_depth, segs, S, 0))]
     kernels += training_path(scene, static, cfg, cam, k_rad, k_seg, smi)
@@ -704,6 +708,12 @@ def main() -> None:
                if KERNEL_KEYS - k.keys()]
     if missing:
         raise AssertionError(f"kernels line entries without {missing}")
+    untimed = [k["name"] for k in kernels
+               if not all(isinstance(k[x], float) and k[x] > 0.0
+                          for x in ("ms", "event_ms"))]
+    if untimed:
+        raise AssertionError(f"kernels line entries without a positive ms "
+                             f"and event_ms: {untimed}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -745,14 +755,15 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         raise AssertionError(f"K1-emit codes differ from the plain version's "
                              f"on {code_lanes} lanes (budget {n // 64})")
     emit_err = float((e_rad - p_rad).abs().max())
-    emit_ms = _cuda_ms(emit_frame, 5)
-    emit_launch_ms = launch_ms(scene, static, cfg, cam, emit=True)
-    plain_emit_ms = _cuda_ms(plain_emit_frame, 3)
+    emit_ms = cuda_ms(emit_frame, 5)
+    emit_launch_ms, emit_ev = launch_ms(scene, static, cfg, cam, emit=True)
+    plain_emit_ms = cuda_ms(plain_emit_frame, 3)
     print(f"phase 6 K1-emit: radiance and segments bitwise equal to the "
           f"launch without codes; codes differ from the plain version's on "
           f"{code_lanes} of {n} lanes (budget {n // 64}); nonzero codes = "
           f"seg or seg - 1 on every lane; frame {emit_ms:.3f} ms, the launch "
-          f"alone {emit_launch_ms:.3f} ms, plain {plain_emit_ms:.3f} ms "
+          f"alone {emit_launch_ms:.3f} ms on the device ({emit_ev:.3f} by "
+          f"events), plain {plain_emit_ms:.3f} ms "
           f"(median; {smi})", flush=True)
 
     # ---- 6b. K2 against its plain version ----------------------------------
@@ -779,12 +790,13 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
     k2_err = max(s["max_abs_err"] for s in k2_stats)
     k2_ops = rb.operands(ktab, None, bg, cfg, o, d, t, rid, seed, codes, g,
                          n)
-    k2_ms = _cuda_ms(lambda: rb._launch(k2_ops), 5)
-    k2_call_ms = _cuda_ms(k2, 5)
-    k2_plain_ms = _cuda_ms(k2_plain, 3)
+    k2_ms, k2_ev = launch_times(lambda: rb._launch(k2_ops))
+    k2_call_ms = cuda_ms(k2, 5)
+    k2_plain_ms = cuda_ms(k2_plain, 3)
     print(f"phase 6 K2: {json.dumps(k2_stats)}; the launch alone "
-          f"{k2_ms:.3f} ms, replay_bwd_fused {k2_call_ms:.3f} ms, plain "
-          f"version {k2_plain_ms:.3f} ms (median; {smi})", flush=True)
+          f"{k2_ms:.3f} ms ({k2_ev:.3f} by events), replay_bwd_fused "
+          f"{k2_call_ms:.3f} ms, plain version {k2_plain_ms:.3f} ms "
+          f"(median; {smi})", flush=True)
 
     # ---- 6c. the training path ---------------------------------------------
     target, start = fit_inputs(scene, static, cfg, cam)
@@ -802,7 +814,7 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         return plain_bwd(c, torch.ones_like(rad))
 
     fb_ms, _ = fwd_bwd_ms(scene, static, cfg, cam)
-    plain_fb_ms = _cuda_ms(plain_fwd_bwd, 1)
+    plain_fb_ms = cuda_ms(plain_fwd_bwd, 1)
     segs = int(k_seg.sum())
     print(f"phase 6 training path: InverseRenderer.fit jumpy_balls "
           f"{cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} depth "
@@ -823,7 +835,8 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         "launches": emit_launches,
         "max_abs_err": emit_err,
         "ms": emit_launch_ms,
-        "wrapper_ms": emit_ms - emit_launch_ms,
+        "event_ms": emit_ev,
+        "wrapper_ms": emit_ms - emit_ev,
         "plain_ms": plain_emit_ms,
     }, *forward_work(n, D, segs, S, 0, emit=True)), bound({
         "name": "replay_bwd_sphere",
@@ -833,7 +846,8 @@ def training_path(scene, static, cfg, cam, k_rad, k_seg, smi):
         "launches": k2_launches,
         "max_abs_err": k2_err,
         "ms": k2_ms,
-        "wrapper_ms": k2_call_ms - k2_ms,
+        "event_ms": k2_ev,
+        "wrapper_ms": k2_call_ms - k2_ev,
         "plain_ms": k2_plain_ms,
     }, *backward_work(n, D, segs, S, 0))]
 
@@ -995,18 +1009,18 @@ def planar_forward(dev, smi):
 
 def k3_entry(name, scene, static, cfg, cam, k_seg, launches, err, plain,
              smi):
-    """The kernels line's K3 entry for one scene at its size: ms the launch
-    alone, wrapper_ms render_fused's call less it (CUDA events, medians of
-    5), `launches` the scene's render_image count, the bound from its own
-    segments, spheres, planar rows and media; `plain` (or None) times the
-    plain version once."""
+    """The kernels line's K3 entry for one scene at its size: ms and
+    event_ms the launch alone (`launch_times`), wrapper_ms render_fused's
+    call less event_ms (CUDA events, medians of 5), `launches` the scene's
+    render_image count, the bound from its own segments, spheres, planar
+    rows and media; `plain` (or None) times the plain version once."""
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
-    call_ms = _cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0,
+    call_ms = cuda_ms(lambda: mk.render_fused(scene, cfg, cam, 0,
                                                cfg.n_rays, cfg.seed,
                                                static=static, deep=False), 5)
-    ms = launch_ms(scene, static, cfg, cam)
-    plain_ms = None if plain is None else _cuda_ms(plain, 1)
+    ms, ev = launch_ms(scene, static, cfg, cam)
+    plain_ms = None if plain is None else cuda_ms(plain, 1)
     R = static.n_rects + static.n_triangles
     blocks = mk.resident_blocks(static, scene.device, phase=False)
     kernel = (f"render_kernel, {mk.BLOCK} threads and {mk.TILE_BYTES} B of "
@@ -1017,7 +1031,7 @@ def k3_entry(name, scene, static, cfg, cam, k_seg, launches, err, plain,
           f"{cfg.samples_per_pixel} depth {cfg.max_depth} ({static.n_spheres}"
           f" spheres, {R} planar rows, {static.n_volumes} media): "
           f"render_fused {call_ms:.3f} ms a call, the launch alone "
-          f"{ms:.3f} ms, plain "
+          f"{ms:.3f} ms on the device ({ev:.3f} by events), plain "
           f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}; "
           f"{blocks} resident blocks an SM of {kernel} (median; {smi})",
           flush=True)
@@ -1029,7 +1043,8 @@ def k3_entry(name, scene, static, cfg, cam, k_seg, launches, err, plain,
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
-        "wrapper_ms": call_ms - ms,
+        "event_ms": ev,
+        "wrapper_ms": call_ms - ev,
         "plain_ms": plain_ms,
     }, *forward_work(cfg.n_rays, cfg.max_depth, int(k_seg.sum()),
                      static.n_spheres, R, V=static.n_volumes,
@@ -1076,7 +1091,7 @@ def planar_training(dev, smi, cornell):
     limit = ctypes.c_int(0)
     _build.check(lib, lib.rtw_replay_bwd_smem_limit(ctypes.byref(limit)),
                  "cudaDeviceGetAttribute")
-    k4_ms = k4_call_ms = k4_plain_ms = k4_work = None
+    k4_ms = k4_ev = k4_call_ms = k4_plain_ms = k4_work = None
     k4_err = 0.0
     for name, size, frame in (("cornell_box", FULL, cornell),
                               ("wavefront_cow_obj", COW_REDUCED, None)):
@@ -1114,11 +1129,12 @@ def planar_training(dev, smi, cornell):
         if name == "cornell_box":
             k4_ops = rb.operands(ktab, ptab, sc.background, cf, o, d, t, rid,
                                  cf.seed, cds, g, nl)
-            k4_ms = _cuda_ms(lambda: rb._launch(k4_ops), 5)
-            k4_call_ms = _cuda_ms(k4, 5)
-            k4_plain_ms = _cuda_ms(k4_plain, 3)
+            k4_ms, k4_ev = launch_times(lambda: rb._launch(k4_ops))
+            k4_call_ms = cuda_ms(k4, 5)
+            k4_plain_ms = cuda_ms(k4_plain, 3)
             k4_work = backward_work(nl, cf.max_depth, int(k_seg.sum()), S, R)
-            timing = (f"; the launch alone {k4_ms:.3f} ms, "
+            timing = (f"; the launch alone {k4_ms:.3f} ms ({k4_ev:.3f} "
+                      f"by events), "
                       f"replay_bwd_fused {k4_call_ms:.3f} ms, plain version "
                       f"{k4_plain_ms:.3f} ms (median; {smi})")
         print(f"phase 8 K4 vs plain {name} {cf.width}x{cf.height} spp "
@@ -1186,7 +1202,8 @@ def planar_training(dev, smi, cornell):
         "launches": k4_launches,
         "max_abs_err": k4_err,
         "ms": k4_ms,
-        "wrapper_ms": k4_call_ms - k4_ms,
+        "event_ms": k4_ev,
+        "wrapper_ms": k4_call_ms - k4_ev,
         "plain_ms": k4_plain_ms,
     }, *k4_work)
 
@@ -1350,9 +1367,9 @@ def deferred_forward(dev, smi):
     if not (rand_err <= TURB_ABS and real_err <= TURB_ABS and dead_zero):
         raise AssertionError("K8 vs plain outside budgets")
     k8_ops = pt.turbulence_operands(grad, perm, pts, live)
-    k8_ms = _cuda_ms(lambda: pt._launch_turbulence(k8_ops), 5)
-    k8_call_ms = _cuda_ms(lambda: pt.turbulence(grad, perm, pts, 7, live), 5)
-    k8_plain_ms = _cuda_ms(lambda: turb_plain(grad, perm, pts, live), 1)
+    k8_ms, k8_ev = launch_times(lambda: pt._launch_turbulence(k8_ops))
+    k8_call_ms = cuda_ms(lambda: pt.turbulence(grad, perm, pts, 7, live), 5)
+    k8_plain_ms = cuda_ms(lambda: turb_plain(grad, perm, pts, live), 1)
     k8_err = max(rand_err, real_err)
     # Bytes: a live point reads p; every point reads its mask byte and writes
     # its turbulence; the tables (6 KB) are read once.
@@ -1399,7 +1416,7 @@ def deferred_forward(dev, smi):
                                  f"{launches} and K8 {turbs} times")
         k6a_launches += launches
         k8_launches += turbs
-        fused_ms = _cuda_ms(lambda: mk.render_fused(
+        fused_ms = cuda_ms(lambda: mk.render_fused(
             scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static), 5)
         med = statistics.median(frame_ms)
         segs = int(k_seg.sum())
@@ -1452,15 +1469,16 @@ def deferred_forward(dev, smi):
     # K6a (no combine) on two_perlin_spheres: the launch alone and
     # render_fused_records' call; and its plain version.
     scene, static, cfg, cam, _, k_seg = frames["two_perlin_spheres"]
-    k6a_call_ms = _cuda_ms(lambda: mk.render_fused_records(
+    k6a_call_ms = cuda_ms(lambda: mk.render_fused_records(
         scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static), 5)
-    k6a_ms = launch_ms(scene, static, cfg, cam)
-    k6a_plain_ms = _cuda_ms(lambda: plain_forward(
+    k6a_ms, k6a_ev = launch_ms(scene, static, cfg, cam)
+    k6a_plain_ms = cuda_ms(lambda: plain_forward(
         scene, static, cfg, cam, PLAIN_CHUNK, records=True), 1)
     print(f"phase 9 timing two_perlin_spheres: K6a's launch alone "
-          f"{k6a_ms:.3f} ms, render_fused_records {k6a_call_ms:.3f} ms, "
-          f"plain {k6a_plain_ms:.3f} ms; K8 on the frame's "
-          f"{pts.shape[0]} records: the launch alone {k8_ms:.3f} ms, "
+          f"{k6a_ms:.3f} ms on the device ({k6a_ev:.3f} by events), "
+          f"render_fused_records {k6a_call_ms:.3f} ms, plain "
+          f"{k6a_plain_ms:.3f} ms; K8 on the frame's {pts.shape[0]} "
+          f"records: the launch alone {k8_ms:.3f} ms ({k8_ev:.3f}), "
           f"turbulence {k8_call_ms:.3f} ms, plain {k8_plain_ms:.3f} ms "
           f"(median; {smi})", flush=True)
     k6a = bound({
@@ -1471,7 +1489,8 @@ def deferred_forward(dev, smi):
         "launches": k6a_launches,
         "max_abs_err": k6a_err,
         "ms": k6a_ms,
-        "wrapper_ms": k6a_call_ms - k6a_ms,
+        "event_ms": k6a_ev,
+        "wrapper_ms": k6a_call_ms - k6a_ev,
         "plain_ms": k6a_plain_ms,
     }, *forward_work(cfg.n_rays, cfg.max_depth, int(k_seg.sum()),
                      scene.spheres.c0.shape[0], 0, defer=True))
@@ -1483,7 +1502,8 @@ def deferred_forward(dev, smi):
         "launches": k8_launches,
         "max_abs_err": k8_err,
         "ms": k8_ms,
-        "wrapper_ms": k8_call_ms - k8_ms,
+        "event_ms": k8_ev,
+        "wrapper_ms": k8_call_ms - k8_ev,
         "plain_ms": k8_plain_ms,
     }, *k8_work)
     return k6a, k8, frames
@@ -1528,13 +1548,14 @@ def deferred_training(dev, smi, frames):
         raise AssertionError(f"K9 vs plain: {k9_stats}")
     k9_err = float(max((dg - rg).abs().max(), (dp - rp).abs().max()))
     k9_ops = pt.vjp_operands(grad, perm, pts, ct, live)
-    k9_ms = _cuda_ms(lambda: pt._launch_vjp(k9_ops), 5)
-    k9_call_ms = _cuda_ms(
+    k9_ms, k9_ev = launch_times(lambda: pt._launch_vjp(k9_ops))
+    k9_call_ms = cuda_ms(
         lambda: pt.turbulence_vjp(grad, perm, pts, ct, 7, live), 5)
-    k9_plain_ms = _cuda_ms(lambda: turb_vjp_plain(grad, perm, pts, ct, live),
+    k9_plain_ms = cuda_ms(lambda: turb_vjp_plain(grad, perm, pts, ct, live),
                            1)
     print(f"phase 10 timing K9 on two_perlin_spheres' records: the launch "
-          f"alone {k9_ms:.3f} ms, turbulence_vjp {k9_call_ms:.3f} ms, plain "
+          f"alone {k9_ms:.3f} ms ({k9_ev:.3f} by events), turbulence_vjp "
+          f"{k9_call_ms:.3f} ms, plain "
           f"{k9_plain_ms:.3f} ms (median; {smi})", flush=True)
     # Bytes: a live point reads p and ct; every point reads its mask byte and
     # writes d_p; the tables are read and d_grad (3 KB) written once.
@@ -1561,14 +1582,14 @@ def deferred_training(dev, smi, frames):
             def rows_fb():
                 return torch.autograd.grad(read(tab, ids), tab, ct_rows)
             rows_fb()
-            rows_ms[f"{how}, {k_rows} rows"] = _cuda_ms(rows_fb, 5)
+            rows_ms[f"{how}, {k_rows} rows"] = cuda_ms(rows_fb, 5)
     print(f"phase 10 texture-row reads, forward+backward over "
           f"{tid.shape[0]} records (ms, median of 5; {smi}): "
           f"{json.dumps(rows_ms)}", flush=True)
 
     # ---- 10b. K7 against its plain version and the float64 witness -------------
-    k7_err, k7_ms, k7_call_ms, k7_plain_ms, k7_work = 0.0, None, None, None, \
-        None
+    k7_err, k7_work = 0.0, None
+    k7_ms = k7_ev = k7_call_ms = k7_plain_ms = None
     for name in DEFERRED:
         scene, static, cfg, cam, k_rad, k_seg = frames[name]
         n, seed = cfg.n_rays, cfg.seed
@@ -1650,13 +1671,14 @@ def deferred_training(dev, smi, frames):
         if name == "two_perlin_spheres":
             k7_ops = rb.operands(ktab, ptab, scene.background, cfg, o, d, t,
                                  rid, seed, codes, g_k, n, cabc=cabc)
-            k7_ms = _cuda_ms(lambda: rb._launch(k7_ops), 5)
-            k7_call_ms = _cuda_ms(lambda: k7(g_k, cabc), 5)
-            k7_plain_ms = _cuda_ms(lambda: k7_plain(g_k, cabc), 1)
+            k7_ms, k7_ev = launch_times(lambda: rb._launch(k7_ops))
+            k7_call_ms = cuda_ms(lambda: k7(g_k, cabc), 5)
+            k7_plain_ms = cuda_ms(lambda: k7_plain(g_k, cabc), 1)
             k7_work = backward_work(n, cfg.max_depth, int(k_seg.sum()),
                                     ktab.shape[1], 0, defer=True, noise=True)
             print(f"phase 10 timing two_perlin_spheres: K7's launch alone "
-                  f"{k7_ms:.3f} ms, replay_bwd_fused {k7_call_ms:.3f} ms, "
+                  f"{k7_ms:.3f} ms ({k7_ev:.3f} by events), "
+                  f"replay_bwd_fused {k7_call_ms:.3f} ms, "
                   f"plain {k7_plain_ms:.3f} ms (median; {smi})", flush=True)
 
     # ---- 10c. forward+backward frames -----------------------------------------
@@ -1716,7 +1738,8 @@ def deferred_training(dev, smi, frames):
         "launches": k7_launches,
         "max_abs_err": k7_err,
         "ms": k7_ms,
-        "wrapper_ms": k7_call_ms - k7_ms,
+        "event_ms": k7_ev,
+        "wrapper_ms": k7_call_ms - k7_ev,
         "plain_ms": k7_plain_ms,
     }, *k7_work)
     k9 = bound({
@@ -1727,7 +1750,8 @@ def deferred_training(dev, smi, frames):
         "launches": k9_launches,
         "max_abs_err": k9_err,
         "ms": k9_ms,
-        "wrapper_ms": k9_call_ms - k9_ms,
+        "event_ms": k9_ev,
+        "wrapper_ms": k9_call_ms - k9_ev,
         "plain_ms": k9_plain_ms,
     }, *k9_work)
     return k7, k9
@@ -1793,13 +1817,14 @@ def volume_forward(dev, smi, log):
 
     scene, static, cfg, cam, k_rad, k_seg, window, sstats = \
         frames["smokey_cornell_box"]
-    k5_call_ms = _cuda_ms(lambda: mk.render_fused(
+    k5_call_ms = cuda_ms(lambda: mk.render_fused(
         scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static), 5)
-    k5_ms = launch_ms(scene, static, cfg, cam)
-    plain_ms = _cuda_ms(lambda: plain_forward(scene, static, cfg, cam,
+    k5_ms, k5_ev = launch_ms(scene, static, cfg, cam)
+    plain_ms = cuda_ms(lambda: plain_forward(scene, static, cfg, cam,
                                               window), 3)
     print(f"phase 11 K5 timing smokey_cornell_box: render_fused frame "
-          f"{k5_call_ms:.3f} ms, the launch alone {k5_ms:.3f} ms, plain "
+          f"{k5_call_ms:.3f} ms, the launch alone {k5_ms:.3f} ms on the "
+          f"device ({k5_ev:.3f} by events), plain "
           f"version frame {plain_ms:.3f} ms (median; {smi})", flush=True)
     smokey = (scene, static, cfg, cam, k_rad, k_seg)
 
@@ -1841,7 +1866,8 @@ def volume_forward(dev, smi, log):
         "launches": launches,
         "max_abs_err": sstats["max_abs_err"],
         "ms": k5_ms,
-        "wrapper_ms": k5_call_ms - k5_ms,
+        "event_ms": k5_ev,
+        "wrapper_ms": k5_call_ms - k5_ev,
         "plain_ms": plain_ms,
     }, *forward_work(s_cfg.n_rays, s_cfg.max_depth,
                      sstats["kernel_segments"], 0,
@@ -1926,7 +1952,7 @@ def deep_phases(dev, smi):
                                  f"single pass bit for bit: {equal}")
         times = {"single": [], "deep": []}
         for who in ("single", "deep", "deep", "single"):
-            times[who].append(_cuda_ms(single if who == "single" else deep,
+            times[who].append(cuda_ms(single if who == "single" else deep,
                                        5))
         timings[name] = {k: statistics.median(v) for k, v in times.items()}
         phase_log[name] = phases
@@ -1986,8 +2012,8 @@ def deep_phases(dev, smi):
                               tables=tables, group=g)
 
         k_out = launch()
-        ms = _cuda_ms(launch, 5)
-        ms_sum += ms
+        ms, ev = launch_times(launch)
+        ms_sum += ev
         ids_all = (torch.arange(nl, dtype=torch.int32, device=dev)
                    if ids is None else ids)
         plain_out = []
@@ -2000,7 +2026,7 @@ def deep_phases(dev, smi):
             plain_out[:] = [torch.cat([o[i] for o in outs])
                             for i in range(len(outs[0]))]
 
-        plain_ms = _cuda_ms(plain, 1)
+        plain_ms = cuda_ms(plain, 1)
         p_out = plain_out
         ok, stats = _budgets(k_out[-1][:, 9:12], p_out[-1][:, 9:12],
                              k_out[1].sum(), p_out[1].sum(), nl,
@@ -2012,7 +2038,8 @@ def deep_phases(dev, smi):
                      phase_segments=phase_segs)
         print(f"phase 12 K6b phase {k + 1} of book2_criterion (bounces "
               f"{d0}-{d0 + cf.max_depth - 1}, {nl} lanes, G {g}): "
-              f"{ms:.3f} ms a launch, plain {plain_ms:.3f} ms; kernel vs "
+              f"{ms:.3f} ms a launch ({ev:.3f} by events), plain "
+              f"{plain_ms:.3f} ms; kernel vs "
               f"plain from the same state, radiance and segments in the "
               f"state: {json.dumps(stats)} ({smi})", flush=True)
         if not ok:
@@ -2028,6 +2055,7 @@ def deep_phases(dev, smi):
             "launches": k6b_launches // len(phases),
             "max_abs_err": stats["max_abs_err"],
             "ms": ms,
+            "event_ms": ev,
             "plain_ms": plain_ms,
         }, *forward_work(nl, cf.max_depth, phase_segs, static.n_spheres,
                          static.n_rects + static.n_triangles, defer=True,
@@ -2035,7 +2063,7 @@ def deep_phases(dev, smi):
                          phase_lanes=nl if st_in is None else 2 * nl)))
     deep_ms = timings['book2_criterion']['deep']
     print(f"phase 12 timing: the criterion's phases {ms_sum:.3f} ms in all "
-          f"launched alone, against the whole render_fused_deep "
+          f"launched alone (by events), against the whole render_fused_deep "
           f"{deep_ms:.3f} ms (the host's live count, gathers and combine "
           f"between them) ({smi})", flush=True)
     # The phases' wrapper: render_fused_deep's work around its launches,
@@ -2194,7 +2222,7 @@ def row_reads(tab, idx, smi):
         def fb():
             return torch.autograd.grad(read(), leaf, ct)
         fb()
-        times[how] = _cuda_ms(fb, 5)
+        times[how] = cuda_ms(fb, 5)
     print(f"phase 14 reading the winners' rows (jumpy's primary K10 winners,"
           f" {idx.shape[0]} reads of a {tab.shape[0]}-row table), "
           f"forward+backward ms: {json.dumps(times)} (median of 5; {smi})",
@@ -2483,19 +2511,23 @@ def tri_candidate_check(dev):
 
 
 def intersect_design(log):
-    """K10's and K12's launch configuration and the registers of their
-    instantiations (ptxas); raises if one spills."""
+    """K10's, K11's and K12's launch configuration and the registers of
+    their instantiations (ptxas); raises if one spills."""
+    from raytracer_weekend_tpu_torch.ops.cuda import rect_intersect as ri
     from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
     from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
 
     regs = [r for r in ptxas_registers(log)
-            if r.startswith(("hit_spheres_kernel", "hit_triangles_kernel"))]
-    print(f"phase 14 K10 and K12 as compiled: rays a thread, block, tile "
-          f"rows: K10 {(si.RAYS, si.BLOCK, si.TILE)}, K12 "
+            if r.startswith(("hit_spheres_kernel", "hit_rects_kernel",
+                             "hit_triangles_kernel"))]
+    print(f"phase 14 K10, K11 and K12 as compiled: rays a thread, block, "
+          f"tile rows: K10 {(si.RAYS, si.BLOCK, si.TILE)}, K11 "
+          f"{(ri.RAYS, ri.BLOCK, ri.TILE)}, K12 "
           f"{(ti.RAYS, ti.BLOCK, ti.TILE)}; registers (ptxas, K12's "
           f"<count>): {' | '.join(regs)}", flush=True)
-    if not regs or any("spills" in r for r in regs):
-        raise AssertionError(f"K10/K12 instantiations spill: {regs}")
+    if len(regs) < 4 or any("spills" in r for r in regs):
+        raise AssertionError(f"K10-K12 instantiations spill or are missing: "
+                             f"{regs}")
 
 
 def divide_share(what, tab, rays, t_min):
@@ -2509,6 +2541,40 @@ def divide_share(what, tab, rays, t_min):
     print(f"phase 14 K12 prefilter, {what} rays: {divides} of {pairs} valid "
           f"pairs took the division ({divides / max(pairs, 1):.4e})",
           flush=True)
+
+
+def rect_tiles_check(dev):
+    """K11 on 1,000 random rects (8 tiles of kRectTile: walk_tiles' double
+    buffer) and 2^16 rays, bit for bit its plain version and its plain twin
+    (`hit_rects_twin` on the CPU, the first 4,096 rays), at t_min 1e-3, 7,
+    0 and -0.5."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops import rect
+    from raytracer_weekend_tpu_torch.ops.cuda import checks
+    from raytracer_weekend_tpu_torch.ops.cuda import rect_intersect as ri
+
+    tab, (o, d, _) = checks.random_hit_case("rects", dev, 1 << 16,
+                                            rows=1000)
+    table, ops = ri.rect_table(tab), ri.ray_operands(o, d)
+    cpu = type(tab)(*(x.cpu() for x in tab))
+    out = []
+    for t_min in (1e-3, 7.0, 0.0, -0.5):
+        t, idx = ri._launch(table, ops, t_min)
+        want_t, want_i = rect.hit_rects(tab, o, d, t_min)
+        tw_t, tw_i = ri.hit_rects_twin(cpu, o[:4096].cpu(), d[:4096].cpu(),
+                                       t_min)
+        row = dict(t_min=t_min, hits=int(torch.isfinite(t).sum()),
+                   plain_bitwise=bool(torch.equal(t, want_t) and torch.equal(
+                       idx.long(), want_i)),
+                   twin_bitwise=bool(torch.equal(t[:4096].cpu(), tw_t)
+                                     and torch.equal(idx[:4096].cpu(), tw_i)))
+        out.append(row)
+        if not (row["plain_bitwise"] and row["twin_bitwise"]):
+            raise AssertionError(f"K11 on {tab.k.shape[0]} rects: {row}")
+    print(f"phase 14 K11 on {tab.k.shape[0]} random rects ({ri.TILE}-row "
+          f"tiles), {o.shape[0]} rays, bit for bit its plain version and "
+          f"its twin: {json.dumps(out)}", flush=True)
 
 
 def bounce_rays(scene, static, cfg, cam):
@@ -2609,6 +2675,7 @@ def staged_path(dev, smi):
                 if (name, which) == ("jumpy_balls", "primary"):
                     row_reads(tab.c0, i_k.long(), smi)
     tri_candidate_check(dev)
+    rect_tiles_check(dev)
     intersect_design(_build.library_path().with_name(
         _build.library_path().name + ".log").read_text())
     for kind in ("spheres", "rects", "triangles"):
@@ -2639,15 +2706,15 @@ def staged_path(dev, smi):
                      fused_segments=int(f_seg.sum()), launches=counts)
         if not ok or min(counts[k] for k in fams[name]) < 1:
             raise AssertionError(f"staged {name} vs fused: {stats}")
-        frame_ms = [_cuda_ms(lambda: staged_frame(scene, static, cfg, cam,
+        frame_ms = [cuda_ms(lambda: staged_frame(scene, static, cfg, cam,
                                                   STAGED_CHUNK), 1)
                     for _ in range(3)]
         # The staged path launches some 400 small torch operations a bounce
         # and chunk; one chunk of the whole frame (render_image's default)
         # pays that host cost once.
-        whole_ms = _cuda_ms(lambda: staged_frame(scene, static, cfg, cam,
+        whole_ms = cuda_ms(lambda: staged_frame(scene, static, cfg, cam,
                                                  cfg.n_rays), 3)
-        plain_ms = _cuda_ms(lambda: plain_staged(scene, static, cfg, cam,
+        plain_ms = cuda_ms(lambda: plain_staged(scene, static, cfg, cam,
                                                  windows[name]), 1)
         med = statistics.median(frame_ms)
         segs = int(seg.sum())
@@ -2802,10 +2869,11 @@ def staged_path(dev, smi):
 def hit_entry(kind, name, chunk, launches, tab, rays, window, err, smi):
     """The kernels line's entry of K10, K11 or K12 for the launches of
     `chunk` rays against scene `name`'s table, on the first `chunk` of its
-    primary rays (CUDA events, median of 5): `ms` the launch alone, on the
-    table and ray operands built beforehand; `wrapper_ms` the
-    autograd.Function's call as the staged path makes it (its table built
-    once per trace and passed in) less the launch; the plain version once;
+    primary rays (medians of 5): `ms` and `event_ms` the launch alone, on
+    the table and ray operands built beforehand (`launch_times`);
+    `wrapper_ms` the autograd.Function's call as the staged path makes it
+    (its table built once per trace and passed in) less `event_ms`, both
+    by CUDA events; the plain version once;
     the bound at that size (`hit_ops`), and beside it in the print the
     bound of the JAX CostEstimate's count (OPS_PAIR on every pair). The
     table's build (once per trace) is printed."""
@@ -2815,15 +2883,16 @@ def hit_entry(kind, name, chunk, launches, tab, rays, window, err, smi):
     n, P = part[0].shape[0], tab.valid.shape[0]
     table = build(tab)
     ops = mod.ray_operands(*part)
-    l_ms = _cuda_ms(lambda: mod._launch(table, ops, 1e-3), 5)
-    f_ms = _cuda_ms(lambda: kern(tab, *part, 1e-3, table=table), 5)
-    b_ms = _cuda_ms(lambda: build(tab), 5)
-    p_ms = _cuda_ms(lambda: plain_hits(kind, tab, full, window), 1)
+    l_ms, l_ev = launch_times(lambda: mod._launch(table, ops, 1e-3))
+    f_ms = cuda_ms(lambda: kern(tab, *part, 1e-3, table=table), 5)
+    b_ms = cuda_ms(lambda: build(tab), 5)
+    p_ms = cuda_ms(lambda: plain_hits(kind, tab, full, window), 1)
     ops, counts = hit_ops(kind, tab, full, window)
     short = mod.__name__.rsplit(".", 1)[1]
     print(f"phase 14 timing {short} {name} primary: {n} rays x {P} rows, "
-          f"launch {l_ms:.3f} ms, Function call {f_ms:.3f} ms (wrapper "
-          f"{f_ms - l_ms:.3f}), table build {b_ms:.3f} ms once a trace, "
+          f"launch {l_ms:.4f} ms on the device ({l_ev:.4f} by events), "
+          f"Function call {f_ms:.3f} ms (wrapper {f_ms - l_ev:.3f}), table "
+          f"build {b_ms:.3f} ms once a trace, "
           f"plain {p_ms:.3f} ms (median; {smi}); {launches} launches of "
           f"this size on the main paths; {ops:.4e} FP32 operations "
           f"({json.dumps(counts)}), bound {ops / FP32_PEAK * 1e3:.4f} ms, "
@@ -2840,7 +2909,8 @@ def hit_entry(kind, name, chunk, launches, tab, rays, window, err, smi):
         "launches": launches,
         "max_abs_err": err,
         "ms": l_ms,
-        "wrapper_ms": f_ms - l_ms,
+        "event_ms": l_ev,
+        "wrapper_ms": f_ms - l_ev,
         "plain_ms": p_ms,
     }, ops, n * BYTES_RAY[kind] + 4 * TERMS_ROW[kind] * P)
 
@@ -2890,7 +2960,7 @@ def many_spheres_k2(dev, smi):
         if size is FULL:
             checked = agree_all(got, ref, check=False)
             stats["plain"] = brief(checked)
-            k_ms, p_ms = _cuda_ms(lambda: k2(g), 5), _cuda_ms(
+            k_ms, p_ms = cuda_ms(lambda: k2(g), 5), cuda_ms(
                 lambda: k2_plain(g), 1)
             how = (f"all lanes: {json.dumps(stats)}; replay_bwd_fused "
                    f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, {int(seg.sum())} "

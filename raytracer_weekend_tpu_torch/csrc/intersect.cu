@@ -32,28 +32,30 @@
 // product, a (B,3)x(3,S) matrix product in the plain version, is the FMA
 // chain a float32 GEMM computes. No fast math.
 //
-// What bounds them on an H100: FP32 issue. Per valid ray-primitive pair
-// K10 does 41 operations (an FMA two), and 8 more where disc > 0; K11 about
-// 30 (the JAX CostEstimate, with the compares) on every pair; K12 48 (the
-// numerators and the prefilter), and 12 more for a prefilter candidate.
-// The bytes are the rays once and the outputs once (the table is read once
-// per block from L2). A frame of jumpy_balls (1.44M rays, 486 spheres) is
-// ~2.9e10 operations, ~0.43 ms at 67 TFLOP/s.
+// What bounds them on an H100: FP32 issue for K10 and K12. Per valid
+// ray-primitive pair K10 does 41 operations (an FMA two), and 8 more where
+// disc > 0; K12 48 (the numerators and the prefilter), and 12 more for a
+// prefilter candidate. K11 (about 30 a pair by the JAX CostEstimate, with
+// the compares) meets a few rects a ray in the scenes that reach it
+// (cornell_box's 6, the cow's 1): its bytes bound it, the rays read once
+// and the outputs written once (the table is read once per block from
+// L2), 32 bytes a ray. A frame of jumpy_balls (1.44M rays, 486 spheres)
+// is ~2.9e10 operations, ~0.43 ms at 67 TFLOP/s.
 //
-// K11 keeps its first design: one thread per ray, the (7 x R) SoA table in
-// 256-row shared tiles, a running strict-< argmin.
-//
-// K10 and K12 are designed for what an SM issues, not only for its FP32
-// rate: a scalar shared-memory load per table row and pair (13 for K10, 17
-// for K12) and K12's IEEE division 1 / det per pair cost as much as the
-// arithmetic. So:
-//   * Packed rows. Each primitive is one row of 4 (K10) or 5 (K12) float4
-//     (ops/cuda/{sphere,triangle}_intersect.py: TABLE_ROWS), staged by the
-//     whole block into dynamic shared memory by cp.async in tiles of
-//     kSphTile or kTriTile rows, double-buffered (the next tile is in
-//     flight while the block tests this one; one buffer when the table
-//     fits one tile). A pair reads 16-byte broadcasts: 4 for K10, 5 for
-//     K12.
+// All three are designed for what an SM issues, not only for its FP32
+// rate: a scalar shared-memory load per table row and pair (13 for K10, 7
+// for K11, 17 for K12) and K12's IEEE division 1 / det per pair cost as
+// much as the arithmetic. So:
+//   * Packed rows. Each primitive is one row of 4 (K10), 2 (K11) or 5
+//     (K12) float4 (ops/cuda/{sphere,rect,triangle}_intersect.py:
+//     TABLE_ROWS), staged by the whole block into dynamic shared memory by
+//     cp.async in tiles of kSphTile, kRectTile or kTriTile rows,
+//     double-buffered (the next tile is in flight while the block tests
+//     this one; one buffer, staged once for the block's life, when the
+//     table fits one tile: cornell_box's rects, the cow's). A pair reads
+//     16-byte broadcasts: 4 for K10, 2 for K11, 5 for K12. The rows stay in
+//     the table's order: K11's axis branch is the whole warp's, and the
+//     strict-< update keeps the lowest row on a tie.
 //   * Several rays a thread. A thread of a block of N carries R rays, ray
 //     r of the thread at blockIdx * N * R + r * N + threadIdx, so each row
 //     read from shared memory feeds R pair tests. Each ray's arithmetic and
@@ -63,30 +65,36 @@
 //   * K12's division-free prefilter (tri_candidate). Only a pair that
 //     passes it takes __fdiv_rn(1, det) and the exact test of the first
 //     design; it passes every pair the exact test accepts (a superset,
-//     below), so the winners are unchanged.
-// R, the block and the tile are compile-time constants (kSph*, kTri*
-// below), chosen by a sweep on the card (PERF.md §6): K10 two rays a
-// thread, K12 one (at the staged path's 2^18-ray chunks its prefilter's
-// arithmetic, not the row loads R shares, bounds it, and one ray a thread
-// keeps more warps resident).
+//     below), so the winners are unchanged. K11 divides on every valid
+//     pair: the planar loop's prefilter (plane_candidate) in front of its
+//     one division made it slower on every input measured (PERF.md §6).
+// R, the block and the tile are compile-time constants (kSph*, kRect*,
+// kTri* below), chosen by a sweep on the card (PERF.md §6): K10 and K11
+// two rays a thread, K12 one (at the staged path's 2^18-ray chunks its
+// prefilter's arithmetic, not the row loads R shares, bounds it, and one
+// ray a thread keeps more warps resident).
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "plane_tiles.cuh"
 
 namespace rtw {
 namespace isect {
 
-constexpr int kBlock = 256;     // K11's block
-constexpr int kTile = 256;      // K11's tile
-// K10's and K12's rays a thread, threads a block and rows a shared tile.
+// K10's, K11's and K12's rays a thread, threads a block and rows a shared
+// tile.
 constexpr int kSphRays = 2, kSphBlock = 64, kSphTile = 64;
+constexpr int kRectRays = 2, kRectBlock = 128, kRectTile = 128;
 constexpr int kTriRays = 1, kTriBlock = 128, kTriTile = 128;
+constexpr int kProbeBlock = 256;  // tri_candidate_kernel's block
 
 // K10's packed row (ops/cuda/sphere_intersect.py: TABLE_ROWS):
 // (c0x, c0y, c0z, |c0|^2), (r^2, valid, t0, dt), (dcx, dcy, dcz, c0.dc),
 // (|dc|^2, 0, 0, 0).
 constexpr int kSphereQ = 4;
-// Rect rows (ops/cuda/rect_intersect.py: TABLE_ROWS).
-enum RRow { R_AXIS, R_K, R_A0, R_A1, R_B0, R_B1, R_VALID, kRRows };
+// K11's packed row (ops/cuda/rect_intersect.py: TABLE_ROWS):
+// (axis, valid, k, 0), (a0, a1, b0, b1).
+constexpr int kRectQ = 2;
 // K12's packed row (ops/cuda/triangle_intersect.py: TABLE_ROWS):
 // (nx, ny, nz, v0.n), (acx, acy, acz, valid),
 // (ac x v0, 0), (ab, 0), (ab x v0, 0).
@@ -96,33 +104,6 @@ constexpr int kTriQ = 5;
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                                       float b1, float b2) {
   return __fmaf_rn(a2, b2, __fmaf_rn(a1, b1, __fmul_rn(a0, b0)));
-}
-
-// Stages rows [base, base + m) of a (kRows x n) SoA table into shared memory.
-template <int kRows>
-__device__ __forceinline__ void load_tile(const float* __restrict__ tab,
-                                          int n, int base, int m,
-                                          float (*sh)[kTile]) {
-  for (int j = threadIdx.x; j < kRows * kTile; j += kBlock) {
-    const int r = j / kTile, c = j - r * kTile;
-    if (c < m) sh[r][c] = tab[(long long)r * n + base + c];
-  }
-}
-
-// cp.async of 16 bytes, global -> shared, bypassing L1 (the helpers of
-// megakernel.cuh's planar tiles).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most one committed group of this thread is in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // The block's copy of packed rows [base, base + cnt) (kQ float4 each). It
@@ -261,53 +242,79 @@ hit_spheres_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 // ---- K11 ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kBlock)
-hit_rects_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                 int n, const float* __restrict__ tab, int R, float t_min,
-                 float* __restrict__ t_out, int* __restrict__ idx_out) {
-  __shared__ float sh[kRRows][kTile];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n;
-  float oc[3] = {0.f, 0.f, 0.f}, dc[3] = {0.f, 0.f, 0.f};
-  if (live) {
+struct RectRay {
+  float o[3], d[3], best;
+  int bi;
+};
+
+// One valid rect row against a thread's R rays, its fixed axis F a
+// compile-time constant (0: a YZ rect, in-plane axes (a, b) = (y, z); 1:
+// XZ, (x, z); 2: XY, (x, y)): the first design's exact test on every ray,
+// t = (k - o_f) / d_f by IEEE division, the in-plane bounds, t >= t_min and
+// the strict-< update.
+template <int F, int R>
+__device__ __forceinline__ void rect_row(RectRay (&ray)[R], float k,
+                                         const float4 q, int row,
+                                         float t_min) {
+  constexpr int A = F == 0 ? 1 : 0, B = F == 2 ? 1 : 2;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      oc[k] = o[3 * i + k];
-      dc[k] = d[3 * i + k];
+  for (int r = 0; r < R; ++r) {
+    RectRay& y = ray[r];
+    const float t = __fdiv_rn(__fsub_rn(k, y.o[F]), y.d[F]);
+    const float av = __fadd_rn(y.o[A], __fmul_rn(t, y.d[A]));
+    const float bv = __fadd_rn(y.o[B], __fmul_rn(t, y.d[B]));
+    if (t >= t_min && av >= q.x && av <= q.y && bv >= q.z && bv <= q.w &&
+        t < y.best) {
+      y.best = t;
+      y.bi = row;
     }
   }
-  float best = INFINITY;
-  int bi = 0;
-  for (int base = 0; base < R; base += kTile) {
-    const int m = min(kTile, R - base);
-    __syncthreads();
-    load_tile<kRRows>(tab, R, base, m, sh);
-    __syncthreads();
-    if (!live) continue;
-    for (int c = 0; c < m; ++c) {
-      // Fixed axis f; in-plane axes (a, b): YZ (y, z), XZ (x, z), XY (x, y).
-      const int f = (int)sh[R_AXIS][c];
-      const float o_f = f == 0 ? oc[0] : (f == 1 ? oc[1] : oc[2]);
-      const float d_f = f == 0 ? dc[0] : (f == 1 ? dc[1] : dc[2]);
-      const float o_a = f == 0 ? oc[1] : oc[0];
-      const float d_a = f == 0 ? dc[1] : dc[0];
-      const float o_b = f == 2 ? oc[1] : oc[2];
-      const float d_b = f == 2 ? dc[1] : dc[2];
-      const float t = __fdiv_rn(__fsub_rn(sh[R_K][c], o_f), d_f);
-      const float av = __fadd_rn(o_a, __fmul_rn(t, d_a));
-      const float bv = __fadd_rn(o_b, __fmul_rn(t, d_b));
-      const bool hit = t >= t_min && av >= sh[R_A0][c] && av <= sh[R_A1][c] &&
-                       bv >= sh[R_B0][c] && bv <= sh[R_B1][c] &&
-                       sh[R_VALID][c] > 0.0f;
-      if (hit && t < best) {
-        best = t;
-        bi = base + c;
+}
+
+__global__ void __launch_bounds__(kRectBlock)
+hit_rects_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 int n, const float4* __restrict__ tab, int P, float t_min,
+                 float* __restrict__ t_out, int* __restrict__ idx_out) {
+  constexpr int R = kRectRays;
+  const long long first =
+      (long long)blockIdx.x * kRectBlock * R + threadIdx.x;
+  RectRay ray[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = first + (long long)r * kRectBlock;
+    RectRay& y = ray[r];
+    y = RectRay{{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, INFINITY, 0};
+    if (i < n) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        y.o[c] = o[3 * i + c];
+        y.d[c] = d[3 * i + c];
       }
     }
   }
-  if (live) {
-    t_out[i] = best;
-    idx_out[i] = bi;
+  walk_tiles<kRectQ, kRectTile>(tab, P, [&](const float4* rows, int base,
+                                            int cnt) {
+    for (int c = 0; c < cnt; ++c) {
+      const float4 q0 = rows[kRectQ * c];  // (axis, valid, k, 0)
+      if (!(q0.y > 0.0f)) continue;        // an invalid row never hits
+      const float4 q = rows[kRectQ * c + 1];  // (a0, a1, b0, b1)
+      // The row, hence its axis, is the whole warp's: a uniform branch.
+      const int f = (int)q0.x;
+      if (f == 0)
+        rect_row<0, R>(ray, q0.z, q, base + c, t_min);
+      else if (f == 1)
+        rect_row<1, R>(ray, q0.z, q, base + c, t_min);
+      else
+        rect_row<2, R>(ray, q0.z, q, base + c, t_min);
+    }
+  });
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = first + (long long)r * kRectBlock;
+    if (i < n) {
+      t_out[i] = ray[r].best;
+      idx_out[i] = ray[r].bi;
+    }
   }
 }
 
@@ -325,7 +332,7 @@ hit_rects_kernel(const float* __restrict__ o, const float* __restrict__ d,
 //   * tn >= RN(dp RN(t_min (1 - 2^-20))) and tn < RN(dp RN(best (1 +
 //     2^-20))) (RN(best (1 + 2^-20)) is kept per ray beside best): t is two
 //     roundings of tn / dp, inside the 2^-20 margins (the planar
-//     prefilter's, megakernel.cuh plane_candidate);
+//     prefilter's, plane_tiles.cuh plane_candidate);
 //   * un >= -RN(dp 2^-100), vn likewise: a negative un beyond that has
 //     |un| / dp >= 2^-100 and gives u <= -2^-101, never the -0 of an
 //     underflow; where dp < 2^-26 makes the bound inexact, any nonzero
@@ -336,8 +343,6 @@ hit_rects_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // So it passes every pair the exact test accepts (a superset). Explicit
 // _rn operations; triangle_intersect.py:tri_candidate_plain computes the
 // same bits on the CPU.
-constexpr float kCandLo = 1.0f - 0x1p-20f;
-constexpr float kCandHi = 1.0f + 0x1p-20f;
 constexpr float kSumHi = 1.0f + 0x1p-18f;
 constexpr float kNegTol = 0x1p-100f;
 constexpr float kDetLo = 0x1p-60f, kDetHi = 0x1p60f;
@@ -467,8 +472,6 @@ __global__ void tri_candidate_kernel(const float* __restrict__ det,
                            __fmul_rn(best[i], kCandHi)) ? 1 : 0;
 }
 
-inline int blocks(int n) { return (n + kBlock - 1) / kBlock; }
-
 // One launch of a tiled kernel (kRays rays a thread, kThreads a block) over
 // P rows of kQ float4: two tiles of kRows rows of dynamic shared memory, or
 // one holding the table when it fits; above the default 48 KB the kernel
@@ -508,16 +511,16 @@ int rtw_hit_spheres(const float* o, const float* d, const float* time,
       reinterpret_cast<const float4*>(tab), S, t_min, t_out, idx_out);
 }
 
-// K11: closest rect of the (7 x R) table for n rays on `stream`.
+// K11: closest rect of the packed (R x 8) table for n rays on `stream`.
 int rtw_hit_rects(const float* o, const float* d, int n, const float* tab,
                   int R, float t_min, float* t_out, int* idx_out,
                   void* stream) {
   using namespace rtw::isect;
   if (n <= 0) return 0;
   if (R <= 0) return (int)cudaErrorInvalidValue;
-  hit_rects_kernel<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
-      o, d, n, tab, R, t_min, t_out, idx_out);
-  return (int)cudaGetLastError();
+  return (int)run_tiled<kRectQ, kRectRays, kRectBlock, kRectTile>(
+      hit_rects_kernel, n, R, (cudaStream_t)stream, o, d, n,
+      reinterpret_cast<const float4*>(tab), R, t_min, t_out, idx_out);
 }
 
 // K12: closest triangle of the packed (T x 20) table for n rays on
@@ -549,8 +552,9 @@ int rtw_tri_candidate(const float* det, const float* u_num,
                       void* stream) {
   using namespace rtw::isect;
   if (n <= 0) return 0;
-  tri_candidate_kernel<<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
-      det, u_num, v_num, t_num, best, n, t_min, out);
+  tri_candidate_kernel<<<(n + kProbeBlock - 1) / kProbeBlock, kProbeBlock,
+                         0, (cudaStream_t)stream>>>(det, u_num, v_num, t_num,
+                                                    best, n, t_min, out);
   return (int)cudaGetLastError();
 }
 

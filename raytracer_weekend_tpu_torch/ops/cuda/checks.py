@@ -34,14 +34,16 @@ HIT_RTOL, TIE_LANES, OFF_LANES = 1e-5, 1000, 10000
 EDGE_REL, EDGE_DRAWS = 1e-4, 4
 
 
-def random_hit_case(kind: str, device, n: int):
+def random_hit_case(kind: str, device, n: int, rows: int | None = None):
     """(table, (o, d, time)) on `device`: n random rays aimed into a random
     table of `kind` (spheres: a moving one every 50, a hollow one every 40;
-    rects of all three axes; triangles), 5% of the rows invalid, the first
-    6 rays axis-parallel (rays parallel to the planes of two rect axes)."""
+    rects of all three axes; triangles) of `rows` rows (by default 500
+    spheres, 300 rects, 3,000 triangles), 5% of the rows invalid, the
+    first 6 rays axis-parallel (rays parallel to the planes of two rect
+    axes)."""
     g = np.random.default_rng(14)
     if kind == "spheres":
-        P = 500
+        P = rows or 500
         c0 = g.normal(size=(P, 3)) * 4
         c1 = c0.copy()
         c1[::50] += (0.5, 0.2, 0.0)
@@ -50,7 +52,7 @@ def random_hit_case(kind: str, device, n: int):
         cols = [c0, c1, np.zeros(P), np.ones(P), r, np.zeros(P, np.int32)]
         centers = c0
     elif kind == "rects":
-        P = 300
+        P = rows or 300
         lo = g.uniform(-5, 3, (P, 2))
         hi = lo + g.uniform(0.5, 2, (P, 2))
         cols = [(np.arange(P) % 3).astype(np.int32), lo[:, 0], hi[:, 0],
@@ -58,7 +60,7 @@ def random_hit_case(kind: str, device, n: int):
                 np.zeros(P, np.int32)]
         centers = g.uniform(-4, 4, (P, 3))
     else:
-        P = 3000
+        P = rows or 3000
         v = g.normal(size=(P, 1, 3)) * 4 + g.normal(size=(P, 3, 3))
         nrm = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
         uv = np.zeros((P, 2))

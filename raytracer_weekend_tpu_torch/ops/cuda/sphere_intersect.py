@@ -161,7 +161,7 @@ def thread_slots(n: int, rays: int, block: int) -> torch.Tensor:
 
 def kernel_order_walk(n: int, P: int, rays: int, block: int, tile: int,
                       pair) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of K10's and K12's loop order -> (best (n,) f32, +inf for
+    """Plain twin of K10-K12's loop order -> (best (n,) f32, +inf for
     none; idx (n,) int32): each thread walks the table's P rows tile by tile
     (`tile` rows) and, for every row, its rays slot by slot
     (`thread_slots`), and a ray takes a row whose t is strictly below its

@@ -3,7 +3,7 @@
 times in turns.
 
     python raytracer_weekend_tpu_torch/utils/ab_render.py --other DIR \
-        [--only forward|backward] [--out build/ab_render.json]
+        [--only forward|backward|hits|k6a] [--out build/ab_render.json]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with `git archive` into a git-ignored directory).
@@ -36,11 +36,14 @@ table (`checks.random_hit_case`, 100,000 rays): (t, idx) through the
 autograd.Function; timed (CUDA events, median of 5) at the sizes of
 PERF.md's kernel table (the first 2^18 primary rays, and all 1.44M for
 K10 on jumpy and K11 on cornell): the launch alone, on its table and ray
-operands built beforehand, and the Function's call as the checkout's
-staged path makes it, for the wrapper's time. Last, the staged path end
-to end: `render_image` of jumpy_balls with a uv-debug ground (K10, one
-chunk) and the cow's staged frame in 2^18-lane chunks (`render_chunk`,
-K10-K12), their images and timings.
+operands built beforehand, by CUDA events ("launch") and with the card
+kept busy while the host enqueues it ("device launch", median of 21; see
+`--only k6a` below), and the Function's call as the checkout's staged
+path makes it, for the wrapper's time; the launch alone also by device
+time on each scene's first-bounce rays and on the random tables. Last,
+the staged path end to end: `render_image` of jumpy_balls with a uv-debug
+ground (K10, one chunk) and the cow's staged frame in 2^18-lane chunks
+(`render_chunk`, K10-K12), their images and timings.
 
 The backward kernels (all of the above is the forward part; `--only`
 runs one part): K9 on two_perlin_spheres' records at 400x225x16 d8 (the
@@ -58,6 +61,9 @@ call builds. Then the forward+backward frames of two_perlin_spheres, earth
 and simple_light (`render_fused_diff` and the gradient of the radiance sum
 w.r.t. every float leaf) and 3 Adam steps of `InverseRenderer.fit` on
 earth's image atlas (step ms by the host clock).
+
+`--only hits` runs the closest-hit kernels K10-K12 of the forward part
+alone (their outputs and times, not the staged frames).
 
 `--only k6a` times K6a alone (two_perlin_spheres' records at 400x225x16
 d8, the launch alone on tables built beforehand, median of 21) at three
@@ -84,6 +90,10 @@ import pathlib
 import statistics
 import subprocess
 import sys
+
+# This checkout's timers, imported as a sibling of this script: each child
+# process runs this file on its checkout's package, which may predate them.
+from timing import cuda_ms, device_ms
 
 FULL = dict(width=400, height=225, samples_per_pixel=16, max_depth=8)
 SCENES = ("cornell_box", "wavefront_cow_obj", "textured_monument",
@@ -116,45 +126,12 @@ FWD_BWD = ("two_perlin_spheres", "earth", "simple_light")
 TURB_NORM_REL, TAB_NORM_REL = 1e-4, 1e-3
 
 
-def _cuda_ms(fn, reps=5):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
-def _device_ms(fn, reps=21):
-    """Median ms of `fn`'s device work: the start event is queued behind a
-    ~3 ms spin of the card, so the host's enqueueing overlaps it."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
 def run_one(out_dir: pathlib.Path, save: bool, only: str | None,
             lib: str | None = None) -> dict:
-    """Render and time everything (or `only` the forward, the backward or
-    the k6a part) with the package on sys.path, its kernels from `lib`
-    when given (the k6a part only); save the outputs under out_dir when
-    `save`. -> {render: ms}."""
+    """Render and time everything (or `only` the forward, the backward,
+    the k6a or the hits part) with the package on sys.path, its kernels
+    from `lib` when given (the k6a part only); save the outputs under
+    out_dir when `save`. -> {render: ms}."""
     import torch
 
     if not torch.cuda.is_available():
@@ -169,6 +146,8 @@ def run_one(out_dir: pathlib.Path, save: bool, only: str | None,
         k6a_order(dev, outs, times, k8=lib is None)
     if only in (None, "forward"):
         forward_kernels(dev, outs, times)
+    if only == "hits":
+        staged_hits(dev, outs, times)
     if only in (None, "backward"):
         backward_kernels(dev, outs, times)
     torch.cuda.synchronize()
@@ -221,12 +200,12 @@ def forward_kernels(dev, outs, times):
                               static, emit_paths=emit, tables=tables)
 
         outs[name] = fwd()
-        times[name] = _cuda_ms(fwd)
-        times[f"launch {name}"] = _cuda_ms(launch)
+        times[name] = cuda_ms(fwd)
+        times[f"launch {name}"] = cuda_ms(launch)
         if name in EMIT:
             outs[f"{name} codes"] = fwd(True)
-            times[f"{name} codes"] = _cuda_ms(lambda: fwd(True))
-            times[f"launch {name} codes"] = _cuda_ms(lambda: launch(True))
+            times[f"{name} codes"] = cuda_ms(lambda: fwd(True))
+            times[f"launch {name} codes"] = cuda_ms(lambda: launch(True))
     turbulence_records(dev, outs, times)
     for name, size in (("book2_criterion", CRITERION),
                        ("jumpy_balls_d20", JUMPY_DEEP)):
@@ -246,8 +225,9 @@ def forward_kernels(dev, outs, times):
                                        cfg.seed, static=static, deep=deep)
 
             outs[f"{name} {route}"] = fwd()
-            times[f"{name} {route}"] = _cuda_ms(fwd)
+            times[f"{name} {route}"] = cuda_ms(fwd)
     staged_hits(dev, outs, times)
+    staged_frames(dev, outs, times)
 
 
 def k6a_order(dev, outs, times, k8=True):
@@ -269,8 +249,8 @@ def k6a_order(dev, outs, times, k8=True):
     outs["two_perlin_spheres k6a"] = k6a()
 
     def timed(when):
-        times[f"events K6a {when}"] = _cuda_ms(k6a, 21)
-        times[f"device K6a {when}"] = _device_ms(k6a)
+        times[f"events K6a {when}"] = cuda_ms(k6a, 21)
+        times[f"device K6a {when}"] = device_ms(k6a)
 
     timed("first")
     for name in ("smokey_cornell_box", "sphere_medium"):
@@ -315,9 +295,9 @@ def turbulence_records(dev, outs, times):
 
     ops = pt.turbulence_operands(grad, perm, pts, live)
     outs["K8 two_perlin_spheres"] = (call(),)
-    times["launch K8 two_perlin_spheres"] = _cuda_ms(
+    times["launch K8 two_perlin_spheres"] = cuda_ms(
         lambda: pt._launch_turbulence(ops))
-    times["call K8 two_perlin_spheres"] = _cuda_ms(call)
+    times["call K8 two_perlin_spheres"] = cuda_ms(call)
 
 
 def _hit_calls(kind, tab, rays, t_min):
@@ -386,20 +366,26 @@ def staged_hits(dev, outs, times):
             tab = getattr(scene, kind)
             nr = 3 if kind == "spheres" else 2
             for which, rays in (("primary", (o, d, t)), ("bounce", bounce)):
-                _, call = _hit_calls(kind, tab, rays[:nr], cfg.t_min)
+                launch, call = _hit_calls(kind, tab, rays[:nr], cfg.t_min)
                 outs[f"hit {kind} {name} {which}"] = call()
+                if which == "bounce":
+                    times[f"device launch {kind} {name} bounce "
+                          f"{rays[0].shape[0]}"] = device_ms(launch)
             for size in HIT_SIZES.get((kind, name), (1 << 18,)):
                 launch, call = _hit_calls(
                     kind, tab, tuple(r[:size] for r in (o, d, t)[:nr]),
                     cfg.t_min)
-                times[f"launch {kind} {name} {size}"] = _cuda_ms(launch)
-                times[f"call {kind} {name} {size}"] = _cuda_ms(call)
+                times[f"launch {kind} {name} {size}"] = cuda_ms(launch)
+                times[f"device launch {kind} {name} {size}"] = device_ms(
+                    launch)
+                times[f"call {kind} {name} {size}"] = cuda_ms(call)
     for kind in ("spheres", "rects", "triangles"):
         tab, rays = checks.random_hit_case(kind, dev, 100_000)
         nr = 3 if kind == "spheres" else 2
-        outs[f"hit {kind} random"] = _hit_calls(kind, tab, rays[:nr],
-                                                1e-3)[1]()
-    staged_frames(dev, outs, times)
+        launch, call = _hit_calls(kind, tab, rays[:nr], 1e-3)
+        outs[f"hit {kind} random"] = call()
+        times[f"device launch {kind} random {tab.valid.shape[0]} rows"] = \
+            device_ms(launch)
 
 
 def staged_frames(dev, outs, times):
@@ -420,7 +406,7 @@ def staged_frames(dev, outs, times):
         return integrator.render_image(scene, static, cfg, cam)
 
     outs["render_image jumpy_balls_uvdebug"] = (uvdebug(),)
-    times["render_image jumpy_balls_uvdebug"] = _cuda_ms(uvdebug)
+    times["render_image jumpy_balls_uvdebug"] = cuda_ms(uvdebug)
     scene, static, cams = scenes.generate_scene(
         "wavefront_cow_obj", cfg.aspect_ratio, device=dev)
     cam = cams[0].to(dev)
@@ -434,7 +420,7 @@ def staged_frames(dev, outs, times):
                 cfg.seed) for s in range(0, cfg.n_rays, chunk)])
 
     outs["staged frame wavefront_cow_obj"] = (cow(),)
-    times["staged frame wavefront_cow_obj 262144"] = _cuda_ms(cow)
+    times["staged frame wavefront_cow_obj 262144"] = cuda_ms(cow)
 
 
 def backward_kernels(dev, outs, times):
@@ -462,8 +448,8 @@ def backward_kernels(dev, outs, times):
     d_grad, d_p = call()
     outs["K9 two_perlin_spheres d_p"] = (d_p,)
     outs["K9 two_perlin_spheres summed"] = (d_grad,)
-    times["launch K9 two_perlin_spheres"] = _cuda_ms(launch)
-    times["call K9 two_perlin_spheres"] = _cuda_ms(call)
+    times["launch K9 two_perlin_spheres"] = cuda_ms(launch)
+    times["call K9 two_perlin_spheres"] = cuda_ms(call)
 
     n = cfg.n_rays
     for kern, name in BACKWARD:
@@ -486,11 +472,11 @@ def backward_kernels(dev, outs, times):
         outs[f"{kern} {name} per-lane"] = out[2:5]
         outs[f"{kern} {name} summed"] = tuple(
             x for x in (out[0], out[1], out[5]) if x is not None)
-        times[f"launch {kern} {name}"] = _cuda_ms(launch)
-        times[f"call {kern} {name}"] = _cuda_ms(call)
+        times[f"launch {kern} {name}"] = cuda_ms(launch)
+        times[f"call {kern} {name}"] = cuda_ms(call)
 
     for name in FWD_BWD:
-        times[f"fwd+bwd {name}"] = _cuda_ms(_fwd_bwd(*load(name), cfg))
+        times[f"fwd+bwd {name}"] = cuda_ms(_fwd_bwd(*load(name), cfg))
     scene, static, cam = load("earth")
     times["fit step earth"] = _fit_step_ms(scene, static, cfg, cam)
 
@@ -632,7 +618,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
-    ap.add_argument("--only", choices=("forward", "backward", "k6a"),
+    ap.add_argument("--only", choices=("forward", "backward", "k6a",
+                                       "hits"),
                     help="run one part (default: forward and backward)")
     ap.add_argument("--out", default="build/ab_render.json")
     ap.add_argument("--child", help=argparse.SUPPRESS)

@@ -961,23 +961,29 @@ def test_closest_hit_kernel_matches_plain(cuda, kind):
         kern(tab, *(a.double() for a in args), 1e-3)
 
 
-@pytest.mark.parametrize("kind", ["spheres", "triangles"])
+@pytest.mark.parametrize("kind", ["spheres", "rects", "triangles"])
 def test_closest_hit_ragged_tiles_match_plain(cuda, kind):
-    """K10 and K12 bit for bit the plain brute force where the rays do not
-    fill the last block and the table fills one tile, several tiles and a
-    ragged last one; K12's counting launch finds that some pairs divide,
+    """K10, K11 and K12 bit for bit the plain brute force where the rays do
+    not fill the last block and the table fills one tile, several tiles and
+    a ragged last one; K12's counting launch finds that some pairs divide,
     and few; a table of another layout or off a 16-byte boundary raises."""
-    from raytracer_weekend_tpu_torch.ops import sphere, triangle
+    from raytracer_weekend_tpu_torch.ops import rect, sphere, triangle
+    from raytracer_weekend_tpu_torch.ops.cuda import rect_intersect as ri
     from raytracer_weekend_tpu_torch.ops.cuda import sphere_intersect as si
     from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
 
-    mod = si if kind == "spheres" else ti
-    full, (o, d, time) = checks.random_hit_case(kind, cuda, (1 << 15) + 77)
+    mod = {"spheres": si, "rects": ri, "triangles": ti}[kind]
+    full, (o, d, time) = checks.random_hit_case(
+        kind, cuda, (1 << 15) + 77,
+        rows=4 * mod.TILE if kind == "rects" else None)
     for rows in (mod.TILE // 2, mod.TILE, 3 * mod.TILE + 5):
         tab = full._replace(**{k: v[:rows] for k, v in full._asdict().items()})
         if kind == "spheres":
             table, ops = si.sphere_table(tab), si.ray_operands(o, d, time)
             want = sphere.hit_spheres(tab, o, d, time, 1e-3)
+        elif kind == "rects":
+            table, ops = ri.rect_table(tab), ri.ray_operands(o, d)
+            want = rect.hit_rects(tab, o, d, 1e-3)
         else:
             table, ops = ti.triangle_table(tab), ti.ray_operands(o, d)
             want = triangle.hit_triangles(tab, o, d, 1e-3)
@@ -993,6 +999,30 @@ def test_closest_hit_ragged_tiles_match_plain(cuda, kind):
     with pytest.raises(ValueError, match="table"):
         mod._launch(table.reshape(-1)[1:1 + table.numel() - table.shape[1]]
                     .view(-1, table.shape[1]), ops, 1e-3)
+
+
+@pytest.mark.parametrize("t_min", [1e-3, 7.0, 0.0, -0.5])
+def test_rect_kernel_many_tiles_match_plain_and_twin(cuda, t_min):
+    """K11 on 1,000 random rects (8 tiles: walk_tiles' double buffer), at
+    t_min above and at or below 0, bit for bit its plain version and its
+    plain twin (`hit_rects_twin`, on the CPU, the first 4,096 rays)."""
+    from raytracer_weekend_tpu_torch.ops import rect
+    from raytracer_weekend_tpu_torch.ops.cuda import rect_intersect as ri
+
+    tab, (o, d, _) = checks.random_hit_case("rects", cuda, 1 << 16,
+                                            rows=1000)
+    assert tab.k.shape[0] > 4 * ri.TILE
+    table, ops = ri.rect_table(tab), ri.ray_operands(o, d)
+    t, idx = ri._launch(table, ops, t_min)
+    want_t, want_i = rect.hit_rects(tab, o, d, t_min)
+    assert torch.equal(t, want_t) and torch.equal(idx.long(), want_i)
+    cpu = type(tab)(*(x.cpu() for x in tab))
+    tw_t, tw_i = ri.hit_rects_twin(cpu, o[:4096].cpu(), d[:4096].cpu(),
+                                   t_min)
+    assert torch.equal(t[:4096].cpu(), tw_t)
+    assert torch.equal(idx[:4096].cpu(), tw_i)
+    if t_min < 7.0:
+        assert int(torch.isfinite(t).sum()) > o.shape[0] // 2
 
 
 @pytest.mark.parametrize("name", ["jumpy_balls_uvdebug", "cornell_box",

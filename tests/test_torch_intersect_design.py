@@ -1,5 +1,5 @@
-"""The design rules of the staged path's closest-hit kernels K10 and K12,
-through their plain twins (the card runs the kernels themselves:
+"""The design rules of the staged path's closest-hit kernels K10, K11 and
+K12, through their plain twins (the card runs the kernels themselves:
 `chip_smoke.py` phase 14, `utils/ab_render.py`, `tests/test_torch_cuda.py`).
 
   * K12 divides only for candidates: `tri_candidate_plain`, the kernel's
@@ -15,11 +15,19 @@ through their plain twins (the card runs the kernels themselves:
     primary and first-bounce rays and on a random table with moving,
     hollow, invalid, degenerate (t0 = t1) and duplicated rows, with rays
     of |time| > 2^30 and an infinite component.
+  * K11's twin, `hit_rects_twin` (the packed rows of `rect_table` in the
+    kernel's order, R rays a thread), is `ops.rect.hit_rects` bit for bit
+    on cornell_box's primary and first-bounce rays and on a random table
+    with invalid, duplicated and degenerate (a0 = a1) rows and rays with
+    d_f = +-0 or an infinite component, for each t_min of 1e-3, 0.5 and 7
+    and at t_min = 0; `rect_table`'s packed columns are the plain
+    version's fields.
   * R rays a thread: the twins' loop order (`kernel_order_walk`, the
     kernels' deal of rays to threads, tiles of rows) with R in {1, 2} and
     ragged tiles is the one-ray loop (R = 1, one tile) bit for bit, for
-    spheres and, with the prefilter against the running best, triangles;
-    the twins' defaults are the kernels' compile-time constants.
+    spheres, rects and, with the prefilter against the running best,
+    triangles; the twins' defaults are the kernels' compile-time
+    constants.
   * Prebuilt tables: on a card the staged path builds each family's kernel
     table once a trace from the detached fields (`integrator.kernel_tables`,
     the plain version's terms laid out). On the CPU it builds none (the
@@ -45,6 +53,7 @@ import torch
 from raytracer_weekend_tpu_torch import integrator
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.models import scenes
+from raytracer_weekend_tpu_torch.ops import rect as rect_ops
 from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
 from raytracer_weekend_tpu_torch.ops import triangle as tri_ops
 from raytracer_weekend_tpu_torch.ops.cuda import checks
@@ -231,7 +240,8 @@ def test_sphere_table_flags():
         assert torch.equal(tcols[name], want), name
 
 
-@pytest.mark.parametrize("mod,prefix", [(SI, "kSph"), (TRI, "kTri")])
+@pytest.mark.parametrize("mod,prefix", [(SI, "kSph"), (RI, "kRect"),
+                                        (TRI, "kTri")])
 def test_twin_defaults_are_kernel_constants(mod, prefix):
     """The twins walk in the kernel's order: RAYS, BLOCK and TILE are
     csrc/intersect.cu's compile-time constants, and the packed row is a
@@ -246,15 +256,22 @@ def test_twin_defaults_are_kernel_constants(mod, prefix):
 
 @pytest.mark.parametrize("rays,block,tile", [(2, 32, 64), (2, 64, 7),
                                              (1, 128, 128)])
-def test_rays_a_thread_order_is_one_ray_loop(sphere_cases, rays, block, tile):
+def test_rays_a_thread_order_is_one_ray_loop(sphere_cases, rect_cases, rays,
+                                             block, tile):
     """R rays a thread over ragged tiles: bitwise the one-ray loop (R = 1,
-    one tile), spheres and triangles (the prefilter against each ray's
-    running best: no pair the exact test would take is refused)."""
+    one tile), spheres, rects and triangles (K12's prefilter against each
+    ray's running best: no pair the exact test would take is refused)."""
     sp, (o, d, t) = sphere_cases["random"]
     one = SI.hit_spheres_twin(sp, o, d, t, 1e-3, rays=1, block=32,
                               tile=sp.c0.shape[0])
     got = SI.hit_spheres_twin(sp, o, d, t, 1e-3, rays=rays, block=block,
                               tile=tile)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+    rc, (o, d) = rect_cases["random"]
+    one = RI.hit_rects_twin(rc, o, d, 1e-3, rays=1, block=32,
+                            tile=rc.k.shape[0])
+    got = RI.hit_rects_twin(rc, o, d, 1e-3, rays=rays, block=block,
+                            tile=tile)
     assert all(torch.equal(a, b) for a, b in zip(got, one))
     tr, (o, d, _) = checks.random_hit_case("triangles", "cpu", 1024)
     tr = tr._replace(**{k: v[:600] for k, v in tr._asdict().items()})
@@ -268,6 +285,71 @@ def test_rays_a_thread_order_is_one_ray_loop(sphere_cases, rays, block, tile):
     assert stats == s1 and stats["missed"] == 0
     assert int(torch.isfinite(tr_t).sum()) > 100
     assert 0 < stats["divides"] < stats["pairs"] // 20
+
+
+def _rect_table_case():
+    """checks.random_hit_case's rects (all three axes, 5% invalid rows;
+    its first 6 rays axis-parallel, so d_f = 0 against two axes) with
+    degenerate rows (a0 = a1, b0 = b1), duplicated rows (exact ties), a
+    row whose k is a ray's own o_f (num = 0), and rays with d_f = -0 and
+    with an infinite component of d and of o."""
+    rc, (o, d, _) = checks.random_hit_case("rects", "cpu", 4096)
+    fields = {k: v.clone() for k, v in rc._asdict().items()}
+    fields["valid"][[3, 5, 9, 11]] = True
+    fields["a1"][5] = fields["a0"][5]
+    fields["b1"][9] = fields["b0"][9]
+    for dst, src in ((20, 3), (21, 3), (40, 11)):
+        for k in fields:
+            fields[k][dst] = fields[k][src]
+    o, d = o.clone(), d.clone()
+    d[6:9] = torch.tensor([[1.0, -0.0, 0.5], [-0.0, 0.0, -1.0],
+                           [0.3, 1.0, -0.0]])
+    d[9, 0], d[10, 2], o[11, 1] = math.inf, -math.inf, -math.inf
+    fields["k"][12] = o[12, int(fields["axis"][12])]
+    return type(rc)(**fields), (o, d)
+
+
+def _rect_cases():
+    cornell, primary, bounce = _frame_rays("cornell_box")
+    return {"cornell primary": (cornell.rects, primary[:2]),
+            "cornell first bounce": (cornell.rects, bounce[:2]),
+            "random": _rect_table_case()}
+
+
+@pytest.fixture(scope="module")
+def rect_cases():
+    return _rect_cases()
+
+
+@pytest.mark.parametrize("t_min", [*checks.CAND_T_MINS, 0.0])
+@pytest.mark.parametrize("case", ["cornell primary", "cornell first bounce",
+                                  "random"])
+def test_rect_twin_is_plain(rect_cases, case, t_min):
+    """K11's twin (packed rows, the kernel's order, R rays a thread): the
+    plain version's bits."""
+    rc, (o, d) = rect_cases[case]
+    t, i = RI.hit_rects_twin(rc, o, d, t_min)
+    want_t, want_i = rect_ops.hit_rects(rc, o, d, t_min)
+    assert torch.equal(t, want_t) and torch.equal(i.long(), want_i)
+    if t_min < 7.0:
+        assert int(torch.isfinite(t).sum()) > o.shape[0] // 4
+
+
+def test_rect_table_columns():
+    """The packed rect table lays out the plain version's fields, the axis
+    id and valid as floats, and pads each row to two float4."""
+    rc, _ = _rect_table_case()
+    tab = RI.rect_table(rc)
+    assert tab.shape == (rc.k.shape[0], len(RI.TABLE_ROWS))
+    assert len(RI.TABLE_ROWS) == 8 and tab.dtype == torch.float32
+    cols = dict(zip(RI.TABLE_ROWS, tab.unbind(1)))
+    for name in ("k", "a0", "a1", "b0", "b1"):
+        assert torch.equal(cols[name], getattr(rc, name)), name
+    assert torch.equal(cols["axis"], rc.axis.float())
+    assert torch.equal(cols["valid"], rc.valid.float())
+    assert not cols["pad"].any()
+    assert set(cols["axis"].tolist()) == {0.0, 1.0, 2.0}
+    assert 0 < int(rc.valid.sum()) < rc.valid.shape[0]
 
 
 def test_triangle_twin_is_plain_on_cornell():
