@@ -125,14 +125,37 @@ holds each against its plain torch version first. Phases, one line each
      before; K2 on 3,970 spheres on a checker ground, d(ktab) by global
      atomics: against its plain version and float64 at 64x36x4 d6, the
      lanes on a checker cell edge held out, and against its plain version
-     at full size, timed.
+     at full size, timed. Phase 14 takes the cow without its tree (K12);
+ 15. the staged path through a tree: the builder's trees of the cow, the
+     monument, the suspension and book2 against the numpy builder (bit for
+     bit where no split has a tied centroid, else of the same shape);
+     BVH-tri and BVH-sph (csrc/bvh.cu) bit for bit the plain traverse on
+     the card on 2^18 primary rays spread over each frame and their
+     first-bounce rays, on those scenes, a 65-triangle mesh and jumpy_balls
+     built with bvh=True, each timed beside K10/K12 on the same rays; the
+     cow's staged frame in one chunk with its tree and without (K12)
+     within the planar budgets;
+     `python -m raytracer_weekend_tpu_torch.utils.cli wavefront_cow_obj -w
+     400 -s 16 -d 8 --resume-dir D -o O` in a subprocess, then again (every
+     tile read from D, the same PNG), then in this process with the counts
+     reset; `--stream` on two_spheres decoded by ImageReceiver (stream_
+     render's sums bit for bit, the PNG their tone map; the COBS codec's
+     share of stream_render's time); the CLI's default
+     route on jumpy_balls; book2's staged path through utils.debug.
+     check_render_finite (BVH-sph); utils.metrics on the card
+     (measured_render of the cow through its tree, the occupancy of
+     jumpy_balls from the megakernel's codes and of the uv-debug jumpy from
+     the staged path, profiler_trace seeing BVH-tri on the device). The
+     kernels line's BVH entries are timed on the operands of the very
+     launches they count, recorded as the main path made them.
 
 Then one JSON line describing each kernel (launches on the main path, max
 abs error against its plain version, ms and plain ms, the least time the
 card could take for the same work and what bounds it), each entry's ms,
 launches and bound measured on the same launches: K3 one entry per scene
 (cornell_box, the cow, the monument, book2), K6b one per phase of the
-criterion, K10-K12 one per table and launch size; every entry's ms is the
+criterion, K10-K12 and the BVH kernels one per table and launch size;
+every entry's ms is the
 launch alone on the device, on tables and operands built beforehand, its
 start event queued behind a spin of the card so that the host's enqueue is
 left out (`utils/timing.py` `device_ms`), its event_ms the same launch by
@@ -149,6 +172,7 @@ beside it, the script fails.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import pathlib
@@ -494,7 +518,7 @@ def fwd_bwd_ms(scene, static, cfg, cam):
 
     leaves = [le.detach().clone() for le in scene.leaves()]
     floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
-    diff_scene = SceneData.from_leaves(leaves)
+    diff_scene = SceneData.from_leaves(leaves, scene.trees)
 
     def fwd_bwd():
         rad = render_fused_diff(diff_scene, static, cfg, cam, 0, cfg.n_rays,
@@ -701,6 +725,7 @@ def main() -> None:
     kernels += [k5, k3_book2, *deep_phases(dev, smi)]
     volume_training(dev, smi, smokey)
     kernels += staged_path(dev, smi)
+    kernels += bvh_phase(dev, smi, log)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -1294,8 +1319,9 @@ def float64_codes(scene, static, cfg, o, d, t, rid, windows):
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
     from raytracer_weekend_tpu_torch.scene.data import SceneData
 
-    scene64 = SceneData.from_leaves([le.double() if le.is_floating_point()
-                                     else le for le in scene.leaves()])
+    scene64 = SceneData.from_leaves(
+        [le.double() if le.is_floating_point() else le
+         for le in scene.leaves()], scene.trees)
     cfg = dataclasses.replace(cfg, use_pallas=False)
     prev = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
@@ -2245,7 +2271,7 @@ def staged_profile(scene, static, cfg, cam, smi):
 
     leaves = [le.detach().clone() for le in scene.leaves()]
     floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
-    diff = SceneData.from_leaves(leaves)
+    diff = SceneData.from_leaves(leaves, scene.trees)
     ids = torch.arange(cfg.n_rays, device=scene.device)
 
     def fwd():
@@ -2619,6 +2645,7 @@ def staged_path(dev, smi):
     from raytracer_weekend_tpu_torch import integrator
     from raytracer_weekend_tpu_torch.ops.cuda import _build, checks
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from raytracer_weekend_tpu_torch.scene.data import without_trees
 
     mods = {k: hit_family(k)[0] for k in ("spheres", "rects", "triangles")}
     # (kind, scene whose rays it was timed on, rays a launch) -> launches.
@@ -2647,7 +2674,9 @@ def staged_path(dev, smi):
             "wavefront_cow_obj": ("triangles",)}
     errs, frames, timed = {}, {}, {}
     for name in ("jumpy_balls", "cornell_box", "wavefront_cow_obj"):
+        # The cow without its tree: K12's brute force (phase 15 walks it).
         scene, static, cfg, cam = load_scene(name, FULL, dev)
+        scene, static = without_trees(scene, static)
         frames[name] = (scene, static, cfg, cam)
         primary, bounce = bounce_rays(scene, static, cfg, cam)
         for kind in ("spheres", "rects", "triangles"):
@@ -2773,7 +2802,7 @@ def staged_path(dev, smi):
     floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
     torch.cuda.reset_peak_memory_stats(dev)
     loss = InverseRenderer(static, fcfg, cam, target).loss(
-        SceneData.from_leaves(leaves))
+        SceneData.from_leaves(leaves, start.trees))
     grads = torch.autograd.grad(loss, floats, allow_unused=True)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     if not all(bool(torch.isfinite(g).all()) for g in grads if g is not None):
@@ -2988,6 +3017,564 @@ def many_spheres_k2(dev, smi):
         if not all(s_["ok"] for s_ in checked):
             raise AssertionError(f"many_spheres K2 vs plain outside budgets: "
                                  f"{checked}")
+
+
+
+# ---- the staged path through a tree: BVH-tri and BVH-sph (phase 15) -------------
+
+# FP32 operations of the BVH kernels, counted from csrc/bvh.cu (a division
+# or square root one; the slab test's min, max and compares not counted):
+# 12 a node's slab test (6 subtractions, 6 products), 30 a sphere leaf (the
+# lerp 8, oc 3, half_b 5, c_term 6, disc 3, the square root and two roots
+# 5), 37 a triangle leaf (det 5, 1 / det, ao 3, ao x d 9, u, v, t 6 each,
+# u + v). Bytes: a ray's o and d (and time) read and its t and prim
+# written; the nodes (32 bytes) and the leaf rows (64 bytes) once.
+OPS_BVH_NODE, OPS_BVH_LEAF = 12, {"spheres": 30, "triangles": 37}
+BYTES_BVH_RAY = {"spheres": 36, "triangles": 32}
+BVH_WINDOW = 1 << 16      # rays a window of the plain traverse on the card
+BVH_SPREAD = 1 << 18      # primary rays spread over the frame
+PLAIN_SAMPLE = 8          # launches of an entry the plain traverse times,
+PLAIN_RAYS = 1 << 22      # and at most about this many rays in all
+TREE_SCENES = ("wavefront_cow_obj", "textured_monument",
+               "wavefront_suspension_obj", "book2_final_scene")
+
+
+def spread_rays(scene, static, cfg, cam, n):
+    """n primary rays spread over the frame (every k-th lane, k = n_rays //
+    n) and the first-bounce rays of those that live (one bounce of the
+    staged path on the card) -> two (o, d, time) triples."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+
+    step = max(1, cfg.n_rays // n)
+    ids = torch.arange(0, step * n, step, device=scene.device)[:n]
+    o, d, t, rid = integrator._pixel_rays(cam, cfg, ids, cfg.seed)
+    with torch.no_grad():
+        *_, (o1, d1, _, _, alive, _) = integrator.trace_lanes(
+            scene, static, dataclasses.replace(cfg, max_depth=1), o, d, t,
+            rid, cfg.seed, return_carry=True)
+    return (o, d, t), (o1[alive].contiguous(), d1[alive].contiguous(),
+                       t[alive].contiguous())
+
+
+def tree_of(scene, kind):
+    return scene.sphere_bvh if kind == "spheres" else scene.triangle_bvh
+
+
+def bvh_plain(kind, scene, rays, t_min=1e-3):
+    """The plain traverse on the card in windows of BVH_WINDOW rays."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+
+    walk = bt.traverse_spheres if kind == "spheres" else bt.traverse_triangles
+    n = rays[0].shape[0]
+    with torch.no_grad():
+        parts = [walk(tree_of(scene, kind), getattr(scene, kind),
+                      *(r[w] for r in rays[:3 if kind == "spheres" else 2]),
+                      t_min, plain=True)
+                 for w in lane_windows(n, BVH_WINDOW)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def bvh_work(kind, tabs, ops_rays, n, t_min=1e-3):
+    """(FP32 operations, bytes, the counts) of one BVH launch on these
+    operands, from the kernel's counting probe."""
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+
+    counts = bt.count_work(kind, tabs, ops_rays, t_min)
+    ops = (OPS_BVH_NODE * counts["nodes visited"]
+           + OPS_BVH_LEAF[kind] * counts["leaves tested"])
+    nbytes = (n * BYTES_BVH_RAY[kind] + 4 * tabs.nodes.numel()
+              + 4 * tabs.rows.numel())
+    return ops, nbytes, counts
+
+
+def brute_launch(kind, table, rays):
+    """(K10 or K12's module, its prebuilt table, its ray operands)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import (
+        sphere_intersect, triangle_intersect)
+
+    if kind == "spheres":
+        return (sphere_intersect, sphere_intersect.sphere_table(table),
+                sphere_intersect.ray_operands(*rays[:3]))
+    return (triangle_intersect, triangle_intersect.triangle_table(table),
+            triangle_intersect.ray_operands(*rays[:2]))
+
+
+def png_pixels(path):
+    """(H, W, 3) uint8 of a PNG written by `utils.image.save_png` (8-bit
+    RGB, filter 0 on every row): the card's machine may lack Pillow."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = pathlib.Path(path).read_bytes()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        size, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + size]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def run_cli(args, what):
+    """`python -m raytracer_weekend_tpu_torch.utils.cli ARGS` from the
+    checkout's root in a subprocess -> seconds; raises unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytracer_weekend_tpu_torch.utils.cli",
+         *map(str, args)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: the CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    return time.perf_counter() - t0
+
+
+def bvh_phase(dev, smi, log):
+    """Phase 15: the skip-link trees and the BVH kernels on the card.
+    (a) the builder's trees of the cow, the monument, the suspension and
+    book2 against the numpy builder; (b) BVH-tri and BVH-sph bit for bit
+    the plain traverse on the card on 2^18 primary rays spread over the
+    frame and their first-bounce rays, on every tree scene, a 65-triangle
+    mesh and jumpy_balls built with bvh=True; each timed on the device
+    beside K10/K12 on the same rays; (c)
+    the cow's staged frame in one chunk with its tree (BVH-tri) and
+    without (K12), against the flip budgets, each launch's device ms; (d)
+    the CLI with --resume-dir on the cow at full size in a subprocess, then
+    again from the tiles (the same PNG, no tile rewritten); the same
+    command in this process with the counts reset; (e) --stream on
+    two_spheres decoded by ImageReceiver against stream_render's sums and
+    the PNG, and the COBS codec's share of stream_render's time; (f) the CLI's default route on jumpy_balls; book2's staged
+    path through utils.debug.check_render_finite (BVH-sph); (g) utils.
+    metrics on the card (`front_end_metrics`). Returns the kernels line's
+    BVH entries, each timed on the launches of the main-path run that it
+    counts (`recorded_launches`)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator, native
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models import scenes
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+    from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
+    from raytracer_weekend_tpu_torch.parallel import stream
+    from raytracer_weekend_tpu_torch.scene.builder import build_scene
+    from raytracer_weekend_tpu_torch.scene.data import without_trees
+    from raytracer_weekend_tpu_torch.utils import cli, debug
+    from raytracer_weekend_tpu_torch.utils.image import tone_map
+
+    t_phase = time.perf_counter()
+    print(f"phase 15 BVH kernels as compiled: "
+          f"{[r for r in ptxas_registers(log) if r.startswith('bvh_')]}",
+          flush=True)
+    if any("spills" in r for r in ptxas_registers(log)
+           if r.startswith("bvh_")):
+        raise AssertionError("a BVH kernel spills")
+
+    # ---- 15a. the trees -----------------------------------------------------
+    loaded = {}
+    for name in TREE_SCENES:
+        scene, static, cfg, cam = load_scene(name, FULL, dev)
+        loaded[name] = (scene, static, cfg, cam)
+        kind = "spheres" if static.sphere_bvh else "triangles"
+        tree = tree_of(scene, kind)
+        tab = getattr(scene, kind)
+        if kind == "spheres":
+            c0, c1 = tab.c0.cpu().numpy(), tab.c1.cpu().numpy()
+            r = np.abs(tab.radius.cpu().numpy())[:, None]
+            lo, hi = np.minimum(c0 - r, c1 - r), np.maximum(c0 + r, c1 + r)
+        else:
+            v = np.stack([x.cpu().numpy() for x in (tab.v0, tab.v1, tab.v2)],
+                         axis=1)
+            lo, hi = v.min(axis=1), v.max(axis=1)
+            thin = (hi - lo) < 2e-4
+            lo, hi = (np.where(thin, lo - 1e-4, lo),
+                      np.where(thin, hi + 1e-4, hi))
+        cpp = native.build_bvh(lo, hi)
+        ref = native._build_bvh_numpy(lo, hi)
+        mine = [x.cpu().numpy() for x in tree]
+        same_shape = (np.array_equal(cpp[3], ref[3])
+                      and np.array_equal(cpp[2] < 0, ref[2] < 0)
+                      and sorted(cpp[2][cpp[2] >= 0]) == list(
+                          range(lo.shape[0])))
+        bitwise = all(np.array_equal(a, b) for a, b in zip(cpp, ref))
+        cent = 0.5 * (lo + hi)
+        distinct = [len(np.unique(cent[:, a])) for a in range(3)]
+        leaves_moved = int((cpp[2] != ref[2]).sum())
+        print(f"phase 15a tree {name} ({kind}, {lo.shape[0]} boxes, "
+              f"{cpp[2].shape[0]} nodes): the scene's tree is native."
+              f"build_bvh's {all(np.array_equal(a, b) for a, b in zip(mine, cpp))}; "
+              f"against the numpy builder bit for bit {bitwise}, the same "
+              f"shape (skip links, inner nodes, one leaf a box) {same_shape}, "
+              f"{leaves_moved} leaves hold another box (distinct centroids "
+              f"per axis {distinct}: nth_element and the stable argsort "
+              f"split ties apart)", flush=True)
+        if not (same_shape and all(np.array_equal(a, b)
+                                   for a, b in zip(mine, cpp))):
+            raise AssertionError(f"{name}: tree of another shape")
+        if min(distinct) == lo.shape[0] and not bitwise:
+            raise AssertionError(f"{name}: no tied centroid, yet the trees "
+                                 f"differ")
+
+    # ---- 15b. the kernels against the plain traverse; the dispatch readings --
+    objs, cams, bg = scenes.mesh_shards(16 / 9)
+    g = np.random.default_rng(65)
+    mat = objs[-1].material
+    objs += [type(objs[-1]).flat_shaded(g.uniform(-2, 2, (3, 3)), mat)
+             for _ in range(25)]
+    s65, st65 = build_scene(objs, background=bg)
+    if not (st65.triangle_bvh and st65.n_triangles == 65):
+        raise AssertionError(f"the 65-triangle mesh: {st65}")
+    loaded["mesh_65"] = (s65.to(dev), st65, RenderConfig(**FULL),
+                         cams[0].to(dev))
+    objs, cams, bg = scenes.jumpy_balls(16 / 9)
+    sj, stj = build_scene(objs, background=bg, bvh=True)   # 486 spheres
+    loaded["jumpy_balls bvh=True"] = (sj.to(dev), stj, RenderConfig(**FULL),
+                                      cams[0].to(dev))
+    readings, errs = {}, {}
+    for name, (scene, static, cfg, cam) in loaded.items():
+        kind = "spheres" if static.sphere_bvh else "triangles"
+        tree, tab = tree_of(scene, kind), getattr(scene, kind)
+        tabs = bt.tables(kind, tree, tab)
+        primary, bounce = spread_rays(scene, static, cfg, cam, BVH_SPREAD)
+        for which, rays in (("primary", primary), ("first bounce", bounce)):
+            n = rays[0].shape[0]
+            if not n:      # every hit a light: none bounce
+                print(f"phase 15b {name}: no {which} rays", flush=True)
+                continue
+            ops_r = bt.ray_operands(kind, *rays[:2], rays[2])
+            t_k, p_k = bt._launch(kind, tabs, ops_r, cfg.t_min)
+            t_p, p_p = bvh_plain(kind, scene, rays, cfg.t_min)
+            torch.cuda.synchronize()
+            t_off = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+            p_off = int((p_k != p_p).sum())
+            hits = int(torch.isfinite(t_k).sum())
+            print(f"phase 15b BVH {kind} vs plain traverse {name} {which} "
+                  f"rays: {n} rays, {hits} hits, t differs on "
+                  f"{t_off} lanes, prim on {p_off} (bit for bit)", flush=True)
+            if t_off or p_off or hits < n // 50:
+                raise AssertionError(f"BVH {kind} {name} {which}: kernel vs "
+                                     f"plain traverse")
+            errs[kind] = 0.0
+            b_ms, b_ev = launch_times(
+                lambda: bt._launch(kind, tabs, ops_r, cfg.t_min))
+            mod, table, k_ops = brute_launch(kind, tab, rays)
+            k_ms, k_ev = launch_times(
+                lambda: mod._launch(table, k_ops, cfg.t_min))
+            ops, nbytes, counts = bvh_work(kind, tabs, ops_r, n)
+            readings[name, which] = dict(
+                kind=kind, rows=tab.valid.shape[0], nodes=tree.prim.shape[0],
+                rays=n, bvh_ms=b_ms, brute_ms=k_ms, **counts)
+            print(f"phase 15b reading {name} {which} rays: {kind}, "
+                  f"{tab.valid.shape[0]} rows, {tree.prim.shape[0]} nodes, "
+                  f"{n} rays: BVH {b_ms:.4f} ms on the device ({b_ev:.4f} "
+                  f"by events), {json.dumps(counts)}, bound "
+                  f"{max(ops / FP32_PEAK, nbytes / HBM_RATE) * 1e3:.4f} ms; "
+                  f"{'K10' if kind == 'spheres' else 'K12'} on the same rays "
+                  f"{k_ms:.4f} ms ({k_ev:.4f} by events); \"auto\" on the "
+                  f"card takes "
+                  f"{integrator.hit_routes(scene, static, cfg, dev)[kind]}, "
+                  f"the faster here is {'bvh' if b_ms < k_ms else 'kernel'} "
+                  f"({smi})", flush=True)
+        if integrator.hit_routes(scene, static, cfg, dev)[kind] != "bvh":
+            raise AssertionError(f"{name}: a family with a tree does not "
+                                 f"take the BVH kernel under \"auto\"")
+    print(f"phase 15b readings: "
+          f"{json.dumps({' '.join(k): v for k, v in readings.items()})}",
+          flush=True)
+
+    # ---- 15c. the cow's staged frame, with its tree and without ----------------
+    scene, static, cfg, cam = loaded["wavefront_cow_obj"]
+    bare, bare_st = without_trees(scene, static)
+    if integrator.hit_routes(scene, static, cfg, dev)["triangles"] != "bvh":
+        raise AssertionError("the cow's triangles do not take BVH-tri")
+    launches, timed = {}, {}
+    bt.TRIANGLE_LAUNCHES = ti.LAUNCHES = 0
+    with recorded_launches() as recs:
+        rad, seg = staged_frame(scene, static, cfg, cam, cfg.n_rays)
+    torch.cuda.synchronize()
+    timed["wavefront_cow_obj", cfg.n_rays] = recs
+    launches[("triangles", "wavefront_cow_obj", cfg.n_rays)] = \
+        bt.TRIANGLE_LAUNCHES
+    if bt.TRIANGLE_LAUNCHES != cfg.max_depth or ti.LAUNCHES:
+        raise AssertionError(f"the cow's staged frame: BVH-tri "
+                             f"{bt.TRIANGLE_LAUNCHES}, K12 {ti.LAUNCHES}")
+    k_rad, k_seg = staged_frame(bare, bare_st, cfg, cam, cfg.n_rays)
+    ok, stats = _budgets(rad, k_rad, seg.sum(), k_seg.sum(), cfg.n_rays,
+                         **PLANAR_BUDGETS)
+    tree_ms = cuda_ms(lambda: staged_frame(scene, static, cfg, cam,
+                                           cfg.n_rays), 3)
+    bare_ms = cuda_ms(lambda: staged_frame(bare, bare_st, cfg, cam,
+                                           cfg.n_rays), 3)
+    print(f"phase 15c staged frame wavefront_cow_obj {cfg.width}x"
+          f"{cfg.height} spp {cfg.samples_per_pixel} depth {cfg.max_depth} "
+          f"in one chunk, with its tree (BVH-tri, {launches} launches) "
+          f"against without (K12): {json.dumps(stats)}; frame {tree_ms:.3f} "
+          f"ms with the tree, {bare_ms:.3f} without, by events ({smi})",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"the cow's staged frame with its tree vs "
+                             f"without: {stats}")
+
+    # ---- 15d. the CLI with --resume-dir, in a subprocess, then again ------------
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    cow_args = ["wavefront_cow_obj", "-w", 400, "-s", 16, "-d", 8,
+                "--resume-dir", work / "tiles", "-o", work / "out"]
+    first_s = run_cli(cow_args, "cow --resume-dir")
+    png = work / "out" / "image_0000.png"
+    first = png.read_bytes()
+    tiles = sorted((work / "tiles").glob("*.npy"))
+    stamps = [p.stat().st_mtime_ns for p in tiles]
+    again_s = run_cli(cow_args, "cow --resume-dir, again")
+    if (png.read_bytes() != first
+            or [p.stat().st_mtime_ns for p in tiles] != stamps
+            or sorted((work / "tiles").glob("*.npy")) != tiles):
+        raise AssertionError("the resumed CLI run rewrote a tile or wrote "
+                             "another PNG")
+    img = png_pixels(png)
+    if img.shape != (225, 400, 3) or not img.any():
+        raise AssertionError(f"the cow's PNG: {img.shape}")
+    here = [str(a) for a in cow_args]
+    here[here.index(str(work / "tiles"))] = str(work / "tiles_here")
+    here[here.index(str(work / "out"))] = str(work / "out_here")
+    bt.TRIANGLE_LAUNCHES = 0
+    with recorded_launches() as recs:
+        if cli.main(here) != 0:
+            raise AssertionError("cli.main (cow, --resume-dir) exited "
+                                 "non-zero")
+    timed["wavefront_cow_obj", 4096 * 16] = recs
+    n_tiles = len(tiles)
+    launches[("triangles", "wavefront_cow_obj", 4096 * 16)] = \
+        bt.TRIANGLE_LAUNCHES
+    same = (work / "out_here" / "image_0000.png").read_bytes() == first
+    print(f"phase 15d CLI wavefront_cow_obj -w 400 -s 16 -d 8 --resume-dir "
+          f"(the staged path through K10, K11 and BVH-tri): {first_s:.1f} s "
+          f"in a subprocess, {n_tiles} tiles; again from the tiles "
+          f"{again_s:.1f} s, no tile rewritten, the same PNG; in this "
+          f"process {bt.TRIANGLE_LAUNCHES} BVH-tri launches, the same PNG "
+          f"{same}", flush=True)
+    if bt.TRIANGLE_LAUNCHES != n_tiles * 8 or not same:
+        raise AssertionError("the CLI in this process")
+
+    # ---- 15e. --stream on two_spheres -------------------------------------------
+    sfile = work / "two_spheres.stream"
+    run_cli(["two_spheres", "-w", 400, "-s", 16, "-d", 8, "--stream", sfile,
+             "-o", work / "stream_out"], "two_spheres --stream")
+    rx = stream.ImageReceiver()
+    rx.feed(sfile.read_bytes())
+    scene2, static2, cfg2, cam2 = load_scene("two_spheres", FULL, dev)
+    t0 = time.perf_counter()
+    sums = stream.stream_render(scene2, static2, cfg2, cam2, lambda b: None)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    payloads = [stream.cobs_decode(f)
+                for f in stream.iter_frames(sfile.read_bytes())]
+    t0 = time.perf_counter()
+    for p in payloads:
+        stream.cobs_encode(p)
+    codec_s = time.perf_counter() - t0
+    stream_png = png_pixels(work / "stream_out" / "image_0000.png")
+    if not (rx.done and rx.errors == 0 and rx.pixels_received == 90000
+            and np.array_equal(rx.image, sums)
+            and np.array_equal(rx.tone_mapped(), tone_map(sums, 16))
+            and np.array_equal(stream_png, rx.tone_mapped())):
+        raise AssertionError("two_spheres --stream: the decoded stream is "
+                             "not stream_render's sums and the PNG")
+    print(f"phase 15e CLI two_spheres --stream: {sfile.stat().st_size} "
+          f"bytes, {rx.pixels_received} pixels decoded by ImageReceiver, "
+          f"bit for bit stream_render's sums in this process; their tone "
+          f"map is the CLI's PNG; stream_render {render_s * 1e3:.1f} ms on "
+          f"the host clock, of which the COBS codec on its {len(payloads)} "
+          f"frames {codec_s * 1e3:.1f} ms ({codec_s / render_s:.1%}) "
+          f"({smi})", flush=True)
+
+    # ---- 15f. the CLI's default route; book2's staged path -----------------------
+    j_s = run_cli(["jumpy_balls", "-w", 400, "-s", 16, "-d", 8, "-o",
+                   work / "jumpy_out"], "jumpy_balls default route")
+    jumpy = png_pixels(work / "jumpy_out" / "image_0000.png")
+    scene, static, cfg, cam = loaded["book2_final_scene"]
+    bt.SPHERE_LAUNCHES = 0
+    with recorded_launches() as recs:
+        colors = debug.check_render_finite(scene, static, cfg, cam,
+                                           n_lanes=BVH_SPREAD)
+    timed["book2_final_scene", BVH_SPREAD] = recs
+    launches[("spheres", "book2_final_scene", BVH_SPREAD)] = \
+        bt.SPHERE_LAUNCHES
+    print(f"phase 15f CLI jumpy_balls (render_image: the megakernel) exit 0 "
+          f"in {j_s:.1f} s, PNG {jumpy.shape}; check_render_finite(book2, "
+          f"{BVH_SPREAD} lanes) through the staged path: "
+          f"{bt.SPHERE_LAUNCHES} BVH-sph launches, {colors.shape[0]} finite "
+          f"lanes", flush=True)
+    if bt.SPHERE_LAUNCHES != cfg.max_depth or jumpy.shape != (225, 400, 3):
+        raise AssertionError("book2's staged path or the jumpy CLI")
+    front_end_metrics(loaded["wavefront_cow_obj"], int(seg.sum()), work,
+                      dev, smi)
+
+    entries = [bvh_entry(name, n, count, timed[name, n], errs, loaded, smi)
+               for (_, name, n), count in sorted(launches.items())]
+    print(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def front_end_metrics(cow, cow_segments, work, dev, smi):
+    """Phase 15g: utils.metrics on the card. measured_render of the cow
+    through its tree counts the segments of phase 15c's frame; the
+    occupancy of jumpy_balls (the megakernel's codes) and of the uv-debug
+    jumpy (the staged segment differences) lie in [0, 1] and fall with
+    depth; profiler_trace around one chunk of the cow sees BVH-tri run on
+    the device."""
+    from torch.autograd import DeviceType
+
+    from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.utils import metrics
+
+    import numpy as np
+    import torch
+
+    scene, static, cfg, cam = cow
+    stats = metrics.measured_render(scene, static, cfg, cam)
+    occ = {}
+    for name in ("jumpy_balls", "jumpy_balls_uvdebug"):
+        s2, st2, cfg2, cam2 = load_scene(name, FULL, dev)
+        occ[name] = metrics.wavefront_occupancy(s2, st2, cfg2, cam2)
+    ids = torch.arange(BVH_SPREAD, device=dev)
+    with metrics.profiler_trace(work / "profile") as prof:
+        with torch.no_grad():
+            integrator.render_chunk(scene, static, cfg, cam, ids, cfg.seed)
+    bvh_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and "bvh_kernel" in e.key)
+    print(f"phase 15g metrics: measured_render wavefront_cow_obj "
+          f"{stats.json_line()}; wavefront_occupancy "
+          f"{ {k: [round(float(x), 4) for x in v] for k, v in occ.items()} }"
+          f"; profiler_trace of one {BVH_SPREAD}-lane chunk of the cow: "
+          f"BVH-tri {bvh_us / 1e3:.4f} ms on the device, trace -> "
+          f"{(work / 'profile' / 'trace.json').relative_to(ROOT)} ({smi})",
+          flush=True)
+    bad = [k for k, v in occ.items()
+           if v.shape != (8,) or not (0.0 <= v.min() <= v.max() <= 1.0)
+           or np.any(np.diff(v) > 1e-6)]
+    if (stats.ray_segments != cow_segments or bad or bvh_us <= 0
+            or occ["jumpy_balls_uvdebug"][0] != 1.0):
+        raise AssertionError(f"metrics on the card: segments "
+                             f"{stats.ray_segments} vs {cow_segments}, "
+                             f"occupancy {bad}, BVH-tri {bvh_us} us")
+
+
+def bvh_entry(name, n, launches, recs, errs, loaded, smi):
+    """The kernels line's entry of BVH-tri or BVH-sph for the main path's
+    launches of n rays on scene `name`, timed on `recs`, the operands of
+    those very launches (`recorded_launches`; a ragged last tile has
+    fewer): `ms` and `event_ms` the mean of each launch alone on them,
+    `wrapper_ms` the Function's call on the same rays less `event_ms`,
+    `plain_ms` the plain traverse (windows of BVH_WINDOW) on at most
+    PLAIN_SAMPLE of them (and about PLAIN_RAYS rays) spread over the run,
+    the bound from the kernel's own counts on every one. K10/K12's brute force
+    is timed on the same launches beside it."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+
+    scene = loaded[name][0]
+    kind = recs[0][0]
+    if len(recs) != launches or any(r[2][0].shape[0] > n for r in recs):
+        raise AssertionError(f"{name}: {len(recs)} recorded launches for "
+                             f"{launches} counted, or more than {n} rays")
+    walk = bt.traverse_spheres if kind == "spheres" else bt.traverse_triangles
+    before = bt.SPHERE_LAUNCHES, bt.TRIANGLE_LAUNCHES
+    times, f_ms, k_ms, plain, ops, nbytes = [], 0.0, 0.0, [], 0, 0
+    counts = {}
+    n_plain = min(len(recs), PLAIN_SAMPLE, max(1, PLAIN_RAYS // n))
+    sample = set(range(0, len(recs), -(-len(recs) // n_plain)))
+    grad = torch.is_grad_enabled()
+    torch.set_grad_enabled(False)
+    for i, (_, tabs, ops_r, t_min) in enumerate(recs):
+        times.append(launch_times(lambda: bt._launch(kind, tabs, ops_r,
+                                                     t_min)))
+        f_ms += cuda_ms(lambda: walk(tree_of(scene, kind),
+                                     getattr(scene, kind), *ops_r, t_min,
+                                     tables=tabs))
+        mod, table, k_ops = brute_launch(kind, getattr(scene, kind), ops_r)
+        k_ms += device_ms(lambda: mod._launch(table, k_ops, t_min), 5)
+        if i in sample:
+            plain.append(cuda_ms(lambda: bvh_plain(kind, scene, ops_r,
+                                                   t_min), 1))
+        o_i, b_i, c_i = bvh_work(kind, tabs, ops_r, ops_r[0].shape[0],
+                                 t_min)
+        ops, nbytes = ops + o_i, nbytes + b_i
+        counts = {k: counts.get(k, 0) + v for k, v in c_i.items()}
+    torch.set_grad_enabled(grad)
+    bt.SPHERE_LAUNCHES, bt.TRIANGLE_LAUNCHES = before
+    torch.cuda.synchronize()
+    m = len(recs)
+    l_ms = sum(t[0] for t in times) / m
+    l_ev = sum(t[1] for t in times) / m
+    p_ms = sum(plain) / len(plain)
+    short = "BVH-sph" if kind == "spheres" else "BVH-tri"
+    spread = ([round(t[0], 4) for t in times] if m <= PLAIN_SAMPLE
+              else [round(min(t[0] for t in times), 4),
+                    round(max(t[0] for t in times), 4)])
+    print(f"phase 15 timing {short} {name}: {m} launches of up to {n} "
+          f"rays as the main path made them, {recs[0][1].nodes.shape[0]} nodes: "
+          f"launch {l_ms:.4f} ms on the device a launch (mean; "
+          f"{'each' if m <= PLAIN_SAMPLE else 'min, max'} {spread}), "
+          f"{l_ev:.4f} by events, Function call {f_ms / m:.4f} ms, plain "
+          f"traverse {p_ms:.3f} ms (mean of {len(plain)}); "
+          f"{'K10' if kind == 'spheres' else 'K12'} on the same launches "
+          f"{k_ms / m:.4f} ms on the device; {json.dumps(counts)} in all, "
+          f"{ops / m:.4e} FP32 operations and {nbytes // m} bytes a launch "
+          f"({smi})", flush=True)
+    return bound({
+        "name": f"{short}[{name} {n} rays]",
+        "route": "cuda",
+        "source": "raytracer_weekend_tpu_torch/csrc/bvh.cu",
+        # No TPU kernel: the JAX function it replaces, a jnp while_loop.
+        "replaces": "raytracer_weekend_tpu/ops/bvh.py:43",
+        "launches": launches,
+        "max_abs_err": errs[kind],
+        "ms": l_ms,
+        "event_ms": l_ev,
+        "wrapper_ms": f_ms / m - l_ev,
+        "plain_ms": p_ms,
+    }, ops / m, nbytes / m)
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Records (kind, tables, ray operands, t_min) of every BVH launch made
+    inside, as the path made it; the launches and their counts are
+    unchanged (the counting probe is not recorded)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+
+    launch, recs = bt._launch, []
+
+    def record(kind, tabs, rays, t_min, counts=None):
+        if counts is None:
+            recs.append((kind, tabs, tuple(rays), t_min))
+        return launch(kind, tabs, rays, t_min, counts)
+
+    bt._launch = record
+    try:
+        yield recs
+    finally:
+        bt._launch = launch
 
 
 if __name__ == "__main__":

@@ -13,6 +13,11 @@ render, and the differentiable render with inverse rendering:
   integrator               — staged wavefront renderer (plain torch) and the
                              render_image dispatch
   ops.sphere / rect / triangle — staged closest hit and hit record per family
+  ops.bvh / native         — skip-link BVH (plain traverse), the C++ builder
+  ops.cuda.bvh_traverse    — the hand-written CUDA tree walk of the staged
+                             path (an autograd.Function)
+  scene.io / utils.cli / utils.checkpoint / utils.metrics / utils.debug /
+  parallel.stream / utils.live_view — the single-device front end
   ops.cuda.megakernel      — the hand-written CUDA forward kernel (sm_90a;
                              sphere and planar branches), optionally writing
                              winner codes, and its plain torch twin

@@ -63,8 +63,8 @@ class _FusedDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, *leaves):
-        static, cfg, lane_start, n_chunk, seed, n_scene = spec
-        scene = SceneData.from_leaves(leaves[:n_scene])
+        static, cfg, lane_start, n_chunk, seed, n_scene, trees = spec
+        scene = SceneData.from_leaves(leaves[:n_scene], trees)
         cam = Camera(*leaves[n_scene:])
         defer = _defers(static)
         rad, _, codes, *recs = megakernel.render_fused(
@@ -77,7 +77,7 @@ class _FusedDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        static, cfg, lane_start, n_chunk, seed, n_scene = ctx.spec
+        static, cfg, lane_start, n_chunk, seed, n_scene, trees = ctx.spec
         saved = ctx.saved_tensors
         recs, codes, leaves = (saved[:ctx.n_recs], saved[ctx.n_recs],
                                list(saved[ctx.n_recs + 1:]))
@@ -89,7 +89,7 @@ class _FusedDiff(torch.autograd.Function):
         with torch.enable_grad():
             for i in wanted:
                 leaves[i] = leaves[i].detach().requires_grad_()
-            scene = SceneData.from_leaves(leaves[:n_scene])
+            scene = SceneData.from_leaves(leaves[:n_scene], trees)
             cam = Camera(*leaves[n_scene:])
             ids = lane_start + torch.arange(n_chunk, dtype=torch.int64,
                                             device=scene.device)
@@ -194,5 +194,5 @@ def render_fused_diff(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
             "medium scenes with Lambertian/Metal/Dielectric/DiffuseLight "
             f"materials: {static}")
     spec = (static, cfg, int(lane_start), int(n_chunk), int(seed),
-            len(scene.leaves()))
+            len(scene.leaves()), scene.trees)
     return _FusedDiff.apply(spec, *scene.leaves(), *cam)

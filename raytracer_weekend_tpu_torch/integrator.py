@@ -14,18 +14,27 @@ stops it too. Each family gives its closest candidate per ray, and the
 families merge in the JAX order (spheres, rects, triangles, media) with a
 strict `<`, so on an exact tie the earlier family keeps the lane.
 
-The closest hit of spheres, rects and triangles follows `cfg.use_pallas`,
-as the JAX package's does (`_kernels_on`):
+The closest hit of spheres, rects and triangles follows `cfg.use_pallas`
+and the scene's trees (`SceneData.sphere_bvh`, `triangle_bvh`; the builder
+records them above 512 spheres and 64 triangles), as the JAX package's
+does (`_kernels_on`, `hit_routes`):
   * True: the closest-hit kernels K10-K12 (`ops.cuda.sphere_intersect`,
-    `rect_intersect`, `triangle_intersect`), each a torch.autograd.Function
-    whose backward re-derives the winner's t on its gathered row; on CPU
-    tensors their forward is the plain version. A trace on a card builds
-    the kernels' tables once (`kernel_tables`) for all its bounces;
-  * "auto" (the default): those kernels on CUDA, the plain brute force
-    (`ops.sphere`, `ops.rect`, `ops.triangle`) on the CPU;
-  * False: the plain brute force on any device. A plain reference that
-    traces the staged path on a card passes it.
-Media always take `ops.volume.hit_volumes`: JAX has no kernel for them.
+    `rect_intersect`, `triangle_intersect`), tree or not, each a
+    torch.autograd.Function whose backward re-derives the winner's t on its
+    gathered row; on CPU tensors their forward is the plain version. This
+    is JAX's Pallas route;
+  * "auto" (the default) on CUDA: a family without a tree takes K10-K12; a
+    family with one takes the BVH kernel (`ops.cuda.bvh_traverse`, a
+    Function of the same kind);
+  * "auto" on the CPU, and False on any device: a family with a tree walks
+    it with the plain `ops.bvh.traverse` (JAX with Pallas off), one without
+    takes the plain brute force (`ops.sphere`, `ops.rect`, `ops.triangle`).
+    A plain reference that traces the staged path on a card passes False.
+A trace on a card builds the kernels' tables once (`kernel_tables`) for
+all its bounces. Media always take `ops.volume.hit_volumes`: JAX has no
+kernel for them. The tree's leaf tests write the quadratic in another
+order than the brute force, and on an exact tie the tree keeps the first
+leaf in DFS order where the brute force keeps the lowest row.
 
 `render_image` dispatches on the scene's device:
   * CUDA, and `fused_eligible`: the hand-written CUDA megakernel
@@ -72,26 +81,79 @@ def _kernels_on(cfg: RenderConfig, device: torch.device | str) -> bool:
         cfg.use_pallas == "auto" and torch.device(device).type == "cuda")
 
 
+def hit_routes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
+               device: torch.device | str) -> dict:
+    """How each family's closest hit is found for this render -> {"spheres",
+    "rects", "triangles": "kernel" (K10-K12), "bvh" (the BVH kernel), "tree"
+    (the plain traverse) or "plain" (the plain brute force)}."""
+    kernels = _kernels_on(cfg, device)
+    routes = {"rects": "kernel" if kernels else "plain"}
+    for fam, tree, has in (("spheres", scene.sphere_bvh, static.sphere_bvh),
+                           ("triangles", scene.triangle_bvh,
+                            static.triangle_bvh)):
+        if not (has and tree is not None):
+            routes[fam] = "kernel" if kernels else "plain"
+        elif not kernels:
+            routes[fam] = "tree"
+        else:
+            routes[fam] = "kernel" if cfg.use_pallas is True else "bvh"
+    return routes
+
+
 def kernel_tables(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                   device: torch.device | str):
     """The closest-hit kernels' tables of this scene's families, (spheres,
     rects, triangles), each None where the family is absent, built from the
-    detached fields; None when K10-K12 do not launch for this render (off,
-    or the CPU, where their Functions run the plain versions on the
-    fields). A trace builds them once for all its bounces and none outlives
-    it, so a parameter updated in place (a fit's Adam step) reaches the next
-    trace."""
+    detached fields: K10-K12's tables, or `bvh_traverse.Tables` (the packed
+    nodes and the leaf rows) for a family that takes the BVH kernel; None
+    when no kernel launches for this render (off, or the CPU, where the
+    Functions run the plain versions on the fields). A trace builds them
+    once for all its bounces and none outlives it, so a parameter updated
+    in place (a fit's Adam step) reaches the next trace."""
     if not _kernels_on(cfg, device) or torch.device(device).type != "cuda":
         return None
     from raytracer_weekend_tpu_torch.ops.cuda import (
-        rect_intersect, sphere_intersect, triangle_intersect)
+        bvh_traverse, rect_intersect, sphere_intersect, triangle_intersect)
 
-    return (sphere_intersect.sphere_table(scene.spheres)
-            if static.n_spheres else None,
-            rect_intersect.rect_table(scene.rects)
-            if static.n_rects else None,
-            triangle_intersect.triangle_table(scene.triangles)
-            if static.n_triangles else None)
+    routes = hit_routes(scene, static, cfg, device)
+    if not static.n_spheres:
+        tab_s = None
+    elif routes["spheres"] == "bvh":
+        tab_s = bvh_traverse.tables("spheres", scene.sphere_bvh,
+                                    scene.spheres)
+    else:
+        tab_s = sphere_intersect.sphere_table(scene.spheres)
+    if not static.n_triangles:
+        tab_t = None
+    elif routes["triangles"] == "bvh":
+        tab_t = bvh_traverse.tables("triangles", scene.triangle_bvh,
+                                    scene.triangles)
+    else:
+        tab_t = triangle_intersect.triangle_table(scene.triangles)
+    return (tab_s, rect_intersect.rect_table(scene.rects)
+            if static.n_rects else None, tab_t)
+
+
+_FAMILIES = ("spheres", "rects", "triangles")
+
+
+def _hit_fn(fam: str, route: str, tree, table):
+    """The closest-hit function of family `fam` on its `hit_routes` route,
+    with its kernel table (or BVH `Tables`) bound."""
+    from raytracer_weekend_tpu_torch.ops.cuda import (
+        bvh_traverse, rect_intersect, sphere_intersect, triangle_intersect)
+
+    if route == "plain":
+        return {"spheres": sphere_ops.hit_spheres, "rects": rect_ops.hit_rects,
+                "triangles": tri_ops.hit_triangles}[fam]
+    if route == "kernel":
+        return partial({"spheres": sphere_intersect.hit_spheres_kernel,
+                        "rects": rect_intersect.hit_rects_kernel,
+                        "triangles": triangle_intersect.hit_triangles_kernel
+                        }[fam], table=table)
+    walk = (bvh_traverse.traverse_spheres if fam == "spheres"
+            else bvh_traverse.traverse_triangles)
+    return partial(walk, tree, tables=table, plain=route == "tree")
 
 
 def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
@@ -103,17 +165,12 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
     t_best = torch.full((B,), _INF, device=o.device)
     fam = torch.full((B,), _FAM_NONE, dtype=torch.int32, device=o.device)
     idx = torch.zeros((B,), dtype=torch.int64, device=o.device)
-    if _kernels_on(cfg, o.device):
-        from raytracer_weekend_tpu_torch.ops.cuda import (
-            rect_intersect, sphere_intersect, triangle_intersect)
-
-        tab_s, tab_r, tab_t = tables or (None, None, None)
-        hit_s = partial(sphere_intersect.hit_spheres_kernel, table=tab_s)
-        hit_r = partial(rect_intersect.hit_rects_kernel, table=tab_r)
-        hit_t = partial(triangle_intersect.hit_triangles_kernel, table=tab_t)
-    else:
-        hit_s, hit_r = sphere_ops.hit_spheres, rect_ops.hit_rects
-        hit_t = tri_ops.hit_triangles
+    routes = hit_routes(scene, static, cfg, o.device)
+    tabs = dict(zip(_FAMILIES, tables or (None,) * 3))
+    trees = {"spheres": scene.sphere_bvh, "rects": None,
+             "triangles": scene.triangle_bvh}
+    hit_s, hit_r, hit_t = (_hit_fn(f, routes[f], trees[f], tabs[f])
+                           for f in _FAMILIES)
     hits = []
     if static.n_spheres:
         hits.append((_FAM_SPHERE, hit_s(scene.spheres, o, d, time,

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("megakernel.cu", "megakernel_vp.cu", "megakernel_media.cu",
-           "replay_bwd.cu", "perlin_turb.cu", "intersect.cu")
+           "replay_bwd.cu", "perlin_turb.cu", "intersect.cu", "bvh.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -134,8 +134,13 @@ def load_library() -> ctypes.CDLL:
         lib.rtw_hit_triangles.argtypes = [_P, _P, _P, _I, _P, _I, _F, _P, _P,
                                           _P, _P]
         lib.rtw_tri_candidate.argtypes = [_P, _P, _P, _P, _P, _I, _F, _P, _P]
+        lib.rtw_bvh_spheres.argtypes = [_P, _P, _P, _I, _P, _I, _P, _F, _P,
+                                        _P, _P, _P]
+        lib.rtw_bvh_triangles.argtypes = [_P, _P, _I, _P, _I, _P, _F, _P, _P,
+                                          _P, _P]
         for fn in (lib.rtw_hit_spheres, lib.rtw_hit_rects,
-                   lib.rtw_hit_triangles, lib.rtw_tri_candidate):
+                   lib.rtw_hit_triangles, lib.rtw_tri_candidate,
+                   lib.rtw_bvh_spheres, lib.rtw_bvh_triangles):
             fn.restype = _I
         lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
         lib.rtw_rand4.restype = _I

@@ -119,7 +119,7 @@ def _replay(scene, static, cfg, o, d, t, rid, codes, windows, dtype):
     """`replay.replay_rays` in lane windows with every float in `dtype`."""
     leaves = [le.to(dtype) if le.is_floating_point() else le
               for le in scene.leaves()]
-    scene = data.SceneData.from_leaves(leaves)
+    scene = data.SceneData.from_leaves(leaves, scene.trees)
     prev = torch.get_default_dtype()
     torch.set_default_dtype(dtype)
     try:

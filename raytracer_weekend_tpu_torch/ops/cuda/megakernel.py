@@ -71,7 +71,7 @@ from raytracer_weekend_tpu_torch.camera import Camera
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops.sphere import sphere_uv
 from raytracer_weekend_tpu_torch.scene.data import (
-    VOL_BOX, SceneData, SceneStatic)
+    VOL_BOX, SceneData, SceneStatic, without_trees)
 from raytracer_weekend_tpu_torch.textures import TextureTable
 
 # Launches of the CUDA kernel in this process, without and with the winner
@@ -308,13 +308,14 @@ def records_reference(scene: SceneData, cfg: RenderConfig, cam: Camera,
                       lane_start: int, n_chunk: int, seed, *,
                       static: SceneStatic, emit_paths: bool = False):
     """Plain torch version of `render_fused_records` (the staged path,
-    `integrator.trace_lanes`, with the plain brute-force closest hit)."""
+    `integrator.trace_lanes`, with the plain brute-force closest hit: the
+    kernel tests every row and never reads a tree)."""
     cfg = dataclasses.replace(cfg, use_pallas=False)
     ids = lane_start + torch.arange(n_chunk, dtype=torch.int64,
                                     device=scene.device)
     o, d, time, ray_id = integrator._pixel_rays(cam, cfg, ids, seed)
-    return integrator.trace_lanes(scene, static, cfg, o, d, time, ray_id,
-                                  seed, emit_paths=emit_paths,
+    return integrator.trace_lanes(*without_trees(scene, static), cfg, o, d,
+                                  time, ray_id, seed, emit_paths=emit_paths,
                                   emit_deferred=defers(static))
 
 
@@ -642,7 +643,7 @@ def phase_reference(scene: SceneData, cfg: RenderConfig, cam: Camera,
         carry = (state[:, 6:9], state[:, 9:12], state[:, 13] > 0.0,
                  state[:, 14].to(torch.int32))
     *out, fin = integrator.trace_lanes(
-        scene, static, cfg, o, d, time, ray_id, seed,
+        *without_trees(scene, static), cfg, o, d, time, ray_id, seed,
         emit_deferred=defers(static), d0=d0, carry=carry, return_carry=True)
     o, d, tp, rad, alive, seg = fin
     st = torch.cat([o, d, tp, rad, time[:, None],

@@ -9,8 +9,9 @@ tensors, so that the port builds scenes without jax. It covers `SolidColor`,
 `.rotate_y(deg).translate(offset)` transform on every geometry class. Table
 order, material and texture interning, Morton order, the image atlas and
 the `SceneStatic` flags are the JAX builder's, so both builders give
-bit-equal tables for the same objects. BVHs are not built (see
-`build_scene`).
+bit-equal tables for the same objects, and bit-equal trees (`bvh="auto"`:
+a sphere tree above 512 spheres, a triangle tree above 64 triangles, built
+by the port's copy of the C++ builder, `native.build_bvh`).
 
 Bake rules, as in the JAX builder: sphere centers and triangle vertices and
 normals are transformed; a rect or cuboid under a pure translation stays a
@@ -31,6 +32,7 @@ from raytracer_weekend_tpu_torch import materials as mat_mod
 from raytracer_weekend_tpu_torch import perlin as perlin_mod
 from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.materials import MaterialTable
+from raytracer_weekend_tpu_torch.ops.bvh import Bvh
 from raytracer_weekend_tpu_torch.scene.data import (
     VOL_BOX, VOL_SPHERE, Rects, SceneData, SceneStatic, Spheres, Triangles,
     Volumes)
@@ -292,20 +294,49 @@ def build_scene(objects: Sequence, background=(0.7, 0.8, 1.0),
                 bvh: str | bool = "auto") -> tuple[SceneData, SceneStatic]:
     """Compile DSL objects -> (SceneData on the CPU, SceneStatic).
 
-    `bvh` keeps the JAX signature. With "auto" (and False) the port builds
-    no tree and records `sphere_bvh` and `triangle_bvh` as False: the fused
-    path, the only path the port runs on a card, never reads a tree, and
-    the plain staged path brute-forces every primitive and finds the same
-    closest hit. BVHs are not ported, so `bvh=True` on a scene that would
-    get one raises.
+    `bvh` as in the JAX builder: "auto" records a skip-link tree over the
+    spheres above 512 of them and over the triangles above 64, True over
+    every non-empty family, False none; `SceneStatic.sphere_bvh` and
+    `triangle_bvh` say which were built. The fused megakernel never reads
+    a tree. The staged path walks a tree where `integrator._closest_hit`
+    takes it (the plain `ops.bvh.traverse`, or the BVH kernel on a card);
+    its leaf tests write the quadratic in another order than the brute
+    force, and on an exact tie the first leaf in DFS order keeps the lane
+    where the brute force keeps the lowest row, so the two agree to
+    rounding and up to ties.
     """
     comp = _Compiler(seed)
     for obj in objects:
         comp.add(obj)
-    if bvh is True and (comp.sph or comp.tri):
-        raise NotImplementedError("BVH (bvh=True) is not ported yet (ROADMAP "
-                                  "item 14)")
-    return comp.finish(background)
+    return comp.finish(background, bvh)
+
+
+def _sphere_bvh(spheres: Spheres) -> Bvh:
+    """The sphere tree over boxes that hold each sphere over the whole
+    shutter motion; |radius| guards the hollow-glass negative radii, which
+    would invert the reference's box."""
+    from raytracer_weekend_tpu_torch.native import build_bvh
+
+    c0, c1 = spheres.c0.numpy(), spheres.c1.numpy()
+    r = np.abs(spheres.radius.numpy())[:, None]
+    lo = np.minimum(c0 - r, c1 - r)
+    hi = np.maximum(c0 + r, c1 + r)
+    return Bvh(*map(torch.from_numpy, build_bvh(lo, hi)))
+
+
+def _triangle_bvh(tris: Triangles) -> Bvh:
+    """The triangle tree over the triangles' boxes, padded by +-1e-4 where
+    an axis's extent is under 2e-4 (the reference's thin-extent padding)."""
+    from raytracer_weekend_tpu_torch.native import build_bvh
+
+    v = np.stack([tris.v0.numpy(), tris.v1.numpy(), tris.v2.numpy()],
+                 axis=1)                                   # (T,3,3)
+    lo = v.min(axis=1)
+    hi = v.max(axis=1)
+    thin = (hi - lo) < 2e-4
+    lo = np.where(thin, lo - 1e-4, lo)
+    hi = np.where(thin, hi + 1e-4, hi)
+    return Bvh(*map(torch.from_numpy, build_bvh(lo, hi)))
 
 
 class _Compiler:
@@ -475,7 +506,8 @@ class _Compiler:
                                for v, _, _, _ in self.tri])
             self.tri = [self.tri[i] for i in self._morton_argsort(cent)]
 
-    def finish(self, background) -> tuple[SceneData, SceneStatic]:
+    def finish(self, background,
+               bvh: str | bool = "auto") -> tuple[SceneData, SceneStatic]:
         self._sort_spatially()
         n_spheres, n_rects, n_tris = len(self.sph), len(self.rect), len(
             self.tri)
@@ -486,10 +518,16 @@ class _Compiler:
         tris = self._emit_triangles()
         vols = self._emit_volumes()
         materials, textures, has_noise, has_image = self._emit_shading()
+        want_sphere_bvh = (bvh is True) or (bvh == "auto" and n_spheres > 512)
+        want_tri_bvh = (bvh is True) or (bvh == "auto" and n_tris > 64)
         data = SceneData(
             spheres=spheres, rects=rects, triangles=tris, volumes=vols,
             materials=materials, textures=textures,
-            background=torch.tensor(background, dtype=torch.float32))
+            background=torch.tensor(background, dtype=torch.float32),
+            sphere_bvh=_sphere_bvh(spheres) if (
+                want_sphere_bvh and n_spheres) else None,
+            triangle_bvh=_triangle_bvh(tris) if (
+                want_tri_bvh and n_tris) else None)
 
         # Fused-megakernel eligibility, the JAX rule: Lambertian/Metal/
         # Dielectric/DiffuseLight materials everywhere; solid, checker, noise
@@ -532,7 +570,10 @@ class _Compiler:
             n_spheres=n_spheres, n_rects=n_rects, n_triangles=n_tris,
             n_volumes=n_vols, has_noise=has_noise, has_image=has_image,
             has_uvdebug=bool(np.any(ttype == tex_mod.UVDEBUG)),
-            defer_single_hit=defer_single_hit, fused_simple=fused_simple)
+            defer_single_hit=defer_single_hit,
+            sphere_bvh=data.sphere_bvh is not None,
+            triangle_bvh=data.triangle_bvh is not None,
+            fused_simple=fused_simple)
         return data, static
 
     def _emit_spheres(self) -> Spheres:

@@ -17,6 +17,7 @@ import torch
 
 from raytracer_weekend_tpu_torch.camera import Camera
 from raytracer_weekend_tpu_torch.materials import MaterialTable
+from raytracer_weekend_tpu_torch.ops.bvh import Bvh
 from raytracer_weekend_tpu_torch.scene.data import (
     Rects, SceneData, SceneStatic, Spheres, Triangles, Volumes)
 from raytracer_weekend_tpu_torch.textures import TextureTable
@@ -45,18 +46,17 @@ def _get(src, name: str, index: int):
 def scene_from_numpy(src) -> SceneData:
     """Mapping or sequence in `SceneData` field order -> port SceneData.
 
-    BVH entries are not ported and must be absent or None.
+    The tree entries (`sphere_bvh`, `triangle_bvh`) are absent or None for
+    no tree, else a table of `Bvh`'s four fields.
     """
     fields = SceneData._fields
-    for name in ("sphere_bvh", "triangle_bvh"):
-        i = fields.index(name)
-        present = (src.get(name) if isinstance(src, Mapping)
-                   else (src[i] if len(src) > i else None))
-        if present is not None:
-            raise NotImplementedError(
-                "BVHs are not ported yet (ROADMAP Queue 1, 'BVH')")
     kw = {name: _table(cls, _get(src, name, fields.index(name)))
           for name, cls in _TABLES.items()}
+    for name in ("sphere_bvh", "triangle_bvh"):
+        i = fields.index(name)
+        tree = (src.get(name) if isinstance(src, Mapping)
+                else (src[i] if len(src) > i else None))
+        kw[name] = None if tree is None else _table(Bvh, tree)
     bg = _get(src, "background", fields.index("background"))
     return SceneData(background=torch.from_numpy(np.array(bg, np.float32)),
                      **kw)
@@ -74,11 +74,16 @@ def camera_from_numpy(src) -> Camera:
 
 
 def scene_to_numpy(scene: SceneData) -> dict:
-    """Port SceneData -> dict of dicts of numpy arrays (CPU copies)."""
+    """Port SceneData -> dict of dicts of numpy arrays (CPU copies); a tree
+    slot holds None where the scene has no tree."""
     out = {name: {f: getattr(scene, name)._asdict()[f].detach().cpu().numpy()
                   for f in cls._fields}
            for name, cls in _TABLES.items()}
     out["background"] = scene.background.detach().cpu().numpy()
+    for name in ("sphere_bvh", "triangle_bvh"):
+        tree = getattr(scene, name)
+        out[name] = None if tree is None else {
+            f: x.detach().cpu().numpy() for f, x in tree._asdict().items()}
     return out
 
 
@@ -107,4 +112,4 @@ def grads_from_numpy(like: SceneData, scene_grads, cam_grads=None):
     leaves = [torch.from_numpy(np.array(next(grads), np.float32))
               if t.is_floating_point() else None for t in like_leaves]
     cam = None if cam_grads is None else camera_from_numpy(cam_grads)
-    return SceneData.from_leaves(leaves), cam
+    return SceneData.from_leaves(leaves, like.trees), cam

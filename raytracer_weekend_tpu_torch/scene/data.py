@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from raytracer_weekend_tpu_torch.materials import MaterialTable
+from raytracer_weekend_tpu_torch.ops.bvh import Bvh
 from raytracer_weekend_tpu_torch.textures import TextureTable
 
 # Volume boundary types
@@ -96,7 +97,12 @@ class Volumes(NamedTuple):
 
 
 class SceneData(NamedTuple):
-    """The complete scene. The BVH slots stay None until BVHs are ported."""
+    """The complete scene.
+
+    sphere_bvh/triangle_bvh are flat skip-link trees (`ops.bvh.Bvh`) that
+    the builder records when a family is large enough (`bvh="auto"`), else
+    None; SceneStatic's flags say which are present.
+    """
 
     spheres: Spheres
     rects: Rects
@@ -105,8 +111,8 @@ class SceneData(NamedTuple):
     materials: MaterialTable
     textures: TextureTable
     background: torch.Tensor  # (3,) miss color
-    sphere_bvh: object = None
-    triangle_bvh: object = None
+    sphere_bvh: Bvh | None = None
+    triangle_bvh: Bvh | None = None
 
     @property
     def device(self) -> torch.device:
@@ -119,32 +125,67 @@ class SceneData(NamedTuple):
             volumes=self.volumes.to(device),
             materials=self.materials.to(device),
             textures=self.textures.to(device),
-            background=self.background.to(device))
+            background=self.background.to(device),
+            sphere_bvh=_bvh_to(self.sphere_bvh, device),
+            triangle_bvh=_bvh_to(self.triangle_bvh, device))
 
     def leaves(self) -> list[torch.Tensor]:
         """Every tensor of the scene, table by table in field order.
 
-        The order of `jax.tree_util.tree_leaves` on the JAX package's
-        SceneData (its None BVH slots have no leaves), so gradient lists of
-        the two packages line up leaf by leaf.
+        Then the background, then bmin, bmax, prim, skip of the sphere
+        tree and of the triangle tree where present: the order of
+        `jax.tree_util.tree_leaves` on the JAX package's SceneData (its None
+        BVH slots have no leaves), so gradient lists of the two packages
+        line up leaf by leaf. A fit's Adam step sees the trees' float leaves
+        and gives them no gradient: a fit that moves geometry leaves the
+        tree stale, as in the JAX package.
         """
-        if self.sphere_bvh is not None or self.triangle_bvh is not None:
-            raise NotImplementedError("BVHs are not ported yet")
         out = []
         for table in self[:_N_TABLES]:
             out.extend(table)
         out.append(self.background)
+        for tree in (self.sphere_bvh, self.triangle_bvh):
+            if tree is not None:
+                out.extend(tree)
         return out
 
+    @property
+    def trees(self) -> tuple[bool, bool]:
+        """(has a sphere tree, has a triangle tree): the tree layout that
+        `from_leaves` needs to read `leaves()` back."""
+        return self.sphere_bvh is not None, self.triangle_bvh is not None
+
     @classmethod
-    def from_leaves(cls, leaves) -> "SceneData":
-        """Inverse of `leaves`."""
+    def from_leaves(cls, leaves, trees: tuple[bool, bool] = (False, False)
+                    ) -> "SceneData":
+        """Inverse of `leaves`; `trees` is the scene's `trees` (none by
+        default). Raises if the leaves past the background do not make
+        those trees."""
         it = iter(leaves)
         tables = [typ(*(next(it) for _ in typ._fields)) for typ in _TABLE_TYPES]
-        scene = cls(*tables, background=next(it))
-        if next(it, None) is not None:
-            raise ValueError("more leaves than a SceneData holds")
-        return scene
+        background = next(it)
+        rest = list(it)
+        n_tree = len(Bvh._fields)
+        if n_tree * sum(trees) != len(rest):
+            raise ValueError(f"{len(rest)} leaves past the background for "
+                             f"the trees {tuple(trees)}")
+        made = iter([Bvh(*rest[i:i + n_tree])
+                     for i in range(0, len(rest), n_tree)])
+        return cls(*tables, background=background,
+                   sphere_bvh=next(made) if trees[0] else None,
+                   triangle_bvh=next(made) if trees[1] else None)
+
+
+def without_trees(scene: SceneData, static: "SceneStatic"
+                  ) -> tuple[SceneData, "SceneStatic"]:
+    """The scene and its static facts without their trees: the staged path
+    then tests every row (K10-K12 or the plain brute force)."""
+    return (scene._replace(sphere_bvh=None, triangle_bvh=None),
+            dataclasses.replace(static, sphere_bvh=False, triangle_bvh=False))
+
+
+def _bvh_to(tree, device):
+    return None if tree is None else tree.to(device)
 
 
 _TABLE_TYPES = (Spheres, Rects, Triangles, Volumes, MaterialTable, TextureTable)

@@ -96,14 +96,14 @@ class InverseRenderer:
         history = []
         for i in range(steps):
             opt.zero_grad(set_to_none=True)
-            loss = self.loss(SceneData.from_leaves(leaves))
+            loss = self.loss(SceneData.from_leaves(leaves, scene.trees))
             loss.backward()
             opt.step()
             history.append(float(loss.detach()))
             if callback is not None:
-                callback(i, history[-1], _detached(leaves))
-        return _detached(leaves), history
+                callback(i, history[-1], _detached(leaves, scene.trees))
+        return _detached(leaves, scene.trees), history
 
 
-def _detached(leaves) -> SceneData:
-    return SceneData.from_leaves([t.detach() for t in leaves])
+def _detached(leaves, trees) -> SceneData:
+    return SceneData.from_leaves([t.detach() for t in leaves], trees)

@@ -568,7 +568,7 @@ def _fwd_bwd(scene, static, cam, cfg):
 
     leaves = [le.detach().clone() for le in scene.leaves()]
     floats = [le.requires_grad_() for le in leaves if le.is_floating_point()]
-    diff_scene = SceneData.from_leaves(leaves)
+    diff_scene = SceneData.from_leaves(leaves, scene.trees)
 
     def fwd_bwd():
         rad = render_fused_diff(diff_scene, static, cfg, cam, 0, cfg.n_rays,

@@ -569,8 +569,9 @@ def _float64_codes(scene, static, cfg, o, d, t, rid):
 
     import dataclasses
 
-    scene64 = SceneData.from_leaves([le.double() if le.is_floating_point()
-                                     else le for le in scene.leaves()])
+    scene64 = SceneData.from_leaves(
+        [le.double() if le.is_floating_point() else le
+         for le in scene.leaves()], scene.trees)
     cfg = dataclasses.replace(cfg, use_pallas=False)   # the plain brute force
     prev = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
@@ -1067,7 +1068,7 @@ def test_prebuilt_tables_on_card(cuda, name, monkeypatch):
         scene.spheres.radius[1:] *= 1.5
     second = trace(scene)
     fresh = trace(SceneData.from_leaves([le.clone()
-                                         for le in scene.leaves()]))
+                                         for le in scene.leaves()], scene.trees))
     assert all(torch.equal(a, b) for a, b in zip(second, fresh))
     assert not torch.equal(first[0], second[0])
 
@@ -1191,3 +1192,133 @@ def test_render_image_staged_uvdebug_launches_k10(cuda):
     assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     rel = (img - ref).abs() / (ref.abs() + 1e-3)
     assert int((rel > 0.05).any(dim=-1).sum()) <= max(4, cfg.n_pixels // 64)
+
+
+# ---- the staged path through a tree: BVH-tri and BVH-sph ---------------------
+
+def _bvh_rays(name, cuda):
+    """(scene, static, cfg, cam, kind, [(what, o, d, time)]): the primary
+    and first-bounce rays of a tree scene at 64x36x4, and 2^15 random rays
+    from around its tree's root box."""
+    import dataclasses
+
+    scene, static, cfg, cam = _frame(name, cuda)
+    kind = "spheres" if static.sphere_bvh else "triangles"
+    ids = torch.arange(cfg.n_rays, device=cuda)
+    o, d, t, rid = integrator._pixel_rays(cam, cfg, ids, cfg.seed)
+    *_, (o1, d1, _, _, alive, _) = integrator.trace_lanes(
+        scene, static, dataclasses.replace(cfg, max_depth=1, use_pallas=False),
+        o, d, t, rid, cfg.seed, return_carry=True)
+    tree = scene.sphere_bvh if kind == "spheres" else scene.triangle_bvh
+    g = torch.Generator(device="cpu").manual_seed(7)
+    lo, hi = tree.bmin[0].cpu(), tree.bmax[0].cpu()
+    tgt = lo + (hi - lo) * torch.rand((1 << 15, 3), generator=g)
+    ro = tgt + torch.randn((1 << 15, 3), generator=g) * (hi - lo).norm()
+    rd = tgt - ro
+    rd[:6] = torch.cat([torch.eye(3), -torch.eye(3)])   # zero components
+    rt = torch.rand((1 << 15,), generator=g)
+    return scene, static, cfg, cam, kind, [
+        ("primary", o, d, t), ("first bounce", o1[alive], d1[alive], t[alive]),
+        ("random", ro.to(cuda), rd.to(cuda), rt.to(cuda))]
+
+
+@pytest.mark.parametrize("name", ["wavefront_cow_obj", "book2_final_scene"])
+def test_bvh_kernel_matches_plain(cuda, name):
+    """BVH-tri (the cow) and BVH-sph (book2) bit for bit the plain traverse
+    run on the card (t and prim on every lane), and their Functions' VJP of
+    a random cotangent the plain route's on the card: the rays' bit for bit,
+    the table's but for the order of the atomic adds of `_rows`'s
+    backward (1e-5)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+
+    scene, static, cfg, cam, kind, cases = _bvh_rays(name, cuda)
+    tree = scene.sphere_bvh if kind == "spheres" else scene.triangle_bvh
+    table = getattr(scene, kind)
+    tabs = bt.tables(kind, tree, table)
+    walk = bt.traverse_spheres if kind == "spheres" else \
+        bt.traverse_triangles
+    for what, o, d, t in cases:
+        rays = (o, d, t) if kind == "spheres" else (o, d)
+        before = bt.SPHERE_LAUNCHES + bt.TRIANGLE_LAUNCHES
+        t_k, p_k = walk(tree, table, *rays, cfg.t_min, tables=tabs)
+        assert bt.SPHERE_LAUNCHES + bt.TRIANGLE_LAUNCHES == before + 1
+        t_p, p_p = walk(tree, table, *rays, cfg.t_min, plain=True)
+        assert bt.SPHERE_LAUNCHES + bt.TRIANGLE_LAUNCHES == before + 1
+        assert torch.equal(t_k, t_p) and torch.equal(p_k, p_p), what
+        assert int(torch.isfinite(t_k).sum()) > o.shape[0] // 20, what
+    o, d, t = cases[0][1:]
+    ct = torch.randn(o.shape[0], device=cuda)
+    grads = []
+    for plain in (False, True):
+        fields = [f.detach().clone().requires_grad_()
+                  if f.is_floating_point() else f for f in table]
+        rays = [x.detach().clone().requires_grad_()
+                for x in ((o, d, t) if kind == "spheres" else (o, d))]
+        tk, _ = walk(tree, type(table)(*fields), *rays, cfg.t_min,
+                     plain=plain)
+        wrt = [f for f in fields if f.requires_grad] + rays
+        grads.append(torch.autograd.grad(tk, wrt, ct, allow_unused=True))
+    n_rays = 3 if kind == "spheres" else 2
+    for i, (a, b) in enumerate(zip(*grads)):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        if i >= len(grads[0]) - n_rays:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=1e-6 * float(b.abs().max()))
+
+
+def test_bvh_kernel_nan_slab_misses(cuda):
+    """A ray with d.x = 0 on the root box's x plane: 0 * inf = NaN misses the
+    box in the kernel as in the plain traverse (fminf would drop it)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+
+    from raytracer_weekend_tpu_torch.scene import builder
+
+    mat = builder.Lambertian((1, 1, 1))
+    scene, _ = build_scene([
+        builder.Triangle.flat_shaded(((0, 0, 0), (1, 0, 0), (0, 1, 0)), mat),
+        builder.Triangle.flat_shaded(((3, 0, 0), (4, 0, 0), (3, 1, 0)), mat)],
+        bvh=True)
+    scene = scene.to(cuda)
+    x0 = float(scene.triangle_bvh.bmin[0, 0])
+    o = torch.tensor([[x0, 0.2, -1.0], [0.1, 0.2, -1.0]], device=cuda)
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]], device=cuda)
+    t, prim = bt.traverse_triangles(scene.triangle_bvh, scene.triangles, o,
+                                    d, 1e-3)
+    tp, pp = bt.traverse_triangles(scene.triangle_bvh, scene.triangles, o,
+                                   d, 1e-3, plain=True)
+    assert torch.equal(t, tp) and torch.equal(prim, pp)
+    assert float(t[0]) == float("inf") and float(t[1]) == 1.0
+
+
+def test_staged_render_with_tree_launches_bvh(cuda):
+    """The cow's staged path under "auto" walks its tree with BVH-tri (once
+    a bounce) and gives use_pallas=False's image (the plain traverse, the
+    plain brute force for its sphere and rect) within the planar budgets."""
+    import dataclasses
+
+    from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse as bt
+    from raytracer_weekend_tpu_torch.ops.cuda import triangle_intersect as ti
+
+    scene, static, cfg, cam = _frame("wavefront_cow_obj", cuda)
+    assert static.triangle_bvh
+    assert integrator.hit_routes(scene, static, cfg, cuda)["triangles"] == (
+        "bvh")
+    n = cfg.n_rays
+    o, d, t, rid = integrator._pixel_rays(
+        cam, cfg, torch.arange(n, device=cuda), cfg.seed)
+    before = bt.TRIANGLE_LAUNCHES, ti.LAUNCHES
+    rad, seg = integrator.trace_lanes(scene, static, cfg, o, d, t, rid,
+                                      cfg.seed)
+    assert bt.TRIANGLE_LAUNCHES == before[0] + cfg.max_depth
+    assert ti.LAUNCHES == before[1]
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    ref, ref_seg = integrator.trace_lanes(scene, static, plain, o, d, t, rid,
+                                          cfg.seed)
+    assert abs(int(seg.sum()) - int(ref_seg.sum())) <= max(4, n // 200)
+    rel = (rad - ref).abs() / (ref.abs() + 1e-3)
+    assert int((rel > 0.05).any(dim=1).sum()) <= max(4, n // 100)
+    assert float((rad - ref).abs().mean()) < 1e-3

@@ -268,7 +268,8 @@ def _slice_scenes(name):
     js, jst = JB.build_scene(objs, background=gray or bg, seed=jc.seed,
                              bvh=False)
     objs, tcams, bg = getattr(TS, name)(tc.aspect_ratio, seed=0)
-    ts, tst = TB.build_scene(objs, background=gray or bg, seed=tc.seed)
+    ts, tst = TB.build_scene(objs, background=gray or bg, seed=tc.seed,
+                             bvh=False)
     return (js, jst, jc, jcams[0]), (ts, tst, tc, tcams[0])
 
 

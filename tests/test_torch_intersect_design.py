@@ -254,31 +254,54 @@ def test_twin_defaults_are_kernel_constants(mod, prefix):
     assert len(mod.TABLE_ROWS) % 4 == 0
 
 
+# The R-rays-a-thread cases: every (rays, block, tile) below leaves a ragged
+# last block of rays (ORDER_RAYS is no multiple of rays * block) and a
+# ragged last tile of rows (ORDER_ROWS is no multiple of the tile, and
+# above it): the random tables' first ORDER_ROWS rows (their degenerate,
+# duplicated and invalid rows among them) and first ORDER_RAYS rays (the
+# axis-parallel and extreme ones among them), and ORDER_ROWS random
+# triangles.
+ORDER_ROWS, ORDER_RAYS = 150, 1537
+
+
+def _rows(table, n):
+    return table._replace(**{k: v[:n] for k, v in table._asdict().items()})
+
+
+@pytest.fixture(scope="module")
+def order_cases(sphere_cases, rect_cases):
+    """family -> (twin, table, rays, the one-ray loop's outputs)."""
+    sp, rays = sphere_cases["random"]
+    rc, rect_rays = rect_cases["random"]
+    tr, tri_rays = checks.random_hit_case("triangles", "cpu", ORDER_RAYS,
+                                          rows=ORDER_ROWS)
+    cases = {"spheres": (SI.hit_spheres_twin, _rows(sp, ORDER_ROWS),
+                         tuple(r[:ORDER_RAYS] for r in rays)),
+             "rects": (RI.hit_rects_twin, _rows(rc, ORDER_ROWS),
+                       tuple(r[:ORDER_RAYS] for r in rect_rays)),
+             "triangles": (TRI.hit_triangles_twin, tr, tri_rays[:2])}
+    return {k: (twin, tab, rays, twin(tab, *rays, 1e-3, rays=1, block=32,
+                                      tile=ORDER_ROWS))
+            for k, (twin, tab, rays) in cases.items()}
+
+
 @pytest.mark.parametrize("rays,block,tile", [(2, 32, 64), (2, 64, 7),
                                              (1, 128, 128)])
-def test_rays_a_thread_order_is_one_ray_loop(sphere_cases, rect_cases, rays,
-                                             block, tile):
+def test_rays_a_thread_order_is_one_ray_loop(order_cases, rays, block, tile):
     """R rays a thread over ragged tiles: bitwise the one-ray loop (R = 1,
     one tile), spheres, rects and triangles (K12's prefilter against each
     ray's running best: no pair the exact test would take is refused)."""
-    sp, (o, d, t) = sphere_cases["random"]
-    one = SI.hit_spheres_twin(sp, o, d, t, 1e-3, rays=1, block=32,
-                              tile=sp.c0.shape[0])
-    got = SI.hit_spheres_twin(sp, o, d, t, 1e-3, rays=rays, block=block,
-                              tile=tile)
-    assert all(torch.equal(a, b) for a, b in zip(got, one))
-    rc, (o, d) = rect_cases["random"]
-    one = RI.hit_rects_twin(rc, o, d, 1e-3, rays=1, block=32,
-                            tile=rc.k.shape[0])
-    got = RI.hit_rects_twin(rc, o, d, 1e-3, rays=rays, block=block,
-                            tile=tile)
-    assert all(torch.equal(a, b) for a, b in zip(got, one))
-    tr, (o, d, _) = checks.random_hit_case("triangles", "cpu", 1024)
-    tr = tr._replace(**{k: v[:600] for k, v in tr._asdict().items()})
-    t1, i1, s1 = TRI.hit_triangles_twin(tr, o, d, 1e-3, rays=1, block=32,
-                                        tile=600)
-    tr_t, tr_i, stats = TRI.hit_triangles_twin(tr, o, d, 1e-3, rays=rays,
-                                               block=block, tile=tile)
+    assert ORDER_RAYS % (rays * block) and ORDER_ROWS % tile
+    assert ORDER_ROWS > tile
+    for kind in ("spheres", "rects"):
+        twin, tab, r, one = order_cases[kind]
+        got = twin(tab, *r, 1e-3, rays=rays, block=block, tile=tile)
+        assert all(torch.equal(a, b) for a, b in zip(got, one)), kind
+        assert int(torch.isfinite(got[0]).sum()) > 100, kind
+    twin, tr, (o, d), (t1, i1, s1) = order_cases["triangles"]
+    assert o.shape[0] % (rays * block)
+    tr_t, tr_i, stats = twin(tr, o, d, 1e-3, rays=rays, block=block,
+                             tile=tile)
     assert torch.equal(tr_t, t1) and torch.equal(tr_i, i1)
     want_t, want_i = tri_ops.hit_triangles(tr, o, d, 1e-3)
     assert torch.equal(tr_t, want_t) and torch.equal(tr_i.long(), want_i)

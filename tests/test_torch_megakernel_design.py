@@ -99,7 +99,8 @@ def _book2():
     rays from around the camera into the scene's box."""
     cfg = RenderConfig(width=48, height=27, samples_per_pixel=1, max_depth=8)
     objs, cams, bg = TS.book2_final_scene(cfg.aspect_ratio, seed=0)
-    scene, static = TB.build_scene(objs, background=bg, seed=cfg.seed)
+    scene, static = TB.build_scene(objs, background=bg, seed=cfg.seed,
+                                   bvh=False)
     jo, _, jbg = JS.book2_final_scene(cfg.aspect_ratio, seed=0)
     js, jst = JB.build_scene(jo, background=jbg, seed=cfg.seed, bvh=False)
     ids = torch.arange(cfg.n_rays)

@@ -3,9 +3,9 @@
 Small sizes (16x16, 4 spp, depth 5, seed 3; n = 1024 lanes) and the JAX side
 run as its own tests run it: staged jnp (`trace_rays`), `render_fused(
 interpret=True)` and `replay_bwd_fused(interpret=True)`; the differentiable
-render and inverse rendering are in tests/test_torch_planar_diff.py. Every JAX scene is built with
-`bvh=False`, which gives the tables the port builds (the port builds no
-BVH). Scenes: cornell_box (rects + rotated cuboids lowered to triangles),
+render and inverse rendering are in tests/test_torch_planar_diff.py. Both
+packages build every scene with `bvh=False` (the cow would get a tree):
+the trees are tests/test_torch_bvh.py's. Scenes: cornell_box (rects + rotated cuboids lowered to triangles),
 mesh_shards (40 triangles with random vertex normals between two rects, the
 smooth-normal mesh of tests/test_megakernel.py:151-166), rect_room (spheres
 and rects in one launch, tests/test_megakernel.py:260-283), uv_shards
@@ -112,7 +112,7 @@ def _scenes(name, **size):
         jo, jcams, jbg = getattr(JS, name)(jc.aspect_ratio, seed=0)
         to, tcams, tbg = getattr(TS, name)(tc.aspect_ratio, seed=0)
     js, jst = JB.build_scene(jo, background=jbg, seed=jc.seed, bvh=False)
-    ts, tst = TB.build_scene(to, background=tbg, seed=tc.seed)
+    ts, tst = TB.build_scene(to, background=tbg, seed=tc.seed, bvh=False)
     return (js, jst, jc, jcams[0]), (ts, tst, tc, tcams[0])
 
 

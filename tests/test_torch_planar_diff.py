@@ -166,11 +166,14 @@ def test_fused_diff_on_the_cow_matches_staged_autograd():
     same plain forward, so bitwise equal; gradients to 1e-5 of each leaf's
     scale (the replay re-derives each hit in the affine planar form, the
     staged path in its own). Geometry gradients are 0 on both sides (solid
-    textures; see test_fused_diff_grads_match_jax)."""
+    textures; see test_fused_diff_grads_match_jax). The cow is built
+    without its tree, so that the staged path is the brute force the fused
+    path's plain version is (a tree's walk would round and break ties its
+    own way: tests/test_torch_bvh.py)."""
     cfg = TConfig(width=12, height=8, samples_per_pixel=2, max_depth=4,
                   seed=SEED)
     objs, cams, bg = TS.wavefront_cow_obj(cfg.aspect_ratio)
-    ts, tst = TB.build_scene(objs, background=bg)
+    ts, tst = TB.build_scene(objs, background=bg, bvh=False)
     cam, n = cams[0], cfg.n_rays
 
     def grads(render):

@@ -24,10 +24,10 @@ ASPECT = 32 / 18
 
 
 def _jax_scene(name):
-    """The JAX build without BVHs (book2's 1,006 spheres would get one under
-    "auto"), which is what the port builds."""
+    """The JAX build under bvh="auto", trees included (book2's 1,006
+    spheres get one, as do the meshes' triangles)."""
     objs, cams, bg = getattr(jscenes, name)(ASPECT, seed=0)
-    data, static = JB.build_scene(objs, background=bg, seed=0, bvh=False)
+    data, static = JB.build_scene(objs, background=bg, seed=0)
     return jax.tree_util.tree_map(np.asarray, data), static, cams[0]
 
 
@@ -50,11 +50,15 @@ def test_render_config_fields_match():
 
 
 def _assert_tables_equal(jdata, jstatic, tdata, tstatic):
-    """Static facts equal, every table bit-equal (Morton order included)."""
+    """Static facts equal, every table and tree bit-equal (Morton order
+    included)."""
     assert dataclasses.asdict(tstatic) == dataclasses.asdict(jstatic)
-    assert tdata.sphere_bvh is None and jdata.sphere_bvh is None
+    for tree in ("sphere_bvh", "triangle_bvh"):
+        assert (getattr(tdata, tree) is None) == (getattr(jdata, tree) is None)
     for fam in ("spheres", "rects", "triangles", "volumes", "materials",
-                "textures"):
+                "textures", "sphere_bvh", "triangle_bvh"):
+        if getattr(jdata, fam) is None:
+            continue
         jt, tt = getattr(jdata, fam), getattr(tdata, fam)
         assert tt._fields == jt._fields
         for f in jt._fields:
@@ -79,11 +83,14 @@ def test_builder_tables_bit_equal(name):
     if name == "book2_final_scene":
         assert (tstatic.n_spheres, tstatic.n_rects, tstatic.n_volumes) == (
             1006, 2401, 2) and tstatic.fused_simple
+        assert tstatic.sphere_bvh and not tstatic.triangle_bvh
     if name == "textured_monument":   # tests/test_scenes.py:50
         assert (tstatic.n_rects, tstatic.n_triangles) == (1, 7798)
-        assert tstatic.fused_simple
-    if name == "wavefront_suspension_obj":  # vertex normals, no tree
+        assert tstatic.fused_simple and tstatic.triangle_bvh
+    if name == "wavefront_suspension_obj":  # vertex normals, a tree
         assert tstatic.n_triangles == 17190 and tstatic.fused_simple
+        assert tstatic.triangle_bvh and tdata.triangle_bvh.prim.shape == (
+            2 * 17190 - 1,)
 
 
 def test_objloader_image_map_bit_equal():
@@ -97,24 +104,36 @@ def test_objloader_image_map_bit_equal():
     jtris, ttris = jobj.load_wavefront_obj(path), tobj.load_wavefront_obj(path)
     assert len(ttris) == len(jtris) == 10200
     assert isinstance(ttris[0].material.albedo, TB.ImageTexture)
-    jdata, jstatic = JB.build_scene(jtris, bvh=False)
+    jdata, jstatic = JB.build_scene(jtris)
     tdata, tstatic = TB.build_scene(ttris)
     assert tstatic.has_image and tstatic.n_triangles == 10200
+    assert tstatic.triangle_bvh
     _assert_tables_equal(jax.tree_util.tree_map(np.asarray, jdata), jstatic,
                          tdata, tstatic)
 
 
 def test_builder_rejects_unported_objects():
-    """BVHs are not ported: bvh=True raises, while "auto" builds no tree
-    above the JAX package's thresholds and records none."""
+    """An unknown object raises; bvh "auto", True and False give JAX's
+    trees and flags on both sides of each threshold (512 spheres, 64
+    triangles)."""
     with pytest.raises(NotImplementedError):
         TB.build_scene([object()])
-    many = [TB.Sphere((i, 0, 0), 0.1, TB.Lambertian((0.5, 0.5, 0.5)))
-            for i in range(513)]
-    with pytest.raises(NotImplementedError, match="BVH"):
-        TB.build_scene(many, bvh=True)
-    data, static = TB.build_scene(many)
-    assert data.sphere_bvh is None and not static.sphere_bvh
+    g = np.random.default_rng(5)
+    cs, vs = g.normal(size=(513, 3)) * 6, g.normal(size=(65, 3, 3)) * 2
+
+    def objs(B, n_sph, n_tri):
+        mat = B.Lambertian((0.5, 0.5, 0.5))
+        return ([B.Sphere(tuple(c), 0.3, mat) for c in cs[:n_sph]]
+                + [B.Triangle.flat_shaded(v, mat) for v in vs[:n_tri]])
+
+    for n_sph, n_tri in ((512, 64), (513, 65)):
+        for bvh in ("auto", True, False):
+            jdata, jstatic = JB.build_scene(objs(JB, n_sph, n_tri), bvh=bvh)
+            tdata, tstatic = TB.build_scene(objs(TB, n_sph, n_tri), bvh=bvh)
+            _assert_tables_equal(jax.tree_util.tree_map(np.asarray, jdata),
+                                 jstatic, tdata, tstatic)
+            built = bvh is True or (bvh == "auto" and n_sph > 512)
+            assert tstatic.sphere_bvh == built == tstatic.triangle_bvh
 
 
 @pytest.mark.parametrize("kw", [
@@ -174,6 +193,14 @@ def test_port_imports_no_jax():
             "from raytracer_weekend_tpu_torch.ops.cuda import (\n"
             "    sphere_intersect, rect_intersect, triangle_intersect)\n"
             "from raytracer_weekend_tpu_torch.ops.cuda import checks\n"
+            "from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse\n"
+            "from raytracer_weekend_tpu_torch import native\n"
+            "from raytracer_weekend_tpu_torch.ops import bvh\n"
+            "from raytracer_weekend_tpu_torch.scene import io\n"
+            "from raytracer_weekend_tpu_torch.parallel import stream\n"
+            "from raytracer_weekend_tpu_torch.utils import (\n"
+            "    checkpoint, cli, debug, live_view, metrics)\n"
+            "stream.encode_message(stream.ImageEnd())\n"
             "scenes.generate_scene('two_spheres', 1.5, device='cpu')\n"
             "scenes.generate_scene('textured_monument', 1.5, device='cpu')\n"
             "scenes.generate_scene('wavefront_cow_obj', 1.5, device='cpu')\n"

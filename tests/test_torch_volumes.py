@@ -10,8 +10,9 @@ the plain fused forward; and `render_fused_diff`'s gradients (the plain
 forward with codes, then torch autograd of the replay: the route of every
 medium scene, on the card as on the CPU) leaf by leaf against `jax.vjp` of
 JAX `replay_rays` on the same codes, with a finite difference on a medium's
-albedo as anchor. Every JAX scene is built with `bvh=False`, the tables the
-port builds (book2's 1,006 spheres would get a BVH under "auto").
+albedo as anchor. Both packages build every scene with `bvh=False`
+(book2's 1,006 spheres would get a tree under "auto": the trees are
+tests/test_torch_bvh.py's).
 """
 
 import dataclasses
@@ -68,7 +69,7 @@ def _scenes(name, **size):
         jo, jcams, jbg = getattr(JS, name)(jc.aspect_ratio, seed=0)
     to, tcams, tbg = getattr(TS, name)(tc.aspect_ratio, seed=0)
     js, jst = JB.build_scene(jo, background=jbg, seed=jc.seed, bvh=False)
-    ts, tst = TB.build_scene(to, background=tbg, seed=tc.seed)
+    ts, tst = TB.build_scene(to, background=tbg, seed=tc.seed, bvh=False)
     return (js, jst, jc, jcams[0]), (ts, tst, tc, tcams[0])
 
 
@@ -96,7 +97,7 @@ def _random_media(B):
 @pytest.fixture(scope="module")
 def media():
     js, _ = JB.build_scene(_random_media(JB), bvh=False)
-    ts, _ = TB.build_scene(_random_media(TB))
+    ts, _ = TB.build_scene(_random_media(TB), bvh=False)
     for f in js.volumes._fields:
         np.testing.assert_array_equal(getattr(ts.volumes, f).numpy(),
                                       np.asarray(getattr(js.volumes, f)))
