@@ -147,7 +147,26 @@ holds each against its plain torch version first. Phases, one line each
      jumpy_balls from the megakernel's codes and of the uv-debug jumpy from
      the staged path, profiler_trace seeing BVH-tri on the device). The
      kernels line's BVH entries are timed on the operands of the very
-     launches they count, recorded as the main path made them.
+     launches they count, recorded as the main path made them;
+ 16. the render mesh (parallel/mesh, shard) on the one card: the parent
+     renders the single-device references (jumpy_balls 400x225x16 d8
+     through render_image and the staged path, its train gradient; the
+     textured monument at 1920x1080, 4 spp, depth 8 through render_image
+     and the staged path), then spawns one world after another with
+     torch.multiprocessing, ranks sharing the card over gloo: jumpy on
+     (4,1,1) and (2,1,1) bitwise render_image (K1 in every rank), on
+     (1,2,1) within 2e-5 of the staged frame (the spp axis takes the
+     staged path: K10); InverseRenderer(rmesh) on (2,1,1), its loss and
+     every float leaf's gradient within 1e-4 norm-relative of the
+     single-device step (K1-emit, K2); the monument on (2,1,1) bitwise
+     (K3) and on (1,1,2) within tests/test_torch_bvh.py's staged budget
+     (per-shard trees: BVH-tri); jumpy on an nccl world of one rank,
+     bitwise. Each rank prints its backend, route, the launches of the
+     main path (counts reset just before), its frame ms beside the single
+     device's (both by the host clock), an instrumented frame's all_reduce
+     ms (each between two synchronizations of the card) and, on a geometry
+     axis, the ms of building its slice's trees. A failed rank fails the
+     phase.
 
 Then one JSON line describing each kernel (launches on the main path, max
 abs error against its plain version, ms and plain ms, the least time the
@@ -181,7 +200,8 @@ import subprocess
 import sys
 import time
 
-from raytracer_weekend_tpu_torch.utils.timing import cuda_ms, device_ms
+from raytracer_weekend_tpu_torch.utils.timing import (cuda_ms, device_ms,
+                                                     host_ms)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # Sanity line from the reference's records: traced segments of this frame
@@ -726,6 +746,7 @@ def main() -> None:
     volume_training(dev, smi, smokey)
     kernels += staged_path(dev, smi)
     kernels += bvh_phase(dev, smi, log)
+    mesh_phase(smi)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -3554,6 +3575,424 @@ def bvh_entry(name, n, launches, recs, errs, loaded, smi):
         "wrapper_ms": f_ms / m - l_ev,
         "plain_ms": p_ms,
     }, ops / m, nbytes / m)
+
+
+# ---- phase 16: the render mesh ------------------------------------------------
+
+MESH_MONUMENT = dict(width=1920, height=1080, samples_per_pixel=4,
+                     max_depth=8, ray_batch=1 << 20)
+MESH_JUMPY = dict(width=400, height=225, samples_per_pixel=16, max_depth=8)
+MESH_TIMEOUT_S = 420
+# The kernel launch counters of the port's wrappers, (module, counter).
+MESH_COUNTERS = (
+    ("megakernel", "LAUNCHES"), ("megakernel", "EMIT_LAUNCHES"),
+    ("megakernel", "DEFER_LAUNCHES"), ("megakernel", "PHASE_LAUNCHES"),
+    ("replay_bwd", "LAUNCHES"), ("replay_bwd", "DEFER_LAUNCHES"),
+    ("sphere_intersect", "LAUNCHES"), ("rect_intersect", "LAUNCHES"),
+    ("triangle_intersect", "LAUNCHES"), ("bvh_traverse", "SPHERE_LAUNCHES"),
+    ("bvh_traverse", "TRIANGLE_LAUNCHES"))
+
+
+def kernel_launches(raw, static):
+    """The counters' readings by kernel name (the kernels line's names):
+    a forward launch is K1 on a sphere scene, K3 with planar rows, K5 with
+    media (K3 wins where both), K1-emit/K3-emit/K5-emit with codes; the
+    replay backward K2, or K4 with planar rows; K6a, K6b, K7 as counted."""
+    planar = static.n_rects + static.n_triangles > 0
+    fwd = "K3" if planar else ("K5" if static.n_volumes else "K1")
+    names = {
+        "megakernel.LAUNCHES": fwd, "megakernel.EMIT_LAUNCHES": fwd + "-emit",
+        "megakernel.DEFER_LAUNCHES": "K6a",
+        "megakernel.PHASE_LAUNCHES": "K6b",
+        "replay_bwd.LAUNCHES": "K4" if planar else "K2",
+        "replay_bwd.DEFER_LAUNCHES": "K7",
+        "sphere_intersect.LAUNCHES": "K10", "rect_intersect.LAUNCHES": "K11",
+        "triangle_intersect.LAUNCHES": "K12",
+        "bvh_traverse.SPHERE_LAUNCHES": "BVH-sph",
+        "bvh_traverse.TRIANGLE_LAUNCHES": "BVH-tri"}
+    return {names[k]: n for k, n in raw.items() if k in names and n}
+
+
+@contextlib.contextmanager
+def counted_launches():
+    """Every kernel counter set to 0 on entry; yields a dict filled on exit
+    with the counters' readings ("module.COUNTER": launches made inside)."""
+    import importlib
+
+    mods = {m: importlib.import_module(
+        f"raytracer_weekend_tpu_torch.ops.cuda.{m}") for m, _ in MESH_COUNTERS}
+    got = {}
+    for m, attr in MESH_COUNTERS:
+        setattr(mods[m], attr, 0)
+    try:
+        yield got
+    finally:
+        for m, attr in MESH_COUNTERS:
+            got[f"{m}.{attr}"] = getattr(mods[m], attr)
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host ms of every torch.distributed.all_reduce made inside, each
+    between two synchronizations of the card (so the reading holds the
+    collective alone), summed into the yielded list's one entry."""
+    import torch
+    import torch.distributed as dist
+
+    reduce, spent = dist.all_reduce, [0.0]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield spent
+    finally:
+        dist.all_reduce = reduce
+
+
+def _mesh_scene(name, dev):
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.models.scenes import generate_scene
+
+    cfg = RenderConfig(**(MESH_MONUMENT if name == "textured_monument"
+                          else MESH_JUMPY))
+    scene, static, cams = generate_scene(name, cfg.aspect_ratio, seed=0,
+                                         device=dev)
+    return scene, static, cfg, cams[0]
+
+
+def staged_frame_sums(scene, static, cfg, cam):
+    """The single-device staged frame in cfg.ray_batch chunks -> ((H, W, 3)
+    sums, segments)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator
+
+    n, batch = cfg.n_rays, cfg.ray_batch or cfg.n_rays
+    lanes, segs = [], 0
+    with torch.no_grad():
+        for start in range(0, n, batch):
+            ids = torch.arange(start, min(n, start + batch),
+                               device=scene.device)
+            c, k = integrator.render_chunk(scene, static, cfg, cam, ids,
+                                           cfg.seed, return_stats=True)
+            lanes.append(c)
+            segs += int(k)
+    sums = torch.cat(lanes).reshape(cfg.n_pixels, cfg.samples_per_pixel,
+                                    3).sum(dim=1)
+    return sums.reshape(cfg.height, cfg.width, 3), segs
+
+
+def _pixel_flips(got, ref, got_seg, ref_seg):
+    """tests/test_torch_bvh.py's staged budget on a frame's pixels: (|dseg|,
+    pixels off by more than 5% relative, mean abs error, the budget)."""
+    import torch
+
+    rel = (got - ref).abs() / (ref.abs() + 1e-3)
+    bad = int((rel > 0.05).any(dim=-1).sum())
+    n = ref.shape[0] * ref.shape[1]
+    return (abs(got_seg - ref_seg), bad,
+            float((got - ref).abs().mean()), max(2, n // 500))
+
+
+def _rank_case(case, rank, out):
+    """One rank's part of a phase-16 world (see mesh_phase): drives the
+    case's main path with the launch counts reset just before, checks it
+    against the single-device reference the parent saved, times it, and
+    writes what it saw to out/{case}_{rank}.json. Any failure raises."""
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_weekend_tpu_torch import integrator, train
+    from raytracer_weekend_tpu_torch.parallel import mesh, shard
+    from raytracer_weekend_tpu_torch.scene.data import SceneData
+
+    shape = {"jumpy_4": (4, 1, 1), "jumpy_2": (2, 1, 1),
+             "jumpy_spp": (1, 2, 1), "jumpy_nccl": (1, 1, 1),
+             "train_2": (2, 1, 1), "monument_2": (2, 1, 1),
+             "monument_geom": (1, 1, 2)}[case]
+    rmesh = mesh.make_render_mesh(shape)
+    scene_name = ("textured_monument" if case.startswith("monument")
+                  else "jumpy_balls")
+    scene, static, cfg, cam = _mesh_scene(scene_name, rmesh.device)
+    ref = torch.load(out / f"{case.split('_')[0]}_ref.pt",
+                     map_location=rmesh.device)
+    fused = (rmesh.n_spp == rmesh.n_geom == 1
+             and integrator.fused_eligible(static, cfg, rmesh.device))
+    local = shard.shard_scene(scene, rmesh.n_geom, rmesh.coord[2])
+    if rmesh.n_geom > 1:
+        # make_shard_body builds this rank's trees anew on every call.
+        tree_ms = host_ms(lambda: shard.shard_scene(
+            scene, rmesh.n_geom, rmesh.coord[2]), 3)
+    seen = {"case": case, "rank": rank, "shape": list(shape),
+            "coord": list(rmesh.coord), "backend": dist.get_backend(),
+            "device": str(rmesh.device),
+            "route": "fused" if fused else
+            f"staged {integrator.hit_routes(local, static, cfg, rmesh.device)}"}
+    if rmesh.n_geom > 1:
+        seen["tree_build_ms"] = tree_ms
+
+    if case == "train_2":
+        start = SceneData.from_leaves(ref["start"], ref["trees"])
+        target = ref["target"]
+        ir = train.InverseRenderer(static, cfg, cam, target, rmesh=rmesh)
+        ir.value_and_grad(start)                       # warm-up
+        with counted_launches() as raw:
+            loss, grads = ir.value_and_grad(start)
+        launches = kernel_launches(raw, static)
+        torch.cuda.synchronize()
+        top = max(float(g.norm()) for g in ref["grads"])
+        rel = [float((g - r).norm()) / (float(r.norm()) or top)
+               for g, r in zip(grads, ref["grads"])]
+        seen.update(launches=launches, loss=loss, ref_loss=ref["loss"],
+                    worst_norm_rel=max(rel))
+        if not (max(rel) <= 1e-4 and abs(loss - ref["loss"])
+                <= 1e-4 * abs(ref["loss"])):
+            raise AssertionError(f"rank {rank}: sharded step off the "
+                                 f"single-device step: {seen}")
+        ms = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ir.value_and_grad(start)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        seen["step_ms"] = ms
+    else:
+        def frame():
+            with torch.no_grad():
+                return shard.render_sharded(scene, static, cfg, cam, rmesh,
+                                            return_segments=True)
+
+        frame()                                        # warm-up
+        with counted_launches() as raw:
+            img, segs = frame()
+        launches = kernel_launches(raw, static)
+        torch.cuda.synchronize()
+        seen.update(launches=launches, segments=int(segs))
+        staged = not fused
+        want = ref["staged" if staged else "sums"]
+        if case == "monument_geom":
+            dseg, bad, mean, budget = _pixel_flips(img, want, int(segs),
+                                                   ref["staged_segments"])
+            seen.update(check="staged budget", dseg=dseg, bad_pixels=bad,
+                        mean_abs=mean, budget=budget)
+            ok = dseg <= budget and bad <= budget and mean < 1e-4
+        elif case == "jumpy_spp":
+            # The spp axis takes the staged path (as JAX's shard body does):
+            # held to the single-device staged frame, the order of the spp
+            # sum apart.
+            err = float((img - want).abs().max())
+            seen.update(check="2e-5 of the staged frame", max_abs_err=err)
+            ok = (torch.allclose(img, want, rtol=2e-5, atol=2e-5)
+                  and int(segs) == ref["staged_segments"])
+        else:
+            seen.update(check="bitwise")
+            ok = torch.equal(img, want) and int(segs) == ref["segments"]
+        if not ok:
+            raise AssertionError(f"rank {rank}: sharded frame off the "
+                                 f"single-device frame: {seen}")
+        ms = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        seen["frame_ms"] = ms
+        if case == "jumpy_nccl":
+            one = torch.ones(1, device=rmesh.device)
+            dist.all_reduce(one)
+            seen["nccl_all_reduce"] = float(one)
+    with timed_collectives() as spent:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if case == "train_2":
+            ir.value_and_grad(start)
+        else:
+            frame()
+        torch.cuda.synchronize()
+    seen.update(instrumented_ms=(time.perf_counter() - t0) * 1e3,
+                collective_ms=spent[0])
+    missing = [k for k in EXPECTED_LAUNCHES[case]
+               if not seen["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"rank {rank} of {case}: no launch of "
+                             f"{missing} on the main path: {seen}")
+    (out / f"{case}_{rank}.json").write_text(json.dumps(seen))
+
+
+# The kernels each world's main path must launch in every rank.
+EXPECTED_LAUNCHES = {
+    "jumpy_4": ("K1",), "jumpy_2": ("K1",), "jumpy_spp": ("K10",),
+    "jumpy_nccl": ("K1",), "train_2": ("K1-emit", "K2"),
+    "monument_2": ("K3",), "monument_geom": ("BVH-tri",)}
+
+
+def _rank_main(case, rank, size, out, store):
+    """Entry of a spawned rank: one card shared by every rank of the world
+    (LOCAL_RANK % 1 = 0), LOCAL_WORLD_SIZE = the world's size, so that
+    `distributed_init` takes gloo for a world of several ranks and nccl for
+    a world of one."""
+    import os
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(size)
+    import torch
+
+    from raytracer_weekend_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.distributed_init(init_method=f"file://{store}", rank=rank,
+                          world_size=size, timeout_s=300)
+    try:
+        _rank_case(case, rank, pathlib.Path(out))
+    finally:
+        mesh.dist.destroy_process_group()
+
+
+def run_world(case, size, out):
+    """Spawn `size` ranks of `case` on the card and wait for them; a rank
+    that fails, or a world past MESH_TIMEOUT_S, fails the phase (every rank
+    is stopped first)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = out / f"store_{case}"
+    store.unlink(missing_ok=True)
+    procs = [ctx.Process(target=_rank_main,
+                         args=(case, r, size, str(out), str(store)))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + MESH_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [p.exitcode for p in procs
+                      if p.exitcode not in (None, 0)]
+            if failed or time.time() > deadline:
+                raise AssertionError(
+                    f"phase 16 {case}: rank exit codes "
+                    f"{[p.exitcode for p in procs]}"
+                    + (" (timed out)" if not failed else ""))
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase 16 {case}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [json.loads((out / f"{case}_{r}.json").read_text())
+            for r in range(size)]
+
+
+def mesh_phase(smi):
+    """Phase 16: the render mesh (parallel/mesh, shard) on the one card,
+    ranks spawned per world with torch.multiprocessing over gloo (nccl for
+    the world of one rank). The parent renders the single-device
+    references: jumpy_balls 400x225x16 d8 (render_image: K1) and its train
+    gradient (InverseRenderer.value_and_grad from color1 + 0.2: K1-emit,
+    K2), the textured monument at 1920x1080x4 d8 through render_image (K3)
+    and through the staged path (BVH-tri). Then: jumpy on (4,1,1) and
+    (2,1,1) bitwise, on (1,2,1) within 2e-5 (the staged path, K10); the
+    train step's loss and gradient on (2,1,1) within 1e-4 norm-relative of
+    the single-device step; the monument on (2,1,1) bitwise and on (1,1,2)
+    (per-shard trees) within the staged budget; jumpy on an nccl world of
+    one rank, bitwise. Each rank prints its backend, route, launches
+    (counts reset just before the main path), frame ms and the collectives'
+    ms (an instrumented frame, each all_reduce between syncs); a geometry
+    rank also the ms of building its slice's trees. Every frame and step
+    time, single-device and sharded, is read by the host's clock between
+    synchronizations of the card, median of 3."""
+    import statistics
+
+    import torch
+
+    from raytracer_weekend_tpu_torch import integrator, train
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    dev = torch.device("cuda", 0)
+    out = ROOT / "build" / "phase16"
+    out.mkdir(parents=True, exist_ok=True)
+    single = {}
+    for name, key in (("jumpy_balls", "jumpy"),
+                      ("textured_monument", "monument")):
+        scene, static, cfg, cam = _mesh_scene(name, dev)
+        batch = cfg.ray_batch or cfg.n_rays
+        with torch.no_grad():
+            sums = integrator.render_image(scene, static, cfg, cam)
+            segs = sum(int(mk.render_fused(
+                scene, cfg, cam, start, min(batch, cfg.n_rays - start),
+                cfg.seed, static=static)[1].sum(dtype=torch.int64))
+                for start in range(0, cfg.n_rays, batch))
+        staged, staged_segs = staged_frame_sums(scene, static, cfg, cam)
+        torch.save({"sums": sums, "segments": segs, "staged": staged,
+                    "staged_segments": staged_segs}, out / f"{key}_ref.pt")
+        single[key] = host_ms(lambda: integrator.render_image(
+            scene, static, cfg, cam), 3)
+        single[key + " staged"] = host_ms(lambda: staged_frame_sums(
+            scene, static, cfg, cam), 3)
+        print(f"phase 16 single device {name} {cfg.width}x{cfg.height} spp "
+              f"{cfg.samples_per_pixel} depth {cfg.max_depth} (host clock, "
+              f"median of 3): render_image "
+              f"{single[key]:.3f} ms, {segs} segments; the staged frame "
+              f"{single[key + ' staged']:.3f} ms, {staged_segs} segments "
+              f"({smi})", flush=True)
+        if key == "jumpy":
+            target, start = fit_inputs(scene, static, cfg, cam)
+            ir = train.InverseRenderer(static, cfg, cam, target)
+            loss, grads = ir.value_and_grad(start)
+            single["train"] = host_ms(lambda: ir.value_and_grad(start), 3)
+            torch.save({"start": start.leaves(), "trees": start.trees,
+                        "target": target, "loss": loss, "grads": grads},
+                       out / "train_ref.pt")
+            print(f"phase 16 single device jumpy_balls train step "
+                  f"(InverseRenderer.value_and_grad): loss {loss:.6e}, "
+                  f"{single['train']:.3f} ms (host clock) ({smi})",
+                  flush=True)
+            del ir, grads, target, start
+    del scene, sums, staged
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for case, size, base in (("jumpy_4", 4, "jumpy"), ("jumpy_2", 2, "jumpy"),
+                             ("jumpy_spp", 2, "jumpy staged"),
+                             ("train_2", 2, "train"),
+                             ("monument_2", 2, "monument"),
+                             ("monument_geom", 2, "monument staged"),
+                             ("jumpy_nccl", 1, "jumpy")):
+        t0 = time.perf_counter()
+        ranks = run_world(case, size, out)
+        for seen in ranks:
+            times = seen.get("frame_ms") or seen.get("step_ms")
+            extra = {k: seen[k] for k in (
+                "check", "dseg", "bad_pixels", "mean_abs", "budget",
+                "max_abs_err", "worst_norm_rel", "loss", "ref_loss",
+                "nccl_all_reduce", "tree_build_ms") if k in seen}
+            print(f"phase 16 {case} rank {seen['rank']} {seen['coord']} of "
+                  f"{seen['shape']}: backend {seen['backend']}, "
+                  f"{seen['device']}, route {seen['route']}; launches "
+                  f"{json.dumps(seen['launches'])}; "
+                  f"{'step' if case == 'train_2' else 'frame'} ms median "
+                  f"{statistics.median(times):.3f} by the host clock "
+                  f"(single device {single[base]:.3f}); instrumented "
+                  f"{seen['instrumented_ms']:.3f} ms of which all_reduce "
+                  f"{seen['collective_ms']:.3f} "
+                  f"({seen['collective_ms'] / seen['instrumented_ms']:.1%});"
+                  f" {json.dumps(extra)} ({smi})", flush=True)
+        print(f"phase 16 {case}: {size} ranks passed in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
 
 
 @contextlib.contextmanager

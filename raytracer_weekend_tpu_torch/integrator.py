@@ -61,6 +61,7 @@ from raytracer_weekend_tpu_torch import rng as rt_rng
 from raytracer_weekend_tpu_torch import textures as tex_mod
 from raytracer_weekend_tpu_torch.camera import Camera, get_rays
 from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.ops.collectives import all_sum, gather
 from raytracer_weekend_tpu_torch.ops import rect as rect_ops
 from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
 from raytracer_weekend_tpu_torch.ops import triangle as tri_ops
@@ -157,10 +158,21 @@ def _hit_fn(fam: str, route: str, tree, table):
 
 
 def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
-                 cfg: RenderConfig, seed, ray_id, depth, tables):
+                 cfg: RenderConfig, seed, ray_id, depth, tables, geom=None):
     """Closest hit over the families -> (t, fam, idx int64) per ray. A
     medium's scatter candidate draws from (seed, ray_id, depth) and merges
-    last. `tables` are the trace's `kernel_tables`."""
+    last. `tables` are the trace's `kernel_tables`.
+
+    With `geom` (this rank's `ops.collectives.Axis` of the geometry axis) the
+    sphere and triangle tables are this rank's row slices, and the winner
+    is found over the axis, as JAX's `geom_axis` does: local winners carry
+    the global row `i + g * local_rows`, every rank gathers the axis's t
+    and takes the argmin (on a tie the lowest rank, `torch.argmin`'s rule
+    and `jnp.argmin`'s), and the winning rank's fam and idx are summed to
+    all. The gather carries no gradient: the returned t is the winner's on
+    every rank, and on the lanes this rank won it is its own t, through
+    which the gradient reaches the winning row.
+    """
     B = o.shape[0]
     t_best = torch.full((B,), _INF, device=o.device)
     fam = torch.full((B,), _FAM_NONE, dtype=torch.int32, device=o.device)
@@ -171,14 +183,23 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
              "triangles": scene.triangle_bvh}
     hit_s, hit_r, hit_t = (_hit_fn(f, routes[f], trees[f], tabs[f])
                            for f in _FAMILIES)
+    def globalized(hit, rows):
+        """A sharded family's (t, row of this rank's slice) -> (t, row)."""
+        if geom is None or geom.index == 0:
+            return hit
+        return hit[0], hit[1].long() + geom.index * rows
+
     hits = []
     if static.n_spheres:
-        hits.append((_FAM_SPHERE, hit_s(scene.spheres, o, d, time,
-                                        cfg.t_min)))
+        hits.append((_FAM_SPHERE, globalized(
+            hit_s(scene.spheres, o, d, time, cfg.t_min),
+            scene.spheres.radius.shape[0])))
     if static.n_rects:
         hits.append((_FAM_RECT, hit_r(scene.rects, o, d, cfg.t_min)))
     if static.n_triangles:
-        hits.append((_FAM_TRI, hit_t(scene.triangles, o, d, cfg.t_min)))
+        hits.append((_FAM_TRI, globalized(
+            hit_t(scene.triangles, o, d, cfg.t_min),
+            scene.triangles.mat.shape[0])))
     if static.n_volumes:
         hits.append((_FAM_VOL, vol_ops.hit_volumes(
             scene.volumes, o, d, cfg.t_min, seed, ray_id, depth,
@@ -188,43 +209,87 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
         t_best = torch.where(better, t_new, t_best)
         fam = torch.where(better, fam_id, fam)
         idx = torch.where(better, i_new.long(), idx)   # the kernels' int32
+    if geom is not None and geom.size > 1:
+        t_all = gather(t_best, geom)                            # (G, B)
+        k = torch.argmin(t_all, dim=0)
+        mine = k == geom.index
+        t_best = torch.where(mine, t_best, t_all.gather(0, k[None])[0])
+        fi = all_sum(torch.where(mine, torch.stack([fam.long(), idx]), 0),
+                     geom)
+        fam, idx = fi[0].to(torch.int32), fi[1]
     return t_best, fam, idx
 
 
 def _hit_record(scene: SceneData, static: SceneStatic, o, d, time, t, fam,
-                idx):
-    """Hit record of the winning family -> (p, normal, front_face, u, v, mat)."""
+                idx, geom=None):
+    """Hit record of the winning family -> (p, normal, front_face, u, v, mat).
+
+    With `geom`, a sphere or triangle row lives on one rank of the axis:
+    that rank writes the record, and a masked sum over the axis gives it to
+    every rank; rects and media are replicated, so rank 0 writes theirs (JAX
+    `_hit_record`'s rule; the sum is differentiable, so the gradient of the
+    record returns to the writer)."""
     B = o.shape[0]
     p = torch.zeros((B, 3), device=o.device)
     outward = torch.zeros((B, 3), device=o.device)
     u = torch.zeros((B,), device=o.device)
     v = torch.zeros((B,), device=o.device)
     mat_id = torch.zeros((B,), dtype=torch.int32, device=o.device)
+    sharded = geom is not None and geom.size > 1
+    g = geom.index if sharded else 0
+    wrote = torch.zeros((B,), dtype=torch.bool, device=o.device) if sharded \
+        else None
+
+    def local(rows):
+        """(row in this rank's slice, this rank holds it) per lane."""
+        if not sharded:
+            return idx, None
+        lo = g * rows
+        return (torch.clamp(idx - lo, 0, rows - 1),
+                (idx >= lo) & (idx < lo + rows))
 
     # Guard t for missed lanes so records never see inf; each family reads
     # row 0 for the lanes another family won.
     t_safe = torch.where(torch.isfinite(t), t, 0.0)
+    replicated = None if not sharded else torch.full((B,), g == 0,
+                                                     device=o.device)
     records = []
     if static.n_spheres:
-        records.append((_FAM_SPHERE, lambda i: sphere_ops.sphere_record(
-            scene.spheres, i, o, d, time, t_safe)))
+        i_s, mine_s = local(scene.spheres.radius.shape[0])
+        records.append((_FAM_SPHERE, i_s, mine_s,
+                        lambda i: sphere_ops.sphere_record(
+                            scene.spheres, i, o, d, time, t_safe)))
     if static.n_rects:
-        records.append((_FAM_RECT, lambda i: rect_ops.rect_record(
-            scene.rects, i, o, d, t_safe)))
+        records.append((_FAM_RECT, idx, replicated,
+                        lambda i: rect_ops.rect_record(
+                            scene.rects, i, o, d, t_safe)))
     if static.n_triangles:
-        records.append((_FAM_TRI, lambda i: tri_ops.triangle_record(
-            scene.triangles, i, o, d, t_safe)))
+        i_t, mine_t = local(scene.triangles.mat.shape[0])
+        records.append((_FAM_TRI, i_t, mine_t,
+                        lambda i: tri_ops.triangle_record(
+                            scene.triangles, i, o, d, t_safe)))
     if static.n_volumes:
-        records.append((_FAM_VOL, lambda i: vol_ops.volume_record(
-            scene.volumes, i, o, d, t_safe)))
-    for fam_id, record in records:
+        records.append((_FAM_VOL, idx, replicated,
+                        lambda i: vol_ops.volume_record(
+                            scene.volumes, i, o, d, t_safe)))
+    for fam_id, rows, mine, record in records:
         m = fam == fam_id
-        rp, rn, ru, rv, rm = record(torch.where(m, idx, 0))
+        if mine is not None:
+            m = m & mine
+        rp, rn, ru, rv, rm = record(torch.where(m, rows, 0))
         p = torch.where(m[:, None], rp, p)
         outward = torch.where(m[:, None], rn, outward)
         u = torch.where(m, ru, u)
         v = torch.where(m, rv, v)
         mat_id = torch.where(m, rm, mat_id)
+        if sharded:
+            wrote = wrote | m
+
+    if sharded:
+        rec = torch.cat([p, outward, u[:, None], v[:, None]], dim=1)
+        rec = all_sum(torch.where(wrote[:, None], rec, 0.0), geom)
+        p, outward, u, v = rec[:, 0:3], rec[:, 3:6], rec[:, 6], rec[:, 7]
+        mat_id = all_sum(torch.where(wrote, mat_id, 0), geom)
 
     # Front-face normal flip; a medium scatter is front-facing (its
     # isotropic phase reads neither).
@@ -235,14 +300,16 @@ def _hit_record(scene: SceneData, static: SceneStatic, o, d, time, t, fam,
 
 def trace_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
-               ray_id: torch.Tensor, seed, return_stats: bool = False):
+               ray_id: torch.Tensor, seed, return_stats: bool = False,
+               geom=None):
     """Estimate radiance for a batch of rays -> (B,3) f32.
 
     With `return_stats`, also the traced segment count (lanes alive at the
-    start of each bounce, summed), a 0-d int64 tensor.
+    start of each bounce, summed), a 0-d int64 tensor. `geom` as in
+    `trace_lanes`.
     """
     radiance, segments = trace_lanes(scene, static, cfg, o, d, time, ray_id,
-                                     seed)
+                                     seed, geom=geom)
     if return_stats:
         return radiance, segments.sum()
     return radiance
@@ -252,7 +319,7 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                 o: torch.Tensor, d: torch.Tensor, time: torch.Tensor,
                 ray_id: torch.Tensor, seed, emit_paths: bool = False,
                 emit_deferred: bool = False, *, d0: int = 0, carry=None,
-                return_carry: bool = False):
+                return_carry: bool = False, geom=None):
     """`trace_rays` with per-lane segment counts -> ((B,3) f32, (B,) int32).
 
     With `emit_paths`, also the per-bounce winner codes (B, max_depth)
@@ -280,7 +347,17 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     radiance, alive, segments) where given (else a fresh lane); with
     `return_carry` the outputs end with the lane's (o, d, throughput,
     radiance, alive, segments) after the phase.
+
+    With `geom` (the `ops.collectives.Axis` of a geometry-sharded mesh), the
+    scene's sphere and triangle tables (and their trees) are this rank's
+    row slices, and every bounce combines the closest hit and the hit
+    record over the axis (`_closest_hit`, `_hit_record`): every rank of the
+    axis traces the same lanes and returns the same radiance. The codes
+    then carry global rows; the deferred records are not sharded.
     """
+    if geom is not None and emit_deferred:
+        raise ValueError("the deferred records are not traced on a "
+                         "geometry-sharded mesh")
     B = o.shape[0]
     background = scene.background
     if carry is None:
@@ -301,7 +378,7 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     for depth in range(d0, d0 + cfg.max_depth):
         segments = segments + alive.to(torch.int32)
         t, fam, idx = _closest_hit(scene, static, o, d, time, cfg, seed,
-                                   ray_id, depth, tables)
+                                   ray_id, depth, tables, geom)
         hit_mask = torch.isfinite(t)
 
         # Miss -> background, terminate.
@@ -319,7 +396,7 @@ def trace_lanes(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
             codes.append(torch.where(alive, code, 0))
 
         p, normal, front_face, u, v, mat_id = _hit_record(
-            scene, static, o, d, time, t, fam, idx)
+            scene, static, o, d, time, t, fam, idx, geom)
         sc = mat_mod.scatter(
             scene.materials, scene.textures, mat_id, d, p, normal, front_face,
             u, v, seed, ray_id, depth,
@@ -398,10 +475,13 @@ def _pixel_rays(cam: Camera, cfg: RenderConfig, pixel_ids: torch.Tensor, seed):
 
 
 def render_chunk(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
-                 cam: Camera, pixel_ids: torch.Tensor, seed) -> torch.Tensor:
-    """Trace one chunk of (pixel, sample) lanes -> per-lane radiance (B,3)."""
+                 cam: Camera, pixel_ids: torch.Tensor, seed,
+                 return_stats: bool = False, geom=None):
+    """Trace one chunk of (pixel, sample) lanes -> per-lane radiance (B,3)
+    (with `return_stats` and `geom` as in `trace_rays`)."""
     o, d, time, ray_id = _pixel_rays(cam, cfg, pixel_ids, seed)
-    return trace_rays(scene, static, cfg, o, d, time, ray_id, seed)
+    return trace_rays(scene, static, cfg, o, d, time, ray_id, seed,
+                      return_stats=return_stats, geom=geom)
 
 
 # The differentiable path replay (the fused render's backward) lives in

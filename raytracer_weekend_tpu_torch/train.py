@@ -11,7 +11,15 @@ counterpart of the JAX package's `optax.multi_transform` with `set_to_zero`.
     ir = InverseRenderer(static, cfg, cam, target_image)
     scene, history = ir.fit(scene, steps=100)
 
-The render follows the scene's device: on a CUDA device a scene that
+With `rmesh` (a `parallel.mesh.RenderMesh`) every rank of the mesh runs
+the fit with the same scene: the render goes through
+`parallel.shard.render_sharded` (on a card a rays-only mesh with a scene
+that `integrator.fused_eligible` admits takes `render_fused_diff` per
+shard), every rank counts the loss with the weight 1 / (ranks in the mesh),
+the float leaves' gradients are summed over the world
+(`shard.reduce_gradients`) and every rank takes the same Adam step.
+
+Without it the render follows the scene's device: on a CUDA device a scene that
 `integrator.fused_eligible` admits renders through
 `fused_diff.render_fused_diff` (the forward kernel with winner codes, the
 replay-backward kernel, or for uv-debug and medium scenes torch autograd
@@ -43,18 +51,18 @@ class InverseRenderer:
     cfg: RenderConfig
     cam: Camera
     target: torch.Tensor                 # (H, W, 3) mean radiance
-    rmesh: object = None                 # sharded render: not ported yet
+    rmesh: object = None                 # parallel.mesh.RenderMesh or None
     learning_rate: float = 1e-2
     loss_fn: Optional[Callable] = None   # (img, target) -> scalar; default L2
 
-    def __post_init__(self):
-        if self.rmesh is not None:
-            raise NotImplementedError(
-                "the sharded render is not ported yet (ROADMAP Queue 1, "
-                "'Parallel'); pass rmesh=None")
-
     def _render(self, scene: SceneData) -> torch.Tensor:
         cfg, device = self.cfg, scene.device
+        if self.rmesh is not None:
+            from raytracer_weekend_tpu_torch.parallel.shard import (
+                render_sharded)
+            sums = render_sharded(scene, self.static, cfg, self.cam,
+                                  self.rmesh, diff=True)
+            return sums / cfg.samples_per_pixel
         n = cfg.n_rays
         batch = cfg.ray_batch or n
         if integrator.fused_eligible(self.static, cfg, device):
@@ -83,6 +91,28 @@ class InverseRenderer:
             return self.loss_fn(img, self.target)
         return torch.mean((img - self.target) ** 2)
 
+    def _backward(self, leaves, trees, params) -> float:
+        """The loss of the scene `leaves` make, its gradient left in the
+        float leaves' `.grad` (summed over the mesh's world with `rmesh`)."""
+        loss = self.loss(SceneData.from_leaves(leaves, trees))
+        if self.rmesh is None:
+            loss.backward()
+        else:
+            from raytracer_weekend_tpu_torch.parallel.shard import (
+                reduce_gradients)
+            (loss / self.rmesh.size).backward()
+            reduce_gradients(params, self.rmesh)
+        return float(loss.detach())
+
+    def value_and_grad(self, scene: SceneData):
+        """(loss, the gradient of every float leaf of `scene`, in leaf
+        order; zeros where the loss does not reach a leaf)."""
+        leaves = [t.detach().clone() for t in scene.leaves()]
+        params = [t.requires_grad_() for t in leaves if t.is_floating_point()]
+        loss = self._backward(leaves, scene.trees, params)
+        return loss, [p.grad if p.grad is not None else torch.zeros_like(p)
+                      for p in params]
+
     def fit(self, scene: SceneData, steps: int = 100,
             callback: Optional[Callable] = None):
         """Run `steps` of Adam. Returns (optimized_scene, loss_history).
@@ -96,10 +126,8 @@ class InverseRenderer:
         history = []
         for i in range(steps):
             opt.zero_grad(set_to_none=True)
-            loss = self.loss(SceneData.from_leaves(leaves, scene.trees))
-            loss.backward()
+            history.append(self._backward(leaves, scene.trees, params))
             opt.step()
-            history.append(float(loss.detach()))
             if callback is not None:
                 callback(i, history[-1], _detached(leaves, scene.trees))
         return _detached(leaves, scene.trees), history

@@ -12,8 +12,19 @@ It runs on the card and raises where torch sees none; --cpu renders on the
 CPU instead (the plain versions of every kernel). The default route is
 `integrator.render_image` (the megakernel for the scenes it covers, else
 the staged path); --stream and --resume-dir take the staged path
-(`integrator.render_chunk`) chunk by chunk. --mesh (a device mesh) is not
-ported yet and exits with an error.
+(`integrator.render_chunk`) chunk by chunk.
+
+--mesh R,S,G renders through `parallel.shard.render_sharded` on a (rays,
+spp, geom) mesh of that shape. Under `torchrun` (which sets WORLD_SIZE) it
+joins the world through `env://` (`parallel.mesh.distributed_init`: nccl
+when every rank has a card of its own, else gloo), and only rank 0 prints
+and writes PNGs:
+
+    torchrun --nproc-per-node 4 -m raytracer_weekend_tpu_torch.utils.cli \
+        cornell_box -w 200 -s 16 --cpu --mesh 2,1,2
+
+Without a world it is one rank, so only --mesh 1,1,1 runs; a larger shape
+exits with an error that names the world size.
 """
 
 from __future__ import annotations
@@ -44,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ray-batch", type=int, default=1 << 20,
                    help="rays per wavefront megabatch (0 = all at once)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="device mesh shape rays,spp,geom (not ported yet)")
+                   help="device mesh shape rays,spp,geom (the ranks of a "
+                        "torchrun world)")
     p.add_argument("-o", "--out-dir", default="render")
     p.add_argument("--pallas", action="store_true",
                    help="force the kernels (use_pallas=True): the closest-"
@@ -62,11 +74,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        print("--mesh: device meshes (parallel/mesh, shard, multihost) are "
-              "not ported yet: ROADMAP.md item 17b", file=sys.stderr)
-        return 2
     device = "cpu" if args.cpu else "cuda"
+    if not args.mesh:
+        return _render_frames(args, device, None)
+    from raytracer_weekend_tpu_torch.parallel import mesh as mesh_mod
+
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    joined = "WORLD_SIZE" in os.environ and not mesh_mod.dist.is_initialized()
+    if joined:
+        mesh_mod.distributed_init(device=device, init_method="env://")
+    try:
+        try:
+            rmesh = mesh_mod.make_render_mesh(shape, device=device)
+        except ValueError as e:
+            print(f"--mesh: {e}", file=sys.stderr)
+            return 2
+        return _render_frames(args, rmesh.device, rmesh)
+    finally:
+        if joined:
+            mesh_mod.dist.destroy_process_group()
+
+
+def _render_frames(args, device, rmesh) -> int:
+    lead = rmesh is None or rmesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
 
     cfg = RenderConfig.from_aspect(
         width=args.width, aspect_ratio=args.aspect_ratio,
@@ -74,15 +105,19 @@ def main(argv=None) -> int:
         seed=args.seed, ray_batch=args.ray_batch,
         use_pallas=True if args.pallas else "auto")
 
-    print(f"building scene {args.scene!r} on {device} ...", flush=True)
+    say(f"building scene {args.scene!r} on {device} ...", flush=True)
     scene, static, cams = generate_scene(args.scene, cfg.aspect_ratio,
                                          seed=args.seed, device=device)
-    print(f"  {static.n_spheres} spheres, {static.n_rects} rects, "
-          f"{static.n_triangles} triangles, {static.n_volumes} volumes; "
-          f"trees: spheres {static.sphere_bvh}, triangles "
-          f"{static.triangle_bvh}")
+    say(f"  {static.n_spheres} spheres, {static.n_rects} rects, "
+        f"{static.n_triangles} triangles, {static.n_volumes} volumes; "
+        f"trees: spheres {static.sphere_bvh}, triangles "
+        f"{static.triangle_bvh}")
 
-    os.makedirs(args.out_dir, exist_ok=True)
+    if rmesh is not None:
+        say(f"  mesh {rmesh.shape} (rays, spp, geom) over "
+            f"{rmesh.size} ranks")
+    if lead:
+        os.makedirs(args.out_dir, exist_ok=True)
 
     for frame_no, cam in enumerate(cams):
         t0 = time.time()
@@ -94,7 +129,15 @@ def main(argv=None) -> int:
                 f"({rate / 1e6:.2f} Mrays/s)")
             sys.stderr.flush()
 
-        if args.stream is not None:
+        if rmesh is not None:
+            import torch
+
+            from raytracer_weekend_tpu_torch.parallel.shard import (
+                render_sharded)
+            with torch.no_grad():
+                sums = render_sharded(scene, static, cfg, cam,
+                                      rmesh).cpu().numpy()
+        elif args.stream is not None:
             from raytracer_weekend_tpu_torch.parallel.stream import (
                 stream_render)
             with open(args.stream, "ab") as f:
@@ -113,6 +156,8 @@ def main(argv=None) -> int:
                 sums = integrator.render_image(
                     scene, static, cfg, cam, progress=progress).cpu().numpy()
         dt = time.time() - t0
+        if not lead:
+            continue
         sys.stderr.write("\n")
 
         img = tone_map(np.asarray(sums), cfg.samples_per_pixel)

@@ -1322,3 +1322,64 @@ def test_staged_render_with_tree_launches_bvh(cuda):
     rel = (rad - ref).abs() / (ref.abs() + 1e-3)
     assert int((rel > 0.05).any(dim=1).sum()) <= max(4, n // 100)
     assert float((rad - ref).abs().mean()) < 1e-3
+
+
+_MESH_RANK = r"""
+import os, sys
+import torch
+rank, size, store, width, height = (int(sys.argv[1]), int(sys.argv[2]),
+                                    sys.argv[3], int(sys.argv[4]),
+                                    int(sys.argv[5]))
+os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = str(rank), str(size)
+from raytracer_weekend_tpu_torch import integrator
+from raytracer_weekend_tpu_torch.config import RenderConfig
+from raytracer_weekend_tpu_torch.models.scenes import generate_scene
+from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+from raytracer_weekend_tpu_torch.parallel import mesh, shard
+assert mesh.distributed_init(init_method=f"file://{store}", rank=rank,
+                             world_size=size, timeout_s=120) == "gloo"
+rmesh = mesh.make_render_mesh((size, 1, 1))
+assert rmesh.device == torch.device("cuda", 0)
+cfg = RenderConfig(width=width, height=height, samples_per_pixel=4,
+                   max_depth=8, seed=3)
+scene, static, cams = generate_scene("jumpy_balls", cfg.aspect_ratio,
+                                     device=rmesh.device)
+with torch.no_grad():
+    ref = integrator.render_image(scene, static, cfg, cams[0])
+    mk.LAUNCHES = 0
+    img = shard.render_sharded(scene, static, cfg, cams[0], rmesh)
+assert mk.LAUNCHES >= 1, mk.LAUNCHES
+assert torch.equal(img, ref)
+mesh.dist.destroy_process_group()
+print("RANK_OK", rank)
+"""
+
+
+@pytest.mark.parametrize("size,width,height", [(2, 64, 36), (3, 64, 35)])
+def test_mesh_rays_shards_bitwise(cuda, tmp_path, size, width, height):
+    """A gloo world of `size` ranks sharing the card renders jumpy_balls
+    through render_sharded on (size, 1, 1): every rank launches K1 on its
+    pixel block and gets the single-device render_image bit for bit. At
+    64x35 on 3 ranks the last block runs past the frame (2,240 pixels in
+    blocks of 747) and is trimmed."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    store = tmp_path / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANK, str(r), str(size), str(store),
+         str(width), str(height)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(size)]
+    logs = []
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log, _ = p.communicate()
+        logs.append(log.decode(errors="replace"))
+    for r, log in enumerate(logs):
+        assert f"RANK_OK {r}" in log, log[-3000:]

@@ -10,8 +10,9 @@ render_image; live_view on a stream file), tests/test_aux.py:50 and :75
 (tile store resume, measured_render and wavefront_occupancy) and
 tests/test_debug.py, all on the CPU; then the CLI with --cpu: the PNG is
 the tone-mapped render_image, --resume-dir renders only the missing tiles
-and writes the same PNG, --stream writes a stream that decodes to it, and
---mesh exits with an error.
+and writes the same PNG, --stream writes a stream that decodes to it,
+--mesh 2,1,1 under torchrun writes the single-rank PNG, and without a world
+exits with an error.
 """
 
 import os
@@ -328,8 +329,8 @@ def test_check_render_finite():
 def test_cli_cpu_png_resume_and_stream(tmp_path, capsys):
     """`cli two_spheres ... --cpu` writes image_0000.png, the tone map of
     render_image; --resume-dir writes the same PNG, and again after a tile
-    is dropped; --stream's stream decodes to the same sums; --mesh exits
-    with an error naming the roadmap item."""
+    is dropped; --stream's stream decodes to the same sums; --mesh 2,1,1
+    without a world exits with an error naming the world size."""
     from PIL import Image
 
     args = ["two_spheres", "-w", "16", "-s", "2", "-d", "3", "--cpu"]
@@ -357,10 +358,33 @@ def test_cli_cpu_png_resume_and_stream(tmp_path, capsys):
     assert rx.done and rx.pixels_received == cfg.n_pixels
     np.testing.assert_allclose(rx.image, sums, atol=1e-5)
     assert cli.main(args + ["--mesh", "2,1,1"]) == 2
-    assert "17b" in capsys.readouterr().err
+    assert "world size is 1" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(args[:-1] + ["-o", str(tmp_path / "d")])
+
+
+def test_cli_mesh_under_torchrun(tmp_path):
+    """`torchrun --nproc-per-node 2 -m raytracer_weekend_tpu_torch.utils.cli
+    two_spheres ... --cpu --mesh 2,1,1` (a gloo world of two CPU ranks)
+    writes the PNG of the single-rank CLI, byte for byte, from rank 0."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    args = ["two_spheres", "-w", "16", "-s", "2", "-d", "3", "--cpu"]
+    assert cli.main(args + ["-o", str(tmp_path / "one")]) == 0
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "raytracer_weekend_tpu_torch.utils.cli",
+         *args, "--mesh", "2,1,1", "-o", str(tmp_path / "mesh")],
+        cwd=root, capture_output=True, text=True, timeout=240,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "backend gloo" in run.stdout
+    assert ((tmp_path / "mesh" / "image_0000.png").read_bytes()
+            == (tmp_path / "one" / "image_0000.png").read_bytes())
 
 
 def test_cli_defaults_match_jax():

@@ -195,9 +195,12 @@ def test_port_imports_no_jax():
             "from raytracer_weekend_tpu_torch.ops.cuda import checks\n"
             "from raytracer_weekend_tpu_torch.ops.cuda import bvh_traverse\n"
             "from raytracer_weekend_tpu_torch import native\n"
-            "from raytracer_weekend_tpu_torch.ops import bvh\n"
+            "from raytracer_weekend_tpu_torch.ops import bvh, collectives\n"
             "from raytracer_weekend_tpu_torch.scene import io\n"
             "from raytracer_weekend_tpu_torch.parallel import stream\n"
+            "from raytracer_weekend_tpu_torch.parallel import (\n"
+            "    mesh, multihost, shard)\n"
+            "mesh.make_render_mesh((1, 1, 1), device='cpu')\n"
             "from raytracer_weekend_tpu_torch.utils import (\n"
             "    checkpoint, cli, debug, live_view, metrics)\n"
             "stream.encode_message(stream.ImageEnd())\n"

@@ -71,6 +71,16 @@ def test_inverse_renderer_custom_loss_and_rmesh():
                                loss_fn=lambda img, tgt: (img - tgt).abs().sum())
     want = float((ir._render(ts) - ir.target).abs().sum())
     assert float(ir.loss(ts)) == pytest.approx(want)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        train.InverseRenderer(tst, tc, tcam, torch.from_numpy(target),
-                              rmesh=object())
+    # A mesh of one rank (no process group): the sharded render gives the
+    # same loss and gradients as the single-device render.
+    from raytracer_weekend_tpu_torch.parallel.mesh import make_render_mesh
+
+    irm = train.InverseRenderer(tst, tc, tcam, torch.from_numpy(target),
+                                rmesh=make_render_mesh((1, 1, 1), "cpu"),
+                                loss_fn=ir.loss_fn)
+    assert float(irm.loss(ts)) == pytest.approx(want)
+    (loss, grads), (mloss, mgrads) = ir.value_and_grad(ts), \
+        irm.value_and_grad(ts)
+    assert mloss == pytest.approx(loss)
+    for g, mg in zip(grads, mgrads):
+        torch.testing.assert_close(mg, g, rtol=1e-6, atol=1e-7)
