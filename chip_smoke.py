@@ -143,7 +143,7 @@ holds each against its plain torch version first. Phases, one line each
      share of stream_render's time); the CLI's default
      route on jumpy_balls; book2's staged path through utils.debug.
      check_render_finite (BVH-sph); utils.metrics on the card
-     (measured_render of the cow through its tree, the occupancy of
+     (measured_render of the cow through render_image, the occupancy of
      jumpy_balls from the megakernel's codes and of the uv-debug jumpy from
      the staged path, profiler_trace seeing BVH-tri on the device). The
      kernels line's BVH entries are timed on the operands of the very
@@ -3456,7 +3456,9 @@ def bvh_phase(dev, smi, log):
 
 def front_end_metrics(cow, cow_segments, work, dev, smi):
     """Phase 15g: utils.metrics on the card. measured_render of the cow
-    through its tree counts the segments of phase 15c's frame; the
+    (render_image, the megakernel, which reads no tree) counts the
+    segments of the kernel's own per-lane counts over the same chunks;
+    phase 15c's staged frame through the tree is printed beside it; the
     occupancy of jumpy_balls (the megakernel's codes) and of the uv-debug
     jumpy (the staged segment differences) lie in [0, 1] and fall with
     depth; profiler_trace around one chunk of the cow sees BVH-tri run on
@@ -3464,6 +3466,7 @@ def front_end_metrics(cow, cow_segments, work, dev, smi):
     from torch.autograd import DeviceType
 
     from raytracer_weekend_tpu_torch import integrator
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
     from raytracer_weekend_tpu_torch.utils import metrics
 
     import numpy as np
@@ -3471,6 +3474,12 @@ def front_end_metrics(cow, cow_segments, work, dev, smi):
 
     scene, static, cfg, cam = cow
     stats = metrics.measured_render(scene, static, cfg, cam)
+    n, batch = cfg.n_rays, cfg.ray_batch or cfg.n_rays
+    with torch.no_grad():
+        fused_segments = sum(
+            int(mk.render_fused(scene, cfg, cam, s, min(batch, n - s),
+                                cfg.seed, static=static)[1].sum())
+            for s in range(0, n, batch))
     occ = {}
     for name in ("jumpy_balls", "jumpy_balls_uvdebug"):
         s2, st2, cfg2, cam2 = load_scene(name, FULL, dev)
@@ -3483,7 +3492,8 @@ def front_end_metrics(cow, cow_segments, work, dev, smi):
                  if e.device_type == DeviceType.CUDA
                  and "bvh_kernel" in e.key)
     print(f"phase 15g metrics: measured_render wavefront_cow_obj "
-          f"{stats.json_line()}; wavefront_occupancy "
+          f"{stats.json_line()} (the kernel's count {fused_segments}, 15c's "
+          f"staged frame {cow_segments}); wavefront_occupancy "
           f"{ {k: [round(float(x), 4) for x in v] for k, v in occ.items()} }"
           f"; profiler_trace of one {BVH_SPREAD}-lane chunk of the cow: "
           f"BVH-tri {bvh_us / 1e3:.4f} ms on the device, trace -> "
@@ -3492,10 +3502,10 @@ def front_end_metrics(cow, cow_segments, work, dev, smi):
     bad = [k for k, v in occ.items()
            if v.shape != (8,) or not (0.0 <= v.min() <= v.max() <= 1.0)
            or np.any(np.diff(v) > 1e-6)]
-    if (stats.ray_segments != cow_segments or bad or bvh_us <= 0
+    if (stats.ray_segments != fused_segments or bad or bvh_us <= 0
             or occ["jumpy_balls_uvdebug"][0] != 1.0):
         raise AssertionError(f"metrics on the card: segments "
-                             f"{stats.ray_segments} vs {cow_segments}, "
+                             f"{stats.ray_segments} vs {fused_segments}, "
                              f"occupancy {bad}, BVH-tri {bvh_us} us")
 
 

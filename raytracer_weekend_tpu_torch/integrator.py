@@ -67,6 +67,7 @@ from raytracer_weekend_tpu_torch.ops import sphere as sphere_ops
 from raytracer_weekend_tpu_torch.ops import triangle as tri_ops
 from raytracer_weekend_tpu_torch.ops import volume as vol_ops
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+from raytracer_weekend_tpu_torch.utils import metrics
 from raytracer_weekend_tpu_torch.vecmath import dot
 
 _INF = math.inf
@@ -509,26 +510,34 @@ def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     `fused_eligible` admits takes the megakernel, any other the staged path
     (with K10-K12 unless `use_pallas` is False), in `cfg.ray_batch` chunks.
     """
-    device = scene.device
-    n_lanes = cfg.n_rays
-    batch = cfg.ray_batch or n_lanes
-    use_fused = fused_eligible(static, cfg, device)
+    with metrics.span("rtw.render_image"):
+        device = scene.device
+        n_lanes = cfg.n_rays
+        batch = cfg.ray_batch or n_lanes
+        use_fused = fused_eligible(static, cfg, device)
+        counting = metrics.on()
 
-    chunks = []
-    for start in range(0, n_lanes, batch):
-        size = min(batch, n_lanes - start)
-        if use_fused:
-            from raytracer_weekend_tpu_torch.ops.cuda.megakernel import (
-                render_fused)
-            colors, _ = render_fused(scene, cfg, cam, start, size, cfg.seed,
-                                     static=static)
-        else:
-            ids = start + torch.arange(size, dtype=torch.int64, device=device)
-            colors = render_chunk(scene, static, cfg, cam, ids, cfg.seed)
-        chunks.append(colors)
-        if progress is not None:
-            progress(start + size, n_lanes)
-    lanes = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
-    # Lanes are ordered pixel*spp + sample: the spp sum is a reshape + sum.
-    acc = lanes.reshape(cfg.n_pixels, cfg.samples_per_pixel, 3).sum(dim=1)
-    return acc.reshape(cfg.height, cfg.width, 3)
+        chunks = []
+        for start in range(0, n_lanes, batch):
+            size = min(batch, n_lanes - start)
+            if use_fused:
+                from raytracer_weekend_tpu_torch.ops.cuda.megakernel import (
+                    render_fused)
+                colors, segs = render_fused(scene, cfg, cam, start, size,
+                                            cfg.seed, static=static)
+            else:
+                ids = start + torch.arange(size, dtype=torch.int64,
+                                           device=device)
+                out = render_chunk(scene, static, cfg, cam, ids, cfg.seed,
+                                   return_stats=counting)
+                colors, segs = out if counting else (out, None)
+            if counting:
+                metrics.count("segments", segs)
+            chunks.append(colors)
+            if progress is not None:
+                progress(start + size, n_lanes)
+        lanes = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        # Lanes are ordered pixel*spp + sample: the spp sum is a reshape +
+        # sum.
+        acc = lanes.reshape(cfg.n_pixels, cfg.samples_per_pixel, 3).sum(dim=1)
+        return acc.reshape(cfg.height, cfg.width, 3)

@@ -98,56 +98,65 @@ def build() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare the C signatures."""
+    """Build if needed, load once per process, and declare the C signatures
+    (the set-up span `rtw.setup.library`)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.rtw_render_fused.argtypes = [_P, _I, _P, _P, _I, _P, _I, _P,
-                                         _LL, _I, _I, _I, _I, _I, _I, _I, _F,
-                                         _U, _I, _P, _P, _P, _P, _P, _P, _P,
-                                         _P, _P, _P, _I, _P, _P, _P]
-        lib.rtw_render_fused.restype = _I
-        lib.rtw_render_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
-        lib.rtw_render_occupancy.restype = _I
-        lib.rtw_plane_candidate.argtypes = [_P, _P, _P, _I, _F, _P, _P]
-        lib.rtw_plane_candidate.restype = _I
-        lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P, _P,
-                                       _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                       _U, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _P]
-        lib.rtw_replay_bwd.restype = _I
-        lib.rtw_replay_bwd_order_ints.argtypes = [_I, _I]
-        lib.rtw_replay_bwd_order_ints.restype = _LL
-        lib.rtw_replay_bwd_smem_bytes.argtypes = [_I, _I]
-        lib.rtw_replay_bwd_smem_bytes.restype = _LL
-        lib.rtw_replay_bwd_smem_limit.argtypes = [_P]
-        lib.rtw_replay_bwd_smem_limit.restype = _I
-        lib.rtw_turbulence.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P,
-                                       _P]
-        lib.rtw_turbulence.restype = _I
-        lib.rtw_turbulence_vjp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P,
-                                           _P, _P, _P]
-        lib.rtw_turbulence_vjp.restype = _I
-        lib.rtw_hit_spheres.argtypes = [_P, _P, _P, _P, _I, _P, _I, _F, _P,
-                                        _P, _P]
-        lib.rtw_hit_rects.argtypes = [_P, _P, _I, _P, _I, _F, _P, _P, _P]
-        lib.rtw_hit_triangles.argtypes = [_P, _P, _P, _I, _P, _I, _F, _P, _P,
-                                          _P, _P]
-        lib.rtw_tri_candidate.argtypes = [_P, _P, _P, _P, _P, _I, _F, _P, _P]
-        lib.rtw_bvh_spheres.argtypes = [_P, _P, _P, _I, _P, _I, _P, _F, _P,
-                                        _P, _P, _P]
-        lib.rtw_bvh_triangles.argtypes = [_P, _P, _I, _P, _I, _P, _F, _P, _P,
-                                          _P, _P]
-        for fn in (lib.rtw_hit_spheres, lib.rtw_hit_rects,
-                   lib.rtw_hit_triangles, lib.rtw_tri_candidate,
-                   lib.rtw_bvh_spheres, lib.rtw_bvh_triangles):
-            fn.restype = _I
-        lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
-        lib.rtw_rand4.restype = _I
-        lib.rtw_error_string.argtypes = [_I]
-        lib.rtw_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        from raytracer_weekend_tpu_torch.utils import metrics
+
+        with metrics.setup_span("rtw.setup.library"):
+            _lib = _load()
     return _lib
+
+
+def _load() -> ctypes.CDLL:
+    """The source hash, a build if stale, the load and the signatures."""
+    lib = ctypes.CDLL(str(build()))
+    lib.rtw_render_fused.argtypes = [_P, _I, _P, _P, _I, _P, _I, _P,
+                                     _LL, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _U, _I, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _I, _P, _P, _P]
+    lib.rtw_render_fused.restype = _I
+    lib.rtw_render_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
+    lib.rtw_render_occupancy.restype = _I
+    lib.rtw_plane_candidate.argtypes = [_P, _P, _P, _I, _F, _P, _P]
+    lib.rtw_plane_candidate.restype = _I
+    lib.rtw_replay_bwd.argtypes = [_P, _I, _P, _I, _I, _I, _P, _P, _P,
+                                   _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                   _U, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P]
+    lib.rtw_replay_bwd.restype = _I
+    lib.rtw_replay_bwd_order_ints.argtypes = [_I, _I]
+    lib.rtw_replay_bwd_order_ints.restype = _LL
+    lib.rtw_replay_bwd_smem_bytes.argtypes = [_I, _I]
+    lib.rtw_replay_bwd_smem_bytes.restype = _LL
+    lib.rtw_replay_bwd_smem_limit.argtypes = [_P]
+    lib.rtw_replay_bwd_smem_limit.restype = _I
+    lib.rtw_turbulence.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P,
+                                   _P]
+    lib.rtw_turbulence.restype = _I
+    lib.rtw_turbulence_vjp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P,
+                                       _P, _P, _P]
+    lib.rtw_turbulence_vjp.restype = _I
+    lib.rtw_hit_spheres.argtypes = [_P, _P, _P, _P, _I, _P, _I, _F, _P,
+                                    _P, _P]
+    lib.rtw_hit_rects.argtypes = [_P, _P, _I, _P, _I, _F, _P, _P, _P]
+    lib.rtw_hit_triangles.argtypes = [_P, _P, _P, _I, _P, _I, _F, _P, _P,
+                                      _P, _P]
+    lib.rtw_tri_candidate.argtypes = [_P, _P, _P, _P, _P, _I, _F, _P, _P]
+    lib.rtw_bvh_spheres.argtypes = [_P, _P, _P, _I, _P, _I, _P, _F, _P,
+                                    _P, _P, _P]
+    lib.rtw_bvh_triangles.argtypes = [_P, _P, _I, _P, _I, _P, _F, _P, _P,
+                                      _P, _P]
+    for fn in (lib.rtw_hit_spheres, lib.rtw_hit_rects,
+               lib.rtw_hit_triangles, lib.rtw_tri_candidate,
+               lib.rtw_bvh_spheres, lib.rtw_bvh_triangles):
+        fn.restype = _I
+    lib.rtw_rand4.argtypes = [_P, _I, _U, _U, _U, _P, _P]
+    lib.rtw_rand4.restype = _I
+    lib.rtw_error_string.argtypes = [_I]
+    lib.rtw_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -73,6 +73,7 @@ from raytracer_weekend_tpu_torch.ops.sphere import sphere_uv
 from raytracer_weekend_tpu_torch.scene.data import (
     VOL_BOX, SceneData, SceneStatic, without_trees)
 from raytracer_weekend_tpu_torch.textures import TextureTable
+from raytracer_weekend_tpu_torch.utils import metrics
 
 # Launches of the CUDA kernel in this process, without and with the winner
 # codes, those whose scene has planar primitives (the planar branch, with or
@@ -494,13 +495,14 @@ def build_tables(scene: SceneData, static: SceneStatic, cam: Camera):
     None, volume table or None, camera parameters, the sphere table's packed
     rows or None): what a launch reads (the packed rows: a sphere-only
     single pass, `sphere_kernel`)."""
-    ptab = (build_planar_table(scene, static)
-            if static.n_rects + static.n_triangles else None)
-    tab = build_sphere_table(scene) if static.n_spheres else None
-    return (tab, ptab, None if ptab is None else build_planar_test(ptab),
-            build_vol_table(scene) if static.n_volumes else None,
-            pack_par(scene, cam),
-            None if tab is None else build_sphere_rows(tab))
+    with metrics.span("rtw.fused.tables"):
+        ptab = (build_planar_table(scene, static)
+                if static.n_rects + static.n_triangles else None)
+        tab = build_sphere_table(scene) if static.n_spheres else None
+        return (tab, ptab, None if ptab is None else build_planar_test(ptab),
+                build_vol_table(scene) if static.n_volumes else None,
+                pack_par(scene, cam),
+                None if tab is None else build_sphere_rows(tab))
 
 
 def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
@@ -692,62 +694,67 @@ def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
     ray, and `phases` (a list) getting one dict per launch: its d0, lanes,
     group, config and inputs (state and lane ids, None for the first), from
     which the same launch can be run again."""
-
-    dev = scene.device
-    plain = plain or dev.type == "cpu"
-    D, n = cfg.max_depth, int(n_chunk)
-    defer = defers(static)
-    # The single pass's turbulence: K8 on the card, its plain twin here.
-    noise_fn = _turbulence_plain if plain else _turbulence_k8
-    tables = None if plain else build_tables(scene, static, cam)
-    resident = (None if plain or group is not None
-                else resident_threads(static, dev))
-    rad_bank = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    seg_bank = torch.zeros((n,), dtype=torch.int32, device=dev)
-    slots = torch.arange(n, device=dev)          # bank slot of each lane
-    lanes = (int(lane_start) + slots).to(torch.int32)
-    state, acc = None, None
-    d0 = 0
-    while d0 < D:
-        cfg_p = dataclasses.replace(cfg, max_depth=min(phase_len, D - d0))
-        if plain:
-            out = phase_reference(scene, cfg_p, cam, lanes, state, d0, seed,
-                                  static=static)
-        else:
-            g = group or phase_group(lanes.shape[0], resident)
-            ids = None if state is None else lanes
-            if phases is not None:
-                phases.append(dict(d0=d0, lanes=lanes.shape[0], group=g,
-                                   cfg=cfg_p, state=state, ids=ids))
-            out = _launch(scene, cfg_p, cam, lane_start, lanes.shape[0],
-                          seed, static, phase=True, state=state, lanes=ids,
-                          d0=d0, tables=tables, group=g)
-        rad, seg, *recs, st = out
-        if defer:
-            acc = combine_deferred(scene.textures, *recs,
-                                   has_noise=static.has_noise,
-                                   has_image=static.has_image,
-                                   noise_fn=noise_fn, init=acc,
-                                   return_factors=True)
-            rad = acc[0]
-        rad_bank[slots] = rad
-        seg_bank[slots] = seg
-        d0 += cfg_p.max_depth
-        if d0 >= D:
-            break
-        alive = st[:, 13] > 0.0
-        live = int(alive.sum())                  # one host sync per phase
-        if live_counts is not None:
-            live_counts.append(live)
-        if live == 0:
-            break
-        if live < st.shape[0]:
-            keep = torch.nonzero(alive).squeeze(1)
-            st, slots, lanes = st[keep], slots[keep], lanes[keep]
-            if acc is not None:
-                acc = (acc[0][keep], acc[1][keep])
-        state = st.contiguous()
-    return rad_bank, seg_bank
+    with metrics.span("rtw.fused.deep"):
+        dev = scene.device
+        plain = plain or dev.type == "cpu"
+        D, n = cfg.max_depth, int(n_chunk)
+        defer = defers(static)
+        # The single pass's turbulence: K8 on the card, its plain twin here.
+        noise_fn = _turbulence_plain if plain else _turbulence_k8
+        tables = None if plain else build_tables(scene, static, cam)
+        resident = (None if plain or group is not None
+                    else resident_threads(static, dev))
+        rad_bank = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        seg_bank = torch.zeros((n,), dtype=torch.int32, device=dev)
+        slots = torch.arange(n, device=dev)      # bank slot of each lane
+        lanes = (int(lane_start) + slots).to(torch.int32)
+        state, acc = None, None
+        d0 = 0
+        while d0 < D:
+            cfg_p = dataclasses.replace(cfg,
+                                        max_depth=min(phase_len, D - d0))
+            metrics.count("phase_lane_bounces",
+                          lanes.shape[0] * cfg_p.max_depth)
+            if plain:
+                out = phase_reference(scene, cfg_p, cam, lanes, state, d0,
+                                      seed, static=static)
+            else:
+                g = group or phase_group(lanes.shape[0], resident)
+                ids = None if state is None else lanes
+                if phases is not None:
+                    phases.append(dict(d0=d0, lanes=lanes.shape[0], group=g,
+                                       cfg=cfg_p, state=state, ids=ids))
+                out = _launch(scene, cfg_p, cam, lane_start,
+                              lanes.shape[0], seed, static, phase=True,
+                              state=state, lanes=ids, d0=d0, tables=tables,
+                              group=g)
+            rad, seg, *recs, st = out
+            if defer:
+                acc = combine_deferred(scene.textures, *recs,
+                                       has_noise=static.has_noise,
+                                       has_image=static.has_image,
+                                       noise_fn=noise_fn, init=acc,
+                                       return_factors=True)
+                rad = acc[0]
+            rad_bank[slots] = rad
+            seg_bank[slots] = seg
+            d0 += cfg_p.max_depth
+            if d0 >= D:
+                break
+            alive = st[:, 13] > 0.0
+            with metrics.span("rtw.deep.sync"):  # one host sync a phase
+                live = int(alive.sum())
+            if live_counts is not None:
+                live_counts.append(live)
+            if live == 0:
+                break
+            if live < st.shape[0]:
+                keep = torch.nonzero(alive).squeeze(1)
+                st, slots, lanes = st[keep], slots[keep], lanes[keep]
+                if acc is not None:
+                    acc = (acc[0][keep], acc[1][keep])
+            state = st.contiguous()
+        return rad_bank, seg_bank
 
 
 _RESIDENT: dict = {}

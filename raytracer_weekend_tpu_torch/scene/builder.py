@@ -305,10 +305,13 @@ def build_scene(objects: Sequence, background=(0.7, 0.8, 1.0),
     where the brute force keeps the lowest row, so the two agree to
     rounding and up to ties.
     """
-    comp = _Compiler(seed)
-    for obj in objects:
-        comp.add(obj)
-    return comp.finish(background, bvh)
+    from raytracer_weekend_tpu_torch.utils import metrics
+
+    with metrics.setup_span("rtw.setup.scene"):
+        comp = _Compiler(seed)
+        for obj in objects:
+            comp.add(obj)
+        return comp.finish(background, bvh)
 
 
 def _sphere_bvh(spheres: Spheres) -> Bvh:

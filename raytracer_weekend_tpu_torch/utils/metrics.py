@@ -1,9 +1,29 @@
-"""Render metrics and profiling hooks (port of `utils/metrics.py`).
+"""Render metrics, tracing and profiling hooks (port of `utils/metrics.py`).
 
 Structured counters: rays/s, ray-segment throughput and wavefront occupancy
 per bounce, plus a thin `torch.profiler` wrapper for a device timeline. A
 time taken on a card is synchronized before the clock is read; on the CPU
 it is the CPU's time and says nothing of a card.
+
+The tracer. `span(name)` marks a stretch of the program: while
+`torch.profiler` records it is a `record_function`, which lands in the
+Chrome trace as a `user_annotation` on the clock of the device's kernels;
+otherwise it costs one check and enters nothing. `count(name, value)` adds
+to a counter while tracing is on: while the profiler records, or inside a
+`tracing()` block. A tensor's count is its sum, added on the tensor's device
+without a host sync; `counters()` reads the totals, `reset_counters()`
+clears them. Set-up spans (`setup_span`) are kept whether tracing is on or
+not, as (name, start, end) on `time.perf_counter`: `setup_spans()`.
+
+The program's spans and counters, each read by a metric of `rtbench`:
+  rtw.render_image      integrator.render_image, the whole call
+  rtw.fused.tables      megakernel.build_tables
+  rtw.fused.deep        the depth-phased render (megakernel._render_deep)
+  rtw.deep.sync         a phase's live count, the host's wait on the card
+  segments              render_image: each chunk's per-lane segments
+  phase_lane_bounces    each phased launch's lanes x its bounces
+  rtw.setup.library     _build.load_library's first call
+  rtw.setup.scene       scene.builder.build_scene
 """
 
 from __future__ import annotations
@@ -19,6 +39,87 @@ import numpy as np
 import torch
 
 _PROFILE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
+
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _NoSpan:
+    """The span entered while the profiler is off: nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_tracing_blocks = 0
+_counts: dict = {}
+_setup: list = []
+
+
+def span(name: str):
+    """A `record_function(name)` while the profiler records, else a shared
+    object that enters nothing."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def on() -> bool:
+    """Counters accumulate: the profiler records, or a `tracing()` block
+    is open."""
+    return _tracing_blocks > 0 or _profiling()
+
+
+@contextlib.contextmanager
+def tracing():
+    """Turn the counters on for the block (blocks nest)."""
+    global _tracing_blocks
+    _tracing_blocks += 1
+    try:
+        yield
+    finally:
+        _tracing_blocks -= 1
+
+
+def count(name: str, value) -> None:
+    """Add `value` (an int, or a tensor: its sum, on its device) to counter
+    `name` while tracing is on; otherwise nothing, no device work."""
+    if not on():
+        return
+    if isinstance(value, torch.Tensor):
+        value = value.sum()
+    prev = _counts.get(name)
+    _counts[name] = value if prev is None else prev + value
+
+
+def counters() -> dict:
+    """Every counter's total as an int (a host sync for a device count)."""
+    return {name: int(v) for name, v in _counts.items()}
+
+
+def reset_counters() -> None:
+    _counts.clear()
+
+
+@contextlib.contextmanager
+def setup_span(name: str):
+    """A set-up span: kept in `setup_spans()` always, and a `span` too."""
+    t0 = time.perf_counter()
+    try:
+        with span(name):
+            yield
+    finally:
+        _setup.append((name, t0, time.perf_counter()))
+
+
+def setup_spans() -> list:
+    """The set-up spans of this process so far, (name, start, end)."""
+    return list(_setup)
 
 
 @dataclasses.dataclass
@@ -59,35 +160,26 @@ def _sync(device: torch.device) -> None:
 
 
 def measured_render(scene, static, cfg, cam, repeats: int = 1) -> RenderStats:
-    """Render through the staged path with the segment counter on, after
-    one warm-up pass -> throughput stats (host clock around synchronized
-    work, the mean over `repeats`)."""
+    """Render the frame through `integrator.render_image`, the path users
+    take, once under `tracing()` (the warm-up, which also counts its
+    segments), then `repeats` times untraced -> throughput stats (host
+    clock around synchronized work, the mean over `repeats`)."""
     from raytracer_weekend_tpu_torch import integrator
 
     device = scene.device
-    n = cfg.n_rays
-    batch = cfg.ray_batch or n
-    id_chunks = [torch.arange(s, min(s + batch, n), dtype=torch.int64,
-                              device=device) for s in range(0, n, batch)]
-
-    def chunk(ids):
-        o, d, t, ray_id = integrator._pixel_rays(cam, cfg, ids, cfg.seed)
-        return integrator.trace_rays(scene, static, cfg, o, d, t, ray_id,
-                                     cfg.seed, return_stats=True)
-
     with torch.no_grad():
-        for ids in id_chunks:                 # warm-up: builds, caches
-            chunk(ids)
+        before = counters().get("segments", 0)
+        with tracing():
+            integrator.render_image(scene, static, cfg, cam)
+        segments = counters()["segments"] - before
         _sync(device)
         t0 = time.perf_counter()
-        total_segments = 0
         for _ in range(repeats):
-            segs = [chunk(ids)[1] for ids in id_chunks]
-            total_segments = int(sum(int(s) for s in segs))
+            integrator.render_image(scene, static, cfg, cam)
         _sync(device)
         wall = (time.perf_counter() - t0) / repeats
-    return RenderStats(wall_s=wall, primary_rays=n,
-                       ray_segments=total_segments, max_depth=cfg.max_depth)
+    return RenderStats(wall_s=wall, primary_rays=cfg.n_rays,
+                       ray_segments=segments, max_depth=cfg.max_depth)
 
 
 def wavefront_occupancy(scene, static, cfg, cam, n_lanes: int = 65536):
