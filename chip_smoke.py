@@ -173,16 +173,18 @@ abs error against its plain version, ms and plain ms, the least time the
 card could take for the same work and what bounds it), each entry's ms,
 launches and bound measured on the same launches: K3 one entry per scene
 (cornell_box, the cow, the monument, book2), K6b one per phase of the
-criterion, K10-K12 and the BVH kernels one per table and launch size;
-every entry's ms is the
-launch alone on the device, on tables and operands built beforehand, its
-start event queued behind a spin of the card so that the host's enqueue is
-left out (`utils/timing.py` `device_ms`), its event_ms the same launch by
-CUDA events around the host's call, and its wrapper_ms the call the main path makes
-(render_fused, render_fused_records, replay_bwd_fused, turbulence,
+criterion and two (media_kernel, render_kernel) for the first phase at
+G = 1 of the criterion and of the pass10 frame, K10-K12 and the BVH
+kernels one per table and launch size; every entry's ms is the launch
+alone on the device, on tables and operands built beforehand, its start
+event queued behind a spin of the card so that the host's enqueue is left
+out (`utils/timing.py` `device_ms`), its event_ms the same launch by CUDA
+events around the host's call, and its wrapper_ms the call the main path
+makes (render_fused, render_fused_records, replay_bwd_fused, turbulence,
 turbulence_vjp, the autograd.Function) less event_ms (K6b's:
-render_fused_deep less its phases' launches, an equal share a phase); the
-script fails if an entry lacks a key or has no positive ms and event_ms;
+render_fused_deep less its phases' launches, an equal share a phase; null
+on a row whose launch the main path does not make, whose launches are 0);
+the script fails if an entry lacks a key or has no positive ms and event_ms;
 and as the last line {"ok": true, "device": {...}}. Any failure is an
 uncaught exception: the exit code is not 0 and the last line is not
 printed. Without a CUDA device, or without the rest of the repository
@@ -1811,6 +1813,11 @@ BOOK2_REDUCED = dict(width=160, height=90, samples_per_pixel=4, max_depth=8)
 # 1337, 40x22, 100 spp, depth 50, render seed 1337, one chunk.
 CRITERION = dict(width=40, height=22, samples_per_pixel=100, max_depth=50,
                  seed=1337, ray_batch=1 << 17)
+# The benchmark's rtw2_final.pass10 frame (400x225, 10 spp a pass, depth
+# 50) on the criterion's book2: its first phase's 900,000 live lanes fill
+# the card at one lane a ray.
+BOOK2_PASS10 = dict(width=400, height=225, samples_per_pixel=10,
+                    max_depth=50, seed=1337)
 # book2's plain version holds (B, 1006) and (B, 2401) planes per bounce:
 # ~14 KB a lane for each plane.
 BOOK2_CHUNK = 1 << 12
@@ -1929,12 +1936,12 @@ def media_design(log, dev, frames):
     from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
 
     regs = [r for r in ptxas_registers(log) if r.startswith("media_kernel")]
-    if len(regs) != 4 or any("spills" in r for r in regs):
+    if len(regs) != 6 or any("spills" in r for r in regs):
         raise AssertionError(f"media_kernel instantiations: {regs}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"phase 11 the media kernel as compiled: block {mk.MEDIA_BLOCK}, "
           f"one lane slot a thread, tables from global memory; registers "
-          f"(ptxas, <emit,defer>): {' | '.join(regs)}", flush=True)
+          f"(ptxas, <emit,defer,phase>): {' | '.join(regs)}", flush=True)
     for name, (scene, static, cfg, *_rest) in frames.items():
         print(f"phase 11 {name} {cfg.width}x{cfg.height} spp "
               f"{cfg.samples_per_pixel} depth {cfg.max_depth} "
@@ -1947,16 +1954,21 @@ def media_design(log, dev, frames):
 
 def deep_phases(dev, smi):
     """Phase 12: the depth-phased render (K6b) on bench.py's
-    book2_criterion and on jumpy_balls at depth 20 (400x225, 4 spp): each
-    bitwise the single-pass launch with the lanes per ray forced to each G
-    of mk.GROUPS and with G chosen from each phase's live lanes; deep
-    against single-pass frame ms in turns; the criterion's main path
-    (render_image when render_fused's default takes the phases, else
-    render_fused_deep, 1 warm-up and 10 frames) with the launch count reset
-    just before; then each of the criterion's phases launched again from
-    its own inputs, timed, and held against its plain version from the
-    same state (book2 budgets). Returns the kernels line's K6b entries, one
-    a phase."""
+    book2_criterion, on book2 at the benchmark's rtw2_final.pass10 frame
+    (400x225, 10 spp, depth 50: BOOK2_PASS10) and on jumpy_balls at depth
+    20 (400x225, 4 spp): each bitwise the single-pass launch with the lanes
+    per ray forced to each G of mk.GROUPS and with G chosen from each
+    phase's live lanes, and book2 at G = 1 also with its launches kept on
+    render_kernel (`refill=False`; G = 1 with media is media_kernel's);
+    deep against single-pass frame ms in turns (book2 also deep on
+    render_kernel alone); the criterion's main path (`deep_main_path`);
+    then each of the criterion's phases launched again from its own inputs,
+    timed, and held against its plain version from the same state (book2
+    budgets); last, the pass10 frame's main path, and the first phase at
+    G = 1 of the criterion and of the pass10 frame on media_kernel and on
+    render_kernel from the same inputs (all outputs bitwise), each timed
+    and held against its plain version. Returns the kernels line's K6b
+    entries, one a phase and two a refill comparison."""
     import torch
 
     from raytracer_weekend_tpu_torch.config import RenderConfig
@@ -1973,77 +1985,72 @@ def deep_phases(dev, smi):
     jscene, jstatic, jcams = scenes.generate_scene("jumpy_balls",
                                                    jc.aspect_ratio,
                                                    device=dev)
+    pc = RenderConfig(**BOOK2_PASS10)
     runs = {"book2_criterion": (scene, static, cfg, cam),
+            "book2_pass10": (scene, static, pc, cam),
             "jumpy_balls_d20": (jscene, jstatic, jc, jcams[0].to(dev))}
 
-    timings, phase_log = {}, {}
+    timings, phase_log, g1_log, singles = {}, {}, {}, {}
     for name, (sc, st, cf, cm) in runs.items():
         def single():
             return mk.render_fused(sc, cf, cm, 0, cf.n_rays, cf.seed,
                                    static=st, deep=False)
 
-        def deep(group=None, live=None, phases=None):
+        def deep(group=None, live=None, phases=None, refill=True):
             return mk._render_deep(sc, cf, cm, 0, cf.n_rays, cf.seed,
                                    static=st, group=group, live_counts=live,
-                                   phases=phases)
+                                   phases=phases, refill=refill)
+
+        def deep_rk():
+            return deep(refill=False)
 
         s_out = single()
-        live, phases = [], []
-        outs = {g: deep(g) for g in mk.GROUPS}
+        singles[name] = s_out
+        live, phases, g1 = [], [], []
+        outs = {g: deep(g, phases=g1 if g == 1 else None)
+                for g in mk.GROUPS}
         outs["auto"] = deep(None, live, phases)
+        if st.n_volumes:
+            outs["1 on render_kernel"] = deep(1, refill=False)
+            outs["auto on render_kernel"] = deep_rk()
         torch.cuda.synchronize()
         equal = {str(g): all(torch.equal(a, b) for a, b in zip(o, s_out))
                  for g, o in outs.items()}
         if not all(equal.values()):
             raise AssertionError(f"{name}: the phased render is not the "
                                  f"single pass bit for bit: {equal}")
-        times = {"single": [], "deep": []}
-        for who in ("single", "deep", "deep", "single"):
-            times[who].append(cuda_ms(single if who == "single" else deep,
-                                       5))
+        fns = {"single": single, "deep": deep}
+        order = ["single", "deep", "deep", "single"]
+        if st.n_volumes:
+            fns["deep_render_kernel"] = deep_rk
+            order = ["single", "deep", "deep_render_kernel",
+                     "deep_render_kernel", "deep", "single"]
+        times = {k: [] for k in fns}
+        for who in order:
+            times[who].append(cuda_ms(fns[who], 5))
         timings[name] = {k: statistics.median(v) for k, v in times.items()}
         phase_log[name] = phases
+        g1_log[name] = g1
         print(f"phase 12 {name} {cf.width}x{cf.height} spp "
               f"{cf.samples_per_pixel} depth {cf.max_depth}: the phased "
               f"render bitwise the single pass with G forced to each of "
               f"{list(mk.GROUPS)} and with G from the live lanes "
               f"({json.dumps(equal)}); live lanes after each phase {live} "
               f"of {cf.n_rays}; G per phase "
-              f"{[ph['group'] for ph in phases]} (from "
+              f"{[ph['group'] for ph in phases]} on "
+              f"{[ph['kernel'] for ph in phases]} (from "
               f"{mk.resident_blocks(st, dev)} resident blocks an SM); "
               f"render_fused_deep "
               f"{timings[name]['deep']:.3f} ms, single pass "
               f"{timings[name]['single']:.3f} ms (CUDA events, medians of 5"
-              f" in turns single/deep/deep/single: {json.dumps(times)}; "
+              f" in turns {'/'.join(order)}: {json.dumps(times)}; "
               f"{smi})", flush=True)
 
     # The criterion's main path, counted from 0.
-    n = cfg.n_rays
-    s_rad, s_seg = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed,
-                                   static=static, deep=False)
-    mk.PHASE_LAUNCHES = 0
-    frame_ms, png = time_render_image("book2_criterion", scene, static, cfg,
-                                      cam, s_rad)
-    route = "render_image"
-    if mk.PHASE_LAUNCHES == 0:  # the default is the single pass
-        route = "render_fused_deep"
-        for _ in range(11):
-            rad, _ = mk.render_fused_deep(scene, cfg, cam, 0, n, cfg.seed,
-                                          static=static)
-        torch.cuda.synchronize()
-        if not torch.equal(rad, s_rad):
-            raise AssertionError("render_fused_deep != the single pass")
-    k6b_launches = mk.PHASE_LAUNCHES
     phases = phase_log["book2_criterion"]
-    if k6b_launches < 1 or k6b_launches % len(phases):
-        raise AssertionError(f"book2_criterion: {k6b_launches} K6b launches "
-                             f"through {route} for {len(phases)} phases")
-    segs = int(s_seg.sum())
-    print(f"phase 12 main path: book2_criterion through {route} (render_"
-          f"image's route: {'deep' if route == 'render_image' else 'single'}"
-          f" pass) on {smi}: {k6b_launches} K6b launches; render_image "
-          f"median frame {statistics.median(frame_ms):.3f} ms, {segs} "
-          f"segments/frame; image -> {png}", flush=True)
+    main = {"book2_criterion": deep_main_path("book2_criterion", *runs[
+        "book2_criterion"], singles["book2_criterion"], phases, smi)}
+    k6b_launches = main["book2_criterion"][0]
 
     # Each phase again from its own inputs: timed, and held against its
     # plain version from the same state.
@@ -2084,7 +2091,8 @@ def deep_phases(dev, smi):
                                       == p_out[-1][:, 13]).sum()),
                      phase_segments=phase_segs)
         print(f"phase 12 K6b phase {k + 1} of book2_criterion (bounces "
-              f"{d0}-{d0 + cf.max_depth - 1}, {nl} lanes, G {g}): "
+              f"{d0}-{d0 + cf.max_depth - 1}, {nl} lanes, G {g}, "
+              f"{ph['kernel']}): "
               f"{ms:.3f} ms a launch ({ev:.3f} by events), plain "
               f"{plain_ms:.3f} ms; kernel vs "
               f"plain from the same state, radiance and segments in the "
@@ -2117,7 +2125,168 @@ def deep_phases(dev, smi):
     # an equal share a phase.
     for e in entries:
         e["wrapper_ms"] = (deep_ms - ms_sum) / len(entries)
+    # The refill comparison. A row's launches are its main path's: those
+    # of the G = 1 first phase on that kernel (render_image, counted from
+    # 0); its wrapper_ms, where it has launches, render_fused_deep's share
+    # a phase as above, else null.
+    main["book2_pass10"] = deep_main_path(
+        "book2_pass10", *runs["book2_pass10"], singles["book2_pass10"],
+        phase_log["book2_pass10"], smi)
+    for name in ("book2_criterion", "book2_pass10"):
+        sc, st, cf, cm = runs[name]
+        plan, (n_phase, n_refill) = phase_log[name], main[name]
+        frames, first = n_phase // len(plan), plan[0]
+        launches = {k: (frames if first["group"] == 1
+                        and first["kernel"] == k else 0)
+                    for k in ("media_kernel", "render_kernel")}
+        planned = frames * sum(ph["kernel"] == "media_kernel"
+                               for ph in plan)
+        if n_refill != planned:
+            raise AssertionError(f"{name}: {n_refill} launches on "
+                                 f"media_kernel on the main path, for "
+                                 f"{planned} in its phase plan")
+        wrapper = {k: None for k in launches}
+        if any(launches.values()):
+            ev_sum = phases_event_ms(sc, st, cf, cm, plan)
+            wrapper[first["kernel"]] = ((timings[name]["deep"] - ev_sum)
+                                        / len(plan))
+        entries += refill_rows(name, sc, st, cf, cm, g1_log[name][0],
+                               launches, wrapper, smi)
     return entries
+
+
+def deep_main_path(name, scene, static, cfg, cam, single, plan, smi):
+    """A deep frame's main path, the launch counts set to 0 just before:
+    render_image when render_fused's default takes the phases, else
+    render_fused_deep (1 warm-up and 10 frames), each frame bitwise the
+    single pass `single` (its radiance and segments), in whole frames of
+    the phase plan `plan` -> (K6b launches, of these on media_kernel)."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    s_rad, s_seg = single[:2]
+    mk.PHASE_LAUNCHES = mk.REFILL_LAUNCHES = 0
+    frame_ms, png = time_render_image(name, scene, static, cfg, cam, s_rad)
+    route = "render_image"
+    if mk.PHASE_LAUNCHES == 0:  # the default is the single pass
+        route = "render_fused_deep"
+        for _ in range(11):
+            rad, _ = mk.render_fused_deep(scene, cfg, cam, 0, cfg.n_rays,
+                                          cfg.seed, static=static)
+        torch.cuda.synchronize()
+        if not torch.equal(rad, s_rad):
+            raise AssertionError("render_fused_deep != the single pass")
+    k6b, refills = mk.PHASE_LAUNCHES, mk.REFILL_LAUNCHES
+    if k6b < 1 or k6b % len(plan):
+        raise AssertionError(f"{name}: {k6b} K6b launches through {route} "
+                             f"for {len(plan)} phases")
+    print(f"phase 12 main path: {name} through {route} (render_image's "
+          f"route: {'deep' if route == 'render_image' else 'single'} pass) "
+          f"on {smi}: {k6b} K6b launches, {refills} of them on media_kernel;"
+          f" render_image median frame {statistics.median(frame_ms):.3f} ms,"
+          f" {int(s_seg.sum())} segments/frame; image -> {png}", flush=True)
+    return k6b, refills
+
+
+def phases_event_ms(scene, static, cfg, cam, plan):
+    """The phases of `plan` (a phased render's `phases` log), each launched
+    alone from its inputs on its own kernel: their CUDA-event ms summed
+    (medians of 5)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    tables = mk.build_tables(scene, static, cam)
+    return sum(cuda_ms(lambda ph=ph: mk._launch(
+        scene, ph["cfg"], cam, 0, ph["lanes"], cfg.seed, static, phase=True,
+        state=ph["state"], lanes=ph["ids"], d0=ph["d0"], tables=tables,
+        group=ph["group"], kernel=ph["kernel"]), 5) for ph in plan)
+
+
+def refill_rows(name, scene, static, cfg, cam, ph, launches, wrapper, smi):
+    """Phase 12's refill comparison: the phase `ph` (from a phased render
+    at G = 1) launched again from its inputs on media_kernel (the refill)
+    and on render_kernel: every output bitwise, each launch timed alone,
+    and the radiance and segments in the state held against the plain
+    version from the same state (book2 budgets). `launches` and `wrapper`
+    give each kernel's main-path launches and wrapper ms. Returns the two
+    kernels-line entries."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+
+    cf, nl, d0, st_in, ids = (ph["cfg"], ph["lanes"], ph["d0"], ph["state"],
+                              ph["ids"])
+    tables = mk.build_tables(scene, static, cam)
+
+    def launch(refill):
+        return mk._launch(scene, cf, cam, 0, nl, cfg.seed, static,
+                          phase=True, state=st_in, lanes=ids, d0=d0,
+                          tables=tables, group=1,
+                          kernel="media_kernel" if refill
+                          else "render_kernel")
+
+    outs = {r: launch(r) for r in (True, False)}
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(outs[True], outs[False])]
+    if not all(same):
+        raise AssertionError(f"{name} phase at d0 {d0}: media_kernel and "
+                             f"render_kernel differ: {same}")
+    ids_all = (torch.arange(nl, dtype=torch.int32, device=scene.device)
+               if ids is None else ids)
+    plain_out = []
+
+    def plain():
+        parts = [mk.phase_reference(
+            scene, cf, cam, ids_all[w], None if st_in is None else st_in[w],
+            d0, cfg.seed, static=static) for w in lane_windows(nl,
+                                                               BOOK2_CHUNK)]
+        plain_out[:] = [torch.cat([o[i] for o in parts])
+                        for i in range(len(parts[0]))]
+
+    plain_ms = cuda_ms(plain, 1)
+    k_out, p_out = outs[True], plain_out
+    ok, stats = _budgets(k_out[-1][:, 9:12], p_out[-1][:, 9:12],
+                         k_out[1].sum(), p_out[1].sum(), nl, **BOOK2_BUDGETS)
+    if not ok:
+        raise AssertionError(f"{name} refill phase vs plain outside "
+                             f"budgets: {stats}")
+    seg0 = 0 if st_in is None else int(st_in[:, 14].double().sum())
+    phase_segs = int(k_out[1].sum()) - seg0
+    times = {True: [], False: []}
+    for r in (True, False, False, True):
+        times[r].append(launch_times(lambda: launch(r)))
+    rows = []
+    for r, kernel in ((True, "media_kernel"), (False, "render_kernel")):
+        ms = statistics.median(t[0] for t in times[r])
+        ev = statistics.median(t[1] for t in times[r])
+        print(f"phase 12 K6b refill {name} {cfg.width}x{cfg.height} spp "
+              f"{cfg.samples_per_pixel}: phase at bounces {d0}-"
+              f"{d0 + cf.max_depth - 1}, {nl} lanes, G 1 on {kernel}: "
+              f"{ms:.3f} ms a launch ({ev:.3f} by events; in turns "
+              f"refill/render_kernel/render_kernel/refill: "
+              f"{json.dumps([list(t) for t in times[r]])}), "
+              f"{phase_segs} segments; all outputs bitwise the other "
+              f"kernel's; {launches[kernel]} launches on the main path, "
+              f"wrapper {wrapper[kernel]} ms; plain {plain_ms:.3f} ms, "
+              f"kernel vs plain from the same state: {json.dumps(stats)} "
+              f"({smi})", flush=True)
+        rows.append(bound({
+            "name": f"megakernel_phase_io[{name} phase {d0 // mk.PHASE_LEN + 1}"
+                    f" G 1 {kernel}]",
+            "route": "cuda",
+            "source": "raytracer_weekend_tpu_torch/csrc/megakernel.cuh",
+            "replaces": "raytracer_weekend_tpu/ops/pallas/megakernel.py:227",
+            "launches": launches[kernel],
+            "max_abs_err": stats["max_abs_err"],
+            "ms": ms,
+            "event_ms": ev,
+            "wrapper_ms": wrapper[kernel],
+            "plain_ms": plain_ms,
+        }, *forward_work(nl, cf.max_depth, phase_segs, static.n_spheres,
+                         static.n_rects + static.n_triangles, defer=True,
+                         V=static.n_volumes,
+                         phase_lanes=nl if st_in is None else 2 * nl)))
+    return rows
 
 
 def volume_training(dev, smi, smokey):

@@ -45,11 +45,12 @@ cudaError_t launch_modes(const float* tab, const float* ptab,
       tab, ptab, ptest, par, L, X, rad, seg, nullptr, rec, st, occ);
 }
 
-// The persistent single passes' operands (sphere_kernel, media_kernel):
-// the packed sphere rows (n_spheres x 3 float4), for sphere_kernel 1/0 to
-// keep them in shared memory or not (-1: by kSphereRowLimit), the launch's
-// lane counter (zeroed) and, for sphere_kernel, the records as one
-// (n_chunk x max_depth) array of 32-byte rows, or null.
+// The persistent kernels' operands (sphere_kernel, media_kernel): the
+// packed sphere rows (n_spheres x 3 float4), for sphere_kernel 1/0 to keep
+// them in shared memory or not (-1: by kSphereRowLimit), the launch's lane
+// counter (zeroed; null for a launch on render_kernel) and, for
+// sphere_kernel, the records as one (n_chunk x max_depth) array of 32-byte
+// rows, or null.
 struct SphereOps {
   const float4* rows;
   int resident;
@@ -61,7 +62,7 @@ cudaError_t dispatch(const float* tab, const float* ptab, const float4* ptest,
                      const float* par, const Launch& L, const Extra& X,
                      float* rad, int* seg, int* codes, const Records& rec,
                      const SphereOps& P, bool defer, bool vol, bool phase,
-                     cudaStream_t st, int* occ) {
+                     bool refill, cudaStream_t st, int* occ) {
   if (!vol && !phase && L.n_planar == 0) {
     if (codes && defer)
       return launch_spheres<true, true>(tab, P.rows, par, L, P.resident, rad,
@@ -77,19 +78,35 @@ cudaError_t dispatch(const float* tab, const float* ptab, const float4* ptest,
     return launch_spheres<false, false>(tab, P.rows, par, L, P.resident, rad,
                                         seg, codes, P.recs, P.next, st, occ);
   }
-  if (vol && !phase) {
+  // A phased launch with media at one lane a ray that the caller sends to
+  // media_kernel (`refill`) refills dead lanes there; the others stay on
+  // render_kernel.
+  if (vol && (!phase || refill)) {
     const MediaTables T{X.vtab, P.rows, ptest};
+    if (phase) {  // phases emit no codes
+      if (defer)
+        return launch_media<false, true, true>(tab, ptab, T, par, L, X, rad,
+                                               seg, codes, rec, P.next, st,
+                                               occ);
+      return launch_media<false, false, true>(tab, ptab, T, par, L, X, rad,
+                                              seg, codes, rec, P.next, st,
+                                              occ);
+    }
     if (codes && defer)
-      return launch_media<true, true>(tab, ptab, T, par, L, X, rad, seg,
-                                      codes, rec, P.next, st, occ);
+      return launch_media<true, true, false>(tab, ptab, T, par, L, X, rad,
+                                             seg, codes, rec, P.next, st,
+                                             occ);
     if (codes)
-      return launch_media<true, false>(tab, ptab, T, par, L, X, rad, seg,
-                                       codes, rec, P.next, st, occ);
+      return launch_media<true, false, false>(tab, ptab, T, par, L, X, rad,
+                                              seg, codes, rec, P.next, st,
+                                              occ);
     if (defer)
-      return launch_media<false, true>(tab, ptab, T, par, L, X, rad, seg,
-                                       codes, rec, P.next, st, occ);
-    return launch_media<false, false>(tab, ptab, T, par, L, X, rad, seg,
-                                      codes, rec, P.next, st, occ);
+      return launch_media<false, true, false>(tab, ptab, T, par, L, X, rad,
+                                              seg, codes, rec, P.next, st,
+                                              occ);
+    return launch_media<false, false, false>(tab, ptab, T, par, L, X, rad,
+                                             seg, codes, rec, P.next, st,
+                                             occ);
   }
   if (vol)
     return launch_modes<true, true>(tab, ptab, ptest, par, L, X, rad, seg,
@@ -128,14 +145,16 @@ extern "C" {
 // keeps the rows in shared memory or not, -1 leaves it to the row count.
 // A single pass with media (no `st_out`) is media_kernel's: it reads
 // `srows` too (when n_spheres > 0), claims lanes from `next` and defers
-// into ctb, abc and dcode; `resident` is -1 there and in every other
-// launch.
+// into ctb, abc and dcode; so is a phased launch with media at `group` 1
+// given `refill` 1 (with 0, render_kernel's; `refill` is 0 in every other
+// launch); `resident` is -1 there and in every other launch.
 // Returns the launch's CUDA error (0 on success); it does not sync.
 int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                      const float* ptest, int n_planar, const float* vtab,
                      int n_volumes, const float* par, long long lane_start,
                      int n_chunk, int width, int height, int spp,
-                     int max_depth, int d0, int group, float t_min,
+                     int max_depth, int d0, int group, int refill,
+                     float t_min,
                      unsigned int seed, int log10, float* rad, int* seg,
                      int* codes, float* ctb, float* abc, int* dcode,
                      const float* st_in, const int* gid, float* st_out,
@@ -152,7 +171,9 @@ int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
                   next == nullptr || resident < -1 || resident > 1 ||
                   ctb != nullptr || ((uintptr_t)recs & 15) != 0))
     return (int)cudaErrorInvalidValue;
-  const bool media = vol && !phase;
+  if (refill != 0 && (refill != 1 || !vol || !phase || group != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool media = vol && (!phase || refill);
   if (media && (next == nullptr || recs != nullptr ||
                 (n_spheres > 0 && (srows == nullptr ||
                                    ((uintptr_t)srows & 15) != 0))))
@@ -180,14 +201,15 @@ int rtw_render_fused(const float* tab, int n_spheres, const float* ptab,
   return (int)rtw::dispatch(tab, ptab,
                             reinterpret_cast<const float4*>(ptest), par, L,
                             X, rad, seg, codes, rec, P, defer, vol, phase,
-                            (cudaStream_t)stream, nullptr);
+                            refill != 0, (cudaStream_t)stream, nullptr);
 }
 
 // Resident blocks per SM (into *blocks) of the launch without codes that
 // the scene's families select (`defer` for a deferring scene, `phase` for
 // a phased one), at its shared memory: for a sphere-only single pass, that
 // of n_spheres packed rows when they fit kSphereRowLimit; for a media
-// single pass, media_kernel's (no shared memory).
+// single pass, media_kernel's (no shared memory); for a phased launch,
+// render_kernel's, whose resident threads set each phase's lanes a ray.
 int rtw_render_occupancy(int n_spheres, int n_planar, int n_volumes,
                          int defer, int phase, int* blocks) {
   rtw::Launch L{};
@@ -200,7 +222,8 @@ int rtw_render_occupancy(int n_spheres, int n_planar, int n_volumes,
   const rtw::SphereOps P{nullptr, -1, nullptr, nullptr};
   return (int)rtw::dispatch(nullptr, nullptr, nullptr, nullptr, L, X,
                             nullptr, nullptr, nullptr, rec, P, defer != 0,
-                            n_volumes > 0, phase != 0, nullptr, blocks);
+                            n_volumes > 0, phase != 0, false, nullptr,
+                            blocks);
 }
 
 // The planar prefilter plane_candidate on n (num, den, best) triples at

@@ -106,7 +106,11 @@
 //   their own kernel too, media_kernel below, on sphere_kernel's scheme:
 //   persistent warps that refill dead lanes, the volume, sphere and planar
 //   tables read from global memory through L1 and L2 (see the note above
-//   media_kernel). render_kernel keeps media for the phased launches only.
+//   media_kernel). So are the phased launches with media at one lane a ray
+//   (G = 1: a phase whose live lanes fill the card, book2's first phase at
+//   full frame), with phase I/O (kPhase): there a block walking its 128
+//   lanes in lockstep left over half its lane-bounces to dead lanes.
+//   render_kernel keeps media for the phased launches at G > 1 only.
 // - The planar loop (K3, every launch with planar rows): the block stages
 //   the packed plane rows (nx, ny, nz, k), one float4 each, in 512-row
 //   tiles of dynamic shared memory by cp.async, double-buffered, so the
@@ -128,7 +132,12 @@
 //   rank then shades and scatters the same bits (keyed on seed, ray id and
 //   absolute depth) and rank 0 writes. The tail of a deep render (a few
 //   thousand long paths) then fills the card. Bound: the first phase as
-//   K3's loop; the tail by the merges and the redundant shading.
+//   K3's loop; the tail by the merges and the redundant shading. A phase
+//   at G = 1 with media is media_kernel's (above); the grouped tail keeps
+//   the block walk, since a group's ranks must stay in one warp through
+//   every shuffle, and without media the phased launches stay here too:
+//   media_kernel's arithmetic is written to be bitwise only the kVol
+//   instantiations'.
 // - The families share one running closest t, so the planar loop starts
 //   from the sphere winner and strict `<` keeps the sphere on an exact tie
 //   and the lowest index among planar ties, as argmin and the family merge
@@ -1365,6 +1374,15 @@ cudaError_t launch_spheres(const float* tab, const float4* rows,
 // rows; the shading) and the lanes of a warp taking different branches
 // (medium or surface, each medium hit or missed), not the walk or the
 // tables: the probe's parts together were worth ~10% on smokey.
+// With kPhase it runs the phased launches with media at one lane a ray
+// (K6b at G = 1; the grouped launches keep render_kernel): a claim indexes
+// the phase's lane list, a slot resumes its lane from the state in or
+// casts its primary ray, runs bounces d0 .. d0 + max_depth - 1 keyed on
+// the absolute depth, and on the lane's end (dead, or the phase's bounces
+// spent) writes its radiance, segments, zero record tail and state at its
+// own index, as render_kernel's kPhase arm does, and refills the slot. On
+// book2 that is the first phase of a whole frame, ~71% of its segments
+// (PERF.md §5), which render_kernel's block walk ran at ~40% lane use.
 // Each lane's arithmetic and random keys are render_kernel's kVol
 // instantiations', with every add and multiply those fused into an FMA
 // (read from their SASS, nvdisasm with line information) written out with
@@ -1388,20 +1406,29 @@ struct MediaTables {
 
 // The slot's lane has ended after `nseg` bounces with radiance (rr, rg,
 // rb): its outputs and the zero tail of its codes and records; the slot is
-// freed.
-template <bool kEmit, bool kDefer>
+// freed. With kPhase, `nseg` counts this launch's bounces: the lane's
+// segments add those of its state in, and it writes its state out (o, d,
+// throughput as of its last bounce, `alive` when the phase's bounces ran
+// out first), as render_kernel's phased instantiations write theirs.
+template <bool kEmit, bool kDefer, bool kPhase>
 __device__ __forceinline__ void media_end(Lane& y, int nseg, float rr,
                                           float rg, float rb, const Launch& L,
+                                          const Extra& X,
                                           float* __restrict__ rad,
                                           int* __restrict__ seg,
                                           int* __restrict__ codes,
-                                          const Records& rec) {
+                                          const Records& rec,
+                                          bool alive = false) {
   const long long i = y.i;
   const int D = L.max_depth;
   rad[3 * i + 0] = rr;
   rad[3 * i + 1] = rg;
   rad[3 * i + 2] = rb;
-  seg[i] = nseg;
+  int total = nseg;
+  if constexpr (kPhase) {
+    if (X.st_in != nullptr) total += (int)X.st_in[i * N_STATE + S_SEG];
+  }
+  seg[i] = total;
   if constexpr (kEmit) {
     for (int k = nseg; k < D; ++k) codes[i * D + k] = 0;
   }
@@ -1409,13 +1436,25 @@ __device__ __forceinline__ void media_end(Lane& y, int nseg, float rr,
     for (int k = nseg; k < D; ++k)
       put_record(rec, i * D + k, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0);
   }
+  if constexpr (kPhase) {
+    float* __restrict__ so = X.st_out + i * N_STATE;
+    so[S_OX] = y.ox; so[S_OY] = y.oy; so[S_OZ] = y.oz;
+    so[S_DX] = y.dx; so[S_DY] = y.dy; so[S_DZ] = y.dz;
+    so[S_TPR] = y.tpr; so[S_TPG] = y.tpg; so[S_TPB] = y.tpb;
+    so[S_RR] = rr; so[S_RG] = rg; so[S_RB] = rb;
+    so[S_TIME] = y.time;
+    so[S_ALIVE] = alive ? 1.f : 0.f;
+    so[S_SEG] = (float)total;
+  }
   y.i = -1;
 }
 
 // One bounce of a live slot's lane: the closest sphere, planar primitive
 // and medium scatter, then the miss, the isotropic scatter or the surface's
 // hit record, texture, record and scatter (render_kernel's kVol branch).
-template <bool kEmit, bool kDefer>
+// With kPhase, y.k counts this launch's bounces; the random numbers key on
+// the lane's global id and the absolute depth d0 + y.k.
+template <bool kEmit, bool kDefer, bool kPhase>
 __device__ __forceinline__ void media_bounce(
     Lane& y, const MediaTables& T, const float* __restrict__ tab,
     const float* __restrict__ ptab, const float* __restrict__ par,
@@ -1425,8 +1464,12 @@ __device__ __forceinline__ void media_bounce(
   const int S = L.n_spheres;
   const int R = L.n_planar;
   const long long at = (long long)y.i * L.max_depth + k;
-  const uint32_t rid = (uint32_t)(L.lane_start + y.i);
-  const uint32_t depth = (uint32_t)k;
+  uint32_t rid = (uint32_t)(L.lane_start + y.i);
+  uint32_t depth = (uint32_t)k;
+  if constexpr (kPhase) {
+    if (X.gid != nullptr) rid = (uint32_t)X.gid[y.i];
+    depth = (uint32_t)(X.d0 + k);
+  }
   const float dy2 = __fmul_rn(y.dy, y.dy);
   const float a = __fmaf_rn(y.dz, y.dz, __fmaf_rn(y.dx, y.dx, dy2));
 
@@ -1548,10 +1591,10 @@ __device__ __forceinline__ void media_bounce(
     if constexpr (kDefer)
       put_record(rec, at, __fmul_rn(y.tpr, br), __fmul_rn(y.tpg, bg),
                  __fmul_rn(y.tpb, bb), 0.f, 0.f, 0.f, 0);
-    media_end<kEmit, kDefer>(y, k + 1, __fmaf_rn(y.tpr, br, 0.f),
-                             __fmaf_rn(y.tpg, bg, 0.f),
-                             __fmaf_rn(y.tpb, bb, 0.f), L, rad, seg, codes,
-                             rec);
+    media_end<kEmit, kDefer, kPhase>(y, k + 1, __fmaf_rn(y.tpr, br, 0.f),
+                                     __fmaf_rn(y.tpg, bg, 0.f),
+                                     __fmaf_rn(y.tpb, bb, 0.f), L, X, rad,
+                                     seg, codes, rec);
     return;
   }
 
@@ -1652,10 +1695,10 @@ __device__ __forceinline__ void media_bounce(
                  emits ? __fmul_rn(y.tpb, tb) : 0.f, ra, rb, rc, dcode);
     }
     if (mtype == 3.0f) {  // diffuse light: emit tp * tex and stop
-      media_end<kEmit, kDefer>(y, k + 1, __fmaf_rn(y.tpr, tr, 0.f),
-                               __fmaf_rn(y.tpg, tg, 0.f),
-                               __fmaf_rn(y.tpb, tb, 0.f), L, rad, seg, codes,
-                               rec);
+      media_end<kEmit, kDefer, kPhase>(y, k + 1, __fmaf_rn(y.tpr, tr, 0.f),
+                                       __fmaf_rn(y.tpg, tg, 0.f),
+                                       __fmaf_rn(y.tpb, tb, 0.f), L, X, rad,
+                                       seg, codes, rec);
       return;
     }
     const float len = sqrtf(__fadd_rn(a, 1e-20f));  // normalize(d, 1e-20)
@@ -1703,8 +1746,8 @@ __device__ __forceinline__ void media_bounce(
                     __fmaf_rn(-u2, ny, uy));
     ndz = __fmaf_rn(fuzz, __fmul_rn(b.z, br), __fmaf_rn(-u2, nz, uz));
     if (!(__fmaf_rn(nz, ndz, __fmaf_rn(nx, ndx, __fmul_rn(ny, ndy))) > 0.f)) {
-      media_end<kEmit, kDefer>(y, k + 1, 0.f, 0.f, 0.f, L, rad, seg, codes,
-                               rec);
+      media_end<kEmit, kDefer, kPhase>(y, k + 1, 0.f, 0.f, 0.f, L, X, rad,
+                                       seg, codes, rec);
       return;
     }
     y.tpr = __fmul_rn(y.tpr, tr);
@@ -1758,18 +1801,24 @@ __device__ __forceinline__ void media_bounce(
   y.dy = ndy;
   y.dz = ndz;
   y.k = k + 1;
-  if (y.k == L.max_depth)
-    media_end<kEmit, kDefer>(y, L.max_depth, 0.f, 0.f, 0.f, L, rad, seg,
-                             codes, rec);
+  if (y.k == L.max_depth)  // alive when a phase's bounces run out
+    media_end<kEmit, kDefer, kPhase>(y, L.max_depth, 0.f, 0.f, 0.f, L, X,
+                                     rad, seg, codes, rec, kPhase);
 }
 
-template <bool kEmit, bool kDefer>
+// With kPhase (the phased launches at one lane a ray), a claim indexes the
+// phase's lane list: with a state in, the slot resumes that lane from it
+// (a lane that comes in dead ends at once, its state passed on), else it
+// casts the lane's primary ray; the lane ends when it dies or when the
+// phase's bounces run out, and writes its state at its own index.
+template <bool kEmit, bool kDefer, bool kPhase>
 __global__ void __launch_bounds__(kMediaBlock, 1)
 media_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
              MediaTables T, const float* __restrict__ par, Launch L,
              Extra X, float* __restrict__ rad, int* __restrict__ seg,
              int* __restrict__ codes, Records rec,
              unsigned* __restrict__ next) {
+  static_assert(!(kPhase && kEmit), "phases emit no codes");
   constexpr unsigned kAll = 0xffffffffu;
   const unsigned below = (1u << (threadIdx.x & 31u)) - 1u;
   Lane y{-1, 0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1783,30 +1832,58 @@ media_kernel(const float* __restrict__ tab, const float* __restrict__ ptab,
         base = __shfl_sync(kAll, base, 0);
         const unsigned id = base + __popc(m & below);
         if (y.i < 0 && id < (unsigned)L.n_chunk) {
-          cast_primary(y, (int)id, par, L);
-          if (L.max_depth < 1)  // no bounce: rad 0, seg 0
-            media_end<kEmit, kDefer>(y, 0, 0.f, 0.f, 0.f, L, rad, seg, codes,
-                                     rec);
+          if constexpr (kPhase) {
+            if (X.st_in == nullptr) {
+              cast_primary(y, (int)id, par, L);
+            } else {  // the state the previous phase wrote
+              const float* __restrict__ st =
+                  X.st_in + (long long)id * N_STATE;
+              y.i = (int)id;
+              y.k = 0;
+              y.ox = st[S_OX]; y.oy = st[S_OY]; y.oz = st[S_OZ];
+              y.dx = st[S_DX]; y.dy = st[S_DY]; y.dz = st[S_DZ];
+              y.tpr = st[S_TPR]; y.tpg = st[S_TPG]; y.tpb = st[S_TPB];
+              y.time = st[S_TIME];
+              if (!(st[S_ALIVE] > 0.f))
+                media_end<kEmit, kDefer, kPhase>(y, 0, st[S_RR], st[S_RG],
+                                                 st[S_RB], L, X, rad, seg,
+                                                 codes, rec);
+            }
+            if (y.i >= 0 && L.max_depth < 1)  // no bounce: still alive
+              media_end<kEmit, kDefer, kPhase>(y, 0, 0.f, 0.f, 0.f, L, X,
+                                               rad, seg, codes, rec, true);
+          } else {
+            cast_primary(y, (int)id, par, L);
+            if (L.max_depth < 1)  // no bounce: rad 0, seg 0
+              media_end<kEmit, kDefer, kPhase>(y, 0, 0.f, 0.f, 0.f, L, X,
+                                               rad, seg, codes, rec);
+          }
         }
         if (base + __popc(m) >= (unsigned)L.n_chunk) more = false;
       }
     }
-    if (!__any_sync(kAll, y.i >= 0)) break;
+    if (!__any_sync(kAll, y.i >= 0)) {
+      // Lanes that came in dead leave their slots empty: claim again.
+      if constexpr (kPhase) {
+        if (more) continue;
+      }
+      break;
+    }
     if (y.i >= 0)
-      media_bounce<kEmit, kDefer>(y, T, tab, ptab, par, L, X, rad, seg, codes,
-                                  rec);
+      media_bounce<kEmit, kDefer, kPhase>(y, T, tab, ptab, par, L, X, rad,
+                                          seg, codes, rec);
   }
 }
 
 // One media launch on the resident blocks (or, with `occ`, the resident
 // blocks per SM).
-template <bool kEmit, bool kDefer>
+template <bool kEmit, bool kDefer, bool kPhase>
 cudaError_t launch_media(const float* tab, const float* ptab,
                          const MediaTables& T, const float* par,
                          const Launch& L, const Extra& X, float* rad,
                          int* seg, int* codes, const Records& rec,
                          unsigned* next, cudaStream_t stream, int* occ) {
-  const auto kernel = media_kernel<kEmit, kDefer>;
+  const auto kernel = media_kernel<kEmit, kDefer, kPhase>;
   int blocks = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, kernel, kMediaBlock, 0);
@@ -1830,17 +1907,20 @@ cudaError_t launch_media(const float* tab, const float* ptab,
   return cudaGetLastError();
 }
 
-// The instantiations megakernel_media.cu compiles.
-#define RTW_MEDIA_LAUNCHER(PREFIX, E, D)                                    \
-  PREFIX template cudaError_t launch_media<E, D>(                           \
+// The instantiations megakernel_media.cu compiles: the single passes, and
+// the phased launches at one lane a ray (no codes).
+#define RTW_MEDIA_LAUNCHER(PREFIX, E, D, P)                                 \
+  PREFIX template cudaError_t launch_media<E, D, P>(                        \
       const float*, const float*, const MediaTables&, const float*,         \
       const Launch&, const Extra&, float*, int*, int*, const Records&,      \
       unsigned*, cudaStream_t, int*);
 #define RTW_MEDIA_LAUNCHERS(PREFIX)                                         \
-  RTW_MEDIA_LAUNCHER(PREFIX, false, false)                                  \
-  RTW_MEDIA_LAUNCHER(PREFIX, false, true)                                   \
-  RTW_MEDIA_LAUNCHER(PREFIX, true, false)                                   \
-  RTW_MEDIA_LAUNCHER(PREFIX, true, true)
+  RTW_MEDIA_LAUNCHER(PREFIX, false, false, false)                           \
+  RTW_MEDIA_LAUNCHER(PREFIX, false, true, false)                            \
+  RTW_MEDIA_LAUNCHER(PREFIX, true, false, false)                            \
+  RTW_MEDIA_LAUNCHER(PREFIX, true, true, false)                             \
+  RTW_MEDIA_LAUNCHER(PREFIX, false, false, true)                            \
+  RTW_MEDIA_LAUNCHER(PREFIX, false, true, true)
 
 // One launch of render_kernel with the geometry flags of the scene's
 // families: (kSph, !kPla), (!kSph, kPla) or both; with media (kVol) always

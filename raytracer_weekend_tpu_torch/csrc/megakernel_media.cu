@@ -1,7 +1,7 @@
-// The fused forward kernel's single-pass media launches (media_kernel: K5,
-// K5-emit, and K6a's records on media scenes), compiled apart from
-// megakernel.cu and megakernel_vp.cu so that the three build in parallel;
-// the kernel is csrc/megakernel.cuh.
+// The fused forward kernel's launches on media_kernel (K5, K5-emit, K6a's
+// records on media scenes, and K6b's phased launches with media at one lane
+// a ray), compiled apart from megakernel.cu and megakernel_vp.cu so that
+// the three build in parallel; the kernel is csrc/megakernel.cuh.
 #include "megakernel.cuh"
 
 namespace rtw {

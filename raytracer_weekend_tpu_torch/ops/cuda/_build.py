@@ -113,9 +113,9 @@ def _load() -> ctypes.CDLL:
     """The source hash, a build if stale, the load and the signatures."""
     lib = ctypes.CDLL(str(build()))
     lib.rtw_render_fused.argtypes = [_P, _I, _P, _P, _I, _P, _I, _P,
-                                     _LL, _I, _I, _I, _I, _I, _I, _I, _F,
-                                     _U, _I, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _P, _I, _P, _P, _P]
+                                     _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _F, _U, _I, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _I, _P, _P, _P]
     lib.rtw_render_fused.restype = _I
     lib.rtw_render_occupancy.argtypes = [_I, _I, _I, _I, _I, _P]
     lib.rtw_render_occupancy.restype = _I

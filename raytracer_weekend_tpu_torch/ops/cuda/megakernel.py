@@ -49,7 +49,9 @@ SPHERE_RAYS lane slots (one) against the packed sphere rows
 32-byte row a record. The single pass of a scene with media (K5, K5-emit,
 and K6a's records there) is the kernel's `media_kernel`: the same
 persistent warps, one lane slot a thread, over the volume table, the
-packed sphere rows and the packed planar rows read from global memory.
+packed sphere rows and the packed planar rows read from global memory. So
+is a phased launch of a scene with media at one lane a ray (G = 1), with
+phase I/O: its slots refill as lanes die or spend the phase's bounces.
 `fused_kernel` names the kernel a launch takes; `claim_order` is the plain
 twin of both persistent kernels' work order, for the CPU tests.
 
@@ -78,16 +80,18 @@ from raytracer_weekend_tpu_torch.utils import metrics
 # Launches of the CUDA kernel in this process, without and with the winner
 # codes, those whose scene has planar primitives (the planar branch, with or
 # without codes), those in deferred-texture mode (K6a, with or without
-# codes), those whose scene has media (K5) and those with phase I/O (K6b).
-# Only the launch in `_launch` adds to them. The sphere-only single pass
-# (no planar rows, media or phases: K1, K1-emit, K6a on sphere scenes) is
-# csrc/megakernel.cuh's `sphere_kernel`; the others are `render_kernel`.
+# codes), those whose scene has media (K5), those with phase I/O (K6b) and,
+# of these, those on `media_kernel`'s refilling warps. Only the launch in
+# `_launch` adds to them. The sphere-only single pass (no planar rows, media
+# or phases: K1, K1-emit, K6a on sphere scenes) is csrc/megakernel.cuh's
+# `sphere_kernel`; which kernel every launch takes is `fused_kernel`'s.
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
 PLANAR_LAUNCHES = 0
 DEFER_LAUNCHES = 0
 VOL_LAUNCHES = 0
 PHASE_LAUNCHES = 0
+REFILL_LAUNCHES = 0
 
 # Rows of the sphere table, in the order of `enum Row` in csrc/megakernel.cuh.
 TABLE_ROWS = (
@@ -163,16 +167,22 @@ def defers(static: SceneStatic) -> bool:
     return bool(static.has_noise or static.has_image)
 
 
-def fused_kernel(n_planar: int, n_volumes: int, phase: bool) -> str:
+def fused_kernel(n_planar: int, n_volumes: int, phase: bool,
+                 group: int | None = None) -> str:
     """The kernel of csrc/megakernel.cuh that a fused launch takes
     (`dispatch` in csrc/megakernel.cu): "sphere_kernel" for a single pass
-    over spheres alone, "media_kernel" for a single pass with media, else
-    "render_kernel" (a single pass with planar rows and no media, and every
-    phased launch)."""
+    over spheres alone, "media_kernel" for a launch with media that is a
+    single pass or a phased launch at `group` 1 (one lane a ray: its live
+    lanes fill the card, and its slots refill), else "render_kernel" (a
+    single pass with planar rows and no media, a phased launch without
+    media, and every phased launch at G > 1). A phased launch states its
+    group."""
+    if phase and group is None:
+        raise ValueError("a phased launch's kernel depends on its group")
+    if n_volumes and (not phase or group == 1):
+        return "media_kernel"
     if phase:
         return "render_kernel"
-    if n_volumes:
-        return "media_kernel"
     return "render_kernel" if n_planar else "sphere_kernel"
 
 
@@ -509,7 +519,7 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
             lane_start: int, n_chunk: int, seed, static: SceneStatic, *,
             emit_paths: bool = False, phase: bool = False, state=None,
             lanes=None, d0: int = 0, tables=None, group: int = 1,
-            resident: bool | None = None):
+            resident: bool | None = None, kernel: str | None = None):
     """One launch of the CUDA kernel -> (rad, seg, [codes], [ctb, abc,
     dcode], [state]). With `phase` it runs bounces d0 .. d0 + max_depth - 1
     with `group` lanes per ray (a power of two up to 32) and returns the
@@ -519,10 +529,13 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     SPHERE_ROW_LIMIT rows; `resident` True or False forces either path (a
     test hook: the two give the same bits), and its records are views of
     one (n, D, RECORD_COLS) buffer. A single pass with media is
-    `media_kernel`'s (`fused_kernel`). Raises off CUDA, outside
-    `fused_supported`, and if the build or launch fails."""
+    `media_kernel`'s, and so is a phased launch with media at `group` 1:
+    `kernel` None takes `fused_kernel`'s choice, and a phased launch may
+    name "render_kernel" instead (the caller's choice, as `_render_deep`'s
+    test hook makes it: the two give the same bits). Raises off CUDA,
+    outside `fused_supported`, and if the build or launch fails."""
     global LAUNCHES, EMIT_LAUNCHES, PLANAR_LAUNCHES, DEFER_LAUNCHES
-    global VOL_LAUNCHES, PHASE_LAUNCHES
+    global VOL_LAUNCHES, PHASE_LAUNCHES, REFILL_LAUNCHES
     device = scene.device
     if device.type != "cuda":
         raise NotImplementedError(f"no fused kernel on {device}")
@@ -558,7 +571,10 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
     if n_vol:
         _check(vtab, torch.float32, (n_vol, len(VOL_COLS)), device)
     _check(par, torch.float32, (PAR_SIZE,), device)
-    kernel = fused_kernel(n_planar, n_vol, phase)
+    routed = fused_kernel(n_planar, n_vol, phase, group)
+    kernel = kernel or routed
+    if kernel != routed and not (phase and kernel == "render_kernel"):
+        raise ValueError(f"this launch takes {routed}, not {kernel}")
     spheres, media = kernel == "sphere_kernel", kernel == "media_kernel"
     if resident is not None and not spheres:
         raise ValueError("resident applies to the sphere-only single pass")
@@ -600,7 +616,7 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
             ptr(tab), n_spheres, ptr(ptab), ptr(ptest), n_planar, ptr(vtab),
             n_vol, par.data_ptr(), lane_start, n_chunk, cfg.width,
             cfg.height, cfg.samples_per_pixel, D, int(d0), int(group),
-            float(cfg.t_min),
+            int(phase and media), float(cfg.t_min),
             int(seed) & 0xFFFFFFFF, int(cfg.use_log10_volume_sampling),
             rad.data_ptr(), seg.data_ptr(), ptr(codes),
             *((None,) * 3 if spheres else map(ptr, recs)),
@@ -617,6 +633,8 @@ def _launch(scene: SceneData, cfg: RenderConfig, cam: Camera,
         VOL_LAUNCHES += 1
     if phase:
         PHASE_LAUNCHES += 1
+    if phase and media:
+        REFILL_LAUNCHES += 1
     if emit_paths:
         EMIT_LAUNCHES += 1
     else:
@@ -677,7 +695,9 @@ def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
     spared XLA recompiles: here each phase runs on exactly the live lanes.
     Each launch runs a group of G lanes per ray (`phase_group`: the
     smallest G for which the live lanes fill the card's resident threads),
-    so that the tail of few long paths still fills the card.
+    so that the tail of few long paths still fills the card. A launch at
+    G = 1 of a scene with media runs on `media_kernel`'s persistent warps,
+    which refill a lane slot as soon as its lane ends (`fused_kernel`).
     On the CPU, or with `plain`, each phase is `phase_reference`.
     """
     return _render_deep(scene, cfg, cam, lane_start, n_chunk, seed,
@@ -689,11 +709,12 @@ def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
                  lane_start: int, n_chunk: int, seed, *, static: SceneStatic,
                  phase_len: int = PHASE_LEN, plain: bool = False,
                  live_counts: list | None = None, group: int | None = None,
-                 phases: list | None = None):
+                 phases: list | None = None, refill: bool = True):
     """`render_fused_deep`, with `group` forcing every launch's lanes per
-    ray, and `phases` (a list) getting one dict per launch: its d0, lanes,
-    group, config and inputs (state and lane ids, None for the first), from
-    which the same launch can be run again."""
+    ray, `refill` False keeping every launch on render_kernel (a test hook:
+    the same bits), and `phases` (a list) getting one dict per launch: its
+    d0, lanes, group, kernel, config and inputs (state and lane ids, None
+    for the first), from which the same launch can be run again."""
     with metrics.span("rtw.fused.deep"):
         dev = scene.device
         plain = plain or dev.type == "cpu"
@@ -704,6 +725,7 @@ def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
         tables = None if plain else build_tables(scene, static, cam)
         resident = (None if plain or group is not None
                     else resident_threads(static, dev))
+        n_planar = static.n_rects + static.n_triangles
         rad_bank = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         seg_bank = torch.zeros((n,), dtype=torch.int32, device=dev)
         slots = torch.arange(n, device=dev)      # bank slot of each lane
@@ -720,14 +742,20 @@ def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
                                       seed, static=static)
             else:
                 g = group or phase_group(lanes.shape[0], resident)
+                kernel = (fused_kernel(n_planar, static.n_volumes, True, g)
+                          if refill else "render_kernel")
+                if kernel == "media_kernel":
+                    metrics.count("refill_lane_bounces",
+                                  lanes.shape[0] * cfg_p.max_depth)
                 ids = None if state is None else lanes
                 if phases is not None:
                     phases.append(dict(d0=d0, lanes=lanes.shape[0], group=g,
-                                       cfg=cfg_p, state=state, ids=ids))
+                                       kernel=kernel, cfg=cfg_p, state=state,
+                                       ids=ids))
                 out = _launch(scene, cfg_p, cam, lane_start,
                               lanes.shape[0], seed, static, phase=True,
                               state=state, lanes=ids, d0=d0, tables=tables,
-                              group=g)
+                              group=g, kernel=kernel)
             rad, seg, *recs, st = out
             if defer:
                 acc = combine_deferred(scene.textures, *recs,
@@ -792,8 +820,9 @@ def resident_blocks(static: SceneStatic, device: torch.device,
 
 
 def resident_threads(static: SceneStatic, device: torch.device) -> int:
-    """Threads the card keeps resident for the scene's phased launch:
-    `resident_blocks` x SMs x BLOCK."""
+    """Threads the card keeps resident for the scene's phased launch on
+    render_kernel, against which `phase_group` sets each phase's lanes a
+    ray: `resident_blocks` x SMs x BLOCK."""
     device = torch.device(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return resident_blocks(static, device) * sms * BLOCK
@@ -812,9 +841,10 @@ def claim_order(segments, warps: int, rays: int = SPHERE_RAYS,
                 seed: int = 0):
     """Plain twin of the work order of `sphere_kernel` and (with rays=1,
     its one lane slot a thread) `media_kernel` over a window whose lane i
-    runs segments[i] bounces -> (order (n,) int64: the lanes in the order
-    they were claimed; owner (n, 3) int64: the warp, thread and slot that
-    ran each lane).
+    runs segments[i] bounces (in a phased launch, the bounces it runs in
+    the phase: at most the phase's length) -> (order (n,) int64: the lanes
+    in the order they were claimed; owner (n, 3) int64: the warp, thread
+    and slot that ran each lane).
 
     `warps` warps of 32 threads, `rays` lane slots a thread, take turns in
     a random order each round (`seed`), as resident warps interleave on the

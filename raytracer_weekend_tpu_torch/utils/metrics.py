@@ -22,6 +22,7 @@ The program's spans and counters, each read by a metric of `rtbench`:
   rtw.deep.sync         a phase's live count, the host's wait on the card
   segments              render_image: each chunk's per-lane segments
   phase_lane_bounces    each phased launch's lanes x its bounces
+  refill_lane_bounces   the same, of the launches on media_kernel (refill)
   rtw.setup.library     _build.load_library's first call
   rtw.setup.scene       scene.builder.build_scene
 """

@@ -869,6 +869,84 @@ def test_deep_render_groups_match_single_pass(cuda, name):
                    group=3)
 
 
+
+@pytest.mark.parametrize("name", ["book2_final_scene", "smokey_cornell_box"])
+def test_deep_render_refill_matches(cuda, name):
+    """K6b's phased launches with media at one lane a ray on media_kernel
+    (slots refilled as lanes die): at depth 50 with G forced to 1, bitwise
+    the single pass, and the same phased render kept on render_kernel; each
+    phase launched again from its inputs on either kernel gives the same
+    radiance, segments, records and state; `refill_lane_bounces` counts
+    every refill launch's lanes x bounces and REFILL_LAUNCHES its launches,
+    and nothing on render_kernel; no launch takes a kernel its route does
+    not allow."""
+    from raytracer_weekend_tpu_torch.utils import metrics
+
+    scene, static, cfg, cam = _frame(name, cuda, width=40, height=22,
+                                     samples_per_pixel=4, max_depth=50)
+    n = cfg.n_rays
+    want = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed, static=static,
+                           deep=False)
+    runs = {}
+    for refill in (True, False):
+        phases = []
+        mk.REFILL_LAUNCHES = 0
+        metrics.reset_counters()
+        with metrics.tracing():
+            got = mk._render_deep(scene, cfg, cam, 0, n, cfg.seed,
+                                  static=static, group=1, phases=phases,
+                                  refill=refill)
+        counts = metrics.counters()
+        metrics.reset_counters()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), refill
+        assert len(phases) >= 2
+        kernel = "media_kernel" if refill else "render_kernel"
+        assert all(ph["kernel"] == kernel for ph in phases)
+        bounces = sum(ph["lanes"] * ph["cfg"].max_depth for ph in phases)
+        assert counts["phase_lane_bounces"] == bounces
+        assert counts.get("refill_lane_bounces", 0) == (bounces if refill
+                                                        else 0)
+        assert mk.REFILL_LAUNCHES == (len(phases) if refill else 0)
+        runs[refill] = phases
+    tables = mk.build_tables(scene, static, cam)
+    for ph in runs[True]:
+        a, b = (mk._launch(scene, ph["cfg"], cam, 0, ph["lanes"], cfg.seed,
+                           static, phase=True, state=ph["state"],
+                           lanes=ph["ids"], d0=ph["d0"], tables=tables,
+                           group=1, kernel=kernel)
+                for kernel in ("media_kernel", "render_kernel"))
+        assert len(a) == len(b) == (6 if mk.defers(static) else 3)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), ph["d0"]
+    ph = runs[True][-1]
+    for group, kernel in ((2, "media_kernel"), (1, "sphere_kernel")):
+        with pytest.raises(ValueError):
+            mk._launch(scene, ph["cfg"], cam, 0, ph["lanes"], cfg.seed,
+                       static, phase=True, state=ph["state"],
+                       lanes=ph["ids"], d0=ph["d0"], tables=tables,
+                       group=group, kernel=kernel)
+
+
+@pytest.mark.parametrize("name", ["book2_final_scene", "smokey_cornell_box"])
+def test_deep_render_refills_at_one_lane_a_ray(cuda, name):
+    """The automatic phased render of a frame whose first phase fills the
+    card's resident threads: its launches at G = 1 take media_kernel, those
+    at G > 1 render_kernel, and the frame is the single pass bit for
+    bit."""
+    scene, static, cfg, cam = _frame(name, cuda, width=400, height=225,
+                                     samples_per_pixel=2, max_depth=50)
+    n = cfg.n_rays
+    assert n >= mk.resident_threads(static, cuda)
+    phases = []
+    got = mk._render_deep(scene, cfg, cam, 0, n, cfg.seed, static=static,
+                          phases=phases)
+    want = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed, static=static,
+                           deep=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert phases[0]["group"] == 1 and phases[-1]["group"] > 1
+    for ph in phases:
+        assert ph["kernel"] == ("media_kernel" if ph["group"] == 1
+                                else "render_kernel")
+
 # ---- the redesigned sphere-only single pass (persistent warps) ---------------
 
 @pytest.mark.parametrize("name, emit", [("jumpy_balls", False),

@@ -7,8 +7,11 @@ span, read back as `rtbench` reads a traced window. The plain depth-phased
 render (the CPU's `render_fused_deep`, reached through `render_image`) gives
 one `rtw.deep.sync` a phase boundary, a `segments` count equal to its
 segment bank's sum and a `phase_lane_bounces` count equal to each phase's
-lanes times its bounces. The staged path's count is `trace_rays`'s, and
-`build_scene` leaves its set-up span.
+lanes times its bounces, and no `refill_lane_bounces` (that counts the
+launches on the card's refilling media kernel), so `rtbench`'s
+`phase_refill_pct.render` reads nothing there and 100 x refill / phased
+lane-bounces where the counter is. The staged path's count is
+`trace_rays`'s, and `build_scene` leaves its set-up span.
 """
 
 import time
@@ -134,6 +137,31 @@ def test_phased_render_spans_and_counters(jumpy, fused_on_cpu, tmp_path):
     assert torch.equal(img[0], rad.reshape(DEEP.height, DEEP.width,
                                            DEEP.samples_per_pixel,
                                            3).sum(dim=2))
+
+
+def test_refill_share_reads_the_refill_counter():
+    from rtbench import common
+
+    reader = common.reader("phase_refill_pct.render")
+    data, static, cams = generate_scene("smokey_cornell_box", 16 / 9,
+                                        device="cpu")
+    assert static.n_volumes
+    with metrics.tracing():
+        mk.render_fused_deep(data, DEEP, cams[0], 0, DEEP.n_rays, DEEP.seed,
+                             static=static)
+    counts = metrics.counters()
+    # The plain phases launch no kernel, so none refilled.
+    assert counts["phase_lane_bounces"] > 0
+    assert "refill_lane_bounces" not in counts
+    assert reader.read({}) is None
+    with metrics.tracing():
+        metrics.count("refill_lane_bounces", DEEP.n_rays * mk.PHASE_LEN)
+    assert reader.read({}) == pytest.approx(
+        100.0 * DEEP.n_rays * mk.PHASE_LEN / counts["phase_lane_bounces"])
+    metrics.reset_counters()
+    with metrics.tracing():
+        metrics.count("refill_lane_bounces", 5)
+    assert reader.read({}) is None  # no phased launch at all
 
 
 def test_tracing_counts_the_staged_segments(jumpy):
