@@ -52,6 +52,7 @@ from raytracer_weekend_tpu_torch.camera import Camera
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.ops.cuda import megakernel, replay_bwd
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+from raytracer_weekend_tpu_torch.utils import metrics
 
 
 class _FusedDiff(torch.autograd.Function):
@@ -64,12 +65,14 @@ class _FusedDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, *leaves):
         static, cfg, lane_start, n_chunk, seed, n_scene, trees = spec
-        scene = SceneData.from_leaves(leaves[:n_scene], trees)
-        cam = Camera(*leaves[n_scene:])
-        defer = _defers(static)
-        rad, _, codes, *recs = megakernel.render_fused(
-            scene, cfg, cam, lane_start, n_chunk, seed, static=static,
-            emit_paths=True, emit_deferred=defer)
+        with metrics.span("rtw.diff.forward"):
+            metrics.count("diff_lanes", n_chunk)
+            scene = SceneData.from_leaves(leaves[:n_scene], trees)
+            cam = Camera(*leaves[n_scene:])
+            defer = _defers(static)
+            rad, _, codes, *recs = megakernel.render_fused(
+                scene, cfg, cam, lane_start, n_chunk, seed, static=static,
+                emit_paths=True, emit_deferred=defer)
         ctx.spec = spec
         ctx.n_recs = len(recs)
         ctx.save_for_backward(*recs, codes, *leaves)
@@ -77,6 +80,11 @@ class _FusedDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with metrics.span("rtw.diff.backward"):
+            return _FusedDiff._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         static, cfg, lane_start, n_chunk, seed, n_scene, trees = ctx.spec
         saved = ctx.saved_tensors
         recs, codes, leaves = (saved[:ctx.n_recs], saved[ctx.n_recs],
@@ -152,6 +160,11 @@ def combine_vjp(scene, static, recs, g, wanted_leaves):
     geometry gradient. The turbulence runs through `turbulence_diff`
     (K8 forward, K9 backward; their plain versions on the CPU).
     """
+    with metrics.span("rtw.diff.combine"):
+        return _combine_vjp(scene, static, recs, g, wanted_leaves)
+
+
+def _combine_vjp(scene, static, recs, g, wanted_leaves):
     from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb
 
     ctb, abc, dcode = recs

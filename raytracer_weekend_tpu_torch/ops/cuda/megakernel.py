@@ -338,9 +338,19 @@ def _finish(scene, static, out, emit_deferred, noise_fn=None):
         return out
     rad, seg, *rest = out
     ctb, abc, dcode = rest[-3:]
-    rad = combine(scene, static, ctb, abc, dcode, noise_fn)
+    count_records(dcode)
+    with metrics.span("rtw.diff.combine"):
+        rad = combine(scene, static, ctb, abc, dcode, noise_fn)
     return ((rad, seg) + tuple(rest[:-3])
             + ((ctb, abc, dcode) if emit_deferred else ()))
+
+
+def count_records(dcode: torch.Tensor) -> None:
+    """The counters of a deferring launch's records: `record_slots` (lanes
+    x bounces) and `live_records` (dcode != 0, summed on the device)."""
+    if metrics.on():
+        metrics.count("record_slots", dcode.numel())
+        metrics.count("live_records", dcode != 0)
 
 
 def _turbulence_k8(grad, perm, p, live):
@@ -758,6 +768,7 @@ def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
                               group=g, kernel=kernel)
             rad, seg, *recs, st = out
             if defer:
+                count_records(recs[2])
                 acc = combine_deferred(scene.textures, *recs,
                                        has_noise=static.has_noise,
                                        has_image=static.has_image,

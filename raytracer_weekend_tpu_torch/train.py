@@ -11,6 +11,13 @@ counterpart of the JAX package's `optax.multi_transform` with `set_to_zero`.
     ir = InverseRenderer(static, cfg, cam, target_image)
     scene, history = ir.fit(scene, steps=100)
 
+or step by step, with Adam's state in reach:
+
+    run = ir.start(scene)
+    for i in range(100):
+        loss = run.step()        # or run.step(seed=...): other samples
+    scene = run.scene
+
 With `rmesh` (a `parallel.mesh.RenderMesh`) every rank of the mesh runs
 the fit with the same scene: the render goes through
 `parallel.shard.render_sharded` (on a card a rays-only mesh with a scene
@@ -41,6 +48,7 @@ from raytracer_weekend_tpu_torch import integrator
 from raytracer_weekend_tpu_torch.camera import Camera
 from raytracer_weekend_tpu_torch.config import RenderConfig
 from raytracer_weekend_tpu_torch.scene.data import SceneData, SceneStatic
+from raytracer_weekend_tpu_torch.utils import metrics
 
 
 @dataclasses.dataclass
@@ -113,6 +121,14 @@ class InverseRenderer:
         return loss, [p.grad if p.grad is not None else torch.zeros_like(p)
                       for p in params]
 
+    def start(self, scene: SceneData) -> "FitRun":
+        """A fit from `scene`, stepped by the caller (`FitRun.step`). The
+        scene passed in is not modified."""
+        leaves = [t.detach().clone() for t in scene.leaves()]
+        params = [t.requires_grad_() for t in leaves if t.is_floating_point()]
+        opt = torch.optim.Adam(params, lr=self.learning_rate)
+        return FitRun(self, leaves, scene.trees, params, opt)
+
     def fit(self, scene: SceneData, steps: int = 100,
             callback: Optional[Callable] = None):
         """Run `steps` of Adam. Returns (optimized_scene, loss_history).
@@ -120,17 +136,45 @@ class InverseRenderer:
         `callback(i, loss, scene)` runs after each step with the updated
         scene. The scene passed in is not modified.
         """
-        leaves = [t.detach().clone() for t in scene.leaves()]
-        params = [t.requires_grad_() for t in leaves if t.is_floating_point()]
-        opt = torch.optim.Adam(params, lr=self.learning_rate)
+        run = self.start(scene)
         history = []
         for i in range(steps):
-            opt.zero_grad(set_to_none=True)
-            history.append(self._backward(leaves, scene.trees, params))
-            opt.step()
+            history.append(run.step())
             if callback is not None:
-                callback(i, history[-1], _detached(leaves, scene.trees))
-        return _detached(leaves, scene.trees), history
+                callback(i, history[-1], run.scene)
+        return run.scene, history
+
+
+@dataclasses.dataclass
+class FitRun:
+    """One fit in progress: the float leaves being fitted (`params`, in
+    leaf order) and their Adam (`optimizer`, whose `state[p]` holds each
+    leaf's `exp_avg` and `exp_avg_sq`)."""
+
+    renderer: InverseRenderer
+    leaves: list
+    trees: tuple
+    params: list
+    optimizer: torch.optim.Adam
+
+    def step(self, seed: Optional[int] = None) -> float:
+        """One Adam step -> the loss before it. `seed` draws the step's
+        samples (the renderer's `cfg.seed` by default)."""
+        ir = self.renderer
+        with metrics.span("rtw.fit.step"):
+            if seed is not None and seed != ir.cfg.seed:
+                ir = dataclasses.replace(
+                    ir, cfg=dataclasses.replace(ir.cfg, seed=int(seed)))
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = ir._backward(self.leaves, self.trees, self.params)
+            with metrics.span("rtw.fit.adam"):
+                self.optimizer.step()
+        return loss
+
+    @property
+    def scene(self) -> SceneData:
+        """The scene at the current parameters, detached."""
+        return _detached(self.leaves, self.trees)
 
 
 def _detached(leaves, trees) -> SceneData:

@@ -25,6 +25,15 @@ The program's spans and counters, each read by a metric of `rtbench`:
   refill_lane_bounces   the same, of the launches on media_kernel (refill)
   rtw.setup.library     _build.load_library's first call
   rtw.setup.scene       scene.builder.build_scene
+  rtw.diff.forward      fused_diff._FusedDiff.forward
+  rtw.diff.backward     fused_diff._FusedDiff.backward, whole
+  rtw.diff.combine      the forward's deferred combine (megakernel._finish)
+                        and fused_diff.combine_vjp
+  rtw.fit.step          train.FitRun.step: one step, forward through Adam
+  rtw.fit.adam          the step's optimizer.step
+  diff_lanes            lanes differentiated (each _FusedDiff.forward)
+  record_slots          lanes x bounces of each deferring launch's records
+  live_records          of those, the records with dcode != 0 (on device)
 """
 
 from __future__ import annotations
