@@ -167,6 +167,15 @@ holds each against its plain torch version first. Phases, one line each
      ms (each between two synchronizations of the card) and, on a geometry
      axis, the ms of building its slice's trees. A failed rank fails the
      phase.
+ 17. the image-only combine pair (csrc/combine.cu) on earth.fit16's
+     records (400x225, 16 spp, depth 50): the forward kernel bitwise the
+     torch loop of `combine_deferred`, the VJP kernel's g_k bitwise the
+     torch autograd's and the plain version's, its texel gradient within
+     1e-5 relative L1 of both; each launch alone, their calls, the plain
+     VJP and the torch combine they replace (forward, and under autograd
+     with its texel scatter) timed; InverseRenderer.fit for 3 Adam steps on
+     that frame, one launch of each a step (`image_combine_alone` runs
+     this phase by itself). It runs after phase 10;
 
 Then one JSON line describing each kernel (launches on the main path, max
 abs error against its plain version, ms and plain ms, the least time the
@@ -743,6 +752,7 @@ def main() -> None:
     kernels += [*k3, planar_training(dev, smi, cornell)]
     k6a, k8, frames = deferred_forward(dev, smi)
     kernels += [k6a, k8, *deferred_training(dev, smi, frames)]
+    kernels += image_combine_phase(dev, smi)
     k5, k3_book2, smokey = volume_forward(dev, smi, log)
     kernels += [k5, k3_book2, *deep_phases(dev, smi)]
     volume_training(dev, smi, smokey)
@@ -4171,6 +4181,164 @@ def mesh_phase(smi):
                   f" {json.dumps(extra)} ({smi})", flush=True)
         print(f"phase 16 {case}: {size} ranks passed in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+
+# ---- the image-only combine pair (phase 17) ---------------------------------
+
+# earth.fit16's step (rtbench's `earth` configuration, `fit16` traffic):
+# 400x225, 16 spp, depth 50.
+EARTH_FIT = dict(width=400, height=225, samples_per_pixel=16, max_depth=50,
+                 seed=11)
+# csrc/combine.cu's FP32 operations: a record's product and sum 6 (the VJP's
+# g_k 3); a live record's UV and fetch ~40 and its factor 3 (the VJP's
+# second walk: the suffix 6 a record spanned, the texel's gradient 3).
+OPS_COMBINE_RECORD, OPS_COMBINE_LIVE = 6, 43
+
+
+def image_combine_phase(dev, smi):
+    """Phase 17: the image-only combine pair (csrc/combine.cu) on
+    earth.fit16's records: the forward kernel bitwise the torch loop of
+    `combine_deferred`, the VJP kernel's g_k bitwise its torch autograd and
+    its texel gradient within 1e-5 relative L1; each launch alone, the
+    wrappers, the plain versions and the torch path they replace timed;
+    then InverseRenderer.fit for 3 Adam steps on that frame with the pair's
+    launch counts reset just before. Returns the kernels line's two
+    entries."""
+    import torch
+
+    from raytracer_weekend_tpu_torch.config import RenderConfig
+    from raytracer_weekend_tpu_torch.ops.cuda import image_combine as ic
+    from raytracer_weekend_tpu_torch.ops.cuda import megakernel as mk
+    from rtbench import common, port
+    from rtbench.reference import scenes as RS
+
+    conf = common.load_json(common.ROOT / "configs" / "earth.json")
+    scene, static, cam = port.build(RS.make_scene(conf), dev)
+    cfg = RenderConfig(**EARTH_FIT)
+    if static.has_noise or static.defer_single_hit:
+        raise AssertionError(f"earth is not an image-only general combine: "
+                             f"{static}")
+    tex = scene.textures
+    _, _, _, ctb, abc, dcode = mk.render_fused_records(
+        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static,
+        emit_paths=True)
+    n, D = dcode.shape
+    live = int((dcode != 0).sum())
+    g = torch.randn((n, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(17))
+
+    def torch_forward():
+        return mk.combine_deferred(tex, ctb, abc, dcode, has_noise=False,
+                                   has_image=True)
+
+    def torch_vjp():
+        images = tex.images.detach().clone().requires_grad_()
+        c = ctb.detach().clone().requires_grad_()
+        rad = mk.combine_deferred(
+            tex._replace(images=images), c,
+            torch.where((dcode != 0)[..., None], abc, 0.5), dcode,
+            has_noise=False, has_image=True)
+        return torch.autograd.grad(rad, [c, images], g)
+
+    got = ic.combine_images(tex, ctb, abc, dcode)
+    want = torch_forward()
+    g_k, d_img = ic.combine_images_vjp(tex, ctb, abc, dcode, g)
+    want_gk, want_img = torch_vjp()
+    plain_gk, plain_img = ic.combine_images_vjp_reference(tex, ctb, abc,
+                                                          dcode, g)
+    torch.cuda.synchronize()
+    stats = dict(
+        lanes=n, depth=D, live_records=live,
+        rad_bitwise=bool(torch.equal(got, want)),
+        g_k_bitwise_autograd=bool(torch.equal(g_k, want_gk)),
+        g_k_bitwise_plain=bool(torch.equal(g_k, plain_gk)),
+        texel_rel_l1_autograd=float((d_img - want_img).abs().sum()
+                                    / want_img.abs().sum()),
+        texel_rel_l1_plain=float((d_img - plain_img).abs().sum()
+                                 / plain_img.abs().sum()))
+    print(f"phase 17 the image combine pair vs torch on earth.fit16's "
+          f"records ({cfg.width}x{cfg.height} spp {cfg.samples_per_pixel} "
+          f"depth {D}): {json.dumps(stats)}", flush=True)
+    if not (stats["rad_bitwise"] and stats["g_k_bitwise_autograd"]
+            and stats["g_k_bitwise_plain"]
+            and stats["texel_rel_l1_autograd"] < 1e-5
+            and stats["texel_rel_l1_plain"] < 1e-5):
+        raise AssertionError(f"the image combine pair vs torch: {stats}")
+    vjp_err = float(max((g_k - plain_gk).abs().max(),
+                        (d_img - plain_img).abs().max()))
+    del want_gk, want_img, plain_gk, plain_img
+
+    ops = ic.operands(tex, ctb, abc, dcode)
+    fwd_ms, fwd_ev = launch_times(lambda: ic._launch_combine(ops))
+    vjp_ms, vjp_ev = launch_times(lambda: ic._launch_vjp(ops, g))
+    fwd_call = cuda_ms(lambda: ic.combine_images(tex, ctb, abc, dcode))
+    vjp_call = cuda_ms(lambda: ic.combine_images_vjp(tex, ctb, abc, dcode,
+                                                     g))
+    torch_fwd_ms = cuda_ms(torch_forward, 3)
+    torch_vjp_ms = cuda_ms(torch_vjp, 3)
+    plain_vjp_ms = cuda_ms(lambda: ic.combine_images_vjp_reference(
+        tex, ctb, abc, dcode, g), 3)
+    rows, texels = n * D * 32, live * 12
+    fwd_work = (n * D * OPS_COMBINE_RECORD + live * OPS_COMBINE_LIVE,
+                rows + texels + n * 12)
+    vjp_work = (n * D * OPS_COMBINE_RECORD + live * 2 * OPS_COMBINE_LIVE,
+                rows + texels + n * 12 + n * D * 12
+                + tex.images.numel() * 4)
+    print(f"phase 17 timing on {smi}: the forward kernel alone "
+          f"{fwd_ms:.4f} ms ({fwd_ev:.4f} by events), its call "
+          f"{fwd_call:.4f}; the VJP kernel alone {vjp_ms:.4f} ms "
+          f"({vjp_ev:.4f}), its call {vjp_call:.4f}; the torch combine "
+          f"they replace: forward {torch_fwd_ms:.3f} ms, under autograd "
+          f"with its scatter {torch_vjp_ms:.3f} ms; the plain VJP on the "
+          f"card {plain_vjp_ms:.3f} ms; bytes {fwd_work[1]} / "
+          f"{vjp_work[1]}", flush=True)
+
+    target = torch.full((cfg.height, cfg.width, 3), 0.4, device=dev)
+    start = scene._replace(textures=tex._replace(
+        images=torch.full_like(tex.images, 0.5)))
+    ic.COMBINE_LAUNCHES = ic.COMBINE_VJP_LAUNCHES = 0
+    hist, step_ms = fit_three_steps(static, cfg, cam, target, start,
+                                    falling=False)
+    counts = (ic.COMBINE_LAUNCHES, ic.COMBINE_VJP_LAUNCHES)
+    if counts != (3, 3):
+        raise AssertionError(f"earth.fit16's fit: the pair's launches "
+                             f"{counts}, not one each a step")
+    print(f"phase 17 training path: InverseRenderer.fit earth.fit16's frame,"
+          f" 3 Adam steps from texels 0.5 on {smi}: {counts[0]} forward and "
+          f"{counts[1]} VJP launches; loss "
+          f"{' -> '.join(f'{v:.6e}' for v in hist)}; step ms "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)}", flush=True)
+    source = "raytracer_weekend_tpu_torch/csrc/combine.cu"
+    return [bound({
+        "name": "image_combine_forward", "route": "cuda", "source": source,
+        "replaces": None, "launches": counts[0],
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": fwd_ms, "event_ms": fwd_ev, "wrapper_ms": fwd_call - fwd_ev,
+        "plain_ms": torch_fwd_ms,
+    }, *fwd_work), bound({
+        "name": "image_combine_vjp", "route": "cuda", "source": source,
+        "replaces": None, "launches": counts[1],
+        "max_abs_err": vjp_err,
+        "ms": vjp_ms, "event_ms": vjp_ev, "wrapper_ms": vjp_call - vjp_ev,
+        "plain_ms": plain_vjp_ms,
+    }, *vjp_work)]
+
+
+def image_combine_alone():
+    """Phase 17 by itself, with the card's line and the kernels line:
+    python3 -c 'import chip_smoke; chip_smoke.image_combine_alone()'."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"{smi} | torch {torch.__version__} | cuda {torch.version.cuda}",
+          flush=True)
+    print(json.dumps({"kernels": image_combine_phase(dev, smi)}))
 
 
 

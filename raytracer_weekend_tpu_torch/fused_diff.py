@@ -21,11 +21,13 @@ forward has no autodiff rule of its own, so `render_fused_diff` is a
               (`ops.cuda.replay_bwd.replay_bwd_fused`), chained to the
               scene and camera leaves through the autograd of `pack_ktab`,
               `pack_ptab` and `integrator._pixel_rays`. With deferred
-              texels, torch autograd of the combine first gives the
-              texture table's gradients (the turbulence's through K9), the
-              per-bounce cotangents g_k of the records' contributions and
-              the cotangents cabc of the noise records' hit points, and
-              K2/K4 with their deferred branch K7 take those;
+              texels, the combine's VJP first gives the texture table's
+              gradients, the per-bounce cotangents g_k of the records'
+              contributions and the cotangents cabc of the noise records'
+              hit points (image texels only: the VJP kernel of
+              `ops.cuda.image_combine`; else torch autograd of the
+              combine, the turbulence's through K9), and K2/K4 with their
+              deferred branch K7 take those;
             * uv-debug (simple_triangle) or media (smokey_cornell_box,
               book2): torch.autograd through `replay.replay_rays` on every
               device, the port of the JAX package's XLA replay for the
@@ -39,8 +41,8 @@ continuous factors differentiate: the staged path's gradient semantics.
 The JAX package's peeled-primary prepass (`prepare_peel`) is a TPU table
 layout and is not ported.
 Without `remat` or `lax.map` pieces (TPU compile-time workarounds), the
-deferred combine's autograd keeps its texel intermediates for the whole
-frame.
+deferred combine's autograd (scenes with noise) keeps its texel
+intermediates for the whole frame.
 """
 
 from __future__ import annotations
@@ -154,11 +156,16 @@ def combine_vjp(scene, static, recs, g, wanted_leaves):
     or None for a scene without noise, the noise hit points' cotangents;
     the gradients of `wanted_leaves`, each None where unused).
 
-    Dead records (dcode 0) are differentiated at abc = 0.5: whatever abc
-    held there, the masked-zero cotangent times a NaN Jacobian of the
-    spherical UV (atan2/asin at 0 or at the poles) would poison every
-    geometry gradient. The turbulence runs through `turbulence_diff`
-    (K8 forward, K9 backward; their plain versions on the CPU).
+    A scene without noise and not single-hit (image texels, the general
+    combine) takes `image_combine.combine_images_vjp`: the VJP kernel on a
+    card, which adds only live records into the texel atlas's gradient and
+    leaves every other leaf None; the forward's combine is not run again.
+    Otherwise torch autograd of the combine: dead records (dcode 0) are
+    differentiated at abc = 0.5 (whatever abc held there, the masked-zero
+    cotangent times a NaN Jacobian of the spherical UV, atan2/asin at 0 or
+    at the poles, would poison every geometry gradient), and the
+    turbulence runs through `turbulence_diff` (K8 forward, K9 backward;
+    their plain versions on the CPU).
     """
     with metrics.span("rtw.diff.combine"):
         return _combine_vjp(scene, static, recs, g, wanted_leaves)
@@ -168,6 +175,15 @@ def _combine_vjp(scene, static, recs, g, wanted_leaves):
     from raytracer_weekend_tpu_torch.ops.cuda import perlin_turb
 
     ctb, abc, dcode = recs
+    if not static.has_noise and not static.defer_single_hit:
+        from raytracer_weekend_tpu_torch.ops.cuda import image_combine
+
+        images = scene.textures.images
+        texel_grad = any(t is images for t in wanted_leaves)
+        g_k, d_images = image_combine.combine_images_vjp(
+            scene.textures, ctb, abc, dcode, g, texel_grad=texel_grad)
+        return g_k, None, [d_images if t is images else None
+                           for t in wanted_leaves]
     ctb = ctb.detach().requires_grad_()
     abc = torch.where((dcode != 0)[..., None], abc, 0.5).requires_grad_()
 

@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("megakernel.cu", "megakernel_vp.cu", "megakernel_media.cu",
-           "replay_bwd.cu", "perlin_turb.cu", "intersect.cu", "bvh.cu")
+           "replay_bwd.cu", "perlin_turb.cu", "intersect.cu", "bvh.cu",
+           "combine.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -138,6 +139,12 @@ def _load() -> ctypes.CDLL:
     lib.rtw_turbulence_vjp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P,
                                        _P, _P, _P]
     lib.rtw_turbulence_vjp.restype = _I
+    lib.rtw_combine_images.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _P,
+                                       _P, _P, _P]
+    lib.rtw_combine_images.restype = _I
+    lib.rtw_combine_images_vjp.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P,
+                                           _P, _P, _P]
+    lib.rtw_combine_images_vjp.restype = _I
     lib.rtw_hit_spheres.argtypes = [_P, _P, _P, _P, _I, _P, _I, _F, _P,
                                     _P, _P]
     lib.rtw_hit_rects.argtypes = [_P, _P, _I, _P, _I, _F, _P, _P, _P]

@@ -368,11 +368,17 @@ def _turbulence_plain(grad, perm, p, live):
 def combine(scene: SceneData, static: SceneStatic, ctb, abc, dcode,
             noise_fn=None):
     """The deferred combine the scene takes -> radiance (n, 3):
-    `combine_deferred_single` when `static.defer_single_hit`, else
-    `combine_deferred`. `noise_fn` as `textures.texture_value`'s, by
-    default K8 (forward only; its plain version on the CPU)."""
+    `combine_deferred_single` when `static.defer_single_hit`, else for a
+    scene without noise `image_combine.combine_images` (its kernel on a
+    card), else `combine_deferred`. `noise_fn` as
+    `textures.texture_value`'s, by default K8 (forward only; its plain
+    version on the CPU)."""
     if static.defer_single_hit:
         return combine_deferred_single(scene.textures, ctb, abc, dcode)
+    if not static.has_noise:
+        from raytracer_weekend_tpu_torch.ops.cuda import image_combine
+
+        return image_combine.combine_images(scene.textures, ctb, abc, dcode)
     return combine_deferred(scene.textures, ctb, abc, dcode,
                             has_noise=static.has_noise,
                             has_image=static.has_image,
@@ -398,6 +404,26 @@ def combine_deferred(textures: TextureTable, ctb, abc, dcode, *,
     where they stopped: the depth-phased render chains its phases so, and
     gets the single pass's sums operation for operation.
     """
+    f = deferred_texels(textures, abc, dcode, has_noise=has_noise,
+                        has_image=has_image, noise_fn=noise_fn)
+    # The running product over the D bounces as D products: on a card,
+    # torch's scan along a short innermost dimension runs one row per
+    # thread and took longer than the whole forward kernel.
+    rad, cp = (None, None) if init is None else init
+    for k in range(f.shape[1]):
+        cp = f[:, k] if cp is None else cp * f[:, k]
+        term = ctb[:, k] * cp
+        rad = term if rad is None else rad + term
+    return (rad, cp) if return_factors else rad
+
+
+def deferred_texels(textures: TextureTable, abc, dcode, *, has_noise: bool,
+                    has_image: bool, noise_fn=None):
+    """The texel f_k (n, D, 3) of each deferred record, as
+    `combine_deferred` takes it: `textures.texture_value` at texture
+    |dcode| - 1, with the spherical UV of abc for a sphere's image texel
+    (dcode > 0), abc's (u, v) for a planar one and abc as the point for
+    noise; 1 where dcode is 0."""
     absid = dcode.abs()
     live = absid > 0
     texid = torch.clamp_min(absid - 1, 0)
@@ -411,16 +437,7 @@ def combine_deferred(textures: TextureTable, ctb, abc, dcode, *,
     f = tex_mod.texture_value(textures, texid, u, v, abc, has_noise=has_noise,
                               has_image=has_image, noise_fn=noise_fn,
                               live=live)
-    f = torch.where(live[..., None], f, 1.0)
-    # The running product over the D bounces as D products: on a card,
-    # torch's scan along a short innermost dimension runs one row per
-    # thread and took longer than the whole forward kernel.
-    rad, cp = (None, None) if init is None else init
-    for k in range(f.shape[1]):
-        cp = f[:, k] if cp is None else cp * f[:, k]
-        term = ctb[:, k] * cp
-        rad = term if rad is None else rad + term
-    return (rad, cp) if return_factors else rad
+    return torch.where(live[..., None], f, 1.0)
 
 
 def combine_deferred_single(textures: TextureTable, ctb, abc, dcode):
@@ -700,9 +717,11 @@ def render_fused_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
     scattered back to the lanes' original slots. Deferred texels chain
     across phases: the combine continues each lane's running sum and factor
     product where the last phase left them (`combine_deferred(init=...,
-    return_factors=True)`), so the sums are the single pass's, operation
-    for operation. The JAX power-of-two bucket and its `min_bucket` only
-    spared XLA recompiles: here each phase runs on exactly the live lanes.
+    return_factors=True)`, or for a scene without noise
+    `image_combine.combine_images`, its kernel on a card), so the sums are
+    the single pass's, operation for operation. The JAX power-of-two
+    bucket and its `min_bucket` only spared XLA recompiles: here each
+    phase runs on exactly the live lanes.
     Each launch runs a group of G lanes per ray (`phase_group`: the
     smallest G for which the live lanes fill the card's resident threads),
     so that the tail of few long paths still fills the card. A launch at
@@ -725,6 +744,8 @@ def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
     the same bits), and `phases` (a list) getting one dict per launch: its
     d0, lanes, group, kernel, config and inputs (state and lane ids, None
     for the first), from which the same launch can be run again."""
+    from raytracer_weekend_tpu_torch.ops.cuda import image_combine
+
     with metrics.span("rtw.fused.deep"):
         dev = scene.device
         plain = plain or dev.type == "cpu"
@@ -769,11 +790,15 @@ def _render_deep(scene: SceneData, cfg: RenderConfig, cam: Camera,
             rad, seg, *recs, st = out
             if defer:
                 count_records(recs[2])
-                acc = combine_deferred(scene.textures, *recs,
-                                       has_noise=static.has_noise,
-                                       has_image=static.has_image,
-                                       noise_fn=noise_fn, init=acc,
-                                       return_factors=True)
+                if static.has_noise:
+                    acc = combine_deferred(scene.textures, *recs,
+                                           has_noise=True,
+                                           has_image=static.has_image,
+                                           noise_fn=noise_fn, init=acc,
+                                           return_factors=True)
+                else:
+                    acc = image_combine.combine_images(
+                        scene.textures, *recs, init=acc, return_factors=True)
                 rad = acc[0]
             rad_bank[slots] = rad
             seg_bank[slots] = seg

@@ -1461,3 +1461,171 @@ def test_mesh_rays_shards_bitwise(cuda, tmp_path, size, width, height):
         logs.append(log.decode(errors="replace"))
     for r, log in enumerate(logs):
         assert f"RANK_OK {r}" in log, log[-3000:]
+
+
+# ---- the image-only deferred combine pair (csrc/combine.cu) ----------------
+
+
+def _earth_fit_records(cuda, width=96, height=54, spp=4, depth=50):
+    """earth.fit16's scene (rtbench's `earth` configuration: the earth over
+    a checker ground, the general combine) at a reduced frame, and its
+    K6a-emit records: views of one row buffer."""
+    from rtbench import common, port
+    from rtbench.reference import scenes as RS
+
+    conf = common.load_json(common.ROOT / "configs" / "earth.json")
+    conf.update(width=width, height=height)
+    scene, static, cam = port.build(RS.make_scene(conf), cuda)
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                       max_depth=depth, seed=5)
+    _, _, _, *recs = mk.render_fused_records(
+        scene, cfg, cam, 0, cfg.n_rays, cfg.seed, static=static,
+        emit_paths=True)
+    return scene, static, cfg, cam, recs
+
+
+def _torch_combine_grads(tex, ctb, abc, dcode, g):
+    """The general combine's torch autograd at the anchored abc (what
+    fused_diff.combine_vjp ran for these scenes before the pair) ->
+    (g_k, the atlas's gradient)."""
+    images = tex.images.detach().clone().requires_grad_()
+    c = ctb.detach().clone().requires_grad_()
+    rad = mk.combine_deferred(
+        tex._replace(images=images), c,
+        torch.where((dcode != 0)[..., None], abc, 0.5), dcode,
+        has_noise=False, has_image=True)
+    return torch.autograd.grad(rad, [c, images], g)
+
+
+def _rel_l1(got, want):
+    return float((got - want).abs().sum() / want.abs().sum())
+
+
+def test_image_combine_kernels_match_torch(cuda):
+    """On earth.fit16's records at 96x54, 4 spp, depth 50: the forward
+    kernel's radiance and factor product bitwise the torch loop of
+    `combine_deferred` on the card (also from packed records, and chained
+    over three spans of bounces with `init`); the VJP kernel's g_k bitwise
+    autograd's and the plain version's, its texel gradient within 1e-5
+    relative L1 of both (atomics add in another order)."""
+    from raytracer_weekend_tpu_torch.ops.cuda import image_combine as ic
+
+    scene, static, cfg, cam, (ctb, abc, dcode) = _earth_fit_records(cuda)
+    assert static.has_image and not static.has_noise
+    assert not static.defer_single_hit
+    tex = scene.textures
+    n, D = dcode.shape
+    assert ic.record_rows(ctb, abc, dcode).data_ptr() == ctb.data_ptr()
+    assert int((dcode != 0).sum()) > n // 20
+    want = mk.combine_deferred(tex, ctb, abc, dcode, has_noise=False,
+                               has_image=True, return_factors=True)
+    before = ic.COMBINE_LAUNCHES, ic.COMBINE_VJP_LAUNCHES
+    got = ic.combine_images(tex, ctb, abc, dcode, return_factors=True)
+    assert ic.COMBINE_LAUNCHES == before[0] + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    packed = ic.combine_images(tex, *(r.contiguous() for r in (ctb, abc,
+                                                              dcode)))
+    assert torch.equal(packed, want[0])
+    acc = None
+    for lo, hi in ((0, 7), (7, 30), (30, D)):
+        acc = ic.combine_images(tex, ctb[:, lo:hi], abc[:, lo:hi],
+                                dcode[:, lo:hi], init=acc,
+                                return_factors=True)
+    assert torch.equal(acc[0], want[0]) and torch.equal(acc[1], want[1])
+    g = torch.randn((n, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    g_k, d_images = ic.combine_images_vjp(tex, ctb, abc, dcode, g)
+    assert ic.COMBINE_VJP_LAUNCHES == before[1] + 1
+    want_gk, want_img = _torch_combine_grads(tex, ctb, abc, dcode, g)
+    plain_gk, plain_img = ic.combine_images_vjp_reference(tex, ctb, abc,
+                                                          dcode, g)
+    assert torch.equal(g_k, want_gk) and torch.equal(g_k, plain_gk)
+    assert _rel_l1(d_images, want_img) < 1e-5
+    assert _rel_l1(d_images, plain_img) < 1e-5
+    g_k2, none = ic.combine_images_vjp(tex, ctb, abc, dcode, g,
+                                       texel_grad=False)
+    assert none is None and torch.equal(g_k2, g_k)
+
+
+def test_image_combine_kernels_edge_cases(cuda):
+    """The synthetic records of tests/image_records.py on the card (an atlas
+    of two images, texels 0 in a channel, lanes of 3+ live records,
+    all-dead lanes, zero records past a lane's end, UVs at the poles and
+    outside [0, 1], sphere and planar texels): the kernels against the
+    plain versions, rad, F and g_k bitwise, the texel gradient within 1e-5
+    relative L1."""
+    from raytracer_weekend_tpu_torch.ops.cuda import image_combine as ic
+
+    from image_records import synthetic
+
+    scene, _, ctb, abc, dcode = synthetic(cuda)
+    tex = scene.textures
+    want = ic.combine_images_reference(tex, ctb, abc, dcode,
+                                       return_factors=True)
+    got = ic.combine_images(tex, ctb, abc, dcode, return_factors=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    g = torch.randn((dcode.shape[0], 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    g_k, d_images = ic.combine_images_vjp(tex, ctb, abc, dcode, g)
+    plain_gk, plain_img = ic.combine_images_vjp_reference(tex, ctb, abc,
+                                                          dcode, g)
+    assert torch.equal(g_k, plain_gk)
+    assert _rel_l1(d_images, plain_img) < 1e-5
+    assert bool(torch.isfinite(d_images).all())
+
+
+def test_fit_step_takes_image_combine(cuda):
+    """FitRun.step on earth.fit16's scene at a reduced frame goes through
+    the pair: one forward and one VJP launch a step; traced, its
+    `combine_kernel_slots` equal `record_slots`. A deep render of the same
+    scene chains its phases through the forward kernel, bitwise the single
+    pass."""
+    from raytracer_weekend_tpu_torch import train
+    from raytracer_weekend_tpu_torch.ops.cuda import image_combine as ic
+    from raytracer_weekend_tpu_torch.utils import metrics
+
+    scene, static, cfg, cam, _ = _earth_fit_records(cuda, 64, 36, 2, 50)
+    target = torch.full((cfg.height, cfg.width, 3), 0.4, device=cuda)
+    run = train.InverseRenderer(static, cfg, cam, target).start(scene)
+    before = ic.COMBINE_LAUNCHES, ic.COMBINE_VJP_LAUNCHES
+    metrics.reset_counters()
+    try:
+        with metrics.tracing():
+            run.step()
+        counts = metrics.counters()
+    finally:
+        metrics.reset_counters()
+    assert (ic.COMBINE_LAUNCHES, ic.COMBINE_VJP_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert counts["combine_kernel_slots"] == counts["record_slots"] == (
+        cfg.n_rays * cfg.max_depth)
+    assert bool(torch.isfinite(run.scene.textures.images).all())
+    n = cfg.n_rays
+    launches = ic.COMBINE_LAUNCHES
+    deep = mk.render_fused_deep(scene, cfg, cam, 0, n, cfg.seed,
+                                static=static)
+    assert ic.COMBINE_LAUNCHES > launches + 1       # one a phase
+    single = mk.render_fused(scene, cfg, cam, 0, n, cfg.seed, static=static,
+                             deep=False)
+    assert all(torch.equal(a, b) for a, b in zip(deep, single))
+
+
+def test_noise_scenes_keep_torch_combine(cuda):
+    """Scenes with noise records keep the torch combine and its autograd:
+    book2's depth-phased frame and two_perlin_spheres' forward+backward
+    launch neither kernel of the pair."""
+    from raytracer_weekend_tpu_torch.fused_diff import render_fused_diff
+    from raytracer_weekend_tpu_torch.ops.cuda import image_combine as ic
+
+    before = ic.COMBINE_LAUNCHES, ic.COMBINE_VJP_LAUNCHES
+    scene, static, cfg, cam = _frame("book2_final_scene", cuda, width=40,
+                                     height=22, max_depth=20)
+    assert static.has_noise and static.has_image
+    integrator.render_image(scene, static, cfg, cam)
+    scene, static, cfg, cam = _frame("two_perlin_spheres", cuda, width=32,
+                                     height=18)
+    pg = scene.textures.perlin_grad.clone().requires_grad_()
+    scene = scene._replace(textures=scene.textures._replace(perlin_grad=pg))
+    rad = render_fused_diff(scene, static, cfg, cam, 0, cfg.n_rays, cfg.seed)
+    torch.autograd.grad(rad.sum(), pg)
+    assert (ic.COMBINE_LAUNCHES, ic.COMBINE_VJP_LAUNCHES) == before
